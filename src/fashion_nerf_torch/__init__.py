@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of fashion_nerf for one NVIDIA H100.
+
+The JAX package `fashion_nerf` stays the reference. This package imports
+`torch` and never `jax`; of the reference it reuses only the two modules
+that are plain Python/numpy (`fashion_nerf.config`, `fashion_nerf.assets`).
+
+Slice covered so far: the blockwise 800×800 `blender_lego` render
+(`fashion_nerf_torch.bench.run_bench`), with hand-written Hopper kernels for
+the proposal march, the fine march and the fused field.
+"""

@@ -1,0 +1,156 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch versions.
+
+Three kernels, CUDA C++ for sm_90a under `csrc/`:
+
+- K1 `sigmamarch.cu`: the σ-only proposal march (kernels/sigmamarch.py);
+- K2 `slimmarch.cu`: the fine march of the 8×256 field (kernels/slimmarch.py);
+- K3 `field.cu`: the fused posenc + MLP field (kernels/posenc_mlp.py).
+
+Path rule, the same in every wrapper: tensors on the CPU take the plain
+PyTorch version; tensors on a CUDA device take the kernel, or the call
+raises. Nothing falls back from one to the other. The sources are built on
+first use with nvcc into one shared library under
+`build/fashion_nerf_torch/` at the repo root, named by a hash of the
+sources and flags, and loaded with ctypes. Each wrapper adds one to its
+entry of `LAUNCHES` at every kernel launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
+             / "fashion_nerf_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# MLP rows per predication tile: a march tile is TILE_ROWS // SB rays (the
+# reference's _TILE). Part of the result: every ray of a live tile is marched.
+TILE_ROWS = 2048
+# rows per CUDA block of the slab kernels (csrc/fnt_common.cuh kRows)
+SLAB_ROWS = 64
+
+LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "fnt_field_forward": [_P] * 6 + [_I] * 8 + [_P],
+    "fnt_sigma_march": [_P] * 12 + [_I] * 7 + [_P],
+    "fnt_slim_march": [_P] * 15 + [_I] * 10 + [ctypes.c_float, _P],
+}
+
+_lib = None
+build_info: dict = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libfnt_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found (PATH, /usr/local/cuda/bin): the "
+                           "CUDA kernels cannot be built on this host")
+    return nvcc
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed library unless it exists.
+    Raises with nvcc's output when the build fails."""
+    out = _library_path()
+    if out.exists():
+        if build_info.get("path") != str(out):
+            build_info.update(path=str(out), seconds=0.0, log="(cached)")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=secs, log=log)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The built kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.fnt_error_string.argtypes = [ctypes.c_int]
+        lib.fnt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def on_cuda(*tensors) -> bool:
+    """True when every tensor is on a CUDA device, False when every one is
+    on the CPU; raises on anything else."""
+    devs = {t.device for t in tensors if t is not None}
+    kinds = {d.type for d in devs}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        if any(d.index not in (None, 0) for d in devs):
+            # the library's own CUDA runtime launches on device 0
+            raise ValueError(f"tensors on {sorted(map(str, devs))}: the "
+                             "kernels run on cuda:0")
+        return True
+    raise ValueError(f"tensors on devices {sorted(kinds)}: the kernels take "
+                     "all-CUDA inputs, the plain versions all-CPU inputs")
+
+
+def check(t, name: str, dtype, shape) -> None:
+    """Raise unless t has this dtype, this shape and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def raise_on_error(code: int, name: str) -> None:
+    if code != 0:
+        msg = library().fnt_error_string(code).decode()
+        raise RuntimeError(f"{name}: launch failed with cudaError {code} "
+                           f"({msg})")

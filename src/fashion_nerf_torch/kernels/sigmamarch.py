@@ -1,0 +1,114 @@
+"""σ-only single-block proposal march (kernel K1, csrc/sigmamarch.cu).
+
+Counterpart of `fashion_nerf.kernels.sigmamarch_pallas` (`pack_sigma`,
+`hoist_rays`, `_sigma_kernel`). The proposal net (2×128, L=6, out_head σ
+lane 3) marches ONE block of SB samples per ray. The posenc phases and the
+first layer's x-path are linear in t, so their per-ray parts are hoisted:
+
+    P(row)    = [tile(o)·fmat + phase] + [tile(d)·fmat]·t        (f32)
+    accx(row) = [o@Wx + b0]            + [d@Wx]·t                (f32)
+
+Predication is per tile of TILE_ROWS // SB rays (32 at SB=64), as in the
+reference: a tile with any alive ray is marched whole; a dead tile writes
+w = 0, acc = 0, logT = 0.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from fashion_nerf_torch import kernels as K
+from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, _bf,
+                                                   mlp_rows, pack_params,
+                                                   phase_consts)
+from fashion_nerf_torch.models.nerf_mlp import NeRFMLP
+
+_LOG_FLOOR = -23.025851   # log(1e-10) floor on log(1 - α)
+
+
+def pack_sigma(model: NeRFMLP) -> PackedNet:
+    """Pack a σ-only proposal net (no skip, no view branch)."""
+    net = pack_params(model, hoist_x=True)
+    if net.skip >= 0 or net.has_vd:
+        raise ValueError("the σ march takes an unconditioned no-skip "
+                         "σ-only net")
+    return net
+
+
+def hoist_rays(net: PackedNet, rays_o, rays_d):
+    """→ oF, dF (R, 6L) phase intercept (π/2 folded) / slope; oWx, dWx
+    (R, W) first-layer x intercept (bias folded) / slope; all f32."""
+    fmat, off = phase_consts(net.L, rays_o.device)
+    oF = rays_o.repeat(1, 2 * net.L) * fmat + off
+    dF = rays_d.repeat(1, 2 * net.L) * fmat
+    Wx, b0 = net.x_kernels[0]
+    return oF, dF, rays_o @ Wx + b0, rays_d @ Wx
+
+
+def _density(sigma, softplus: bool):
+    return F.softplus(sigma) if softplus else torch.relu(sigma)
+
+
+def _march_operand(net: PackedNet, oF, dF, t):
+    """Posenc operand of rows (ray-major, t (m, S)) → (m·S, k0)."""
+    P = oF[:, None, :] + dF[:, None, :] * t[..., None]
+    a0 = _bf(torch.sin(P)).reshape(-1, P.shape[-1])
+    return F.pad(a0, (0, net.k0 - a0.shape[1]))
+
+
+def sigma_march_plain(net: PackedNet, hoists, alive, t, d,
+                      softplus: bool = False):
+    """Plain version of K1. alive (R,) f32; t, d (R, SB) f32.
+    → w (R, SB), acc (R,), logT (R,)."""
+    oF, dF, oWx, dWx = hoists
+    R, SB = d.shape
+    rpt = K.TILE_ROWS // SB
+    w = torch.zeros_like(d)
+    acc = torch.zeros((R,), dtype=d.dtype, device=d.device)
+    logT = torch.zeros_like(acc)
+    live = (alive.view(R // rpt, rpt) > 0).any(dim=1)
+    idx = live.repeat_interleave(rpt).nonzero().squeeze(1)
+    if idx.numel() == 0:
+        return w, acc, logT
+    tt = t[idx]
+    a0 = _march_operand(net, oF[idx], dF[idx], tt)
+    accx = (oWx[idx][:, None, :] + dWx[idx][:, None, :] * tt[..., None]
+            ).reshape(-1, net.width)
+    _, sigma = mlp_rows(net, a0, xterm=lambda _l: accx)
+    x = _density(sigma.view(-1, SB), softplus) * d[idx]
+    csum = torch.cumsum(torch.clamp(-x, min=_LOG_FLOOR), dim=1)
+    excl = torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=1)
+    wl = (1.0 - torch.exp(-x)) * torch.exp(excl)
+    w[idx] = wl
+    acc[idx] = wl.sum(dim=1)
+    logT[idx] = csum[:, -1]
+    return w, acc, logT
+
+
+def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
+    """σ-only march: CPU tensors take the plain version, CUDA tensors K1."""
+    oF, dF, oWx, dWx = hoists
+    if not K.on_cuda(alive, t, d, net.w, *hoists):
+        return sigma_march_plain(net, hoists, alive, t, d, softplus)
+    R, SB = d.shape
+    W, nph = net.width, 6 * net.L
+    if K.SLAB_ROWS % SB or R % (K.TILE_ROWS // SB):
+        raise ValueError(f"SB={SB} must divide {K.SLAB_ROWS}; R={R} must be "
+                         f"a multiple of {K.TILE_ROWS // SB}")
+    for name, x, shape in (("alive", alive, (R,)), ("oWx", oWx, (R, W)),
+                           ("dWx", dWx, (R, W)), ("oF", oF, (R, nph)),
+                           ("dF", dF, (R, nph)), ("t", t, (R, SB)),
+                           ("d", d, (R, SB))):
+        K.check(x, name, torch.float32, shape)
+    w = torch.empty_like(d)
+    acc = torch.empty((R,), dtype=torch.float32, device=d.device)
+    logT = torch.empty_like(acc)
+    ptrs = [x.data_ptr() for x in (alive, oWx, dWx, oF, dF, t, d, net.w,
+                                   net.b, w, acc, logT)]
+    code = K.library().fnt_sigma_march(
+        *ptrs, R, SB, net.L, net.depth, net.width, net.k0, int(softplus),
+        K.stream())
+    K.raise_on_error(code, "fnt_sigma_march")
+    K.LAUNCHES["sigma_march"] += 1
+    return w, acc, logT

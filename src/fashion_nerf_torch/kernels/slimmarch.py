@@ -1,0 +1,127 @@
+"""Multi-block fine march of the 8×256 field (kernel K2, csrc/slimmarch.cu).
+
+Counterpart of `fashion_nerf.kernels.slimmarch_pallas` (`split_hoist`,
+`hoist_rays`, `_slim_kernel`). The fine field marches NB blocks of SB
+samples per ray with a log-transmittance carry and an rgb accumulator. The
+posenc phases and the first and skip layers' x-paths are linear in t and
+hoisted per ray; the view term γ(d̂)·W_dir is per ray.
+
+Predication is per (tile, block), tile = TILE_ROWS // SB rays (64 at
+SB=32): the pair runs iff some ray of the tile has hit ∧ block_hit[b] ∧
+logT > log ε, and then every ray of the tile is marched. A dead pair writes
+w = 0 and leaves rgb and logT as they are. White background is added by
+the caller.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fashion_nerf_torch import kernels as K
+from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, mlp_rows,
+                                                   pack_params, phase_consts)
+from fashion_nerf_torch.kernels.sigmamarch import (_LOG_FLOOR, _density,
+                                                   _march_operand)
+from fashion_nerf_torch.models.nerf_mlp import NeRFMLP
+
+_BF = torch.bfloat16
+
+
+def split_hoist(model: NeRFMLP) -> PackedNet:
+    """Pack the fine net with its x-layers hoisted (net.x_kernels)."""
+    net = pack_params(model, hoist_x=True)
+    if not net.has_vd:
+        raise NotImplementedError("the fine march takes a view-branch net")
+    return net
+
+
+def hoist_rays(net: PackedNet, rays_o, rays_d):
+    """→ oF, dF (R, 6L) phase intercept / slope; oX, dX (R, n_x·W) x-layer
+    intercepts (bias folded) / slopes, x-layer i in columns [i·W, (i+1)·W)."""
+    fmat, off = phase_consts(net.L, rays_o.device)
+    oF = rays_o.repeat(1, 2 * net.L) * fmat + off
+    dF = rays_d.repeat(1, 2 * net.L) * fmat
+    oX = torch.cat([rays_o @ Wx + b for Wx, b in net.x_kernels], dim=1)
+    dX = torch.cat([rays_d @ Wx for Wx, _ in net.x_kernels], dim=1)
+    return oF, dF, oX, dX
+
+
+def slim_march_plain(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
+                     log_eps: float, softplus: bool = False):
+    """Plain version of K2. hit (R,), block_hit (R, NB), t and d (R, NB·SB)
+    f32, dirpart (R, W/2) bf16. → rgb (R, 3), w (R, NB·SB), logT (R,)."""
+    oF, dF, oX, dX = hoists
+    R, S = t.shape
+    NB = block_hit.shape[1]
+    SB = S // NB
+    rpt = K.TILE_ROWS // SB
+    W = net.width
+    rgb = torch.zeros((R, 3), dtype=torch.float32, device=t.device)
+    w = torch.zeros_like(t)
+    logT = torch.zeros((R,), dtype=torch.float32, device=t.device)
+    for b in range(NB):
+        cols = slice(b * SB, (b + 1) * SB)
+        ray_alive = (hit > 0) & (block_hit[:, b] > 0) & (logT > log_eps)
+        live = ray_alive.view(R // rpt, rpt).any(dim=1)
+        idx = live.repeat_interleave(rpt).nonzero().squeeze(1)
+        if idx.numel() == 0:
+            continue
+        tt = t[idx, cols]
+        a0 = _march_operand(net, oF[idx], dF[idx], tt)
+
+        def xterm(l, tt=tt, idx=idx):
+            sl = slice(l * W, (l + 1) * W)
+            return (oX[idx, sl][:, None, :]
+                    + dX[idx, sl][:, None, :] * tt[..., None]).reshape(-1, W)
+
+        dir_rows = dirpart[idx].float().repeat_interleave(SB, dim=0)
+        rgb_s, sigma = mlp_rows(net, a0, xterm=xterm, dir_rows=dir_rows)
+        x = _density(sigma.view(-1, SB), softplus) * d[idx, cols]
+        csum = torch.cumsum(torch.clamp(-x, min=_LOG_FLOOR), dim=1)
+        excl = torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], 1)
+        lt = logT[idx]
+        wb = (1.0 - torch.exp(-x)) * torch.exp(lt[:, None] + excl)
+        w[idx, cols] = wb
+        rgb[idx] += (wb[..., None] * rgb_s.view(-1, SB, 3)).sum(dim=1)
+        logT[idx] = lt + csum[:, -1]
+    return rgb, w, logT
+
+
+def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
+               log_eps: float, softplus: bool = False):
+    """Fine march: CPU tensors take the plain version, CUDA tensors K2
+    (one launch per sample block)."""
+    oF, dF, oX, dX = hoists
+    if not K.on_cuda(dirpart, hit, block_hit, t, d, net.w, *hoists):
+        return slim_march_plain(net, hoists, dirpart, hit, block_hit, t, d,
+                                log_eps, softplus)
+    R, S = t.shape
+    NB = block_hit.shape[1]
+    SB = S // NB
+    W, nph = net.width, 6 * net.L
+    nx = len(net.x_kernels)
+    if S != NB * SB or K.SLAB_ROWS % SB or R % (K.TILE_ROWS // SB):
+        raise ValueError(f"S={S}, NB={NB}: SB must divide {K.SLAB_ROWS} and "
+                         f"R={R} be a multiple of {K.TILE_ROWS // max(SB, 1)}")
+    for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
+                                                (R, NB)),
+                           ("oX", oX, (R, nx * W)), ("dX", dX, (R, nx * W)),
+                           ("oF", oF, (R, nph)), ("dF", dF, (R, nph)),
+                           ("t", t, (R, S)), ("d", d, (R, S))):
+        K.check(x, name, torch.float32, shape)
+    K.check(dirpart, "dirpart", _BF, (R, W // 2))
+    rgb = torch.empty((R, 3), dtype=torch.float32, device=t.device)
+    w = torch.empty_like(t)
+    carry = [torch.empty((R,), dtype=torch.float32, device=t.device)
+             for _ in range(2)]
+    lib = K.library()
+    for b in range(NB):
+        ptrs = [x.data_ptr() for x in (
+            hit, block_hit, oX, dX, oF, dF, dirpart, t, d, net.w, net.b, rgb,
+            w, carry[b % 2], carry[(b + 1) % 2])]
+        code = lib.fnt_slim_march(
+            *ptrs, R, NB, SB, b, net.L, net.depth, net.width, net.k0,
+            net.skip, int(softplus), float(log_eps), K.stream())
+        K.raise_on_error(code, "fnt_slim_march")
+        K.LAUNCHES["slim_march"] += 1
+    return rgb, w, carry[NB % 2]

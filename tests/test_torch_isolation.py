@@ -1,0 +1,152 @@
+"""The port stands alone: it imports no JAX, its kernel wrappers take the
+plain versions on CPU tensors without counting a launch, and its GPU entry
+points refuse to run without a CUDA device."""
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import fashion_nerf_torch
+from fashion_nerf_torch import bench
+from fashion_nerf_torch import kernels as K
+from fashion_nerf_torch.kernels import posenc_mlp, sigmamarch, slimmarch
+from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, load_flax_params
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        fashion_nerf_torch.__path__, "fashion_nerf_torch."))
+
+
+def test_imports_with_jax_blocked():
+    """Every module of the port, and chip_smoke, imports with `jax`
+    unimportable (sys.modules["jax"] = None)."""
+    mods = _modules()
+    assert "fashion_nerf_torch.render.blockwise" in mods
+    code = ("import sys; sys.modules['jax'] = None; "
+            f"sys.path[:0] = [{SRC!r}, {ROOT!r}]; import importlib; "
+            f"[importlib.import_module(m) for m in {mods!r}]; "
+            "import chip_smoke; "
+            "assert not any(k == 'jax' or k.startswith('jax.') "
+            "for k, v in sys.modules.items() if v is not None); "
+            "print('ok')")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _tree(rng, shapes):
+    return {"params": {
+        name: {"kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(
+            np.float32),
+            "bias": (0.1 * rng.normal(size=o)).astype(np.float32)}
+        for name, (i, o) in shapes.items()}}
+
+
+def small_fine(rng, W=32, L=3):
+    """A 4-layer view-branch field with a skip after layer 1."""
+    cx, cd = 3 * (2 * L + 1), 3 * (2 * 2 + 1)
+    return load_flax_params(_tree(rng, {
+        "trunk_0": (cx, W), "trunk_1": (W, W), "trunk_2": (cx + W, W),
+        "trunk_3": (W, W), "sigma_head": (W, 1), "feature": (W, W),
+        "view_0": (W + cd, W // 2), "rgb_head": (W // 2, 3)}),
+        compute_dtype="bfloat16")
+
+
+def small_prop(rng, W=32, L=3):
+    cx = 3 * (2 * L + 1)
+    return load_flax_params(_tree(rng, {
+        "trunk_0": (cx, W), "trunk_1": (W, W), "out_head": (W, 4)}),
+        compute_dtype="bfloat16")
+
+
+def _randn(rng, *shape):
+    return torch.tensor(rng.normal(size=shape), dtype=torch.float32)
+
+
+def test_wrappers_take_plain_on_cpu():
+    """On CPU tensors each wrapper returns its plain version's result and
+    leaves its launch counter at 0."""
+    rng = np.random.default_rng(0)
+    K.reset_launches()
+    fine, prop = small_fine(rng), small_prop(rng)
+    assert fine.skips == (1,) and isinstance(prop, NeRFMLP)
+
+    net = posenc_mlp.pack_params(fine, hoist_x=False)
+    pts = torch.tensor(rng.uniform(-1, 1, (128, 3)), dtype=torch.float32)
+    dp = posenc_mlp.hoist_dirs(net, _randn(rng, 2, 3))
+    a = posenc_mlp.field_rows(net, pts, dp, 64)
+    b = posenc_mlp.field_rows_plain(net, pts, dp, 64)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+    R, SB = 32, 64
+    snet = sigmamarch.pack_sigma(prop)
+    ro, rd = torch.zeros(R, 3), _randn(rng, R, 3)
+    hz = sigmamarch.hoist_rays(snet, ro, rd)
+    t = torch.linspace(0.1, 2.0, SB).expand(R, SB).contiguous()
+    d = torch.full((R, SB), 0.03)
+    alive = torch.ones(R)
+    for x, y in zip(sigmamarch.sigma_march(snet, hz, alive, t, d),
+                    sigmamarch.sigma_march_plain(snet, hz, alive, t, d)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+    R, NB, SB = 64, 2, 32
+    fnet = slimmarch.split_hoist(fine)
+    ro, rd = torch.zeros(R, 3), _randn(rng, R, 3)
+    hf = slimmarch.hoist_rays(fnet, ro, rd)
+    dpf = posenc_mlp.hoist_dirs(fnet, rd)
+    t = torch.linspace(0.1, 2.0, NB * SB).expand(R, NB * SB).contiguous()
+    d = torch.full((R, NB * SB), 0.03)
+    args = (fnet, hf, dpf, torch.ones(R), torch.ones(R, NB), t, d, -6.9)
+    for x, y in zip(slimmarch.slim_march(*args),
+                    slimmarch.slim_march_plain(*args)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert K.LAUNCHES == {"field": 0, "sigma_march": 0, "slim_march": 0}
+
+
+def test_run_bench_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from fashion_nerf.config import load_config
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.run_bench(load_config("blender_lego"))
+
+
+def test_build_failure_raises_with_compiler_output(monkeypatch, tmp_path):
+    """A failing nvcc raises with its output; nothing falls back."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(K, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        K.build()
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
+    """chip_smoke.py exits non-zero and prints no result here (no CUDA),
+    in the repo and as a lone copy in an empty directory."""
+    script = os.path.join(ROOT, "chip_smoke.py")
+    cwd = ROOT
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, script], capture_output=True,
+                         text=True, cwd=cwd, env=env, timeout=300)
+    assert out.returncode != 0
+    assert out.stdout == ""
