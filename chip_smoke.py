@@ -1,21 +1,33 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: `python3 chip_smoke.py`.
 
-Drives the port's main path once, as `python -m fashion_nerf_torch.bench`
-does: the 800×800 `blender_lego` frame with the committed trained weights,
-the occupancy sweep and the committed proposal net. Phases, in order:
+Drives the port's two paths once each, as a user would call them: the
+800×800 `blender_lego` frame (`python -m fashion_nerf_torch.bench`: the
+committed trained weights, the occupancy sweep and the committed proposal
+net) and the `blender_lego` trainer at full width (`train()`, from random
+init). Phases, in order:
 
 1. device: name, power limit, TF32 off;
 2. build: nvcc builds the kernels from src/fashion_nerf_torch/kernels/csrc;
-3. kernels: K3 (fused field), K1 (proposal march) and K2 (fine march) each
-   against its plain PyTorch version on the card, at main-path shapes;
+3. kernels: K3 (fused field), K1 (proposal march), K2 (fine march), K4
+   (field backward, twice: bitwise deterministic) and K5 (volume render),
+   each against its plain PyTorch version on the card at main-path shapes;
 4. setup: flagship + proposal asset, occupancy sweep through K3;
 5. frame: the frame through the kernels (1 warm-up + 3 timed), then through
-   the plain versions; PSNR between them and non-trivial-image checks.
+   the plain versions; PSNR between them and non-trivial-image checks;
+6. scene: the hermetic 16-view 160×160 training scene (numpy, host);
+7. step: one training step from the committed weights through the kernels
+   and through the plain versions: loss and every gradient compared;
+8. eval: the trainer's evaluation of the held-out view from the committed
+   weights, through K3 + K5 and through the plain versions, against the
+   val PSNR the reference measured for those weights;
+9. train: `train()` at full width for a few tens of steps, through an
+   occupancy refresh, culled steps, dense steps, an eval and a checkpoint.
 
-The launch counters are reset just before phase 4 and read right after the
-timed frames, so they count the main path only. Any failure raises (non-zero
-exit). Imports nothing of JAX. The last line is the device JSON object.
+The launch counters are reset just before each path (phases 4 and 9) and
+read right after it, so they count that path only. Any failure raises
+(non-zero exit). Imports nothing of JAX. The last line is the device JSON
+object.
 """
 
 from __future__ import annotations
@@ -47,8 +59,16 @@ K3_SIGMA_REL = 2e-2           # σ within 2e-2·(1 + |σ|)
 K1_ATOL = 2e-3                # weights and acc
 K2_ATOL = 5e-2                # rgb and weights on the trained fine net
 FRAME_PSNR_MIN = 40.0
+K4_REL_RMS = 1e-2             # per output tensor, relative RMS
+K5_ATOL = 1e-4                # rgb, acc, weights; depth 1e-4·far
+STEP_LOSS_REL = 1e-3          # kernel step loss against the plain step's
+STEP_GRAD_REL = 1e-2          # every parameter gradient, relative RMS
+STEP_GRAD_SAMPLES_REL = 5e-2  # the same, each step with its own fine samples
+EVAL_PSNR = 37.27111816       # the asset's val_psnr (the reference's eval)
+EVAL_PSNR_TOL = 0.2
 REPS = 5                      # timed calls per kernel (median)
 FRAME = 800                   # frame height and width of the bench
+RUN_DIR = os.path.join(ROOT, "build", "chip_smoke_run")
 
 SOURCES = {
     "field": ("src/fashion_nerf_torch/kernels/csrc/field.cu",
@@ -57,6 +77,10 @@ SOURCES = {
                     "src/fashion_nerf/kernels/sigmamarch_pallas.py:91"),
     "slim_march": ("src/fashion_nerf_torch/kernels/csrc/slimmarch.cu",
                    "src/fashion_nerf/kernels/slimmarch_pallas.py:113"),
+    "field_bwd": ("src/fashion_nerf_torch/kernels/csrc/field_bwd.cu",
+                  "src/fashion_nerf/kernels/posenc_mlp_pallas.py:635"),
+    "volrend": ("src/fashion_nerf_torch/kernels/csrc/volrend.cu",
+                "src/fashion_nerf/kernels/render_pallas.py:37"),
 }
 
 
@@ -84,6 +108,12 @@ def maxerr(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def rel_rms(a, b) -> float:
+    """‖a − b‖ / ‖b‖ in f64."""
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-30))
+
+
 def phase_device():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -104,7 +134,8 @@ def phase_build():
     info = K.build_info
     say("build", f"{path.name} in {info['seconds']:.1f} s")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("Function properties", "registers",
+                                   "spill", "error")):
             say("build", "ptxas: " + line.strip())
 
 
@@ -276,7 +307,79 @@ def phase_kernels(cfg, device):
             and bool(torch.isfinite(rgb_k).all())):
         raise AssertionError("K2 disagrees with its plain version")
     results["slim_march"] = dict(max_abs_err=e2, ms=ms, plain_ms=pms)
+    results["field_bwd"] = kernel_k4(net, rng, device)
+    results["volrend"] = kernel_k5(cfg, rng, device)
     return results, occ_ref
+
+
+def kernel_k4(net, rng, device):
+    """K4 at the fine net's shape in a training step: 4096 rays × 192
+    samples = 786,432 rows, random cotangents of a loss's scale."""
+    from fashion_nerf_torch.kernels import posenc_mlp
+    R, S = 4096, 192
+    n = R * S
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (n, 3)).astype(
+        np.float32)).to(device)
+    dirs = torch.from_numpy(rng.normal(size=(R, 3)).astype(
+        np.float32)).to(device)
+    dp = posenc_mlp.hoist_dirs(net, dirs).contiguous()
+    g_rgb = torch.from_numpy((1e-4 * rng.normal(size=(n, 3))).astype(
+        np.float32)).to(device)
+    g_sig = torch.from_numpy((1e-4 * rng.normal(size=n)).astype(
+        np.float32)).to(device)
+    args = (net, pts, dp, g_rgb, g_sig, S)
+    out_k = posenc_mlp.field_rows_backward(*args)
+    out_k2 = posenc_mlp.field_rows_backward(*args)
+    out_p = posenc_mlp.field_rows_backward_plain(*args)
+    torch.cuda.synchronize()
+    names = ("d_pts", "d_dir", "d_w", "d_b")
+    rel = {k: rel_rms(a, b) for k, a, b in zip(names, out_k, out_p)}
+    same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+    e_abs = max(maxerr(a, b) for a, b in zip(out_k, out_p))
+    finite = all(bool(torch.isfinite(a).all()) for a in out_k)
+    del out_k, out_k2, out_p
+    ms = cuda_ms(lambda: posenc_mlp.field_rows_backward(*args))
+    pms = cuda_ms(lambda: posenc_mlp.field_rows_backward_plain(*args))
+    torch.cuda.empty_cache()
+    say("kernels", f"K4 field backward {n} rows ({R} rays × {S}): relative "
+        f"RMS against plain {json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})}"
+        f" (tol {K4_REL_RMS} each); bitwise equal over two runs: {same}; "
+        f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    if not (max(rel.values()) <= K4_REL_RMS and same and finite):
+        raise AssertionError("K4 disagrees with its plain version or is "
+                             "not deterministic")
+    return dict(max_abs_err=e_abs, ms=ms, plain_ms=pms)
+
+
+def kernel_k5(cfg, rng, device):
+    """K5 at the eval shape: 8192 rays × 192 samples over [near, far]."""
+    from fashion_nerf_torch.kernels import render
+    R, S = 8192, 192
+    near, far = cfg.render.near, cfg.render.far
+    t = np.sort(rng.uniform(near, far, (R, S)), axis=1).astype(np.float32)
+    t = torch.from_numpy(t).to(device)
+    sigma = torch.from_numpy(rng.normal(0.0, 20.0, (R, S)).astype(
+        np.float32)).to(device)
+    rgb = torch.from_numpy(rng.uniform(0, 1, (R, S, 3)).astype(
+        np.float32)).to(device)
+    dnorm = torch.from_numpy(rng.uniform(0.9, 1.2, R).astype(
+        np.float32)).to(device)
+    args = (rgb, sigma, t, dnorm, cfg.render.white_bkgd)
+    out_k = render.volrend(*args)
+    out_p = render.volrend_plain(*args)
+    torch.cuda.synchronize()
+    err = {k: maxerr(a, b) for k, a, b in zip(("rgb", "depth", "acc",
+                                               "weights"), out_k, out_p)}
+    ms = cuda_ms(lambda: render.volrend(*args))
+    pms = cuda_ms(lambda: render.volrend_plain(*args))
+    say("kernels", f"K5 volume render {R} rays × {S}: max abs err "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in err.items()})} "
+        f"(tol {K5_ATOL}, depth {K5_ATOL * far:g}); kernel {ms:.3f} ms, "
+        f"plain {pms:.3f} ms")
+    if not (max(err["rgb"], err["acc"], err["weights"]) <= K5_ATOL
+            and err["depth"] <= K5_ATOL * far):
+        raise AssertionError("K5 disagrees with its plain version")
+    return dict(max_abs_err=max(err.values()), ms=ms, plain_ms=pms)
 
 
 def phase_setup(cfg, device, occ_ref):
@@ -331,7 +434,8 @@ def phase_frame(cfg, device, params, occ, gpu, smi):
         f"{float(acc[H // 2, W // 2]):.4f}; live chunks {n_live}/{n_chunks};"
         f" launches {launches}; {gpu} | {smi}")
     checks = {
-        "launches": all(v > 0 for v in launches.values()),
+        "launches": all(launches[k] > 0 for k in ("field", "sigma_march",
+                                                  "slim_march")),
         "psnr": p >= FRAME_PSNR_MIN,
         "shape_finite": (tuple(rgb.shape) == (H, W, 3)
                          and bool(torch.isfinite(rgb).all())),
@@ -343,6 +447,199 @@ def phase_frame(cfg, device, params, occ, gpu, smi):
     if failed:
         raise AssertionError(f"frame checks failed: {failed}")
     return launches, dict(frame_s=dt, plain_frame_s=dt_plain, psnr=p)
+
+
+def committed_state(cfg, device):
+    """A TrainState holding the committed trained coarse and fine nets."""
+    from fashion_nerf.assets import load_flagship
+    from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+    from fashion_nerf_torch.train.state import TrainState, make_optimizer
+    trained, meta = load_flagship()
+    nets = {k: load_flax_params(trained[k],
+                                compute_dtype=cfg.model.compute_dtype,
+                                device=device) for k in ("coarse", "fine")}
+    params = [p for n in nets.values() for p in n.parameters()]
+    return TrainState(step=0, coarse=nets["coarse"], fine=nets["fine"],
+                      optimizer=make_optimizer(cfg, params),
+                      generator=torch.Generator(device=device).manual_seed(
+                          0)), meta
+
+
+def phase_scene(cfg, device):
+    """The hermetic training scene that `train` builds when data.root is
+    empty (the scene the committed weights were trained on)."""
+    from fashion_nerf_torch.data.pipeline import RayDataset
+    from fashion_nerf_torch.train.loop import load_dataset
+    t0 = time.perf_counter()
+    scene = load_dataset(cfg)
+    secs = time.perf_counter() - t0
+    ds = RayDataset(scene["images"], scene["poses"], scene["focal"],
+                    precrop_frac=cfg.train.precrop_frac, device=device)
+    ds.val_image, ds.val_pose = scene["val_image"], scene["val_pose"]
+    say("scene", f"{ds.N} views of {ds.H}x{ds.W} and a val view rendered "
+        f"in {secs:.1f} s (numpy, host); {ds.n_rays} rays on the card")
+    return scene, ds
+
+
+def phase_step(device, ds, gpu, smi):
+    """One training step from the committed weights, kernels (K3 + K4)
+    against the plain versions: same batch, no jitter, same sparsity
+    points. The fine samples come from an inverse CDF of the coarse
+    weights, so last-bit differences of the coarse pass move them, and the
+    first fine layer, which sees posenc frequencies up to 2^9, turns that
+    into ~1% of its gradient. So the plain step runs twice: with its own
+    fine samples (gradients held to STEP_GRAD_SAMPLES_REL) and with the
+    kernel step's (gradients held to STEP_GRAD_REL). Then the time of full
+    steps (Adam included) of both."""
+    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.render import renderer
+    from fashion_nerf_torch.train.loop import TrainStep, sparsity_points
+    cfg = load_config("blender_lego", ["sampling.perturb=false"])
+    idx = torch.from_numpy(np.random.default_rng(1).choice(
+        ds.n_rays, cfg.train.batch_rays, replace=False)).to(device)
+    batch = {k: v[idx] for k, v in ds.batch_arrays().items()}
+    pts = sparsity_points(cfg, torch.Generator(device=device).manual_seed(2),
+                          device)
+    sample_pdf = renderer.sample_pdf
+    fine_t = []
+
+    def loss_and_grads(plain, replay):
+        """(loss, gradients); the kernel run records its fine samples,
+        replay=True makes this run reuse them."""
+        def sampler(*a, **kw):
+            if replay:
+                return fine_t[0]
+            fine_t.append(sample_pdf(*a, **kw))
+            return fine_t[-1]
+
+        state, _ = committed_state(cfg, device)
+        step = TrainStep(cfg, ds, streamed=True, plain=plain)
+        renderer.sample_pdf = sampler
+        try:
+            with torch.enable_grad():
+                loss, _ = step.loss(state, batch, sparsity_pts=pts)
+                loss.backward()
+        finally:
+            renderer.sample_pdf = sample_pdf
+        return float(loss), {f"{k}.{n}": p.grad for k, net in
+                             state.nets().items()
+                             for n, p in net.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads(False, False)
+    checks, report = {}, []
+    for label, replay, tol in (("own fine samples", False,
+                                STEP_GRAD_SAMPLES_REL),
+                               ("the kernel step's fine samples", True,
+                                STEP_GRAD_REL)):
+        loss_p, grads_p = loss_and_grads(True, replay)
+        e_loss = abs(loss_k - loss_p) / abs(loss_p)
+        rel = {k: rel_rms(grads_k[k], grads_p[k]) for k in grads_p}
+        worst = max(rel, key=rel.get)
+        report.append(f"plain step with {label}: loss {loss_p:.7g} (rel "
+                      f"{e_loss:.3g}, tol {STEP_LOSS_REL}), worst gradient "
+                      f"relative RMS {rel[worst]:.3g} ({worst}, tol {tol}) "
+                      f"over {len(rel)} parameters")
+        checks[label] = e_loss <= STEP_LOSS_REL and rel[worst] <= tol
+    secs = {}
+    for plain in (False, True):
+        state, _ = committed_state(cfg, device)
+        step = TrainStep(cfg, ds, streamed=True, plain=plain)
+        with torch.enable_grad():
+            step(state, batch, sparsity_pts=pts)          # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(state, batch, sparsity_pts=pts)
+            torch.cuda.synchronize()
+        secs[plain] = (time.perf_counter() - t0) / 3
+    say("step", f"loss through the kernels {loss_k:.7g}; "
+        + "; ".join(report) + f"; step {secs[False] * 1e3:.1f} ms through "
+        f"the kernels ({cfg.train.batch_rays / secs[False]:.1f} rays/s), "
+        f"{secs[True] * 1e3:.1f} ms plain (mean of 3); {gpu} | {smi}")
+    if not (all(checks.values()) and math.isfinite(loss_k)):
+        raise AssertionError(f"the kernel step disagrees with the plain step:"
+                             f" {checks}")
+    return dict(step_s=secs[False], plain_step_s=secs[True])
+
+
+def phase_eval(device, ds):
+    """The trainer's evaluation of the held-out view from the committed
+    weights, through K3 + K5 and through the plain versions."""
+    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.metrics import psnr
+    from fashion_nerf_torch.train.loop import evaluate
+    cfg = load_config("blender_lego")
+    state, meta = committed_state(cfg, device)
+    ref = float(meta["val_psnr"])
+    out, times = {}, {}
+    for plain in (False, True):
+        t0 = time.perf_counter()
+        out[plain] = evaluate(cfg, state, ds, plain=plain)
+        torch.cuda.synchronize()
+        times[plain] = time.perf_counter() - t0
+    (img_k, p_k), (img_p, p_p) = out[False], out[True]
+    p_kp = float(psnr(img_k["rgb"], img_p["rgb"]))
+    say("eval", f"val PSNR through the kernels {p_k:.4f} dB, plain "
+        f"{p_p:.4f} dB, the reference's {ref:.4f} dB (tol {EVAL_PSNR_TOL});"
+        f" kernel image against plain image {p_kp:.2f} dB; "
+        f"{times[False]:.3f} s and {times[True]:.3f} s")
+    ok = (abs(p_k - ref) <= EVAL_PSNR_TOL and abs(p_p - ref) <= EVAL_PSNR_TOL
+          and abs(ref - EVAL_PSNR) < 1e-3 and p_kp >= FRAME_PSNR_MIN
+          and tuple(img_k["rgb"].shape) == (ds.H, ds.W, 3)
+          and bool(torch.isfinite(img_k["rgb"]).all()))
+    if not ok:
+        raise AssertionError("eval checks failed")
+    return dict(val_psnr=p_k, plain_val_psnr=p_p)
+
+
+def phase_train(scene, device, gpu, smi):
+    """`train()` at blender_lego's full width from random init: a refresh
+    at step 4, culled steps, dense steps (the first four and every 8th),
+    one eval and one checkpoint at step 24."""
+    import shutil
+    from fashion_nerf.config import load_config
+    from fashion_nerf_torch import ckpt as ckpt_lib
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.train.loop import train
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    cfg = load_config("blender_lego", [
+        "train.iters=24", "train.log_every=4", "train.occ_warmup=4",
+        "train.occ_refresh_every=1000", "train.occ_dense_every=8",
+        "train.eval_every=24", "train.ckpt_every=24", f"out_dir={RUN_DIR}"])
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        state, hist = train(cfg, dataset_dict=scene, device=device,
+                            log_fn=lambda e: say("train", json.dumps(e)))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    logs = [h for h in hist if "loss" in h]
+    rate = statistics.median(h["rays_per_sec"] for h in logs[1:])
+    evals = [h["val_psnr"] for h in hist if "val_psnr" in h]
+    saved = ckpt_lib.steps(os.path.join(RUN_DIR, cfg.name, "ckpt"))
+    last = logs[-1]
+    say("train", f"{state.step} steps in {secs:.2f} s; loss {logs[0]['loss']:.5f}"
+        f" at step {logs[0]['step']} → {last['loss']:.5f} at step "
+        f"{last['step']} (both dense); refreshes {last['refreshes']}, culled "
+        f"steps {last['culled_steps']}, dense steps {last['dense_steps']}; "
+        f"eval {evals}; checkpoints {saved}; {rate:.1f} rays/s "
+        f"({rate / cfg.train.batch_rays:.3f} steps/s, median of the log "
+        f"windows after the first); launches {launches}; {gpu} | {smi}")
+    checks = {
+        "finite": all(math.isfinite(h["loss"]) for h in logs),
+        "falls": last["loss"] < logs[0]["loss"],
+        "kinds": (last["refreshes"] >= 1 and last["culled_steps"] >= 1
+                  and last["dense_steps"] >= 1),
+        "eval": len(evals) == 1 and math.isfinite(evals[0]),
+        "ckpt": saved == [24],
+        "launches": all(launches[k] > 0
+                        for k in ("field", "field_bwd", "volrend")),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"train checks failed: {failed}")
+    return launches, dict(rays_per_sec=rate, seconds=secs)
 
 
 def main() -> int:
@@ -361,12 +658,22 @@ def main() -> int:
     results, occ_ref = phase_kernels(cfg, device)
     K.reset_launches()
     params, occ = phase_setup(cfg, device, occ_ref)
-    launches, _ = phase_frame(cfg, device, params, occ, gpu, smi)
+    render_launches, _ = phase_frame(cfg, device, params, occ, gpu, smi)
+    del params, occ, occ_ref
+    scene, ds = phase_scene(cfg, device)
+    phase_step(device, ds, gpu, smi)
+    phase_eval(device, ds)
+    train_launches, _ = phase_train(scene, device, gpu, smi)
+    # K1 and K2 run on the render path, K3, K4 and K5 on the training path
+    launches = {**{k: render_launches[k] for k in ("sigma_march",
+                                                   "slim_march")},
+                **{k: train_launches[k] for k in ("field", "field_bwd",
+                                                  "volrend")}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
          **results[name]} for name in ("sigma_march", "slim_march",
-                                       "field")]}))
+                                       "field", "field_bwd", "volrend")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))

@@ -4,7 +4,9 @@ The JAX package `fashion_nerf` stays the reference. This package imports
 `torch` and never `jax`; of the reference it reuses only the two modules
 that are plain Python/numpy (`fashion_nerf.config`, `fashion_nerf.assets`).
 
-Slice covered so far: the blockwise 800×800 `blender_lego` render
+Slices covered so far: the blockwise 800×800 `blender_lego` render
 (`fashion_nerf_torch.bench.run_bench`), with hand-written Hopper kernels for
-the proposal march, the fine march and the fused field.
+the proposal march, the fine march and the fused field; and the
+`blender_lego` trainer (`python -m fashion_nerf_torch.cli train`), with
+kernels for the fused field's backward and the dense volume render.
 """

@@ -5,7 +5,9 @@ A σ sweep of the trained fine field on a G³ lattice gives a binary grid,
 reduced to a tight AABB and to macro³ sub-AABBs. Rays are slab-tested
 against them: rays that miss skip the field, rays that hit concentrate
 their sample budget inside their occupied interval, and sample blocks that
-overlap no occupied box are culled in the marches.
+overlap no occupied box are culled in the marches. Training rebuilds the
+grid from the live nets (train/loop.py::refresh_occupancy) and composites
+missing rays with `cull_background`.
 """
 
 from __future__ import annotations
@@ -187,3 +189,19 @@ def ray_multi_aabb(rays_o, rays_d, occ: OccupancyState, near, far):
     far_r = far_t[:, 0]
     return (torch.where(hit, t_lo, far_r), torch.where(hit, t_hi, far_r),
             hit, seg_lo, seg_hi, seg_hit)
+
+
+def cull_background(out: dict, hit, white_bkgd: bool) -> dict:
+    """Per-ray outputs of rays that miss the occupancy box replaced by the
+    background the dense path converges to: rgb white (or black), acc,
+    weights and depth 0, disp 1e10."""
+    h = hit[:, None]
+    bg = 1.0 if white_bkgd else 0.0
+    zero = torch.zeros((), dtype=out["acc"].dtype, device=hit.device)
+    return {
+        "rgb": torch.where(h, out["rgb"], zero + bg),
+        "depth": torch.where(hit, out["depth"], zero),
+        "acc": torch.where(hit, out["acc"], zero),
+        "weights": torch.where(h, out["weights"], zero),
+        "disp": torch.where(hit, out["disp"], zero + 1e10),
+    }

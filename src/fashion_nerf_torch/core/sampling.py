@@ -1,7 +1,9 @@
-"""Eval-mode stratified and hierarchical sampling along rays.
+"""Stratified and hierarchical sampling along rays.
 
 Counterpart of `fashion_nerf.core.sampling`. The render path is
-deterministic (det mode, no jitter), so nothing here draws random numbers.
+deterministic (no jitter, evenly spaced quantiles); training jitters the
+stratified bins and draws random quantiles. Every draw comes from an
+explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -10,8 +12,10 @@ import torch
 
 
 def stratified_sample(near, far, n_rays: int, n_samples: int,
-                      lindisp: bool = False, device=None):
-    """Deterministic linspace over [near, far] → (n_rays, n_samples) f32.
+                      lindisp: bool = False, device=None, *,
+                      perturb: bool = False, generator=None):
+    """Linspace over [near, far] → (n_rays, n_samples) f32; with perturb,
+    one uniform jitter per bin (drawn from `generator`).
 
     near, far: scalars or (n_rays,) per-ray bounds."""
     near = torch.as_tensor(near, dtype=torch.float32, device=device)
@@ -22,23 +26,39 @@ def stratified_sample(near, far, n_rays: int, n_samples: int,
     t = torch.linspace(0.0, 1.0, n_samples, dtype=torch.float32,
                        device=device)
     if lindisp:
-        return 1.0 / (1.0 / near * (1.0 - t) + 1.0 / far * t)
-    return near * (1.0 - t) + far * t
+        z = 1.0 / (1.0 / near * (1.0 - t) + 1.0 / far * t)
+    else:
+        z = near * (1.0 - t) + far * t
+    if perturb:
+        mids = 0.5 * (z[:, 1:] + z[:, :-1])
+        upper = torch.cat([mids, z[:, -1:]], dim=-1)
+        lower = torch.cat([z[:, :1], mids], dim=-1)
+        u = torch.rand(z.shape, generator=generator, device=device)
+        z = lower + (upper - lower) * u
+    return z
 
 
-def sample_pdf(bins, weights, n_samples: int, eps: float = 1e-5):
-    """Deterministic inverse-CDF sampling from a piecewise-constant PDF.
+def sample_pdf(bins, weights, n_samples: int, eps: float = 1e-5, *,
+               det: bool = True, generator=None, quantiles=None):
+    """Inverse-CDF sampling from a piecewise-constant PDF.
 
     bins (R, B+1) edges, weights (R, B) mass → (R, n_samples), not sorted.
-    Quantiles are evenly spaced in [0, 1]. Weights get an `eps` floor;
-    a quantile u ≥ cdf[-1] clamps to the last edge."""
+    Quantiles: `quantiles` (R, n_samples) when given; else evenly spaced
+    in [0, 1] (det) or uniform draws from `generator`. Weights get an `eps`
+    floor; a quantile u ≥ cdf[-1] clamps to the last edge."""
     weights = weights + eps
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)   # (R, B+1)
     R, n_edges = cdf.shape
-    u = torch.linspace(0.0, 1.0, n_samples, dtype=torch.float32,
-                       device=cdf.device).expand(R, n_samples).contiguous()
+    if quantiles is not None:
+        u = quantiles.to(cdf.dtype).contiguous()
+    elif det:
+        u = torch.linspace(0.0, 1.0, n_samples, dtype=torch.float32,
+                           device=cdf.device).expand(R, n_samples).contiguous()
+    else:
+        u = torch.rand((R, n_samples), generator=generator,
+                       device=cdf.device)
     # last edge with cdf ≤ u, first edge with cdf > u (clamped to the end)
     above = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = above - 1

@@ -15,11 +15,14 @@ _INF_DIST = 1e10
 
 
 def volume_render(rgb, sigma, t_vals, rays_d, white_bkgd: bool = False,
-                  sigma_activation: str = "relu", t_end=None):
+                  sigma_activation: str = "relu", t_end=None,
+                  raw_noise_std: float = 0.0, generator=None):
     """rgb (R,S,3) post-sigmoid, sigma (R,S) raw, t_vals (R,S), rays_d (R,3)
     → dict rgb (R,3), depth (R,), acc (R,), weights (R,S), disp (R,).
 
-    t_end: None → infinite last interval; scalar or (R,) → finite bound."""
+    t_end: None → infinite last interval; scalar or (R,) → finite bound.
+    raw_noise_std > 0 adds Gaussian noise drawn from `generator` to σ
+    before the activation (a training regularizer)."""
     dists = t_vals[:, 1:] - t_vals[:, :-1]
     if t_end is None:
         last = torch.full_like(t_vals[:, :1], _INF_DIST)
@@ -30,6 +33,9 @@ def volume_render(rgb, sigma, t_vals, rays_d, white_bkgd: bool = False,
     dists = torch.cat([dists, last], dim=-1)
     dists = dists * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
 
+    if raw_noise_std > 0.0:
+        sigma = sigma + torch.randn(sigma.shape, generator=generator,
+                                    device=sigma.device) * raw_noise_std
     density = (torch.nn.functional.softplus(sigma)
                if sigma_activation == "softplus" else torch.relu(sigma))
     alpha = 1.0 - torch.exp(-density * dists)

@@ -1,10 +1,12 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
-Three kernels, CUDA C++ for sm_90a under `csrc/`:
+Five kernels, CUDA C++ for sm_90a under `csrc/`:
 
 - K1 `sigmamarch.cu`: the σ-only proposal march (kernels/sigmamarch.py);
 - K2 `slimmarch.cu`: the fine march of the 8×256 field (kernels/slimmarch.py);
-- K3 `field.cu`: the fused posenc + MLP field (kernels/posenc_mlp.py).
+- K3 `field.cu`: the fused posenc + MLP field (kernels/posenc_mlp.py);
+- K4 `field_bwd.cu`: the field's backward (kernels/posenc_mlp.py);
+- K5 `volrend.cu`: the fused volume render (kernels/render.py).
 
 Path rule, the same in every wrapper: tensors on the CPU take the plain
 PyTorch version; tensors on a CUDA device take the kernel, or the call
@@ -39,7 +41,12 @@ TILE_ROWS = 2048
 # rows per CUDA block of the slab kernels (csrc/fnt_common.cuh kRows)
 SLAB_ROWS = 64
 
-LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0}
+# rows per K4 pass: its bf16 workspace holds every activation and cotangent
+# of this many rows (1.3 GB at the 8×256 field)
+BWD_CHUNK_ROWS = 131072
+
+LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
+            "volrend": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +54,8 @@ _SIGNATURES = {
     "fnt_field_forward": [_P] * 6 + [_I] * 8 + [_P],
     "fnt_sigma_march": [_P] * 12 + [_I] * 7 + [_P],
     "fnt_slim_march": [_P] * 15 + [_I] * 10 + [ctypes.c_float, _P],
+    "fnt_field_backward": [_P] * 14 + [ctypes.c_long] + [_I] * 11 + [_P],
+    "fnt_volrend": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 _lib = None

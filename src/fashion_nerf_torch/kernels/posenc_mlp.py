@@ -17,6 +17,18 @@ per ray; its width is padded with zero rows to a multiple of 16.
 Numerics (kernel and plain version alike): bf16 operands rounded to
 nearest even, f32 accumulation, activations rounded back to bf16 after the
 relu, posenc phases in f32.
+
+Gradients (kernel K4, csrc/field_bwd.cu, and `field_rows_backward_plain`)
+follow `_field_bwd_kernel`: the forward is recomputed; the cotangents of
+every pre-activation are rounded to bf16 as the operands of both the dgrad
+and the wgrad products, which accumulate in f32; bias gradients are f32
+sums of the unrounded cotangents (of the rounded ones where the reference
+rounds first: the rgb head and the feature layer); sin/cos stay f32.
+`FusedField` puts K3 and K4 under autograd. With grad enabled,
+`pack_params` packs differentiably into an f32 flat buffer, so autograd of
+the packing (cat, transpose, pad) carries the flat gradients back onto the
+NeRFMLP parameters; the bf16 casts of the weights and of the per-ray view
+term happen inside `FusedField`, so their gradients stay f32.
 """
 
 from __future__ import annotations
@@ -118,9 +130,9 @@ def _layout(depth: int, width: int, k0: int, skip: int, has_vd: bool):
 @dataclass
 class PackedNet:
     """A NeRFMLP packed for the slab kernels and their plain versions."""
-    w: torch.Tensor            # flat bf16 weights
+    w: torch.Tensor            # flat bf16 weights (never carries grad)
     wf: torch.Tensor           # the same values in f32 (plain versions)
-    b: torch.Tensor            # flat f32 biases
+    b: torch.Tensor            # flat f32 biases (carries grad when packed so)
     depth: int
     width: int
     k0: int                    # padded width of the posenc operand
@@ -132,6 +144,7 @@ class PackedNet:
     lay: dict
     dir_kernel: Optional[torch.Tensor]   # (Cd, W/2) f32 view-branch rows
     x_kernels: tuple           # ((Wx (3,W), b (W,)), ...) hoisted x-layers
+    w32: Optional[torch.Tensor] = None   # unrounded f32 weights with grad
 
     def wview(self, off: int, rows: int, cols: int):
         return self.wf[off:off + rows * cols].view(rows, cols)
@@ -141,7 +154,9 @@ def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
     """Pack `model` for the field (hoist_x=False: the x rows stay in the
     posenc operand) or for the marches (hoist_x=True: the first and skip
     layers' x rows and biases leave the kernel as `x_kernels`; their bias
-    slots in the buffer are zero)."""
+    slots in the buffer are zero). A field packed with grad enabled keeps
+    the autograd graph: `w32` (the f32 flat weights), `b` and `dir_kernel`
+    lead back to the model's parameters (see FusedField)."""
     L, W, D = model.posenc_xyz, model.width, model.depth
     cx = 3 * (2 * L + 1)
     skips = [s + 1 for s in model.skips if s + 1 < D]
@@ -156,7 +171,8 @@ def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
         rows = Wsc if hoist_x else torch.cat([Wx, Wsc])
         return F.pad(rows, (0, 0, 0, k0 - rows.shape[0])), Wx
 
-    with torch.no_grad():
+    grad = torch.is_grad_enabled() and not hoist_x
+    with torch.set_grad_enabled(grad):
         for i, layer in enumerate(model.trunk):
             kern, bias = layer.weight.t(), layer.bias
             if i == 0 or i == skip:
@@ -182,25 +198,34 @@ def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
         else:
             ws.append(model.out_head.weight.t())
             bs.append(model.out_head.bias)
-        w = torch.cat([x.reshape(-1) for x in ws]).to(_BF).contiguous()
+        w32 = torch.cat([x.reshape(-1) for x in ws]).float().contiguous()
         b = torch.cat([x.reshape(-1) for x in bs]).float().contiguous()
+    w = w32.detach().to(_BF).contiguous()
     lay = _layout(D, W, k0, skip, model.use_viewdirs)
     assert (w.numel(), b.numel()) == (lay["n_w"], lay["n_b"])
     return PackedNet(w=w, wf=w.float(), b=b, depth=D, width=W, k0=k0,
                      skip=skip, has_vd=model.use_viewdirs, L=L,
                      L_dir=model.posenc_dir, x_rows=not hoist_x, lay=lay,
-                     dir_kernel=dir_kernel, x_kernels=tuple(x_kernels))
+                     dir_kernel=dir_kernel, x_kernels=tuple(x_kernels),
+                     w32=w32 if grad else None)
+
+
+def dir_term(net: PackedNet, viewdirs):
+    """Per-ray view-branch term γ(d̂)·W_dir → (R, W/2) f32 (zeros without a
+    view branch). Plain torch, so autograd backprops it as the reference's
+    XLA vjp backprops its hoist."""
+    R = viewdirs.shape[0]
+    if not net.has_vd:
+        return torch.zeros((R, max(net.width // 2, 1)),
+                           device=viewdirs.device)
+    d_unit = viewdirs / torch.linalg.norm(viewdirs, dim=-1, keepdim=True)
+    return posenc(d_unit, net.L_dir) @ net.dir_kernel
 
 
 def hoist_dirs(net: PackedNet, viewdirs):
-    """Per-ray view-branch term γ(d̂)·W_dir → (R, W/2) bf16 (one small f32
+    """`dir_term` rounded to bf16, as the kernels take it (one small f32
     matmul per chunk, expanded per sample inside the kernels)."""
-    R = viewdirs.shape[0]
-    if not net.has_vd:
-        return torch.zeros((R, max(net.width // 2, 1)), dtype=_BF,
-                           device=viewdirs.device)
-    d_unit = viewdirs / torch.linalg.norm(viewdirs, dim=-1, keepdim=True)
-    return (posenc(d_unit, net.L_dir) @ net.dir_kernel).to(_BF)
+    return dir_term(net, viewdirs).to(_BF)
 
 
 # --------------------------------------------------------------------------
@@ -286,11 +311,194 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int):
     return rgb, sigma
 
 
+def _rows_bwd_heads(net: PackedNet, h, dir_rows, g_rgb, g_sigma, gw, gb):
+    """Backward of the heads on rows of trunk output h (bf16-valued f32).
+    Writes the heads' weight/bias gradients into gw/gb; → (d_h (rows, W)
+    f32, per-row view-term cotangent (rows, W/2) f32 or None)."""
+    lay, W, b = net.lay, net.width, net.b
+
+    def put(key, val):
+        gw[lay[key]:lay[key] + val.numel()] = val.reshape(-1)
+
+    if not net.has_vd:
+        w_out = net.wview(lay["w_out"], W, 4)
+        s = torch.sigmoid(h @ w_out[:, :3] + b[lay["b_out"]:lay["b_out"] + 3])
+        d_raw = _bf(torch.cat([g_rgb * s * (1.0 - s), g_sigma[:, None]], 1))
+        put("w_out", h.t() @ d_raw)
+        gb[lay["b_out"]:lay["b_out"] + 4] = d_raw.sum(0)
+        return d_raw @ w_out.t(), None
+    half = W // 2
+    w_feat = net.wview(lay["w_feat"], W, W)
+    w_view = net.wview(lay["w_view"], W, half)
+    w_rgb = net.wview(lay["w_rgb"], half, 3)
+    feat = _bf(h @ w_feat + b[lay["b_feat"]:lay["b_feat"] + W])
+    h2 = feat @ w_view + dir_rows
+    h2 = _bf(torch.relu(h2 + b[lay["b_view"]:lay["b_view"] + half]))
+    s = torch.sigmoid(h2 @ w_rgb + b[lay["b_rgb"]:lay["b_rgb"] + 3])
+    d_raw = _bf(g_rgb * s * (1.0 - s))
+    put("w_rgb", h2.t() @ d_raw)
+    gb[lay["b_rgb"]:lay["b_rgb"] + 3] = d_raw.sum(0)
+    d_h2pre = torch.where(h2 > 0, d_raw @ w_rgb.t(), 0.0)
+    d_h2pre_bf = _bf(d_h2pre)
+    put("w_view", feat.t() @ d_h2pre_bf)
+    gb[lay["b_view"]:lay["b_view"] + half] = d_h2pre.sum(0)
+    d_feat = _bf(d_h2pre_bf @ w_view.t())
+    put("w_feat", h.t() @ d_feat)
+    gb[lay["b_feat"]:lay["b_feat"] + W] = d_feat.sum(0)
+    gs_bf = _bf(g_sigma)
+    put("w_sig", h.t() @ gs_bf[:, None])
+    gb[lay["b_sig"]] = g_sigma.sum()
+    d_h = d_feat @ w_feat.t() + gs_bf[:, None] * net.wf[
+        lay["w_sig"]:lay["w_sig"] + W][None, :]
+    return d_h, d_h2pre
+
+
+def field_rows_backward_plain(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
+                              spr: int):
+    """Plain version of K4, the VJP of K3 with the reference's rounding
+    points (explicit, not autograd): pts (n,3) f32, dirpart (n/spr, W/2)
+    bf16, cotangents g_rgb (n,3) and g_sigma (n,) f32 → (d_pts (n,3),
+    d_dirpart (n/spr, W/2) summed per ray, d_w (n_w,), d_b (n_b,)), all
+    f32, d_w and d_b in the flat layout of net.w and net.b."""
+    lay, W, L, k0 = net.lay, net.width, net.L, net.k0
+    n = pts.shape[0]
+    fmat, off = phase_consts(L, pts.device)
+    P = pts.repeat(1, 2 * L) * fmat + off
+    a0 = field_operand(pts, L, k0)
+    dir_rows = (dirpart.float().repeat_interleave(spr, dim=0)
+                if net.has_vd else None)
+    hs, h = [], None
+    for i in range(net.depth):                     # forward recompute
+        acc = 0.0
+        if lay["w_h"][i] is not None:
+            acc = h @ net.wview(lay["w_h"][i], W, W)
+        if lay["w_a0"][i] is not None:
+            acc = acc + a0 @ net.wview(lay["w_a0"][i], k0, W)
+        h = _bf(torch.relu(acc + net.b[lay["b"][i]:lay["b"][i] + W]))
+        hs.append(h)
+    gw = torch.zeros(lay["n_w"], device=pts.device)
+    gb = torch.zeros(lay["n_b"], device=pts.device)
+    d_h, d_rows = _rows_bwd_heads(net, h, dir_rows, g_rgb.float(),
+                                  g_sigma.float(), gw, gb)
+    d_a0 = torch.zeros((n, k0), device=pts.device)
+    for i in reversed(range(net.depth)):           # trunk backward
+        d_pre = torch.where(hs[i] > 0, d_h, 0.0)
+        d_pre_bf = _bf(d_pre)
+        gb[lay["b"][i]:lay["b"][i] + W] = d_pre.sum(0)
+        if lay["w_a0"][i] is not None:
+            w_a0 = net.wview(lay["w_a0"][i], k0, W)
+            gw[lay["w_a0"][i]:lay["w_a0"][i] + k0 * W] = (
+                a0.t() @ d_pre_bf).reshape(-1)
+            d_a0 = d_a0 + d_pre_bf @ w_a0.t()
+        if lay["w_h"][i] is not None:
+            w_h = net.wview(lay["w_h"][i], W, W)
+            gw[lay["w_h"][i]:lay["w_h"][i] + W * W] = (
+                hs[i - 1].t() @ d_pre_bf).reshape(-1)
+            d_h = d_pre_bf @ w_h.t()
+    # phases: d sin(P)/dP = cos(P), chained through P = x·2^(b mod L) + off
+    dP = d_a0[:, 3:3 + 6 * L] * torch.cos(P) * fmat
+    d_pts = dP.reshape(n, 2 * L, 3).sum(1) + d_a0[:, :3]
+    R = n // spr
+    if d_rows is None:
+        d_dir = torch.zeros((R, dirpart.shape[1]), device=pts.device)
+    else:
+        d_dir = d_rows.reshape(R, spr, -1).sum(1)
+    return d_pts, d_dir, gw, gb
+
+
+def bwd_workspace_cols(net: PackedNet) -> int:
+    """bf16 columns per row of K4's workspace (fnt::Regions in
+    csrc/field_bwd.cu): a0, every trunk activation and its cotangent, the
+    feature layer, the view layer, and the two 16-wide head cotangents."""
+    W = net.width
+    return net.k0 + 2 * net.depth * W + 2 * W + 2 * (W // 2) + 32
+
+
+def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
+                        spr: int):
+    """VJP of `field_rows` → (d_pts (n,3), d_dirpart (n/spr, W/2), d_w,
+    d_b), all f32. CPU tensors: plain version; CUDA tensors: kernel K4,
+    which is deterministic (fixed-order reductions, no float atomics)."""
+    n = pts.shape[0]
+    if not K.on_cuda(pts, dirpart, net.w, g_rgb, g_sigma):
+        return field_rows_backward_plain(net, pts, dirpart, g_rgb, g_sigma,
+                                         spr)
+    if not net.x_rows:
+        raise ValueError("field_rows_backward needs a net packed with "
+                         "hoist_x=False")
+    if n % K.SLAB_ROWS or n % spr:
+        raise ValueError(f"rows {n} not a multiple of {K.SLAB_ROWS} and "
+                         f"of spr={spr}")
+    K.check(pts, "pts", torch.float32, (n, 3))
+    K.check(dirpart, "dirpart", _BF, (n // spr, dirpart.shape[1]))
+    K.check(g_rgb, "g_rgb", torch.float32, (n, 3))
+    K.check(g_sigma, "g_sigma", torch.float32, (n,))
+    half = dirpart.shape[1]
+    if net.has_vd and half != net.width // 2:
+        raise ValueError(f"dirpart width {half}")
+    dev, f32 = pts.device, torch.float32
+    chunk = min(n, K.BWD_CHUNK_ROWS)
+    n_split = max(1, min(16, chunk // 8192))
+    M = min(K.SLAB_ROWS, (K.SLAB_ROWS - 1) // spr + 2)
+    ws = torch.empty(chunk * bwd_workspace_cols(net), dtype=_BF, device=dev)
+    wpart = torch.empty((n_split, net.lay["n_w"]), dtype=f32, device=dev)
+    bpart = torch.empty((chunk // K.SLAB_ROWS, net.lay["n_b"]), dtype=f32,
+                        device=dev)
+    dpart = torch.empty((n // K.SLAB_ROWS, M, half), dtype=f32, device=dev)
+    d_pts = torch.empty((n, 3), dtype=f32, device=dev)
+    d_dir = (torch.empty if net.has_vd else torch.zeros)(
+        (n // spr, half), dtype=f32, device=dev)
+    d_w = torch.empty(net.lay["n_w"], dtype=f32, device=dev)
+    d_b = torch.empty(net.lay["n_b"], dtype=f32, device=dev)
+    ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, net.b, g_rgb,
+                                   g_sigma, d_pts, d_dir, d_w, d_b, ws,
+                                   wpart, bpart, dpart)]
+    code = K.library().fnt_field_backward(
+        *ptrs, ws.numel(), n, spr, net.L, net.depth, net.width, net.k0,
+        net.skip, int(net.has_vd), chunk, n_split, M, K.stream())
+    K.raise_on_error(code, "fnt_field_backward")
+    K.LAUNCHES["field_bwd"] += 1
+    return d_pts, d_dir, d_w, d_b
+
+
+class FusedField(torch.autograd.Function):
+    """K3 forward and K4 backward under autograd (the reference's
+    `field_core` custom VJP).
+
+    apply(pts (n,3) f32, dirpart (n/spr, W/2) f32, w32 (n_w,) f32, b (n_b,)
+    f32, net, spr, plain) → (rgb (n,3), σ (n,)). `net` is the PackedNet that
+    w32 and b were packed into; its bf16 `w` is what the kernels read.
+    dirpart and w32 are rounded to bf16 here, and their gradients are
+    returned unrounded (straight through the casts, as the reference's
+    VJP returns f32 cotangents for its f32 params and hoist). plain=True
+    takes the plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx, pts, dirpart, w32, b, net, spr, plain):
+        dp = dirpart.to(_BF).contiguous()
+        fn = field_rows_plain if plain else field_rows
+        rgb, sigma = fn(net, pts, dp, spr)
+        ctx.save_for_backward(pts, dp)
+        ctx.net, ctx.spr, ctx.plain = net, spr, plain
+        return rgb, sigma
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_sigma):
+        pts, dp = ctx.saved_tensors
+        fn = field_rows_backward_plain if ctx.plain else field_rows_backward
+        d_pts, d_dir, d_w, d_b = fn(ctx.net, pts, dp,
+                                    g_rgb.float().contiguous(),
+                                    g_sigma.float().contiguous(), ctx.spr)
+        return d_pts, d_dir, d_w, d_b, None, None, None
+
+
 def make_fused_field(cfg, plain: bool = False):
     """Field fn with the reference convention:
     field(params, pts (R,S,3), viewdirs (R,3), cond=None) → (rgb (R,S,3),
     σ (R,S)), where params is a NeRFMLP. Runs K3 on CUDA tensors (the
-    plain version on CPU tensors, or everywhere with plain=True)."""
+    plain version on CPU tensors, or everywhere with plain=True). With grad
+    enabled it runs through FusedField, whose backward is K4 (or its plain
+    version), and gradients reach the NeRFMLP's parameters."""
     del cfg   # the architecture is read off the module
 
     def field(params: NeRFMLP, pts, viewdirs, cond=None):
@@ -302,10 +510,14 @@ def make_fused_field(cfg, plain: bool = False):
         step = K.SLAB_ROWS // math.gcd(S, K.SLAB_ROWS)
         R_pad = -(-R // step) * step
         flat = F.pad(pts.reshape(R, S, 3), (0, 0, 0, 0, 0, R_pad - R))
-        dirpart = F.pad(hoist_dirs(net, viewdirs), (0, 0, 0, R_pad - R))
-        fn = field_rows_plain if plain else field_rows
-        rgb, sigma = fn(net, flat.reshape(-1, 3).contiguous(),
-                        dirpart.contiguous(), S)
+        flat = flat.reshape(-1, 3).contiguous()
+        dterm = F.pad(dir_term(net, viewdirs), (0, 0, 0, R_pad - R))
+        if net.w32 is not None:
+            rgb, sigma = FusedField.apply(flat, dterm.contiguous(), net.w32,
+                                          net.b, net, S, plain)
+        else:
+            fn = field_rows_plain if plain else field_rows
+            rgb, sigma = fn(net, flat, dterm.to(_BF).contiguous(), S)
         return (rgb[:R * S].reshape(R, S, 3), sigma[:R * S].reshape(R, S))
 
     return field

@@ -154,3 +154,30 @@ def load_flax_params(tree, compute_dtype: str = "float32",
             layer.bias.copy_(torch.tensor(
                 np.asarray(p[name]["bias"], np.float32)))
     return model.to(device) if device is not None else model
+
+
+def init_field(mcfg, generator: torch.Generator, device=None) -> NeRFMLP:
+    """A NeRFMLP for ModelConfig `mcfg` initialised as flax's `nn.Dense`
+    initialises the reference: LeCun-normal kernels (a normal truncated at
+    ±2σ, σ = sqrt(1/fan_in)/0.8796 so the variance is 1/fan_in) and zero
+    biases, f32 parameters. Draws come from `generator`, so the
+    distribution is the reference's but not its bits."""
+    if mcfg.conditioned or mcfg.n_latents > 0:
+        raise NotImplementedError(
+            "conditioned and latent fields are not ported (ROADMAP Queue 1 "
+            "#11)")
+    model = NeRFMLP(depth=mcfg.net_depth, width=mcfg.net_width,
+                    skips=tuple(mcfg.skips), posenc_xyz=mcfg.posenc_xyz,
+                    posenc_dir=mcfg.posenc_dir,
+                    use_viewdirs=mcfg.use_viewdirs,
+                    compute_dtype=mcfg.compute_dtype)
+    # truncated normal on [-2, 2] has std 0.87962566103423978
+    with torch.no_grad():
+        for _, layer in model.named_dense():
+            std = (1.0 / layer.weight.shape[1]) ** 0.5 / 0.87962566103423978
+            w = torch.empty(layer.weight.shape[::-1])      # (in, out)
+            torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                        generator=generator)
+            layer.weight.copy_(w.t())
+            layer.bias.zero_()
+    return model.to(device) if device is not None else model

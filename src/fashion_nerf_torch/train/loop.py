@@ -1,0 +1,307 @@
+"""The training step and loop; counterpart of `fashion_nerf.train.loop`.
+
+A step gathers a ray batch from the device-resident rays, renders it
+through the coarse and fine fields, takes the coarse + fine MSE (plus the
+sparsity prior), backprops and applies Adam. With the fused field
+(`kernels.use_pallas` and `kernels.fused_mlp`, and `kernels.fused_backward`
+in training) the fields run K3 forward and K4 backward on CUDA tensors and
+their plain versions on CPU tensors; otherwise the plain-torch NeRFMLP
+field runs under autograd. The occupancy-accelerated step renders a
+reduced budget inside each ray's box interval; every `occ_dense_every`-th
+step stays dense. Evaluation renders the held-out view through K3 and K5.
+
+Not ported here, each raising NotImplementedError: the device mesh and
+data-parallel step and `data.stream` prefetch (ROADMAP Queue 1 #14),
+conditioned and latent fields (#11), and the real blender/llff/viton
+loaders (#12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable, Optional
+
+import torch
+
+from fashion_nerf.config import Config
+from fashion_nerf_torch import ckpt as ckpt_lib
+from fashion_nerf_torch.core.occupancy import build_from_config
+from fashion_nerf_torch.data.pipeline import RayDataset, sample_batch
+from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
+from fashion_nerf_torch.logging_ import MetricLogger
+from fashion_nerf_torch.metrics import mse_to_psnr, psnr
+from fashion_nerf_torch.prng import GeneratorChain
+from fashion_nerf_torch.render.renderer import render_image, render_rays
+from fashion_nerf_torch.train.state import (TrainState, create_train_state,
+                                            learning_rate)
+
+
+def _xla_field(net, pts, viewdirs):
+    return net.field(pts, viewdirs)
+
+
+def make_fields(cfg: Config, training: bool = False, plain: bool = False):
+    """(field_coarse, field_fine), each field(net, pts (R,S,3), viewdirs
+    (R,3)) → (rgb, σ): the fused field when the config selects it, else
+    the NeRFMLP's plain-torch field. plain=True makes the fused field take
+    its plain versions on any device."""
+    k = cfg.kernels
+    if k.use_pallas and k.fused_mlp and (not training or k.fused_backward):
+        field = make_fused_field(cfg, plain=plain)
+        return field, field
+    return _xla_field, _xla_field
+
+
+def _bind(field, net, viewdirs):
+    """A renderer field (pts, rays_d) → (rgb, σ) with net and view
+    directions captured (NDC rays_d are not view directions)."""
+    return lambda pts, _rays_d: field(net, pts, viewdirs)
+
+
+def sparsity_points(cfg: Config, generator, device):
+    """(n, 1, 3) points uniform in the occupancy scan box."""
+    o = cfg.occupancy
+    u = torch.rand((cfg.train.sparsity_points, 1, 3), generator=generator,
+                   device=device)
+    return o.world_min + (o.world_max - o.world_min) * u
+
+
+def sparsity_loss(cfg: Config, nets: dict, field_c, field_f, pts):
+    """Cauchy density prior mean(log(1 + σ²/2)) at pts, summed over the
+    coarse and the fine net."""
+    n = pts.shape[0]
+    dirs = torch.tensor([0.0, 0.0, -1.0], device=pts.device).expand(n, 3)
+    act = (torch.nn.functional.softplus
+           if cfg.model.sigma_activation == "softplus" else torch.relu)
+    total = 0.0
+    for name, field in (("coarse", field_c), ("fine", field_f)):
+        if nets.get(name) is None:
+            continue
+        _, sigma = field(nets[name], pts, dirs)
+        total = total + torch.mean(torch.log1p(0.5 * act(sigma) ** 2))
+    return total
+
+
+class TrainStep:
+    """One training step: step(state, all_rays, occ=None, sparsity_pts=None)
+    → (state, metrics), updating state in place.
+
+    streamed: all_rays is the batch itself (pre-gathered), as the
+    reference's streamed step takes it. occ_culled: the reduced
+    occ_coarse + occ_fine budget inside the box of `occ`. sparsity_pts:
+    explicit sparsity-prior points in place of the generator's draw."""
+
+    def __init__(self, cfg: Config, dataset: RayDataset,
+                 streamed: bool = False, occ_culled: bool = False,
+                 plain: bool = False):
+        if occ_culled:
+            cfg = dataclasses.replace(cfg, sampling=dataclasses.replace(
+                cfg.sampling, n_coarse=cfg.train.occ_coarse,
+                n_fine=(cfg.train.occ_fine if cfg.sampling.n_fine > 0
+                        else 0)))
+        self.cfg = cfg
+        self.field_c, self.field_f = make_fields(cfg, training=True,
+                                                 plain=plain)
+        self.use_fine = cfg.sampling.n_fine > 0
+        self.n_total = dataset.n_rays
+        self.crop_idx = (dataset.crop_idx if cfg.train.precrop_iters > 0
+                         else None)
+        self.streamed = streamed
+
+    def loss(self, state: TrainState, batch: dict, occ=None,
+             sparsity_pts=None):
+        """→ (loss, aux) with the autograd graph of the step."""
+        cfg, g = self.cfg, state.generator
+        vd = batch["viewdirs"]
+        fc = _bind(self.field_c, state.coarse, vd)
+        ff = (_bind(self.field_f, state.fine, vd) if self.use_fine
+              else None)
+        out = render_rays(fc, ff, batch["rays_o"], batch["rays_d"], cfg,
+                          train=True, generator=g, occ=occ)
+        loss_c = torch.mean((out["coarse"]["rgb"] - batch["rgb"]) ** 2)
+        loss, loss_f = loss_c, loss_c
+        if self.use_fine:
+            loss_f = torch.mean((out["fine"]["rgb"] - batch["rgb"]) ** 2)
+            loss = loss_c + loss_f
+        aux = {"mse_coarse": loss_c, "mse_fine": loss_f}
+        if cfg.train.sparsity_weight > 0.0:
+            pts = (sparsity_points(cfg, g, batch["rays_o"].device)
+                   if sparsity_pts is None else sparsity_pts)
+            loss_sp = sparsity_loss(cfg, state.nets(), self.field_c,
+                                    self.field_f, pts)
+            loss = loss + cfg.train.sparsity_weight * loss_sp
+            aux["sparsity"] = loss_sp
+        return loss, aux
+
+    def __call__(self, state: TrainState, all_rays: dict, occ=None,
+                 sparsity_pts=None):
+        cfg = self.cfg
+        batch = all_rays if self.streamed else sample_batch(
+            all_rays, state.generator, cfg.train.batch_rays, self.n_total,
+            crop_idx=self.crop_idx, step=state.step,
+            precrop_iters=cfg.train.precrop_iters)
+        loss, aux = self.loss(state, batch, occ, sparsity_pts)
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        for group in opt.param_groups:
+            group["lr"] = learning_rate(cfg, state.step)
+        opt.step()
+        state.step += 1
+        metrics = {"loss": loss.detach(),
+                   "psnr": mse_to_psnr(aux["mse_fine"].detach()),
+                   **{k: v.detach() for k, v in aux.items()}}
+        return state, metrics
+
+
+def refresh_occupancy(cfg: Config, state: TrainState, plain: bool = False):
+    """The training-time culling grid from the live nets: σ is the max of
+    the coarse and the fine field, so both nets' culled ranges are sound."""
+    field_c, field_f = make_fields(cfg, plain=plain)
+    dev = next(state.coarse.parameters()).device
+
+    def union(pts, dirs):
+        rgb, sigma = field_c(state.coarse, pts, dirs)
+        if state.fine is not None and cfg.sampling.n_fine > 0:
+            sigma = torch.maximum(sigma, field_f(state.fine, pts, dirs)[1])
+        return rgb, sigma
+
+    with torch.no_grad():
+        return build_from_config(cfg, union, device=dev)
+
+
+def evaluate(cfg: Config, state: TrainState, dataset: RayDataset,
+             plain: bool = False):
+    """Render the held-out view (fused field; K5 compositing when
+    kernels.fused_render) → (outputs, val PSNR)."""
+    field_c, field_f = make_fields(cfg, plain=plain)
+    fc = (lambda pts, vd: field_c(state.coarse, pts, vd))
+    ff = None
+    if cfg.sampling.n_fine > 0 and state.fine is not None:
+        ff = (lambda pts, vd: field_f(state.fine, pts, vd))
+    dev = dataset.rays_o.device
+    with torch.no_grad():
+        out = render_image(fc, ff, dataset.H, dataset.W, dataset.focal,
+                           dataset.val_pose, cfg,
+                           use_fused_render=(cfg.kernels.use_pallas
+                                             and cfg.kernels.fused_render),
+                           plain=plain, device=dev)
+        val = torch.as_tensor(dataset.val_image, dtype=torch.float32,
+                              device=dev)
+        return out, float(psnr(out["rgb"], val))
+
+
+def _check_supported(cfg: Config) -> None:
+    if cfg.data.stream:
+        raise NotImplementedError("data.stream prefetch is not ported "
+                                  "(ROADMAP Queue 1 #14)")
+    if cfg.dist.multihost or cfg.dist.tp > 1 or cfg.dist.dp > 1:
+        raise NotImplementedError("the device mesh and data-parallel step "
+                                  "are not ported (ROADMAP Queue 1 #14)")
+    if cfg.model.conditioned or cfg.model.n_latents > 0:
+        raise NotImplementedError("conditioned and latent fields are not "
+                                  "ported (ROADMAP Queue 1 #11)")
+
+
+def default_device() -> torch.device:
+    return (torch.device("cuda", 0) if torch.cuda.is_available()
+            else torch.device("cpu"))
+
+
+def train(cfg: Config, dataset_dict: Optional[dict] = None,
+          log_fn: Optional[Callable] = None, resume: bool = False,
+          fault_at_step: Optional[int] = None, device=None):
+    """The training loop: data → state → steps with the log, eval and
+    checkpoint cadences → (state, history).
+
+    resume: restore the latest checkpoint under out_dir/name/ckpt and
+    continue the identical trajectory. fault_at_step: raise at that step
+    (a test hook for kill-and-resume). Log entries carry the cumulative
+    counts of occupancy refreshes, culled and dense steps."""
+    _check_supported(cfg)
+    device = torch.device(device) if device is not None else default_device()
+    if dataset_dict is None:
+        dataset_dict = load_dataset(cfg)
+    dataset = RayDataset(dataset_dict["images"], dataset_dict["poses"],
+                         dataset_dict["focal"], ndc=cfg.render.ndc,
+                         precrop_frac=cfg.train.precrop_frac, device=device)
+    dataset.val_image = dataset_dict["val_image"]
+    dataset.val_pose = dataset_dict["val_pose"]
+
+    chain = GeneratorChain(cfg.train.seed)
+    state = create_train_state(cfg, chain.once("init"),
+                               chain.once("run", device), device)
+    chain.freeze()     # every later draw comes from state.generator
+    step_fn = TrainStep(cfg, dataset)
+    occ_train = cfg.train.occ_train
+    step_fast = (TrainStep(cfg, dataset, occ_culled=True) if occ_train
+                 else None)
+    all_rays = dataset.batch_arrays()
+    logger = log_fn or MetricLogger(cfg)
+    ckpt_dir = os.path.join(cfg.out_dir, cfg.name, "ckpt")
+    start = 0
+    if resume and ckpt_lib.latest_step(ckpt_dir) is not None:
+        state = ckpt_lib.restore(ckpt_dir, state)
+        start = state.step
+    history = []
+    counts = {"refreshes": 0, "culled_steps": 0, "dense_steps": 0}
+    occ_state, last_val_psnr = None, None
+    t0, rays_done = time.perf_counter(), 0
+    for i in range(start, int(cfg.train.iters)):
+        if fault_at_step is not None and i == fault_at_step:
+            raise RuntimeError(f"injected fault at step {i}")
+        if occ_train and i >= cfg.train.occ_warmup and (
+                occ_state is None or i % cfg.train.occ_refresh_every == 0):
+            occ_state = refresh_occupancy(cfg, state)
+            counts["refreshes"] += 1
+        if (occ_state is not None
+                and (i + 1) % cfg.train.occ_dense_every != 0):
+            state, metrics = step_fast(state, all_rays, occ_state)
+            counts["culled_steps"] += 1
+        else:
+            state, metrics = step_fn(state, all_rays)
+            counts["dense_steps"] += 1
+        rays_done += cfg.train.batch_rays
+        if (i + 1) % cfg.train.log_every == 0:
+            entry = {k: float(v) for k, v in metrics.items()}  # syncs
+            now = time.perf_counter()
+            entry.update(step=i + 1, rays_per_sec=rays_done / (now - t0),
+                         **counts)
+            t0, rays_done = now, 0
+            history.append(entry)
+            logger(entry)
+        if (i + 1) % cfg.train.eval_every == 0:
+            _, last_val_psnr = evaluate(cfg, state, dataset)
+            logger({"step": i + 1, "val_psnr": last_val_psnr})
+            history.append({"step": i + 1, "val_psnr": last_val_psnr})
+            t0 = time.perf_counter()   # eval stays out of the rays/s window
+        if (i + 1) % cfg.train.ckpt_every == 0:
+            ckpt_lib.save(ckpt_dir, state, keep=cfg.train.ckpt_keep,
+                          metrics=({"val_psnr": last_val_psnr}
+                                   if last_val_psnr is not None else None))
+            t0 = time.perf_counter()
+    return state, history
+
+
+def load_dataset(cfg: Config) -> dict:
+    """The dataset of cfg.data: the hermetic procedural scenes when no
+    data.root is given (the blender one at the framing the committed
+    flagship weights were trained on), the tiny npz layout otherwise."""
+    from fashion_nerf_torch.data import synthetic
+    from fashion_nerf_torch.data.tiny import load_tiny
+    d = cfg.data
+    if d.dataset == "tiny":
+        return load_tiny(d.root)
+    if d.dataset == "blender" and not d.root:
+        scene = synthetic.make_synthetic_scene(
+            n_views=16, H=160, W=160, scale=0.5, sharp=80.0, texture=0.6)
+        scene.update(H=160, W=160, near=2.0, far=6.0)
+        return scene
+    if d.dataset == "llff" and not d.root:
+        return synthetic.make_forward_scene(n_views=12, H=96, W=128)
+    if d.dataset in ("blender", "llff", "viton"):
+        raise NotImplementedError(
+            f"the {d.dataset} loader is not ported (ROADMAP Queue 1 #12)")
+    raise ValueError(f"unknown dataset {d.dataset!r}")

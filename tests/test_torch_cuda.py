@@ -153,3 +153,147 @@ def test_wrappers_reject_bad_inputs(dev):
         posenc_mlp.field_rows(net, pts[:48].contiguous(), dp, 48)
     with pytest.raises(ValueError):
         posenc_mlp.field_rows(net, pts.cpu(), dp, 64)
+
+
+def _rel_rms(a, b) -> float:
+    """‖a − b‖ / ‖b‖ over all elements (RMS relative to the plain's RMS)."""
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-30))
+
+
+def _bwd_inputs(rng, net, n, spr, dev):
+    pts = _f32(rng, n, 3, lo=-1.2, hi=1.2, dev=dev)
+    dp = posenc_mlp.hoist_dirs(net, _f32(rng, n // spr, 3, dev=dev))
+    g_rgb = _f32(rng, n, 3, dev=dev)
+    g_sig = _f32(rng, n, dev=dev)
+    return pts, dp.contiguous(), g_rgb, g_sig
+
+
+@pytest.mark.parametrize("spr,n,chunk", [(64, 4096, None), (96, 3072, 1024),
+                                         (1, 1024, None), (192, 3072, 640)])
+def test_field_backward_kernel(dev, monkeypatch, spr, n, chunk):
+    """K4 against its plain version: every output within 1e-2 relative RMS,
+    over one or several passes (chunk) and any samples per ray; and twice
+    the same inputs give bitwise the same gradients."""
+    rng = np.random.default_rng(4)
+    net = posenc_mlp.pack_params(fine_net(rng).to(dev), hoist_x=False)
+    args = _bwd_inputs(rng, net, n, spr, dev)
+    if chunk is not None:
+        monkeypatch.setattr(K, "BWD_CHUNK_ROWS", chunk)
+    n0 = K.LAUNCHES["field_bwd"]
+    out_k = posenc_mlp.field_rows_backward(net, *args, spr)
+    out_k2 = posenc_mlp.field_rows_backward(net, *args, spr)
+    out_p = posenc_mlp.field_rows_backward_plain(net, *args, spr)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["field_bwd"] == n0 + 2
+    for name, a, a2, b in zip(("d_pts", "d_dir", "d_w", "d_b"), out_k,
+                              out_k2, out_p):
+        assert a.shape == b.shape, name
+        assert _rel_rms(a, b) <= 1e-2, (name, _rel_rms(a, b))
+        assert torch.equal(a, a2), name
+
+
+def test_field_backward_kernel_no_viewdirs(dev):
+    """The 4-wide head (no view branch) and a padded posenc operand."""
+    rng = np.random.default_rng(5)
+    net = posenc_mlp.pack_params(prop_net(rng).to(dev), hoist_x=False)
+    args = _bwd_inputs(rng, net, 2048, 64, dev)
+    out_k = posenc_mlp.field_rows_backward(net, *args, 64)
+    out_p = posenc_mlp.field_rows_backward_plain(net, *args, 64)
+    for name, a, b in zip(("d_pts", "d_dir", "d_w", "d_b"), out_k, out_p):
+        if name != "d_dir":
+            assert _rel_rms(a, b) <= 1e-2, (name, _rel_rms(a, b))
+    assert bool((out_k[1] == 0).all())
+
+
+def test_fused_field_gradients_kernel_vs_plain(dev):
+    """A loss through make_fused_field on the card: K3 + K4 against the
+    plain versions, every parameter's gradient within 1e-2 relative RMS."""
+    rng = np.random.default_rng(6)
+    model = fine_net(rng).to(dev)
+    pts = _f32(rng, 24, 40, 3, lo=-1.2, hi=1.2, dev=dev)
+    dirs = _f32(rng, 24, 3, dev=dev)
+    grads = []
+    for plain in (False, True):
+        model.zero_grad()
+        rgb, sig = posenc_mlp.make_fused_field(None, plain=plain)(
+            model, pts, dirs)
+        (rgb.square().mean() + 0.01 * torch.relu(sig).square().mean()
+         ).backward()
+        grads.append([p.grad.clone() for p in model.parameters()])
+    for a, b in zip(*grads):
+        assert _rel_rms(a, b) <= 1e-2
+
+
+@pytest.mark.parametrize("S", [64, 192, 37])
+@pytest.mark.parametrize("white", [False, True])
+def test_volrend_kernel(dev, S, white):
+    """K5 against its plain version: rgb, acc and weights atol 1e-4, depth
+    1e-4·far, on rays that do and do not saturate."""
+    from fashion_nerf_torch.kernels import render
+    rng = np.random.default_rng(7)
+    R = 100
+    rgb = _f32(rng, R, S, 3, lo=0.0, hi=1.0, dev=dev)
+    sigma = _f32(rng, R, S, lo=-20.0, hi=60.0, dev=dev)
+    sigma[:20] = -1.0                             # empty rays
+    t = torch.sort(_f32(rng, R, S, lo=2.0, hi=6.0, dev=dev), dim=1).values
+    dnorm = _f32(rng, R, lo=0.8, hi=1.3, dev=dev)
+    n0 = K.LAUNCHES["volrend"]
+    out_k = render.volrend(rgb, sigma, t, dnorm, white)
+    out_p = render.volrend_plain(rgb, sigma, t, dnorm, white)
+    assert K.LAUNCHES["volrend"] == n0 + 1
+    for name, a, b, tol in zip(("rgb", "depth", "acc", "weights"), out_k,
+                               out_p, (1e-4, 6e-4, 1e-4, 1e-4)):
+        assert float((a - b).abs().max()) <= tol, name
+
+
+def test_train_step_kernel_vs_plain(dev, monkeypatch):
+    """One training step of a small field on the card, kernels (K3 + K4)
+    against the plain versions: the same nets, batch and sparsity points,
+    and the plain step replays the kernel step's fine samples (the
+    inverse CDF turns last-bit differences of the coarse pass into sample
+    moves). Loss rel 1e-3, every gradient within 1e-2 relative RMS."""
+    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.data.pipeline import RayDataset
+    from fashion_nerf_torch.data.synthetic import make_synthetic_scene
+    from fashion_nerf_torch.models.nerf_mlp import init_field
+    from fashion_nerf_torch.render import renderer
+    from fashion_nerf_torch.train.loop import TrainStep, sparsity_points
+    from fashion_nerf_torch.train.state import TrainState, make_optimizer
+    cfg = load_config("blender_lego", [
+        "model.net_depth=3", "model.net_width=64", "model.posenc_xyz=6",
+        "model.skips=1", "train.batch_rays=256", "sampling.n_coarse=32",
+        "sampling.n_fine=32", "sampling.perturb=false"])
+    s = make_synthetic_scene(n_views=2, H=24, W=24, n_samples=32)
+    ds = RayDataset(s["images"], s["poses"], s["focal"], device=dev)
+    idx = torch.arange(0, ds.n_rays, ds.n_rays // 256, device=dev)[:256]
+    batch = {k: v[idx] for k, v in ds.batch_arrays().items()}
+    pts = sparsity_points(cfg, torch.Generator(dev).manual_seed(0), dev)
+    orig, fine_t, out = renderer.sample_pdf, [], {}
+
+    def sampler(*a, **kw):
+        if fine_t:
+            return fine_t[0]
+        fine_t.append(orig(*a, **kw))
+        return fine_t[0]
+
+    monkeypatch.setattr(renderer, "sample_pdf", sampler)
+    for plain in (False, True):
+        g = torch.Generator().manual_seed(5)
+        nets = [init_field(cfg.model, g, dev) for _ in range(2)]
+        state = TrainState(0, nets[0], nets[1], make_optimizer(
+            cfg, [p for n in nets for p in n.parameters()]),
+            torch.Generator(dev))
+        n0 = dict(K.LAUNCHES)
+        loss, _ = TrainStep(cfg, ds, streamed=True, plain=plain).loss(
+            state, batch, sparsity_pts=pts)
+        loss.backward()
+        fwd = K.LAUNCHES["field"] - n0["field"]
+        bwd = K.LAUNCHES["field_bwd"] - n0["field_bwd"]
+        assert (fwd, bwd) == ((0, 0) if plain else (4, 4))
+        out[plain] = (float(loss), [p.grad for n in nets
+                                    for p in n.parameters()])
+    (lk, gk), (lp, gp) = out[False], out[True]
+    assert abs(lk - lp) <= 1e-3 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert _rel_rms(a, b) <= 1e-2

@@ -15,7 +15,8 @@ import torch
 import fashion_nerf_torch
 from fashion_nerf_torch import bench
 from fashion_nerf_torch import kernels as K
-from fashion_nerf_torch.kernels import posenc_mlp, sigmamarch, slimmarch
+from fashion_nerf_torch.kernels import (posenc_mlp, render, sigmamarch,
+                                        slimmarch)
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, load_flax_params
 
 torch.set_num_threads(2)
@@ -33,7 +34,10 @@ def test_imports_with_jax_blocked():
     """Every module of the port, and chip_smoke, imports with `jax`
     unimportable (sys.modules["jax"] = None)."""
     mods = _modules()
-    assert "fashion_nerf_torch.render.blockwise" in mods
+    for m in ("render.blockwise", "render.renderer", "kernels.render",
+              "train.loop", "train.state", "data.synthetic", "data.pipeline",
+              "ckpt", "cli", "prng"):
+        assert f"fashion_nerf_torch.{m}" in mods, m
     code = ("import sys; sys.modules['jax'] = None; "
             f"sys.path[:0] = [{SRC!r}, {ROOT!r}]; import importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
@@ -115,7 +119,22 @@ def test_wrappers_take_plain_on_cpu():
     for x, y in zip(slimmarch.slim_march(*args),
                     slimmarch.slim_march_plain(*args)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
-    assert K.LAUNCHES == {"field": 0, "sigma_march": 0, "slim_march": 0}
+
+    g_rgb, g_sig = _randn(rng, 128, 3), _randn(rng, 128)
+    for x, y in zip(
+            posenc_mlp.field_rows_backward(net, pts, dp, g_rgb, g_sig, 64),
+            posenc_mlp.field_rows_backward_plain(net, pts, dp, g_rgb, g_sig,
+                                                 64)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+    R, S = 16, 24
+    vr = (torch.rand(R, S, 3), _randn(rng, R, S),
+          torch.sort(torch.rand(R, S) * 4 + 2, dim=1).values,
+          torch.rand(R) + 0.5, True)
+    for x, y in zip(render.volrend(*vr), render.volrend_plain(*vr)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert K.LAUNCHES == {"field": 0, "sigma_march": 0, "slim_march": 0,
+                          "field_bwd": 0, "volrend": 0}
 
 
 def test_run_bench_without_cuda_raises(monkeypatch):
