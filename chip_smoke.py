@@ -1,33 +1,44 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: `python3 chip_smoke.py`.
 
-Drives the port's two paths once each, as a user would call them: the
+Drives the port's paths once each, as a user would call them: the
 800×800 `blender_lego` frame (`python -m fashion_nerf_torch.bench`: the
 committed trained weights, the occupancy sweep and the committed proposal
-net) and the `blender_lego` trainer at full width (`train()`, from random
-init). Phases, in order:
+net), the same frame through the generic carry march
+(`kernels.carry_hoist=false`), the 7-pose quality gate through both
+marches (`python -m fashion_nerf_torch.quality --gate`), the `blender_lego`
+trainer at full width (`train()`, from random init) and the tensor-core
+probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
 
 1. device: name, power limit, TF32 off;
-2. build: nvcc builds the kernels from src/fashion_nerf_torch/kernels/csrc;
-3. kernels: K3 (fused field), K1 (proposal march), K2 (fine march), K4
-   (field backward, twice: bitwise deterministic) and K5 (volume render),
-   each against its plain PyTorch version on the card at main-path shapes;
+2. build: nvcc builds the kernels from src/fashion_nerf_torch/kernels/csrc,
+   one process per source, all started together;
+3. kernels: K3 (fused field), K1 (proposal march), K2 (fine march), K6
+   (generic carry march, also against K2), K4 (field backward, twice:
+   bitwise deterministic), K5 (volume render) and the probe's chains (P1,
+   P2), each against its plain PyTorch version on the card at main-path
+   shapes;
 4. setup: flagship + proposal asset, occupancy sweep through K3;
 5. frame: the frame through the kernels (1 warm-up + 3 timed), then through
    the plain versions; PSNR between them and non-trivial-image checks;
-6. scene: the hermetic 16-view 160×160 training scene (numpy, host);
-7. step: one training step from the committed weights through the kernels
+6. frame-generic: the same frame with `kernels.carry_hoist=false` (K1 +
+   K6), against its plain frame and against the K2 frame of phase 5;
+7. gate: the 7-pose gate at 800×800 for the shipped preset and for
+   `kernels.carry_hoist=false`, each pose's delta held to the reference's;
+8. scene: the hermetic 16-view 160×160 training scene (numpy, host);
+9. step: one training step from the committed weights through the kernels
    and through the plain versions: loss and every gradient compared;
-8. eval: the trainer's evaluation of the held-out view from the committed
-   weights, through K3 + K5 and through the plain versions, against the
-   val PSNR the reference measured for those weights;
-9. train: `train()` at full width for a few tens of steps, through an
-   occupancy refresh, culled steps, dense steps, an eval and a checkpoint.
+10. eval: the trainer's evaluation of the held-out view from the committed
+    weights, through K3 + K5 and through the plain versions, against the
+    val PSNR the reference measured for those weights;
+11. train: `train()` at full width for a few tens of steps, through an
+    occupancy refresh, culled steps, dense steps, an eval and a checkpoint;
+12. probe: TFLOP/s of each P1 variant and each P2 shape.
 
-The launch counters are reset just before each path (phases 4 and 9) and
-read right after it, so they count that path only. Any failure raises
-(non-zero exit). Imports nothing of JAX. The last line is the device JSON
-object.
+The launch counters are reset just before each path (phases 4, 6, 11 and
+12) and read right after it, so they count that path only. Any failure
+raises (non-zero exit). Imports nothing of JAX. The last line is the device
+JSON object.
 """
 
 from __future__ import annotations
@@ -66,6 +77,17 @@ STEP_GRAD_REL = 1e-2          # every parameter gradient, relative RMS
 STEP_GRAD_SAMPLES_REL = 5e-2  # the same, each step with its own fine samples
 EVAL_PSNR = 37.27111816       # the asset's val_psnr (the reference's eval)
 EVAL_PSNR_TOL = 0.2
+K6_ATOL = 5e-2                # rgb, w and acc on the trained fine net
+                              # (tests/kernels/test_slimmarch.py:131,157);
+                              # depth K6_ATOL·far
+PROBE_REL_RMS = 1e-2          # P1/P2 against plain: bf16 1-ulp flips of an
+PROBE_MAX_REL = 2e-2          # activation carry on; every element within
+                              # PROBE_MAX_REL·max|plain|
+# the reference's per-pose gate deltas in dB, POSES order (VERDICT.md:18-21,
+# scripts/quality_check.py --gate on the TPU); quality, so they carry over
+REF_GATE_DELTAS = (-0.059, -0.041, -0.098, +0.033, -0.018, +0.002, -0.072)
+GATE_BAND = 0.05              # each pose's delta within this of the
+                              # reference's (its run-to-run noise is ±0.002)
 REPS = 5                      # timed calls per kernel (median)
 FRAME = 800                   # frame height and width of the bench
 RUN_DIR = os.path.join(ROOT, "build", "chip_smoke_run")
@@ -81,6 +103,12 @@ SOURCES = {
                   "src/fashion_nerf/kernels/posenc_mlp_pallas.py:635"),
     "volrend": ("src/fashion_nerf_torch/kernels/csrc/volrend.cu",
                 "src/fashion_nerf/kernels/render_pallas.py:37"),
+    "carry_march": ("src/fashion_nerf_torch/kernels/csrc/carrymarch.cu",
+                    "src/fashion_nerf/kernels/blockmarch_pallas.py:53"),
+    "probe_p1": ("src/fashion_nerf_torch/kernels/csrc/tcprobe.cu",
+                 "scripts/mfu_probe.py:30"),
+    "probe_p2": ("src/fashion_nerf_torch/kernels/csrc/tcprobe.cu",
+                 "scripts/mfu_probe.py:131"),
 }
 
 
@@ -307,9 +335,95 @@ def phase_kernels(cfg, device):
             and bool(torch.isfinite(rgb_k).all())):
         raise AssertionError("K2 disagrees with its plain version")
     results["slim_march"] = dict(max_abs_err=e2, ms=ms, plain_ms=pms)
+    results["carry_march"] = kernel_k6(cfg, fine, dp, o, d, alive_f, bhit,
+                                       tf_pad, df_pad, (rgb_k, wf_k))
     results["field_bwd"] = kernel_k4(net, rng, device)
     results["volrend"] = kernel_k5(cfg, rng, device)
+    results.update(kernel_probe(device))
     return results, occ_ref
+
+
+def kernel_k6(cfg, fine, dp, o, d, alive_f, bhit, tf_pad, df_pad, k2_out):
+    """K6 at the fine march's main-path shape, the chunk of K2's check:
+    against its plain version (rgb, w, acc ≤ K6_ATOL, depth ≤ K6_ATOL·far,
+    identical executed (tile, block) pairs) and against K2's outputs."""
+    from fashion_nerf_torch.kernels import carrymarch, posenc_mlp
+    from fashion_nerf_torch.render.blockwise import march_liveness
+    R, S = tf_pad.shape
+    NB = bhit.shape[1]
+    net = posenc_mlp.pack_params(fine, hoist_x=False)
+    hit = alive_f.float().contiguous()
+    args = (net, dp, o, d, hit, bhit, tf_pad.contiguous(),
+            df_pad.contiguous(), math.log(cfg.kernels.early_term_eps))
+    out_k = carrymarch.carry_march(*args)
+    out_p = carrymarch.carry_march_plain(*args)
+    torch.cuda.synchronize()
+    err = {k: maxerr(a, b) for k, a, b in zip(("rgb", "depth", "acc", "w"),
+                                              out_k, out_p)}
+    live_k = march_liveness(out_k[3], hit, bhit, cfg)["tile_alive"]
+    live_p = march_liveness(out_p[3], hit, bhit, cfg)["tile_alive"]
+    same_live = bool(torch.equal(live_k, live_p))
+    e_k2 = max(maxerr(out_k[0], k2_out[0]), maxerr(out_k[3], k2_out[1]))
+    ms = cuda_ms(lambda: carrymarch.carry_march(*args))
+    pms = cuda_ms(lambda: carrymarch.carry_march_plain(*args))
+    far = cfg.render.far
+    errs = json.dumps({k: float(f"{v:.3g}") for k, v in err.items()})
+    say("kernels", f"K6 carry march, the same chunk ({R} rays × {NB}×"
+        f"{S // NB}): max abs err {errs}"
+        f" (tol {K6_ATOL}, depth {K6_ATOL * far:g}); executed (tile, block) "
+        f"{int(live_k.sum())}/{live_k.numel()}, identical to plain: "
+        f"{same_live}; against K2 rgb/w {e_k2:.3g} (tol {K6_ATOL}); kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms")
+    ok = (max(err["rgb"], err["acc"], err["w"]) <= K6_ATOL
+          and err["depth"] <= K6_ATOL * far and same_live
+          and e_k2 <= K6_ATOL and 0 < int(live_k.sum()) < live_k.numel()
+          and bool(torch.isfinite(out_k[0]).all()))
+    if not ok:
+        raise AssertionError("K6 disagrees with its plain version or K2")
+    return dict(max_abs_err=max(err.values()), ms=ms, plain_ms=pms)
+
+
+def kernel_probe(device):
+    """P1 and P2 against their plain chains at the probe's shapes (2^21
+    rows for P1, 2^20 for P2), each distinct launch once: relative RMS ≤
+    PROBE_REL_RMS, every element within PROBE_MAX_REL·max|plain|. The
+    timed rows are P1's chain+relu (the field's trunk) and P2's
+    w256 d9 dependent."""
+    from fashion_nerf_torch import probe
+    cases = [("probe_p1", name, probe.P1_ROWS, probe.P1_WIDTH,
+              probe.P1_DEPTH, mode, relu, 0.06)
+             for name, mode, relu, same in probe.P1_VARIANTS if not same]
+    cases += [("probe_p2", name, probe.P2_ROWS, w, dep, mode, False, 0.05)
+              for name, w, dep, mode, same in probe.P2_SHAPES if not same]
+    timed = {"chain+relu", "w256 d9 dependent"}
+    out = {"probe_p1": dict(max_abs_err=0.0), "probe_p2":
+           dict(max_abs_err=0.0)}
+    for key, name, n, w, dep, mode, relu, scale in cases:
+        x, ws = probe.make_inputs(n, w, dep, scale, 7, device)
+        got = probe.tc_chain(x, ws, mode, relu)
+        want = probe.tc_chain_plain(x, ws, mode, relu)
+        torch.cuda.synchronize()
+        e_abs = maxerr(got, want)
+        rel = rel_rms(got, want)
+        peak = float(want.abs().max())
+        say("kernels", f"{key} {name} ({n} rows): relative RMS {rel:.3g} "
+            f"(tol {PROBE_REL_RMS}), max abs err {e_abs:.3g} against "
+            f"max |plain| {peak:.3g} (tol {PROBE_MAX_REL}·max)")
+        if not (rel <= PROBE_REL_RMS and e_abs <= PROBE_MAX_REL * peak
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{key} {name} disagrees with its plain "
+                                 "version")
+        out[key]["max_abs_err"] = max(out[key]["max_abs_err"], e_abs)
+        del got, want
+        if name in timed:
+            ms = cuda_ms(lambda: probe.tc_chain(x, ws, mode, relu))
+            pms = cuda_ms(lambda: probe.tc_chain_plain(x, ws, mode, relu))
+            say("kernels", f"{key} {name}: kernel {ms:.3f} ms, plain "
+                f"{pms:.3f} ms")
+            out[key].update(ms=ms, plain_ms=pms)
+        del x, ws
+        torch.cuda.empty_cache()
+    return out
 
 
 def kernel_k4(net, rng, device):
@@ -446,7 +560,126 @@ def phase_frame(cfg, device, params, occ, gpu, smi):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"frame checks failed: {failed}")
-    return launches, dict(frame_s=dt, plain_frame_s=dt_plain, psnr=p)
+    return launches, rgb
+
+
+def phase_frame_generic(device, k2_rgb, gpu, smi):
+    """The bench frame with `kernels.carry_hoist=false`: setup, then the
+    frame through K1 + K6 (1 warm-up + 3 timed), then through the plain
+    versions; against the plain frame and the K2 frame of phase 5."""
+    from fashion_nerf.config import load_config
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.bench import bench_pose, setup
+    from fashion_nerf_torch.metrics import psnr
+    from fashion_nerf_torch.render.blockwise import render_image_blockwise
+    cfg = load_config("blender_lego", ["kernels.carry_hoist=false"])
+    H = W = FRAME
+    focal, c2w = bench_pose(W)
+    K.reset_launches()
+    params, occ, _ = setup(cfg, device)
+
+    def render(plain=False):
+        with torch.no_grad():
+            return render_image_blockwise(params, cfg, H, W, focal, c2w,
+                                          occ=occ, plain=plain,
+                                          device=device)["rgb"]
+
+    render()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        rgb = render()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 3
+    launches = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    ref = render(plain=True)
+    torch.cuda.synchronize()
+    dt_plain = time.perf_counter() - t0
+    p_plain = float(psnr(rgb, ref))
+    p_k2 = float(psnr(rgb, k2_rgb))
+    say("frame-generic", f"{H}x{W} with kernels.carry_hoist=false: "
+        f"{dt:.4f} s/frame through K1 + K6 ({H * W / dt:.1f} rays/s), plain "
+        f"versions {dt_plain:.4f} s; PSNR against the plain frame "
+        f"{p_plain:.2f} dB, against the K2 frame {p_k2:.2f} dB (min "
+        f"{FRAME_PSNR_MIN}); launches {launches}; {gpu} | {smi}")
+    checks = {
+        "launches": (launches["carry_march"] > 0
+                     and launches["sigma_march"] > 0
+                     and launches["slim_march"] == 0),
+        "psnr_plain": p_plain >= FRAME_PSNR_MIN,
+        "psnr_k2": p_k2 >= FRAME_PSNR_MIN,
+        "shape_finite": (tuple(rgb.shape) == (H, W, 3)
+                         and bool(torch.isfinite(rgb).all())),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"frame-generic checks failed: {failed}")
+    return launches
+
+
+def phase_gate(device, gpu, smi):
+    """`run_gate` at 800×800 over the 7 poses for the shipped preset (K1 +
+    K2) and for `kernels.carry_hoist=false` (K1 + K6), scored against the
+    same GT and dense renders: each pose's delta within GATE_BAND of the
+    reference's, and the K6 image ≥ FRAME_PSNR_MIN dB against the K2 image
+    at every pose. The −0.1 dB verdict is printed, not enforced here (the
+    gate's own entry point exits 1 on FAIL)."""
+    from fashion_nerf_torch import quality
+    from fashion_nerf_torch.metrics import psnr
+    cache, res = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for label, extra in (("K2", []), ("K6", ["kernels.carry_hoist=false"])):
+        say("gate", f"production render through K1 + {label} "
+            f"({extra or 'the shipped preset'})")
+        res[label] = quality.run_gate(
+            extra, device=device, cache=cache,
+            log=lambda m: say("gate", m.strip("\n")))
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("gate", f"{'pose':26s} {'ref delta':>9s} {'K2 delta':>9s} "
+        f"{'K6 delta':>9s} {'K6 vs K2 dB':>11s}")
+    bad = []
+    for i, (a, b) in enumerate(zip(res["K2"]["rows"], res["K6"]["rows"])):
+        p = float(psnr(b["image"], a["image"]))
+        ref = REF_GATE_DELTAS[i]
+        say("gate", f"{a['name']:26s} {ref:+9.3f} {a['delta']:+9.3f} "
+            f"{b['delta']:+9.3f} {p:11.2f}")
+        for label, r in (("K2", a), ("K6", b)):
+            if abs(r["delta"] - ref) > GATE_BAND:
+                bad.append(f"{label} {a['name']} delta {r['delta']:+.3f}")
+        if p < FRAME_PSNR_MIN:
+            bad.append(f"K6 vs K2 {a['name']} {p:.2f} dB")
+    for label in ("K2", "K6"):
+        r = res[label]
+        say("gate", f"K1 + {label}: worst-pose delta {r['worst']:+.3f} dB "
+            f"({r['worst_pose']}) — {'PASS' if r['ok'] else 'FAIL'} (gate "
+            f"{quality.GATE_DB}); worst-pose throughput "
+            f"{r['worst_mrays']:.3f} Mrays/s")
+    say("gate", f"both gates in {secs:.1f} s; peak device memory "
+        f"{peak:.2f} GiB; {gpu} | {smi}")
+    if bad:
+        raise AssertionError(f"gate checks failed: {bad}")
+    return res
+
+
+def phase_probe(device, gpu, smi):
+    """The probe's main path: P1's variants and P2's sweep, as `python -m
+    fashion_nerf_torch.probe [--shapes]` runs them."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch import probe
+    K.reset_launches()
+    rows = (probe.run_p1(device, log=lambda m: say("probe", "P1 " + m))
+            + probe.run_p2(device, log=lambda m: say("probe", "P2 " + m)))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    say("probe", f"launches {launches}; {gpu} | {smi}")
+    if not (launches["probe_p1"] > 0 and launches["probe_p2"] > 0
+            and all(math.isfinite(r["tflops"]) and r["tflops"] > 0
+                    for r in rows)):
+        raise AssertionError("probe checks failed")
+    return launches
 
 
 def committed_state(cfg, device):
@@ -650,6 +883,7 @@ def main() -> int:
     from fashion_nerf.config import load_config
     from fashion_nerf_torch import kernels as K
 
+    t_start = time.perf_counter()
     torch.set_grad_enabled(False)
     gpu, smi = phase_device()
     phase_build()
@@ -658,22 +892,33 @@ def main() -> int:
     results, occ_ref = phase_kernels(cfg, device)
     K.reset_launches()
     params, occ = phase_setup(cfg, device, occ_ref)
-    render_launches, _ = phase_frame(cfg, device, params, occ, gpu, smi)
+    render_launches, k2_rgb = phase_frame(cfg, device, params, occ, gpu, smi)
     del params, occ, occ_ref
+    generic_launches = phase_frame_generic(device, k2_rgb, gpu, smi)
+    phase_gate(device, gpu, smi)
+    torch.cuda.empty_cache()
     scene, ds = phase_scene(cfg, device)
     phase_step(device, ds, gpu, smi)
     phase_eval(device, ds)
     train_launches, _ = phase_train(scene, device, gpu, smi)
-    # K1 and K2 run on the render path, K3, K4 and K5 on the training path
+    probe_launches = phase_probe(device, gpu, smi)
+    say("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
+        f"build included; {gpu} | {smi}")
+    # K1 and K2 run on the render path, K6 on the carry_hoist=false render
+    # path, K3, K4 and K5 on the training path, P1 and P2 on the probe
     launches = {**{k: render_launches[k] for k in ("sigma_march",
                                                    "slim_march")},
+                "carry_march": generic_launches["carry_march"],
                 **{k: train_launches[k] for k in ("field", "field_bwd",
-                                                  "volrend")}}
+                                                  "volrend")},
+                **{k: probe_launches[k] for k in ("probe_p1", "probe_p2")}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
          **results[name]} for name in ("sigma_march", "slim_march",
-                                       "field", "field_bwd", "volrend")]}))
+                                       "field", "field_bwd", "volrend",
+                                       "carry_march", "probe_p1",
+                                       "probe_p2")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))

@@ -26,6 +26,18 @@ from fashion_nerf_torch.models.proposal import attach_proposal
 from fashion_nerf_torch.render.blockwise import render_image_blockwise
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a measuring entry point runs on: CUDA unless the CPU is
+    asked for by name; raises when CUDA is wanted and there is none, so no
+    measurement falls back to the CPU."""
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this measures the card (pass "
+                           "device cpu to run the plain versions)")
+    return torch.device(device or "cuda")
+
+
 def bench_pose(W: int):
     """Focal and camera-to-world of the reference bench: blender-standard
     fov, camera at z = 4 looking down −z."""
@@ -36,8 +48,9 @@ def bench_pose(W: int):
 
 
 def setup(cfg: Config, device):
-    """→ (params {"fine", "proposal"}, occ, setup seconds). Raises unless
-    the committed flagship weights were trained for cfg."""
+    """→ (params {"fine", "coarse"} and, when the config takes one,
+    "proposal", occ, setup seconds). Raises unless the committed flagship
+    weights were trained for cfg."""
     loaded = load_flagship()
     if loaded is None:
         raise FileNotFoundError("assets/flagship_synthetic.npz is missing")
@@ -46,15 +59,17 @@ def setup(cfg: Config, device):
         raise ValueError(f"flagship asset is for {meta.get('config')!r}, "
                          f"not {cfg.name!r}")
     t0 = time.perf_counter()
-    fine = load_flax_params(trained["fine"],
-                            compute_dtype=cfg.model.compute_dtype,
-                            device=device)
+    nets = {k: load_flax_params(trained[k],
+                                compute_dtype=cfg.model.compute_dtype,
+                                device=device)
+            for k in ("fine", "coarse")}
     field = make_fused_field(cfg)
     with torch.no_grad():
-        occ = build_from_config(cfg, lambda p, v: field(fine, p, v),
+        occ = build_from_config(cfg, lambda p, v: field(nets["fine"], p, v),
                                 device=device)
-    params = attach_proposal(cfg, {"fine": fine}, device=device)
-    torch.cuda.synchronize(device)
+    params = attach_proposal(cfg, nets, device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
     return params, occ, time.perf_counter() - t0
 
 
@@ -100,7 +115,7 @@ def run_bench(cfg: Config, device="cuda", H: int = 800, W: int = 800,
         "kernels": "cuda-sm90a",
         "blockwise": True,
         "trained_ckpt": True,
-        "proposal": True,
+        "proposal": "proposal" in params,
         "occupancy_cull": True,
         "setup_seconds": round(setup_s, 3),
         "launches_per_frame": {k: v / iters for k, v in K.LAUNCHES.items()},

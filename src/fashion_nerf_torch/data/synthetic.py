@@ -1,9 +1,11 @@
 """Procedural multi-view scene generator — hermetic ground truth.
 
-A copy of `fashion_nerf.data.synthetic` without its jax.numpy mirror
-(`field_jnp`): importing the reference module imports its package's
-`data/__init__.py`, which imports JAX. Pure NumPy, so the arrays are
-bitwise the reference's (tests/test_torch_train_data.py holds them so).
+A copy of `fashion_nerf.data.synthetic` (importing the reference module
+imports its package's `data/__init__.py`, which imports JAX). The NumPy
+code is the reference's, so the arrays are bitwise the reference's
+(tests/test_torch_train_data.py holds them so); `field_torch` is the
+torch counterpart of its jax.numpy mirror `field_jnp`, for the analytic
+ground truth on the device (fashion_nerf_torch/quality.py).
 The scene is a cluster of colored soft spheres rendered with dense
 quadrature, so training runs with zero downloads.
 """
@@ -104,6 +106,47 @@ def field_np(pts, scale: float = 1.0, sharp: float = 25.0,
     rgb = np.where(wsum[..., None] > 1e-8, rgb, 1.0)
     return (rgb.reshape(shp + (3,)).astype(np.float32),
             sigma.reshape(shp).astype(np.float32))
+
+
+def field_torch(pts, scale: float = 1.0, sharp: float = 25.0,
+                texture: float = 0.0):
+    """torch mirror of field_np (the same analytic field, f32), on the
+    device of `pts`: pts (..., 3) → rgb (..., 3), sigma (...)."""
+    import torch
+    pts = pts.float()
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    inv_s = np.float32(1.0 / max(scale, 1e-6))
+    sigma = torch.zeros_like(x)
+    chans = [torch.zeros_like(x) for _ in range(3)]
+    wsum = torch.zeros_like(x)
+    for (c, r, col, dens), (freq, phase) in zip(_SPHERES, _TEXTURES):
+        cx, cy, cz = (float(v) for v in
+                      np.float32(scale) * c.astype(np.float32))
+        dx, dy, dz = x - cx, y - cy, z - cz
+        d = torch.sqrt(dx * dx + dy * dy + dz * dz)
+        occ = float(np.float32(dens)) / (1.0 + torch.exp(torch.clamp(
+            float(np.float32(sharp)) * (d - float(np.float32(r * scale))),
+            -30, 30)))
+        mod = None
+        if texture > 0.0:
+            f = freq.astype(np.float32)
+            p = phase.astype(np.float32)
+            pat = (torch.sin(float(f[0] * inv_s) * x + float(p[0]))
+                   * torch.sin(float(f[1] * inv_s) * y + float(p[1]))
+                   * torch.sin(float(f[2] * inv_s) * z + float(p[2])))
+            mod = 1.0 + float(np.float32(texture)) * pat
+        for ch in range(3):
+            colv = float(np.float32(col[ch]))
+            if mod is None:
+                chans[ch] = chans[ch] + occ * colv
+            else:
+                chans[ch] = chans[ch] + occ * torch.clamp(colv * mod, 0.0,
+                                                          1.0)
+        sigma = sigma + occ
+        wsum = wsum + occ
+    rgb = torch.stack(chans, -1) / torch.clamp(wsum[..., None], min=1e-8)
+    rgb = torch.where(wsum[..., None] > 1e-8, rgb, 1.0)
+    return rgb, sigma
 
 
 def _render_view(H, W, focal, c2w, n_samples=128, near=2.0, far=6.0,

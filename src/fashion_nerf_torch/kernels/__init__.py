@@ -1,20 +1,23 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
-Five kernels, CUDA C++ for sm_90a under `csrc/`:
+Seven kernels, CUDA C++ for sm_90a under `csrc/`:
 
 - K1 `sigmamarch.cu`: the σ-only proposal march (kernels/sigmamarch.py);
 - K2 `slimmarch.cu`: the fine march of the 8×256 field (kernels/slimmarch.py);
 - K3 `field.cu`: the fused posenc + MLP field (kernels/posenc_mlp.py);
 - K4 `field_bwd.cu`: the field's backward (kernels/posenc_mlp.py);
-- K5 `volrend.cu`: the fused volume render (kernels/render.py).
+- K5 `volrend.cu`: the fused volume render (kernels/render.py);
+- K6 `carrymarch.cu`: the generic carry march (kernels/carrymarch.py);
+- P1/P2 `tcprobe.cu`: the tensor-core probe's bf16 chains (probe.py),
+  counted as `probe_p1` (the field's chain) and `probe_p2` (the sweep).
 
 Path rule, the same in every wrapper: tensors on the CPU take the plain
 PyTorch version; tensors on a CUDA device take the kernel, or the call
 raises. Nothing falls back from one to the other. The sources are built on
-first use with nvcc into one shared library under
-`build/fashion_nerf_torch/` at the repo root, named by a hash of the
-sources and flags, and loaded with ctypes. Each wrapper adds one to its
-entry of `LAUNCHES` at every kernel launch.
+first use into one shared library under `build/fashion_nerf_torch/` at
+the repo root, named by a hash of the sources and flags, and loaded with
+ctypes: one nvcc per source, all started together, then one link. Each
+wrapper adds one to its entry of `LAUNCHES` at every kernel launch.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "fashion_nerf_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # MLP rows per predication tile: a march tile is TILE_ROWS // SB rays (the
 # reference's _TILE). Part of the result: every ray of a live tile is marched.
@@ -46,7 +49,7 @@ SLAB_ROWS = 64
 BWD_CHUNK_ROWS = 131072
 
 LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
-            "volrend": 0}
+            "volrend": 0, "carry_march": 0, "probe_p1": 0, "probe_p2": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +59,8 @@ _SIGNATURES = {
     "fnt_slim_march": [_P] * 15 + [_I] * 10 + [ctypes.c_float, _P],
     "fnt_field_backward": [_P] * 14 + [ctypes.c_long] + [_I] * 11 + [_P],
     "fnt_volrend": [_P] * 8 + [_I] * 4 + [_P],
+    "fnt_carry_march": [_P] * 15 + [_I] * 11 + [ctypes.c_float, _P],
+    "fnt_tc_probe": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lib = None
@@ -88,26 +93,46 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it exists.
-    Raises with nvcc's output when the build fails."""
+    """Compile csrc/*.cu into the hashed library unless it exists: one
+    nvcc per source in parallel, then one link. Raises with nvcc's output
+    when a step fails."""
     out = _library_path()
     if out.exists():
         if build_info.get("path") != str(out):
             build_info.update(path=str(out), seconds=0.0, log="(cached)")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        log = proc.communicate()[0]
+        logs.append(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=secs, log=log)
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                      log="".join(logs))
     return out
 
 

@@ -1,0 +1,110 @@
+"""Generic carry march of a full field (kernel K6, csrc/carrymarch.cu).
+
+Counterpart of `fashion_nerf.kernels.blockmarch_pallas` (`_carry_kernel`,
+`_carry_eval`), the march the reference runs under
+`kernels.carry_hoist=false`. A field packed as the fused field packs it
+(`pack_params(model, hoist_x=False)`: the x rows stay in the posenc
+operand) marches NB blocks of SB samples per ray with a log-transmittance
+carry and rgb, depth and acc accumulators. Unlike K2 nothing is hoisted
+but the per-ray view term: each sample's position o + d·t (f32, no fused
+multiply-add) is built where the field is evaluated, and the operand is
+[bf16(x) | bf16(sin P)].
+
+Predication is per (tile, block), tile = TILE_ROWS // SB rays: the pair
+runs iff some ray of the tile has hit ∧ block_hit[b] ∧ logT > log ε, and
+then every ray of the tile is marched. A dead pair writes w = 0 and leaves
+rgb, depth, acc and logT as they are. White background is added by the
+caller. The reference's conditioned window (`has_cond`) is not ported:
+the port has no conditioned field yet (ROADMAP Queue 1 #11).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fashion_nerf_torch import kernels as K
+from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, field_operand,
+                                                   mlp_rows)
+from fashion_nerf_torch.kernels.slimmarch import block_weights, live_rows
+
+_BF = torch.bfloat16
+
+
+def carry_march_plain(net: PackedNet, dirpart, rays_o, rays_d, hit,
+                      block_hit, t, d, log_eps: float,
+                      softplus: bool = False):
+    """Plain version of K6. hit (R,), block_hit (R, NB), rays_o and rays_d
+    (R, 3), t and d (R, NB·SB) f32, dirpart (R, W/2) bf16. → rgb (R, 3),
+    depth (R,), acc (R,), w (R, NB·SB), logT (R,)."""
+    R, S = t.shape
+    NB = block_hit.shape[1]
+    SB = S // NB
+    rpt = K.TILE_ROWS // SB
+    dev = t.device
+    rgb = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    depth = torch.zeros((R,), dtype=torch.float32, device=dev)
+    acc = torch.zeros_like(depth)
+    w = torch.zeros_like(t)
+    logT = torch.zeros_like(depth)
+    for b in range(NB):
+        cols = slice(b * SB, (b + 1) * SB)
+        idx = live_rows(hit, block_hit[:, b], logT, rpt, log_eps)
+        if idx.numel() == 0:
+            continue
+        tt = t[idx, cols]
+        # o + d·t as two roundings, as the kernel builds it
+        pts = (rays_o[idx][:, None, :]
+               + rays_d[idx][:, None, :] * tt[..., None])
+        a0 = field_operand(pts.reshape(-1, 3), net.L, net.k0)
+        dir_rows = (dirpart[idx].float().repeat_interleave(SB, dim=0)
+                    if net.has_vd else None)
+        rgb_s, sigma = mlp_rows(net, a0, dir_rows=dir_rows)
+        wb, logT[idx] = block_weights(sigma.view(-1, SB), d[idx, cols],
+                                      logT[idx], softplus)
+        w[idx, cols] = wb
+        rgb[idx] += (wb[..., None] * rgb_s.view(-1, SB, 3)).sum(dim=1)
+        depth[idx] += (wb * tt).sum(dim=1)
+        acc[idx] += wb.sum(dim=1)
+    return rgb, depth, acc, w, logT
+
+
+def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
+                d, log_eps: float, softplus: bool = False):
+    """Generic carry march: CPU tensors take the plain version, CUDA
+    tensors K6 (one launch per sample block)."""
+    if not K.on_cuda(dirpart, rays_o, rays_d, hit, block_hit, t, d, net.w):
+        return carry_march_plain(net, dirpart, rays_o, rays_d, hit,
+                                 block_hit, t, d, log_eps, softplus)
+    if not net.x_rows:
+        raise ValueError("carry_march needs a net packed with hoist_x=False")
+    R, S = t.shape
+    NB = block_hit.shape[1]
+    SB = S // NB
+    if S != NB * SB or K.SLAB_ROWS % SB or R % (K.TILE_ROWS // SB):
+        raise ValueError(f"S={S}, NB={NB}: SB must divide {K.SLAB_ROWS} and "
+                         f"R={R} be a multiple of {K.TILE_ROWS // max(SB, 1)}")
+    for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
+                                                (R, NB)),
+                           ("rays_o", rays_o, (R, 3)),
+                           ("rays_d", rays_d, (R, 3)),
+                           ("t", t, (R, S)), ("d", d, (R, S))):
+        K.check(x, name, torch.float32, shape)
+    K.check(dirpart, "dirpart", _BF, (R, net.width // 2))
+    dev = t.device
+    rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
+    depth = torch.empty((R,), dtype=torch.float32, device=dev)
+    acc = torch.empty_like(depth)
+    w = torch.empty_like(t)
+    carry = [torch.empty_like(depth) for _ in range(2)]
+    lib = K.library()
+    for b in range(NB):
+        ptrs = [x.data_ptr() for x in (
+            hit, block_hit, rays_o, rays_d, dirpart, t, d, net.w, net.b, rgb,
+            depth, acc, w, carry[b % 2], carry[(b + 1) % 2])]
+        code = lib.fnt_carry_march(
+            *ptrs, R, NB, SB, b, net.L, net.depth, net.width, net.k0,
+            net.skip, int(net.has_vd), int(softplus), float(log_eps),
+            K.stream())
+        K.raise_on_error(code, "fnt_carry_march")
+        K.LAUNCHES["carry_march"] += 1
+    return rgb, depth, acc, w, carry[NB % 2]

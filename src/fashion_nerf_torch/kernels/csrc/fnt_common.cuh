@@ -1,6 +1,7 @@
-// Shared device code of the three field kernels (field.cu, sigmamarch.cu,
-// slimmarch.cu): the packed-weight layout, the shared-memory slab and the
-// bf16 tensor-core layer loop.
+// Shared device code of the field kernels (field.cu, sigmamarch.cu,
+// slimmarch.cu, carrymarch.cu, field_bwd.cu): the packed-weight layout, the
+// shared-memory slab, the bf16 tensor-core layer loop and the marches'
+// per-tile predication.
 //
 // A CUDA block evaluates one slab of kRows MLP rows. The slab's activations
 // stay in shared memory across every layer (two bf16 ping-pong buffers plus
@@ -123,6 +124,25 @@ __device__ __forceinline__ float sigmoidf(float v) {
 __device__ __forceinline__ float density(float sigma, int softplus) {
   if (softplus) return sigma > 20.0f ? sigma : log1pf(expf(sigma));
   return fmaxf(sigma, 0.0f);
+}
+
+// Predication of the multi-block marches: nonzero in every thread iff some
+// ray of the tile that starts at ray tile0 (rpt rays) is alive at sample
+// block blk, i.e. hit ∧ block_hit[blk] ∧ logT > log ε (logT = 0 before the
+// first block). Every thread of the block must call it.
+__device__ __forceinline__ int tile_alive(const float* hit,
+                                          const float* block_hit,
+                                          const float* logT_in, long tile0,
+                                          int rpt, int NB, int blk,
+                                          float log_eps) {
+  int live = 0;
+  for (int i = threadIdx.x; i < rpt; i += kThreads) {
+    const long ray = tile0 + i;
+    const float lt = blk == 0 ? 0.0f : logT_in[ray];
+    live |= hit[ray] > 0.0f && block_hit[ray * NB + blk] > 0.0f &&
+            lt > log_eps;
+  }
+  return __syncthreads_or(live);
 }
 
 // C = A1·B1 (+ A2·B2) over the slab's kRows rows, N output columns, then

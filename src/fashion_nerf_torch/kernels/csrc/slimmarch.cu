@@ -59,15 +59,8 @@ __global__ void __launch_bounds__(kThreads) slim_march_kernel(SlimArgs a) {
   const bool first = a.blk == 0;
   const long col0 = (long)a.blk * SB;     // first sample column of block b
 
-  int live = 0;
-  for (int i = threadIdx.x; i < rpt; i += kThreads) {
-    const long ray = tile0 + i;
-    const float lt = first ? 0.0f : a.logT_in[ray];
-    live |= a.hit[ray] > 0.0f && a.block_hit[ray * a.NB + a.blk] > 0.0f &&
-            lt > a.log_eps;
-  }
-  live = __syncthreads_or(live);
-  if (!live) {
+  if (!tile_alive(a.hit, a.block_hit, a.logT_in, tile0, rpt, a.NB, a.blk,
+                  a.log_eps)) {
     for (int i = threadIdx.x; i < nr * SB; i += kThreads)
       a.w_out[(r0 + i / SB) * S + col0 + i % SB] = 0.0f;
     if (threadIdx.x < nr) {

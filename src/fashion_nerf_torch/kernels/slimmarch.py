@@ -46,6 +46,26 @@ def hoist_rays(net: PackedNet, rays_o, rays_d):
     return oF, dF, oX, dX
 
 
+def live_rows(hit, block_hit_b, logT, rpt: int, log_eps: float):
+    """Rays marched at one sample block: every ray of each tile of rpt rays
+    in which some ray has hit ∧ block_hit ∧ logT > log ε (index tensor)."""
+    ray_alive = (hit > 0) & (block_hit_b > 0) & (logT > log_eps)
+    live = ray_alive.view(-1, rpt).any(dim=1)
+    return live.repeat_interleave(rpt).nonzero().squeeze(1)
+
+
+def block_weights(sigma, d, lt, softplus: bool):
+    """One block's weights and carry: σ and d (m, SB), the carry lt (m,)
+    before the block → (w (m, SB), carry after the block (m,)); the
+    exclusive log-T prefix is an f32 sum of log(1 − α) clamped at
+    log(1e-10) per sample."""
+    x = _density(sigma, softplus) * d
+    csum = torch.cumsum(torch.clamp(-x, min=_LOG_FLOOR), dim=1)
+    excl = torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], 1)
+    return (1.0 - torch.exp(-x)) * torch.exp(lt[:, None] + excl), \
+        lt + csum[:, -1]
+
+
 def slim_march_plain(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
                      log_eps: float, softplus: bool = False):
     """Plain version of K2. hit (R,), block_hit (R, NB), t and d (R, NB·SB)
@@ -61,9 +81,7 @@ def slim_march_plain(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     logT = torch.zeros((R,), dtype=torch.float32, device=t.device)
     for b in range(NB):
         cols = slice(b * SB, (b + 1) * SB)
-        ray_alive = (hit > 0) & (block_hit[:, b] > 0) & (logT > log_eps)
-        live = ray_alive.view(R // rpt, rpt).any(dim=1)
-        idx = live.repeat_interleave(rpt).nonzero().squeeze(1)
+        idx = live_rows(hit, block_hit[:, b], logT, rpt, log_eps)
         if idx.numel() == 0:
             continue
         tt = t[idx, cols]
@@ -76,14 +94,10 @@ def slim_march_plain(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
 
         dir_rows = dirpart[idx].float().repeat_interleave(SB, dim=0)
         rgb_s, sigma = mlp_rows(net, a0, xterm=xterm, dir_rows=dir_rows)
-        x = _density(sigma.view(-1, SB), softplus) * d[idx, cols]
-        csum = torch.cumsum(torch.clamp(-x, min=_LOG_FLOOR), dim=1)
-        excl = torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], 1)
-        lt = logT[idx]
-        wb = (1.0 - torch.exp(-x)) * torch.exp(lt[:, None] + excl)
+        wb, logT[idx] = block_weights(sigma.view(-1, SB), d[idx, cols],
+                                      logT[idx], softplus)
         w[idx, cols] = wb
         rgb[idx] += (wb[..., None] * rgb_s.view(-1, SB, 3)).sum(dim=1)
-        logT[idx] = lt + csum[:, -1]
     return rgb, w, logT
 
 

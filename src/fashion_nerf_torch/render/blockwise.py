@@ -1,19 +1,23 @@
 """Blockwise early-terminated rendering; counterpart of
-`fashion_nerf.render.blockwise` for the flagship configuration.
+`fashion_nerf.render.blockwise`.
 
 Per chunk of rays: macro-box culling ranges (`ray_multi_aabb`), a σ-only
 proposal march over one block of stratified samples (kernel K1), an
 edge-bin PDF dilated and mixed with a uniform floor, deterministic fine
 samples (`sample_pdf`), proposal-acc ray culling, and the fine march over
 NB blocks with early termination and per-block macro-box culling (kernel
-K2). Predication is per tile of TILE_ROWS // SB rays, as in the reference;
-`render_image_blockwise` orders rays in 8×8 pixel blocks so a tile is a
-pixel block, and skips chunks whose rays all miss the occupancy box.
+K2, or the generic carry march K6 under `kernels.carry_hoist=false`).
+Without a proposal net the coarse pass is the full coarse march of the
+coarse net through the same fine-march kernel, and the fine samples come
+from its mid-bin PDF joined with the coarse samples. Predication is per
+tile of TILE_ROWS // SB rays, as in the reference; `render_image_blockwise`
+orders rays in 8×8 pixel blocks so a tile is a pixel block, and skips
+chunks whose rays all miss the occupancy box.
 
 `plain=True` routes every march through its plain PyTorch version on any
 device: the reference frame that chip_smoke.py holds the kernels against.
-Config branches off the flagship path raise NotImplementedError naming the
-ROADMAP item that ports them.
+Config branches not ported raise NotImplementedError naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ from fashion_nerf_torch.core.occupancy import (OccupancyState,
                                                ray_aabb_intersect,
                                                ray_multi_aabb)
 from fashion_nerf_torch.core.sampling import sample_pdf, stratified_sample
-from fashion_nerf_torch.kernels import sigmamarch, slimmarch
-from fashion_nerf_torch.kernels.posenc_mlp import hoist_dirs
+from fashion_nerf_torch.kernels import carrymarch, sigmamarch, slimmarch
+from fashion_nerf_torch.kernels.posenc_mlp import hoist_dirs, pack_params
 
 _INF_DIST = 1e10
 _BRANCHES = "ROADMAP Queue 1 #15"
@@ -102,62 +106,134 @@ def sigma_march_pass(net, hoists, t_vals, dnorm, alive0, cfg: Config, t_end,
             "disp": _disp(depth, acc)}
 
 
-def marched_pass_slim(net, dirpart, hoists, t_vals, dnorm, alive0,
-                      cfg: Config, t_end, seg=None, plain: bool = False):
-    """Fine march over NB blocks of SB samples → dict rgb, depth, acc,
-    weights (R, S), disp."""
-    R, S = t_vals.shape
+def _march_inputs(cfg: Config, t_vals, dnorm, t_end, seg):
+    """→ (t_pad, d_pad, block_hit, log ε) of a multi-block march."""
+    R = t_vals.shape[0]
     SB = cfg.kernels.block_samples
     eps = cfg.kernels.early_term_eps
     t_pad, d_pad = _pass_dists(t_vals, dnorm, t_end, SB)
     NB = t_pad.shape[1] // SB
-    log_eps = math.log(eps) if eps > 0 else -1e30
     block_hit = _block_hit_flags(t_pad, SB, seg, R, NB)
-    fn = slimmarch.slim_march_plain if plain else slimmarch.slim_march
-    rgb, w, _ = fn(net, hoists, dirpart, alive0.float().contiguous(),
-                   block_hit.contiguous(), t_pad.contiguous(),
-                   d_pad.contiguous(), log_eps,
-                   cfg.model.sigma_activation == "softplus")
-    acc = w.sum(dim=1)
-    depth = (w * t_pad).sum(dim=1)
+    log_eps = math.log(eps) if eps > 0 else -1e30
+    return (t_pad.contiguous(), d_pad.contiguous(), block_hit.contiguous(),
+            log_eps)
+
+
+def march_liveness(w, hit, block_hit, cfg: Config) -> dict:
+    """The executed-(tile, block) diagnostic, reconstructed from the
+    weights as the reference reconstructs it: T at a block's start is
+    1 − Σ earlier weights, and the pair ran iff some ray of the tile had
+    hit ∧ block_hit ∧ T > ε. → tile_alive (n_tiles, NB) bool, alive_frac
+    (its mean), ideal_frac (the per-ray mean)."""
+    R, S_pad = w.shape
+    NB = block_hit.shape[1]
+    SB = S_pad // NB
+    eps = cfg.kernels.early_term_eps
+    cum_w = torch.cumsum(w, dim=1)
+    t_start = 1.0 - torch.cat([torch.zeros_like(cum_w[:, :1]),
+                               cum_w[:, :-1]], dim=1)
+    ray_alive = ((hit > 0)[:, None] & (block_hit > 0)
+                 & (t_start[:, ::SB] > (eps if eps > 0 else 0.0)))
+    tile_alive = ray_alive.view(R // (K.TILE_ROWS // SB), -1, NB).any(dim=1)
+    return {"tile_alive": tile_alive,
+            "alive_frac": tile_alive.float().mean(),
+            "ideal_frac": ray_alive.float().mean()}
+
+
+def _march_out(cfg: Config, rgb, depth, acc, w, S):
     if cfg.render.white_bkgd:
         rgb = rgb + (1.0 - acc[:, None])
     return {"rgb": rgb, "depth": depth, "acc": acc, "weights": w[:, :S],
             "disp": _disp(depth, acc)}
 
 
+def marched_pass_slim(net, dirpart, hoists, t_vals, dnorm, alive0,
+                      cfg: Config, t_end, seg=None, plain: bool = False):
+    """Fine march over NB blocks of SB samples through K2 → dict rgb,
+    depth, acc, weights (R, S), disp."""
+    t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
+                                                     t_end, seg)
+    hit = alive0.float().contiguous()
+    fn = slimmarch.slim_march_plain if plain else slimmarch.slim_march
+    rgb, w, _ = fn(net, hoists, dirpart, hit, block_hit, t_pad, d_pad,
+                   log_eps, cfg.model.sigma_activation == "softplus")
+    return _march_out(cfg, rgb, (w * t_pad).sum(dim=1), w.sum(dim=1), w,
+                      t_vals.shape[1])
+
+
+def marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm, alive0,
+                       cfg: Config, t_end, seg=None, plain: bool = False):
+    """The same march through the generic carry kernel K6 (the reference's
+    `_marched_pass_carry`, `kernels.carry_hoist=false`): positions built
+    per sample, depth and acc composited per block → the same dict."""
+    t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
+                                                     t_end, seg)
+    hit = alive0.float().contiguous()
+    fn = carrymarch.carry_march_plain if plain else carrymarch.carry_march
+    rgb, depth, acc, w, _ = fn(net, dirpart, rays_o.contiguous(),
+                               rays_d.contiguous(), hit, block_hit, t_pad,
+                               d_pad, log_eps,
+                               cfg.model.sigma_activation == "softplus")
+    return _march_out(cfg, rgb, depth, acc, w, t_vals.shape[1])
+
+
+def _march(cfg: Config, net, rays_o, rays_d, viewdirs, t_vals, dnorm,
+           alive0, t_end, seg, plain: bool):
+    """A full-field march through K2 or K6, as `kernels.carry_hoist`
+    picks."""
+    dirpart = hoist_dirs(net, viewdirs)
+    if cfg.kernels.carry_hoist:
+        return marched_pass_slim(net, dirpart,
+                                 slimmarch.hoist_rays(net, rays_o, rays_d),
+                                 t_vals, dnorm, alive0, cfg, t_end, seg=seg,
+                                 plain=plain)
+    return marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm,
+                              alive0, cfg, t_end, seg=seg, plain=plain)
+
+
+def use_proposal(cfg: Config, params: dict) -> bool:
+    """The σ-only proposal replaces the full coarse march when the config
+    enables it, there is a fine pass, and the params carry one."""
+    return (cfg.proposal.enabled and cfg.sampling.n_fine > 0
+            and "proposal" in params)
+
+
 def _check_supported(cfg: Config, params: dict):
-    """Raise NotImplementedError on config branches off the flagship path."""
+    """Raise NotImplementedError on config branches not ported."""
     p, k = cfg.proposal, cfg.kernels
+    prop = use_proposal(cfg, params)
     off = []
-    if not (p.enabled and cfg.sampling.n_fine > 0 and "proposal" in params):
-        off.append("no proposal net (full coarse march)")
-    if not p.sigma_march:
+    if prop and not p.sigma_march:
         off.append("proposal.sigma_march=false")
-    if not k.fused_carry or not k.carry_hoist:
-        off.append("kernels.fused_carry/carry_hoist=false")
+    if not k.fused_carry:
+        off.append("kernels.fused_carry=false")
     if cfg.occupancy.sample_warp:
         off.append("occupancy.sample_warp")
     if cfg.model.conditioned or cfg.model.n_latents > 0:
         off.append("conditioned field")
     if cfg.render.ndc:
         off.append("render.ndc")
-    if p.union or p.cov_n > 0:
+    if prop and (p.union or p.cov_n > 0):
         off.append("proposal.union / cov_n")
     if off:
         raise NotImplementedError(
             f"blockwise branches not ported: {', '.join(off)} ({_BRANCHES})")
 
 
-def _budgets(cfg: Config, occ):
-    """→ (n_prop, proposal SB, n_fine). The render-time eval budget applies
-    only under occupancy culling, as in the reference."""
+def _budgets(cfg: Config, occ, prop: bool = True):
+    """→ (n_c, sb_c, n_fine): samples and block size of the coarse pass
+    (the proposal march, or the full coarse march without one) and the
+    fine samples. The render-time eval budget applies only under
+    occupancy culling, as in the reference."""
     scfg, rcfg = cfg.sampling, cfg.render
-    n_fine = scfg.n_fine
+    n_coarse, n_fine = scfg.n_coarse, scfg.n_fine
     if occ is not None and (rcfg.eval_n_coarse > 0 or rcfg.eval_n_fine > 0):
-        n_fine = rcfg.eval_n_fine or n_fine
+        n_coarse = rcfg.eval_n_coarse or n_coarse
+        n_fine = (rcfg.eval_n_fine or n_fine) if n_fine > 0 else 0
+    if not prop:
+        return n_coarse, cfg.kernels.block_samples, n_fine
     p_sb = cfg.proposal.block_samples or cfg.kernels.block_samples
-    n_prop = cfg.proposal.eval_n or scfg.n_coarse
+    n_prop = cfg.proposal.eval_n or n_coarse
     if n_prop > p_sb:
         raise NotImplementedError(
             f"proposal eval_n {n_prop} > its block {p_sb}: the multi-block "
@@ -172,10 +248,24 @@ def rays_per_chunk_unit(cfg: Config) -> int:
                K.TILE_ROWS // p_sb)
 
 
-def pack_render_params(params: dict) -> dict:
-    """Pack the fine and proposal nets once per image."""
-    return {"fine": slimmarch.split_hoist(params["fine"]),
-            "proposal": sigmamarch.pack_sigma(params["proposal"])}
+def _pack_march(model, cfg: Config):
+    """A full field packed for K2 (x-layers hoisted) or for K6."""
+    if cfg.kernels.carry_hoist:
+        return slimmarch.split_hoist(model)
+    return pack_params(model, hoist_x=False)
+
+
+def pack_render_params(params: dict, cfg: Config) -> dict:
+    """Pack the nets the render marches, once per image: the fine net, and
+    the proposal net or, without one, the coarse net."""
+    packed = {}
+    if cfg.sampling.n_fine > 0:
+        packed["fine"] = _pack_march(params["fine"], cfg)
+    if use_proposal(cfg, params):
+        packed["proposal"] = sigmamarch.pack_sigma(params["proposal"])
+    else:
+        packed["coarse"] = _pack_march(params["coarse"], cfg)
+    return packed
 
 
 def culling(cfg: Config, rays_o, rays_d, occ: OccupancyState = None):
@@ -196,10 +286,17 @@ def culling(cfg: Config, rays_o, rays_d, occ: OccupancyState = None):
     return near, far, hit, None, rcfg.far
 
 
-def fine_samples(cfg: Config, t_c, weights, n_fine: int):
-    """Fine sample positions (sorted) from the proposal weights: edge-bin
-    PDF, ±dilate max-pool, uniform floor, deterministic inverse CDF."""
-    pdf_bins, w_mid = _pdf_bins(t_c, weights, cfg.proposal.edge_bins)
+def fine_samples(cfg: Config, t_c, weights, n_fine: int,
+                 proposal: bool = True):
+    """Fine sample positions (sorted). From the proposal weights: edge-bin
+    PDF, ±dilate max-pool, uniform floor, deterministic inverse CDF. From
+    the full coarse march (proposal=False): mid-bin PDF, and the coarse
+    samples join the fine ones."""
+    pdf_bins, w_mid = _pdf_bins(t_c, weights,
+                                proposal and cfg.proposal.edge_bins)
+    if not proposal:
+        t_f = sample_pdf(pdf_bins, w_mid, n_fine)
+        return torch.sort(torch.cat([t_c, t_f], dim=-1), dim=-1).values
     k = cfg.proposal.dilate
     if k > 0:
         w_pad = torch.cat([w_mid[:, :1].expand(-1, k), w_mid,
@@ -214,37 +311,44 @@ def fine_samples(cfg: Config, t_c, weights, n_fine: int):
 def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
                           viewdirs, occ: OccupancyState = None,
                           packed: dict = None, plain: bool = False):
-    """Proposal + fine render of (R,) rays, eval mode → {"coarse": dict,
-    "fine": dict}. R must be a multiple of `rays_per_chunk_unit(cfg)`.
-    params: {"fine": NeRFMLP, "proposal": NeRFMLP}; packed: its
-    `pack_render_params` (packed here when None)."""
+    """Coarse + fine render of (R,) rays, eval mode → {"coarse": dict,
+    "fine": dict or None}. R must be a multiple of
+    `rays_per_chunk_unit(cfg)`. params: {"fine", "proposal"} or, without
+    a proposal, {"fine", "coarse"} NeRFMLPs; packed: its
+    `pack_render_params` (packed here when None). The coarse pass is the
+    σ-only proposal march (K1) or the full coarse march; the fine march
+    and the full coarse march run through K2 or, under
+    `kernels.carry_hoist=false`, K6."""
     _check_supported(cfg, params)
-    n_prop, p_sb, n_fine = _budgets(cfg, occ)
+    prop = use_proposal(cfg, params)
+    n_c, sb_c, n_fine = _budgets(cfg, occ, prop)
     R = rays_o.shape[0]
     unit = rays_per_chunk_unit(cfg)
     if R % unit:
         raise ValueError(f"R={R} is not a multiple of {unit}")
-    packed = packed or pack_render_params(params)
+    packed = packed or pack_render_params(params, cfg)
     near, far, alive0, seg, t_end = culling(cfg, rays_o, rays_d, occ)
     dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-
-    prop = packed["proposal"]
-    t_c = stratified_sample(near, far, R, n_prop, cfg.sampling.lindisp,
+    t_c = stratified_sample(near, far, R, n_c, cfg.sampling.lindisp,
                             device=rays_o.device)
-    out_c = sigma_march_pass(prop, sigmamarch.hoist_rays(prop, rays_o,
-                                                         rays_d),
-                             t_c, dnorm, alive0, cfg, t_end, seg=seg,
-                             sb=p_sb, plain=plain)
-    t_all = fine_samples(cfg, t_c, out_c["weights"], n_fine)
 
-    fine = packed["fine"]
     alive_f = alive0
-    if cfg.proposal.cull_acc > 0.0:
-        alive_f = alive_f & (out_c["acc"] > cfg.proposal.cull_acc)
-    out_f = marched_pass_slim(fine, hoist_dirs(fine, viewdirs),
-                              slimmarch.hoist_rays(fine, rays_o, rays_d),
-                              t_all, dnorm, alive_f, cfg, t_end, seg=seg,
-                              plain=plain)
+    if prop:
+        pnet = packed["proposal"]
+        out_c = sigma_march_pass(pnet, sigmamarch.hoist_rays(pnet, rays_o,
+                                                             rays_d),
+                                 t_c, dnorm, alive0, cfg, t_end, seg=seg,
+                                 sb=sb_c, plain=plain)
+        if cfg.proposal.cull_acc > 0.0:
+            alive_f = alive0 & (out_c["acc"] > cfg.proposal.cull_acc)
+    else:
+        out_c = _march(cfg, packed["coarse"], rays_o, rays_d, viewdirs, t_c,
+                       dnorm, alive0, t_end, seg, plain)
+        if n_fine <= 0:
+            return {"coarse": out_c, "fine": None}
+    t_all = fine_samples(cfg, t_c, out_c["weights"], n_fine, proposal=prop)
+    out_f = _march(cfg, packed["fine"], rays_o, rays_d, viewdirs, t_all,
+                   dnorm, alive_f, t_end, seg, plain)
     return {"coarse": out_c, "fine": out_f}
 
 
@@ -268,7 +372,7 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
     if cfg.render.ndc:
         raise NotImplementedError(f"render.ndc ({_BRANCHES})")
     if device is None:
-        device = next(params["fine"].parameters()).device
+        device = next(next(iter(params.values())).parameters()).device
     rays_o, rays_d = generate_rays(H, W, focal, c2w, device=device)
     rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
     n = rays_o.shape[0]
@@ -294,7 +398,7 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
         rays_d = torch.cat([rays_d, fill_d])
         viewdirs = torch.cat([viewdirs, fill_d])
 
-    packed = pack_render_params(params)
+    packed = pack_render_params(params, cfg)
     bg = 1.0 if cfg.render.white_bkgd else 0.0
     outs = []
     for c in range(n_chunks):
@@ -307,8 +411,9 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
             live = bool(hit.any())
         if live:
             f = render_rays_blockwise(params, cfg, o, d, v, occ=occ,
-                                      packed=packed, plain=plain)["fine"]
-            out = {k: f[k] for k in ("rgb", "depth", "acc", "disp")}
+                                      packed=packed, plain=plain)
+            head = f["fine"] if f["fine"] is not None else f["coarse"]
+            out = {k: head[k] for k in ("rgb", "depth", "acc", "disp")}
         else:
             # the exact output every miss ray converges to
             out = {"rgb": torch.full((chunk, 3), bg, device=device),

@@ -131,11 +131,11 @@ def test_tile_order_matches_reference():
 
 @pytest.mark.parametrize("ovr", [
     "proposal.sigma_march=false", "kernels.fused_carry=false",
-    "kernels.carry_hoist=false", "occupancy.sample_warp=true",
+    "proposal.eval_n=96", "occupancy.sample_warp=true",
     "render.ndc=true", "proposal.union=true", "proposal.cov_n=16",
-    "proposal.enabled=false"])
+    "model.conditioned=true"])
 def test_off_path_branches_raise(scene, ovr):
-    """Config branches off the flagship path name their ROADMAP item."""
+    """Config branches not ported name their ROADMAP item."""
     _, _, params_t, _ = scene
     cfg = _cfg(ovr)
     ro = torch.zeros((64, 3))

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from fashion_nerf_torch import kernels as K
-from fashion_nerf_torch.kernels import posenc_mlp, sigmamarch, slimmarch
+from fashion_nerf_torch.kernels import (carrymarch, posenc_mlp, sigmamarch,
+                                        slimmarch)
 from fashion_nerf_torch.models.nerf_mlp import load_flax_params
 
 pytestmark = pytest.mark.cuda
@@ -138,6 +139,71 @@ def test_slim_march_kernel(dev, eps):
     w_k = out_k[1]
     assert bool((w_k[:64] == 0).all())
     assert bool((w_k[128:, SB:2 * SB] == 0).all())
+
+
+@pytest.mark.parametrize("eps", [0.0, 1e-3])
+def test_carry_march_kernel(dev, eps):
+    """K6: rgb/w/acc atol 5e-3 (depth 5e-3·far) with dead (tile, block)
+    pairs from block flags, a dead tile, a culled ray in a live tile, and
+    (ε = 1e-3) termination; and against K2 on the same rays within the
+    reference's random-net bound 2e-3 · far (depth) / 5e-3 (the rest)."""
+    rng = np.random.default_rng(8)
+    R, NB, SB = 192, 3, 32
+    model = fine_net(rng).to(dev)
+    net = posenc_mlp.pack_params(model, hoist_x=False)
+    ro, rd = _rays(R, dev)
+    dp = posenc_mlp.hoist_dirs(net, rd).contiguous()
+    t = torch.linspace(2.0, 6.0, NB * SB, device=dev).expand(
+        R, NB * SB).contiguous()
+    d = torch.full((R, NB * SB), 4.0 / (NB * SB), device=dev)
+    hit = torch.ones(R, device=dev)
+    hit[:64] = 0.0                    # tile 0 dead
+    hit[70] = 0.0                     # culled ray in live tile 1
+    bhit = torch.ones((R, NB), device=dev)
+    bhit[128:, 1] = 0.0               # tile 2, block 1 dead
+    log_eps = math.log(eps) if eps > 0 else -1e30
+    args = (net, dp, ro, rd, hit, bhit, t, d, log_eps)
+    n0 = K.LAUNCHES["carry_march"]
+    out_k = carrymarch.carry_march(*args)
+    out_p = carrymarch.carry_march_plain(*args)
+    assert K.LAUNCHES["carry_march"] == n0 + NB
+    for name, a, b, tol in zip(("rgb", "depth", "acc", "w"), out_k, out_p,
+                               (5e-3, 3e-2, 5e-3, 5e-3)):
+        _close(a, b, tol)
+    _close(out_k[4].exp(), out_p[4].exp(), 5e-3)     # transmittance
+    w_k = out_k[3]
+    assert bool((w_k[:64] == 0).all())
+    assert bool((w_k[128:, SB:2 * SB] == 0).all())
+    assert float(out_k[2][70]) > 0.0
+    snet = slimmarch.split_hoist(model)
+    rgb_s, w_s, _ = slimmarch.slim_march(
+        snet, slimmarch.hoist_rays(snet, ro, rd), dp, hit, bhit, t, d,
+        log_eps)
+    _close(out_k[0], rgb_s, 5e-3)
+    _close(out_k[3], w_s, 5e-3)
+    with pytest.raises(ValueError):
+        carrymarch.carry_march(snet, *args[1:])
+
+
+@pytest.mark.parametrize("mode,width,depth,relu", [
+    ("chain", 256, 9, False), ("chain", 256, 9, True),
+    ("streams", 256, 9, True), ("dependent", 512, 9, False),
+    ("dependent", 256, 3, False), ("independent", 1024, 4, False),
+    ("independent", 256, 9, False)])
+def test_tc_probe_kernel(dev, mode, width, depth, relu):
+    """P1/P2 against the plain chain: relative RMS 1e-2 and every element
+    within 2e-2 of the plain output's largest magnitude (bf16 1-ulp flips
+    of an activation carry into the next layers)."""
+    from fashion_nerf_torch import probe
+    x, ws = probe.make_inputs(4096, width, depth, 0.06, 3, dev)
+    key = "probe_p1" if mode in ("chain", "streams") else "probe_p2"
+    n0 = K.LAUNCHES[key]
+    got = probe.tc_chain(x, ws, mode, relu)
+    want = probe.tc_chain_plain(x, ws, mode, relu)
+    assert K.LAUNCHES[key] == n0 + 1
+    assert _rel_rms(got, want) <= 1e-2
+    assert float((got - want).abs().max()) <= 2e-2 * float(
+        want.abs().max())
 
 
 def test_wrappers_reject_bad_inputs(dev):

@@ -15,8 +15,9 @@ import torch
 import fashion_nerf_torch
 from fashion_nerf_torch import bench
 from fashion_nerf_torch import kernels as K
-from fashion_nerf_torch.kernels import (posenc_mlp, render, sigmamarch,
-                                        slimmarch)
+from fashion_nerf_torch import probe, quality
+from fashion_nerf_torch.kernels import (carrymarch, posenc_mlp, render,
+                                        sigmamarch, slimmarch)
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, load_flax_params
 
 torch.set_num_threads(2)
@@ -36,7 +37,8 @@ def test_imports_with_jax_blocked():
     mods = _modules()
     for m in ("render.blockwise", "render.renderer", "kernels.render",
               "train.loop", "train.state", "data.synthetic", "data.pipeline",
-              "ckpt", "cli", "prng"):
+              "ckpt", "cli", "prng", "kernels.carrymarch", "quality",
+              "probe"):
         assert f"fashion_nerf_torch.{m}" in mods, m
     code = ("import sys; sys.modules['jax'] = None; "
             f"sys.path[:0] = [{SRC!r}, {ROOT!r}]; import importlib; "
@@ -133,8 +135,26 @@ def test_wrappers_take_plain_on_cpu():
           torch.rand(R) + 0.5, True)
     for x, y in zip(render.volrend(*vr), render.volrend_plain(*vr)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+    R, NB, SB = 64, 2, 32
+    cnet = posenc_mlp.pack_params(fine, hoist_x=False)
+    ro, rd = torch.zeros(R, 3), _randn(rng, R, 3)
+    t = torch.linspace(0.1, 2.0, NB * SB).expand(R, NB * SB).contiguous()
+    d = torch.full((R, NB * SB), 0.03)
+    args = (cnet, posenc_mlp.hoist_dirs(cnet, rd), ro, rd, torch.ones(R),
+            torch.ones(R, NB), t, d, -6.9)
+    for x, y in zip(carrymarch.carry_march(*args),
+                    carrymarch.carry_march_plain(*args)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+    x, ws = probe.make_inputs(128, 32, 3, 0.06, 0, torch.device("cpu"))
+    for mode in probe.MODES:
+        torch.testing.assert_close(probe.tc_chain(x, ws, mode, True),
+                                   probe.tc_chain_plain(x, ws, mode, True),
+                                   rtol=0, atol=0)
     assert K.LAUNCHES == {"field": 0, "sigma_march": 0, "slim_march": 0,
-                          "field_bwd": 0, "volrend": 0}
+                          "field_bwd": 0, "volrend": 0, "carry_march": 0,
+                          "probe_p1": 0, "probe_p2": 0}
 
 
 def test_run_bench_without_cuda_raises(monkeypatch):
@@ -142,6 +162,17 @@ def test_run_bench_without_cuda_raises(monkeypatch):
     from fashion_nerf.config import load_config
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.run_bench(load_config("blender_lego"))
+
+
+def test_gate_and_probe_without_cuda_raise(monkeypatch):
+    """The gate and the probe measure the card: without one they raise
+    unless the CPU is asked for by name."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quality.run_gate()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        probe.run_p1(bench.resolve_device(None))
+    assert bench.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_build_failure_raises_with_compiler_output(monkeypatch, tmp_path):
