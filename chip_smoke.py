@@ -17,7 +17,9 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
    (generic carry march, also against K2), K4 (field backward, twice:
    bitwise deterministic), K5 (volume render) and the probe's chains (P1,
    P2), each against its plain PyTorch version on the card at main-path
-   shapes;
+   shapes, with its bound (the least time the card could take for the
+   work) and the share of it reached; K1, K2 and K6 with their executed
+   tiles or (tile, block) pairs identical to the plain version's;
 4. setup: flagship + proposal asset, occupancy sweep through K3;
 5. frame: the frame through the kernels (1 warm-up + 3 timed), then through
    the plain versions; PSNR between them and non-trivial-image checks;
@@ -33,7 +35,8 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
     val PSNR the reference measured for those weights;
 11. train: `train()` at full width for a few tens of steps, through an
     occupancy refresh, culled steps, dense steps, an eval and a checkpoint;
-12. probe: TFLOP/s of each P1 variant and each P2 shape.
+12. probe: TFLOP/s of each P1 variant and each P2 shape, and one
+    torch.matmul at the field layer's shape as a yardstick.
 
 The launch counters are reset just before each path (phases 4, 6, 11 and
 12) and read right after it, so they count that path only. Any failure
@@ -89,6 +92,9 @@ REF_GATE_DELTAS = (-0.059, -0.041, -0.098, +0.033, -0.018, +0.002, -0.072)
 GATE_BAND = 0.05              # each pose's delta within this of the
                               # reference's (its run-to-run noise is ±0.002)
 REPS = 5                      # timed calls per kernel (median)
+# the card's peaks for the bounds (NVIDIA H100 SXM data sheet, dense): bf16
+# tensor cores, float32 outside them, device memory
+PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
 FRAME = 800                   # frame height and width of the bench
 RUN_DIR = os.path.join(ROOT, "build", "chip_smoke_run")
 
@@ -162,9 +168,42 @@ def phase_build():
     info = K.build_info
     say("build", f"{path.name} in {info['seconds']:.1f} s")
     for line in info["log"].splitlines():
+        if "C7519" in line:     # ptxas's own wgmma register fences
+            continue
         if any(w in line for w in ("Function properties", "registers",
                                    "spill", "error")):
             say("build", "ptxas: " + line.strip())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops, n_bytes, peak=PEAK_BF16) -> dict:
+    """The least time the card could take for this work: the larger of the
+    operations over the peak rate and the bytes (each input read once, each
+    output written once) over the memory rate. library_ms is None: no
+    single PyTorch call computes any of the port's kernels' functions."""
+    t_ops, t_bytes = flops / peak * 1e3, n_bytes / HBM_BPS * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by=by, library_ms=None)
+
+
+def mlp_macs(net) -> int:
+    """Multiply-adds a row of the packed net costs (posenc operand padded
+    to k0, as the kernels compute it)."""
+    lay, W = net.lay, net.width
+    macs = sum((W if lay["w_h"][i] is not None else 0) * W
+               + (net.k0 if lay["w_a0"][i] is not None else 0) * W
+               for i in range(net.depth))
+    if net.has_vd:
+        return macs + W + W * W + W * (W // 2) + (W // 2) * 3
+    return macs + W * 4
+
+
+def bound_line(b: dict, ms: float) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+            f"{b['bound_ms'] / ms:.1%} of it reached")
 
 
 def random_tree(tree, rng):
@@ -211,7 +250,7 @@ def chunk_inputs(cfg, occ, device):
 
 def phase_kernels(cfg, device):
     """Each kernel against its plain version at main-path shapes."""
-    from fashion_nerf.assets import load_flagship
+    from fashion_nerf_torch.assets import load_flagship
     from fashion_nerf_torch.core.occupancy import build_from_config
     from fashion_nerf_torch.core.sampling import stratified_sample
     from fashion_nerf_torch.kernels import posenc_mlp, sigmamarch, slimmarch
@@ -219,7 +258,8 @@ def phase_kernels(cfg, device):
     from fashion_nerf_torch.models.proposal import attach_proposal
     from fashion_nerf_torch.render.blockwise import (_block_hit_flags,
                                                      _budgets, _pass_dists,
-                                                     culling, fine_samples)
+                                                     culling, fine_samples,
+                                                     march_liveness)
     results = {}
     trained, _ = load_flagship()
     fine = load_flax_params(trained["fine"], compute_dtype="bfloat16",
@@ -245,13 +285,15 @@ def phase_kernels(cfg, device):
           and e_sig <= K3_SIGMA_REL and bool(torch.isfinite(rgb_k).all()))
     ms = cuda_ms(lambda: posenc_mlp.field_rows(net, pts, dirpart, 64))
     pms = cuda_ms(lambda: posenc_mlp.field_rows_plain(net, pts, dirpart, 64))
+    b3 = bound(2 * pts.shape[0] * mlp_macs(net),
+               nbytes(pts, dirpart, net.w, net.b, rgb_k, sig_k))
     say("kernels", f"K3 field 65536 rows: rgb err max {e_rgb:.3g} (tol "
         f"{K3_RGB_MAX}), rows over {K3_RGB_ATOL} {share:.5f} (tol "
         f"{K3_ROW_SHARE}), σ rel err {e_sig:.3g} (tol {K3_SIGMA_REL}); "
-        f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        f"kernel {ms:.3f} ms, plain {pms:.3f} ms; {bound_line(b3, ms)}")
     if not ok:
         raise AssertionError("K3 disagrees with its plain version")
-    results["field"] = dict(max_abs_err=e_rgb, ms=ms, plain_ms=pms)
+    results["field"] = dict(max_abs_err=e_rgb, ms=ms, plain_ms=pms, **b3)
 
     # K3 on a random net of the same shape: no trained sensitivity, so the
     # strict bound holds on every row
@@ -294,15 +336,24 @@ def phase_kernels(cfg, device):
     torch.cuda.synchronize()
     e1 = max(maxerr(w_k, w_p), maxerr(acc_k, acc_p))
     rpt1 = 2048 // p_sb
-    dead1 = int((~(alive.view(-1, rpt1) > 0).any(dim=1)).sum())
+    live1 = (alive.view(-1, rpt1) > 0).any(dim=1)
+    tiles_k = (w_k.view(-1, rpt1 * p_sb) != 0).any(dim=1)
+    tiles_p = (w_p.view(-1, rpt1 * p_sb) != 0).any(dim=1)
+    same1 = bool(torch.equal(tiles_k, tiles_p))
+    n_live1 = int(live1.sum())
     ms = cuda_ms(lambda: sigmamarch.sigma_march(*args1))
     pms = cuda_ms(lambda: sigmamarch.sigma_march_plain(*args1))
+    b1 = bound(2 * n_live1 * 2048 * mlp_macs(prop),
+               nbytes(alive, *hz, t_pad, d_pad, prop.w, prop.b, w_k, acc_k,
+                      acc_k))
     say("kernels", f"K1 sigma march chunk {c} ({R} rays × {p_sb}): "
-        f"w/acc err {e1:.3g} (tol {K1_ATOL}); dead tiles {dead1}/"
-        f"{R // rpt1}; kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    if not (e1 <= K1_ATOL and dead1 > 0):
+        f"w/acc err {e1:.3g} (tol {K1_ATOL}); live tiles {n_live1}/"
+        f"{R // rpt1} (marched whole); tiles with a nonzero weight "
+        f"{int(tiles_k.sum())}, identical to plain: {same1}; kernel {ms:.3f} ms, plain {pms:.3f} ms; "
+        f"{bound_line(b1, ms)}")
+    if not (e1 <= K1_ATOL and n_live1 < live1.numel() and same1):
         raise AssertionError("K1 disagrees with its plain version")
-    results["sigma_march"] = dict(max_abs_err=e1, ms=ms, plain_ms=pms)
+    results["sigma_march"] = dict(max_abs_err=e1, ms=ms, plain_ms=pms, **b1)
 
     # K2: the chunk's fine march, 8192 rays × 96 samples, NB = 3
     SB = cfg.kernels.block_samples
@@ -325,16 +376,25 @@ def phase_kernels(cfg, device):
     cand = (alive_f.float()[:, None] * bhit).view(-1, rpt2, NB)
     dead2 = int((cand.amax(dim=1) == 0).sum())
     term = int((lt_p < log_eps).sum())
+    hit_f = alive_f.float()
+    ex_k = march_liveness(wf_k, hit_f, bhit, cfg)["tile_alive"]
+    ex_p = march_liveness(wf_p, hit_f, bhit, cfg)["tile_alive"]
+    same2 = bool(torch.equal(ex_k, ex_p))
+    n_ex = int(ex_p.sum())
     ms = cuda_ms(lambda: slimmarch.slim_march(*args2))
     pms = cuda_ms(lambda: slimmarch.slim_march_plain(*args2))
+    b2 = bound(2 * n_ex * 2048 * mlp_macs(fnet),
+               nbytes(hit_f, bhit, *hf, dp, tf_pad, df_pad, fnet.w, fnet.b,
+                      rgb_k, wf_k, lt_k))
     say("kernels", f"K2 fine march chunk {c} ({R} rays × {NB}×{SB}): "
-        f"rgb/w err {e2:.3g} (tol {K2_ATOL}); dead (tile, block) ≥ {dead2}/"
-        f"{R // rpt2 * NB}; terminated rays {term}; kernel {ms:.3f} ms, "
-        f"plain {pms:.3f} ms")
-    if not (e2 <= K2_ATOL and dead2 > 0 and term > 0
+        f"rgb/w err {e2:.3g} (tol {K2_ATOL}); executed (tile, block) "
+        f"{int(ex_k.sum())}/{ex_k.numel()}, identical to plain: {same2}; "
+        f"dead (tile, block) ≥ {dead2}; terminated rays {term}; kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms; {bound_line(b2, ms)}")
+    if not (e2 <= K2_ATOL and dead2 > 0 and term > 0 and same2
             and bool(torch.isfinite(rgb_k).all())):
         raise AssertionError("K2 disagrees with its plain version")
-    results["slim_march"] = dict(max_abs_err=e2, ms=ms, plain_ms=pms)
+    results["slim_march"] = dict(max_abs_err=e2, ms=ms, plain_ms=pms, **b2)
     results["carry_march"] = kernel_k6(cfg, fine, dp, o, d, alive_f, bhit,
                                        tf_pad, df_pad, (rgb_k, wf_k))
     results["field_bwd"] = kernel_k4(net, rng, device)
@@ -367,20 +427,23 @@ def kernel_k6(cfg, fine, dp, o, d, alive_f, bhit, tf_pad, df_pad, k2_out):
     ms = cuda_ms(lambda: carrymarch.carry_march(*args))
     pms = cuda_ms(lambda: carrymarch.carry_march_plain(*args))
     far = cfg.render.far
+    b6 = bound(2 * int(live_p.sum()) * 2048 * mlp_macs(net),
+               nbytes(dp, o, d, hit, bhit, tf_pad, df_pad, net.w, net.b,
+                      *out_k[:4]))
     errs = json.dumps({k: float(f"{v:.3g}") for k, v in err.items()})
     say("kernels", f"K6 carry march, the same chunk ({R} rays × {NB}×"
         f"{S // NB}): max abs err {errs}"
         f" (tol {K6_ATOL}, depth {K6_ATOL * far:g}); executed (tile, block) "
         f"{int(live_k.sum())}/{live_k.numel()}, identical to plain: "
         f"{same_live}; against K2 rgb/w {e_k2:.3g} (tol {K6_ATOL}); kernel "
-        f"{ms:.3f} ms, plain {pms:.3f} ms")
+        f"{ms:.3f} ms, plain {pms:.3f} ms; {bound_line(b6, ms)}")
     ok = (max(err["rgb"], err["acc"], err["w"]) <= K6_ATOL
           and err["depth"] <= K6_ATOL * far and same_live
           and e_k2 <= K6_ATOL and 0 < int(live_k.sum()) < live_k.numel()
           and bool(torch.isfinite(out_k[0]).all()))
     if not ok:
         raise AssertionError("K6 disagrees with its plain version or K2")
-    return dict(max_abs_err=max(err.values()), ms=ms, plain_ms=pms)
+    return dict(max_abs_err=max(err.values()), ms=ms, plain_ms=pms, **b6)
 
 
 def kernel_probe(device):
@@ -418,9 +481,10 @@ def kernel_probe(device):
         if name in timed:
             ms = cuda_ms(lambda: probe.tc_chain(x, ws, mode, relu))
             pms = cuda_ms(lambda: probe.tc_chain_plain(x, ws, mode, relu))
+            bp = bound(2 * n * dep * w * w, nbytes(x, *ws) + n * w * 4)
             say("kernels", f"{key} {name}: kernel {ms:.3f} ms, plain "
-                f"{pms:.3f} ms")
-            out[key].update(ms=ms, plain_ms=pms)
+                f"{pms:.3f} ms; {bound_line(bp, ms)}")
+            out[key].update(ms=ms, plain_ms=pms, **bp)
         del x, ws
         torch.cuda.empty_cache()
     return out
@@ -451,6 +515,9 @@ def kernel_k4(net, rng, device):
     same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
     e_abs = max(maxerr(a, b) for a, b in zip(out_k, out_p))
     finite = all(bool(torch.isfinite(a).all()) for a in out_k)
+    # forward recompute, dgrad and wgrad: three passes of the net's MACs
+    b4 = bound(3 * 2 * n * mlp_macs(net),
+               nbytes(pts, dp, g_rgb, g_sig, net.w, net.b, *out_k))
     del out_k, out_k2, out_p
     ms = cuda_ms(lambda: posenc_mlp.field_rows_backward(*args))
     pms = cuda_ms(lambda: posenc_mlp.field_rows_backward_plain(*args))
@@ -458,11 +525,11 @@ def kernel_k4(net, rng, device):
     say("kernels", f"K4 field backward {n} rows ({R} rays × {S}): relative "
         f"RMS against plain {json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})}"
         f" (tol {K4_REL_RMS} each); bitwise equal over two runs: {same}; "
-        f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        f"kernel {ms:.3f} ms, plain {pms:.3f} ms; {bound_line(b4, ms)}")
     if not (max(rel.values()) <= K4_REL_RMS and same and finite):
         raise AssertionError("K4 disagrees with its plain version or is "
                              "not deterministic")
-    return dict(max_abs_err=e_abs, ms=ms, plain_ms=pms)
+    return dict(max_abs_err=e_abs, ms=ms, plain_ms=pms, **b4)
 
 
 def kernel_k5(cfg, rng, device):
@@ -486,14 +553,17 @@ def kernel_k5(cfg, rng, device):
                                                "weights"), out_k, out_p)}
     ms = cuda_ms(lambda: render.volrend(*args))
     pms = cuda_ms(lambda: render.volrend_plain(*args))
+    # ~20 float32 operations a sample (δ, α, the floor, the scan, w, four
+    # sums) outside the tensor cores
+    b5 = bound(20 * R * S, nbytes(rgb, sigma, t, dnorm, *out_k), PEAK_F32)
     say("kernels", f"K5 volume render {R} rays × {S}: max abs err "
         f"{json.dumps({k: float(f'{v:.3g}') for k, v in err.items()})} "
         f"(tol {K5_ATOL}, depth {K5_ATOL * far:g}); kernel {ms:.3f} ms, "
-        f"plain {pms:.3f} ms")
+        f"plain {pms:.3f} ms; {bound_line(b5, ms)}")
     if not (max(err["rgb"], err["acc"], err["weights"]) <= K5_ATOL
             and err["depth"] <= K5_ATOL * far):
         raise AssertionError("K5 disagrees with its plain version")
-    return dict(max_abs_err=max(err.values()), ms=ms, plain_ms=pms)
+    return dict(max_abs_err=max(err.values()), ms=ms, plain_ms=pms, **b5)
 
 
 def phase_setup(cfg, device, occ_ref):
@@ -567,7 +637,7 @@ def phase_frame_generic(device, k2_rgb, gpu, smi):
     """The bench frame with `kernels.carry_hoist=false`: setup, then the
     frame through K1 + K6 (1 warm-up + 3 timed), then through the plain
     versions; against the plain frame and the K2 frame of phase 5."""
-    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch import kernels as K
     from fashion_nerf_torch.bench import bench_pose, setup
     from fashion_nerf_torch.metrics import psnr
@@ -674,6 +744,15 @@ def phase_probe(device, gpu, smi):
             + probe.run_p2(device, log=lambda m: say("probe", "P2 " + m)))
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
+    # yardstick: cuBLAS's own wgmma kernels at the field layer's shape (the
+    # port never calls it)
+    x = torch.randn((probe.P1_ROWS, 256), device=device, dtype=torch.bfloat16)
+    wy = torch.randn((256, 256), device=device, dtype=torch.bfloat16)
+    ms = cuda_ms(lambda: torch.matmul(x, wy))
+    del x, wy
+    say("probe", f"yardstick torch.matmul ({probe.P1_ROWS}×256)·(256×256) "
+        f"bf16: {ms:.3f} ms, {2 * probe.P1_ROWS * 256 * 256 / ms / 1e9:.1f} "
+        f"TFLOP/s")
     say("probe", f"launches {launches}; {gpu} | {smi}")
     if not (launches["probe_p1"] > 0 and launches["probe_p2"] > 0
             and all(math.isfinite(r["tflops"]) and r["tflops"] > 0
@@ -684,7 +763,7 @@ def phase_probe(device, gpu, smi):
 
 def committed_state(cfg, device):
     """A TrainState holding the committed trained coarse and fine nets."""
-    from fashion_nerf.assets import load_flagship
+    from fashion_nerf_torch.assets import load_flagship
     from fashion_nerf_torch.models.nerf_mlp import load_flax_params
     from fashion_nerf_torch.train.state import TrainState, make_optimizer
     trained, meta = load_flagship()
@@ -724,7 +803,7 @@ def phase_step(device, ds, gpu, smi):
     fine samples (gradients held to STEP_GRAD_SAMPLES_REL) and with the
     kernel step's (gradients held to STEP_GRAD_REL). Then the time of full
     steps (Adam included) of both."""
-    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch.render import renderer
     from fashion_nerf_torch.train.loop import TrainStep, sparsity_points
     cfg = load_config("blender_lego", ["sampling.perturb=false"])
@@ -798,7 +877,7 @@ def phase_step(device, ds, gpu, smi):
 def phase_eval(device, ds):
     """The trainer's evaluation of the held-out view from the committed
     weights, through K3 + K5 and through the plain versions."""
-    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch.metrics import psnr
     from fashion_nerf_torch.train.loop import evaluate
     cfg = load_config("blender_lego")
@@ -830,7 +909,7 @@ def phase_train(scene, device, gpu, smi):
     at step 4, culled steps, dense steps (the first four and every 8th),
     one eval and one checkpoint at step 24."""
     import shutil
-    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch import ckpt as ckpt_lib
     from fashion_nerf_torch import kernels as K
     from fashion_nerf_torch.train.loop import train
@@ -880,7 +959,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "main path needs a CUDA device", file=sys.stderr)
         return 2
-    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch import kernels as K
 
     t_start = time.perf_counter()

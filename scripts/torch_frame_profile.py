@@ -34,7 +34,7 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from fashion_nerf.config import load_config  # noqa: E402
+from fashion_nerf_torch.config import load_config  # noqa: E402
 from fashion_nerf_torch.bench import bench_pose, setup  # noqa: E402
 from fashion_nerf_torch.render.blockwise import (  # noqa: E402
     render_image_blockwise)
@@ -42,7 +42,7 @@ from fashion_nerf_torch.render.blockwise import (  # noqa: E402
 
 def train_step_workload(cfg, dev, args):
     """→ (one training step from the committed weights, set-up seconds)."""
-    from fashion_nerf.assets import load_flagship
+    from fashion_nerf_torch.assets import load_flagship
     from fashion_nerf_torch.data.pipeline import RayDataset
     from fashion_nerf_torch.models.nerf_mlp import load_flax_params
     from fashion_nerf_torch.train.loop import (TrainStep, load_dataset,

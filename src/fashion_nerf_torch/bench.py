@@ -16,8 +16,8 @@ import time
 import numpy as np
 import torch
 
-from fashion_nerf.assets import load_flagship
-from fashion_nerf.config import Config, load_config
+from fashion_nerf_torch.assets import load_flagship
+from fashion_nerf_torch.config import Config, load_config
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.core.occupancy import build_from_config
 from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
@@ -25,17 +25,6 @@ from fashion_nerf_torch.models.nerf_mlp import load_flax_params
 from fashion_nerf_torch.models.proposal import attach_proposal
 from fashion_nerf_torch.render.blockwise import render_image_blockwise
 
-
-def resolve_device(device=None) -> torch.device:
-    """The device a measuring entry point runs on: CUDA unless the CPU is
-    asked for by name; raises when CUDA is wanted and there is none, so no
-    measurement falls back to the CPU."""
-    if device is not None and torch.device(device).type == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: this measures the card (pass "
-                           "device cpu to run the plain versions)")
-    return torch.device(device or "cuda")
 
 
 def bench_pose(W: int):

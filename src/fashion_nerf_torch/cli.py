@@ -3,9 +3,10 @@
     python -m fashion_nerf_torch.cli train --config NAME [--set k=v ...]
         [--out DIR] [--resume] [--device cuda|cpu]
 
-trains on the first CUDA device when there is one (else on the CPU, where
-every kernel takes its plain version), logging one JSON line per log
-step, and ends with a JSON summary line. Checkpoints go to
+trains on the CUDA device, logging one JSON line per log step, and ends
+with a JSON summary line. It raises when there is no CUDA device unless
+`--device cpu` asks for the CPU, where every kernel takes its plain
+version. Checkpoints go to
 DIR/NAME/ckpt. The reference's other subcommands are not ported yet.
 """
 
@@ -36,7 +37,9 @@ def _parser():
         sp.add_argument("--out", default=None, help="run directory")
         sp.add_argument("--resume", action="store_true")
         sp.add_argument("--device", default=None,
-                        help="torch device (default: cuda:0 if present)")
+                        help="torch device (default cuda; cpu runs the plain "
+                             "versions; no CUDA device and no --device cpu "
+                             "raises)")
     return p
 
 
@@ -45,7 +48,7 @@ def main(argv=None) -> int:
     if args.cmd in _NOT_PORTED:
         raise NotImplementedError(f"`{args.cmd}` is not ported yet "
                                   f"({_NOT_PORTED[args.cmd]})")
-    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch.train.loop import train
     cfg = load_config(args.config, args.overrides)
     if args.out:

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
-Seven kernels, CUDA C++ for sm_90a under `csrc/`:
+Eight kernels, CUDA C++ for sm_90a under `csrc/`:
 
 - K1 `sigmamarch.cu`: the σ-only proposal march (kernels/sigmamarch.py);
 - K2 `slimmarch.cu`: the fine march of the 8×256 field (kernels/slimmarch.py);
@@ -43,6 +43,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 TILE_ROWS = 2048
 # rows per CUDA block of the slab kernels (csrc/fnt_common.cuh kRows)
 SLAB_ROWS = 64
+# samples per block the marches K1 and K2 take, their nets' widths, and the
+# most predication tiles one launch takes (csrc/sigmamarch.cu, slimmarch.cu)
+MARCH_SB = (16, 32, 64)
+SIGMA_WIDTH, SLIM_WIDTH = 128, 256
+MARCH_MAX_TILES = 1024
 
 # rows per K4 pass: its bf16 workspace holds every activation and cotangent
 # of this many rows (1.3 GB at the 8×256 field)
@@ -55,8 +60,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "fnt_field_forward": [_P] * 6 + [_I] * 8 + [_P],
-    "fnt_sigma_march": [_P] * 12 + [_I] * 7 + [_P],
-    "fnt_slim_march": [_P] * 15 + [_I] * 10 + [ctypes.c_float, _P],
+    "fnt_sigma_march": [_P] * 13 + [_I] * 8 + [_P],
+    "fnt_slim_march": [_P] * 16 + [_I] * 10 + [ctypes.c_float, _P],
     "fnt_field_backward": [_P] * 14 + [ctypes.c_long] + [_I] * 11 + [_P],
     "fnt_volrend": [_P] * 8 + [_I] * 4 + [_P],
     "fnt_carry_march": [_P] * 15 + [_I] * 11 + [ctypes.c_float, _P],
@@ -166,6 +171,18 @@ def on_cuda(*tensors) -> bool:
         return True
     raise ValueError(f"tensors on devices {sorted(kinds)}: the kernels take "
                      "all-CUDA inputs, the plain versions all-CPU inputs")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the CPU is asked for
+    by name. Raises when CUDA is wanted and there is none, so nothing falls
+    back to the CPU silently."""
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card (pass "
+                           "device cpu to run the plain versions)")
+    return torch.device(device or "cuda")
 
 
 def check(t, name: str, dtype, shape) -> None:

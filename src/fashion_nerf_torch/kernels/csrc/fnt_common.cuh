@@ -1,9 +1,10 @@
-// Shared device code of the field kernels (field.cu, sigmamarch.cu,
-// slimmarch.cu, carrymarch.cu, field_bwd.cu): the packed-weight layout, the
-// shared-memory slab, the bf16 tensor-core layer loop and the marches'
-// per-tile predication.
+// Shared device code of the field kernels: the packed-weight layout and the
+// numerics helpers (every kernel), and the shared-memory slab, the wmma
+// layer loop and the per-tile predication of field.cu, carrymarch.cu and
+// field_bwd.cu. The wgmma marches (sigmamarch.cu, slimmarch.cu) have their
+// own loop in wg_trunk.cuh.
 //
-// A CUDA block evaluates one slab of kRows MLP rows. The slab's activations
+// A CUDA block of the slab kernels evaluates one slab of kRows MLP rows. The slab's activations
 // stay in shared memory across every layer (two bf16 ping-pong buffers plus
 // the posenc operand); weights are read from device memory. By its shapes
 // the whole 8x256 field is 0.59M bf16 weights, small against the L2.

@@ -4,23 +4,55 @@
 // (via _sigma_march_eval), the TPU kernel that marches the 2x128 σ-only
 // proposal net over one block of SB samples per ray.
 //
-// What bounds it on the H100: it is a small net (~24k MACs per row), so it
-// is bound by latency: the per-row posenc sines, the short layer chain and
-// the per-ray prefix scan, not by tensor-core throughput or bytes.
+// What bounds it on the H100: a small net (48×128 + 128×128 + 128×4 =
+// 23,040 MACs a row) against ~12 bytes of per-row input (t, d, w), so in
+// principle the tensor cores; in practice the per-row work beside them:
+// 36 accurate sines a row for the posenc operand and the epilogues.
 //
-// Design: one CUDA block per 64-row slab = 64/SB whole rays (one ray at
-// SB=64), so every block finishes its own rays' compositing without any
-// cross-block carry, and a frame chunk launches thousands of independent
-// blocks to hide latency. The first layer's x-path and the posenc phases
-// are linear in t and arrive hoisted per ray (oWx + dWx·t, oF + dF·t, f32).
-// Predication follows the reference tile: a tile of 2048/SB rays is marched
-// when any of its rays is alive, and every ray of a live tile is marched
-// (alive or not); a dead tile writes w = 0, acc = 0, logT = 0. Each block
-// takes its tile's decision from the tile's alive flags. The exclusive
-// log-transmittance prefix is a sequential f32 loop per ray.
+// Design (csrc/wg_trunk.cuh holds the shared pieces):
+// - The whole net stays resident: each persistent CUDA block (two per SM)
+//   loads its march slices (kernels/wgpack.py, 45 KB at 2×128) once by one
+//   cp.async.bulk behind an mbarrier and keeps them for every work item.
+// - A work item is 128 rows (ray-major), 64 per consumer warpgroup; the
+//   predication tile of 2048/SB rays holds 16 items. Every block lists the
+//   launch's live tiles (a tile with any alive ray is marched whole) and
+//   strides over their items; the owner block of a dead tile writes
+//   w = 0, acc = 0, logT = 0.
+// - Layers on wgmma m64n128k16, the 64×128 f32 accumulator 64 registers a
+//   thread; the first layer's epilogue adds the hoisted x-term
+//   oWx + dWx·t (per-ray hoists staged in shared memory once per item)
+//   and writes the bf16 activations in place; the last layer's epilogue
+//   takes the out head's σ column (128→1) as a register dot product
+//   reduced over the 4 lanes of a row.
+// - The per-ray prefix by one warp per ray: at SB = 64 each lane holds two
+//   samples and the exclusive log(1−α) prefix is a shuffle scan.
 #include "fnt_common.cuh"
+#include "wg_trunk.cuh"
 
 namespace fnt {
+namespace {
+
+constexpr int kW1 = 128;            // trunk width of this kernel
+constexpr int kThreadsK1 = 2 * 128;  // two warpgroups
+constexpr int kMaxTilesK1 = 1024;
+constexpr int kMaxRaysWg = wg::kWgRows / 16;   // rays of a warpgroup, SB ≥ 16
+
+struct __align__(128) SigmaSmem {
+  bf16 h[2][wg::kWgRows * kW1];        // activations per warpgroup
+  bf16 a0[2][wg::kWgRows * kMaxK0];    // posenc operand per warpgroup
+  // per-ray inputs of a warpgroup's rays, staged once per item
+  float hx[2][kMaxRaysWg][2][kW1];     // oWx, dWx
+  float ph[2][kMaxRaysWg][2][kMaxK0];  // oF, dF
+  float wsig[kW1];                     // the out head's σ column
+  float row_t[wg::kItemRows];
+  float row_sigma[wg::kItemRows];
+  uint64_t wbar;
+  int n_live;
+  uint8_t tile_live[kMaxTilesK1];
+  uint16_t live[kMaxTilesK1];
+  // the resident march slices follow (SigmaArgs::wp_bytes), then the
+  // net's biases (SigmaArgs::n_b floats)
+};
 
 struct SigmaArgs {
   const float* alive;   // (R,) hit ∧ block-hit flags
@@ -30,88 +62,221 @@ struct SigmaArgs {
   const float* dF;      // (R, 6L) phase slope
   const float* t;       // (R, SB) sample positions
   const float* d;       // (R, SB) scaled interval widths
-  const bf16* w;        // packed weights (Layout, no view branch)
+  const bf16* w;        // packed weights (Layout): the out head
+  const bf16* wp;       // march slices (kernels/wgpack.py)
   const float* b;       // packed biases (first-layer bias is 0: hoisted)
   float* w_out;         // (R, SB)
   float* acc;           // (R,)
   float* logT;          // (R,)
-  int SB, L, softplus;
+  int R, SB, L, softplus, wp_bytes, n_b;
   Layout lay;
 };
 
-__global__ void __launch_bounds__(kThreads) sigma_march_kernel(SigmaArgs a) {
-  Smem& s = smem();
+__global__ void __launch_bounds__(kThreadsK1, 2)
+    sigma_march_kernel(const __grid_constant__ SigmaArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  SigmaSmem& s = *reinterpret_cast<SigmaSmem*>(smem_raw);
+  bf16* wres = reinterpret_cast<bf16*>(smem_raw + sizeof(SigmaSmem));
+  float* bias = reinterpret_cast<float*>(smem_raw + sizeof(SigmaSmem) +
+                                         a.wp_bytes);
   const Layout& lay = a.lay;
-  const int SB = a.SB;
-  const int nr = kRows / SB;              // rays in this slab
-  const long r0 = (long)blockIdx.x * nr;  // first ray of the slab
-  const int rpt = kTileRows / SB;         // rays per predication tile
-  const long tile0 = (r0 / rpt) * rpt;
+  const int SB = a.SB, rpt = kTileRows / SB;
 
-  int live = 0;
-  for (int i = threadIdx.x; i < rpt; i += kThreads)
-    live |= a.alive[tile0 + i] > 0.0f;
-  live = __syncthreads_or(live);
-  if (!live) {
-    for (int i = threadIdx.x; i < nr * SB; i += kThreads)
-      a.w_out[r0 * SB + i] = 0.0f;
-    if (threadIdx.x < nr) {
-      a.acc[r0 + threadIdx.x] = 0.0f;
-      a.logT[r0 + threadIdx.x] = 0.0f;
-    }
-    return;
-  }
-
-  for (int r = threadIdx.x; r < kRows; r += kThreads)
-    s.row_t[r] = a.t[r0 * SB + r];
-  __syncthreads();
-  const int n_ph = 6 * a.L;
-  for (int i = threadIdx.x; i < kRows * lay.k0; i += kThreads) {
-    const int r = i / lay.k0, c = i % lay.k0;
-    float v = 0.0f;
-    if (c < n_ph) {
-      const long q = (r0 + r / SB) * n_ph + c;
-      v = sinf(__fadd_rn(a.oF[q], __fmul_rn(a.dF[q], s.row_t[r])));
-    }
-    s.a0[r * kLdA + c] = __float2bfloat16_rn(v);
+  if (threadIdx.x == 0) {
+    wg::mbar_init(&s.wbar, 1);
+    wg::mbar_init_fence();
   }
   __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::mbar_expect_tx(&s.wbar, a.wp_bytes);
+    wg::bulk_load(wres, a.wp, a.wp_bytes, &s.wbar);
+  }
+  // shared memory leaves little L1: everything the epilogues read is
+  // staged here, the biases and the σ column once per block
+  for (int i = threadIdx.x; i < a.n_b; i += blockDim.x) bias[i] = a.b[i];
+  for (int i = threadIdx.x; i < kW1; i += blockDim.x)
+    s.wsig[i] = bf(a.w[lay.w_out + i * 4 + 3]);
+  const int n_live = wg::live_tiles(
+      a.R / rpt, rpt, s.tile_live, s.live, &s.n_live,
+      [&](long ray) { return a.alive[ray] > 0.0f; },
+      [&](int tile, int ln) {
+        const long ray0 = (long)tile * rpt;
+        for (int i = ln; i < rpt * SB; i += 32) a.w_out[ray0 * SB + i] = 0.0f;
+        for (int i = ln; i < rpt; i += 32) {
+          a.acc[ray0 + i] = 0.0f;
+          a.logT[ray0 + i] = 0.0f;
+        }
+      });
+  wg::mbar_wait(&s.wbar, 0);
+  const int n_items = n_live * wg::kItemsPerTile;
 
-  const int W = lay.width;
-  const int cur = run_trunk(lay, a.w, a.b, [&](int, int r, int c) {
-    const long q = (r0 + r / SB) * W + c;
-    return __fadd_rn(a.oWx[q], __fmul_rn(a.dWx[q], s.row_t[r]));
-  });
-  run_heads(lay, a.w, a.b, cur, [](int, int) { return 0.0f; });
+  const int g = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  const int ww = tw >> 5, lane = threadIdx.x & 31;
+  const int bar = 1 + g;
+  bf16* H = s.h[g];
+  bf16* A0 = s.a0[g];
+  const uint32_t h_addr = wg::smem_addr(H), a0_addr = wg::smem_addr(A0);
+  const uint32_t w_addr = wg::smem_addr(wres);
+  float* row_t = s.row_t + 64 * g;
+  float* row_sigma = s.row_sigma + 64 * g;
+  float(*hx)[2][kW1] = s.hx[g];
+  float(*ph)[2][kMaxK0] = s.ph[g];
+  const int k0 = lay.k0, n_ph = 6 * a.L, nr = wg::kWgRows / SB;
+  const int rA = 16 * ww + (lane >> 2), cA = 2 * (lane & 3);
+  float acc[kW1 / 2];
 
-  if (threadIdx.x < nr) {
-    const int j = threadIdx.x;
-    const long ray = r0 + j;
-    float csum = 0.0f, acc = 0.0f;
-    for (int k = 0; k < SB; ++k) {
-      const float x = __fmul_rn(density(s.row_sigma[j * SB + k], a.softplus),
-                                a.d[ray * SB + k]);
-      const float wk = __fmul_rn(1.0f - expf(-x), expf(csum));
-      a.w_out[ray * SB + k] = wk;
-      acc += wk;
-      csum += fmaxf(-x, kLogFloor);
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const long row0 = (long)s.live[it / wg::kItemsPerTile] * kTileRows +
+                      (it % wg::kItemsPerTile) * wg::kItemRows + 64 * g;
+    const long ray0 = row0 / SB;   // first ray of this warpgroup
+    if (tw < 64) row_t[tw] = a.t[row0 + tw];
+    for (int i = tw; i < nr * 2 * kW1; i += 128) {
+      const int r = i / (2 * kW1), which = (i / kW1) & 1, c = i % kW1;
+      hx[r][which][c] = (which ? a.dWx : a.oWx)[(ray0 + r) * kW1 + c];
     }
-    a.acc[ray] = acc;
-    a.logT[ray] = csum;
+    for (int i = tw; i < nr * 2 * n_ph; i += 128) {
+      const int r = i / (2 * n_ph), which = (i / n_ph) & 1, c = i % n_ph;
+      ph[r][which][c] = (which ? a.dF : a.oF)[(ray0 + r) * n_ph + c];
+    }
+    wg::wg_sync(bar);
+    for (int i = tw; i < 32 * k0; i += 128) {
+      const int cm = i >> 5;
+      const int r = (cm & 7) * 8 + ((i & 31) >> 2);
+      const int c = (cm >> 3) * 8 + (i & 3) * 2;
+      const float(*p)[kMaxK0] = ph[r / SB];
+      float v0 = 0.0f, v1 = 0.0f;
+      if (c < n_ph) v0 = sinf(__fadd_rn(p[0][c], __fmul_rn(p[1][c], row_t[r])));
+      if (c + 1 < n_ph)
+        v1 = sinf(__fadd_rn(p[0][c + 1], __fmul_rn(p[1][c + 1], row_t[r])));
+      *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<char*>(A0) +
+                                         wg::cm_off(r, c, k0)) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+    wg::fence_async_smem();
+    wg::wg_sync(bar);
+
+    const int rl = rA / SB;   // ray of both rows rA, rA + 8 (SB ≥ 16)
+    const float t_lo = row_t[rA], t_hi = row_t[rA + 8];
+    uint32_t woff = 0;        // byte offset of the layer's first slice
+    for (int i = 0; i < lay.depth; ++i) {
+      wg::mma_fence();
+      if (lay.w_h[i] >= 0) {
+        for (int k = 0; k < kW1; k += wg::kSliceK) {
+          wg::mma_slice<kW1>(acc, h_addr, kW1, k, w_addr + woff,
+                             wg::kSliceK, k == 0);
+          woff += wg::kSliceK * kW1 * 2;
+        }
+      } else {
+        wg::mma_slice<kW1>(acc, a0_addr, k0, 0, w_addr + woff, k0, true);
+        woff += k0 * kW1 * 2;
+      }
+      wg::mma_commit();
+      wg::mma_wait<0>();
+      wg::fence_regs(acc);
+      wg::wg_sync(bar);   // the whole warpgroup is done reading H
+      const float* bl = bias + lay.b[i];
+      const bool xlayer = i == 0, last = i == lay.depth - 1;
+      float sg_lo = 0.0f, sg_hi = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kW1 / 8; ++j) {
+        const int c = 8 * j + cA;
+        const float b0 = bl[c], b1 = bl[c + 1];
+        float v[4] = {__fadd_rn(acc[4 * j], b0), __fadd_rn(acc[4 * j + 1], b1),
+                      __fadd_rn(acc[4 * j + 2], b0),
+                      __fadd_rn(acc[4 * j + 3], b1)};
+        if (xlayer) {
+          const float o0 = hx[rl][0][c], o1 = hx[rl][0][c + 1];
+          const float d0 = hx[rl][1][c], d1 = hx[rl][1][c + 1];
+          v[0] = __fadd_rn(v[0], __fadd_rn(o0, __fmul_rn(d0, t_lo)));
+          v[1] = __fadd_rn(v[1], __fadd_rn(o1, __fmul_rn(d1, t_lo)));
+          v[2] = __fadd_rn(v[2], __fadd_rn(o0, __fmul_rn(d0, t_hi)));
+          v[3] = __fadd_rn(v[3], __fadd_rn(o1, __fmul_rn(d1, t_hi)));
+        }
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(fmaxf(v[0], 0.0f),
+                                                        fmaxf(v[1], 0.0f));
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(fmaxf(v[2], 0.0f),
+                                                        fmaxf(v[3], 0.0f));
+        if (last) {
+          const float s0 = s.wsig[c], s1 = s.wsig[c + 1];
+          sg_lo = fmaf(__low2float(lo), s0, fmaf(__high2float(lo), s1, sg_lo));
+          sg_hi = fmaf(__low2float(hi), s0, fmaf(__high2float(hi), s1, sg_hi));
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<char*>(H) +
+                                             wg::cm_off(rA, c, kW1)) = lo;
+          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<char*>(H) +
+                                             wg::cm_off(rA + 8, c, kW1)) = hi;
+        }
+      }
+      if (last) {
+        sg_lo += __shfl_xor_sync(0xffffffffu, sg_lo, 1);
+        sg_lo += __shfl_xor_sync(0xffffffffu, sg_lo, 2);
+        sg_hi += __shfl_xor_sync(0xffffffffu, sg_hi, 1);
+        sg_hi += __shfl_xor_sync(0xffffffffu, sg_hi, 2);
+        if ((lane & 3) == 0) {
+          row_sigma[rA] = sg_lo + bias[lay.b_out + 3];
+          row_sigma[rA + 8] = sg_hi + bias[lay.b_out + 3];
+        }
+      } else {
+        wg::fence_async_smem();
+      }
+      wg::wg_sync(bar);
+    }
+
+    // compositing: segments of `seg` lanes per ray, q samples a lane
+    const int seg = SB < 32 ? SB : 32, q = SB / seg;
+    if (ww < 2 / q) {
+      const int ray_l = ww * (32 / seg) + lane / seg;
+      const int ks = (lane & (seg - 1)) * q;
+      const long rr = ray0 + ray_l;
+      float x[2], lg[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        x[j] = lg[j] = 0.0f;
+        if (j < q) {
+          x[j] = __fmul_rn(density(row_sigma[ray_l * SB + ks + j], a.softplus),
+                           a.d[rr * SB + ks + j]);
+          lg[j] = fmaxf(-x[j], kLogFloor);
+        }
+      }
+      const float incl = wg::seg_scan(q == 2 ? lg[0] + lg[1] : lg[0], seg);
+      float ex = __shfl_up_sync(0xffffffffu, incl, 1, seg);
+      if ((lane & (seg - 1)) == 0) ex = 0.0f;
+      const float total = __shfl_sync(0xffffffffu, incl, seg - 1, seg);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (j < q) {
+          const float wk = __fmul_rn(1.0f - expf(-x[j]), expf(ex));
+          a.w_out[rr * SB + ks + j] = wk;
+          sum += wk;
+          ex += lg[j];
+        }
+      }
+      sum = wg::seg_sum(sum, seg);
+      if ((lane & (seg - 1)) == 0) {
+        a.acc[rr] = sum;
+        a.logT[rr] = total;
+      }
+    }
+    wg::wg_sync(bar);
   }
 }
 
+}  // namespace
 }  // namespace fnt
 
 extern "C" {
 
-// R must be a multiple of the tile (2048/SB rays); SB must divide 64.
-// Returns a cudaError_t.
+// The proposal march of a 128-wide σ-only net. R must be a multiple of the
+// tile (2048/SB rays) and at most 1024 tiles; SB is 16, 32 or 64; wp holds
+// the net's march slices (kernels/wgpack.py, wp_elems bf16). Returns a
+// cudaError_t.
 int fnt_sigma_march(const void* alive, const void* oWx, const void* dWx,
                     const void* oF, const void* dF, const void* t,
-                    const void* d, const void* w, const void* b, void* w_out,
-                    void* acc, void* logT, int R, int SB, int L, int depth,
-                    int width, int k0, int softplus, void* stream) {
+                    const void* d, const void* w, const void* wp,
+                    const void* b, void* w_out, void* acc, void* logT, int R,
+                    int SB, int L, int depth, int width, int k0, int softplus,
+                    int wp_elems, void* stream) {
   using namespace fnt;
   SigmaArgs a;
   a.alive = static_cast<const float*>(alive);
@@ -122,21 +287,37 @@ int fnt_sigma_march(const void* alive, const void* oWx, const void* dWx,
   a.t = static_cast<const float*>(t);
   a.d = static_cast<const float*>(d);
   a.w = static_cast<const bf16*>(w);
+  a.wp = static_cast<const bf16*>(wp);
   a.b = static_cast<const float*>(b);
   a.w_out = static_cast<float*>(w_out);
   a.acc = static_cast<float*>(acc);
   a.logT = static_cast<float*>(logT);
+  a.R = R;
   a.SB = SB;
   a.L = L;
   a.softplus = softplus;
   a.lay = make_layout(depth, width, k0, -1, 0);
-  if (layout_error(a.lay) || SB < 1 || kRows % SB || 6 * L > k0 ||
-      R % (kTileRows / SB))
+  a.wp_bytes = wp_elems * 2;
+  a.n_b = a.lay.b_out + 4;
+  const int expect = k0 * kW1 + (depth - 1) * kW1 * kW1;
+  const int smem = (int)sizeof(SigmaSmem) + a.wp_bytes + a.n_b * 4;
+  if (layout_error(a.lay) || width != kW1 || !(SB == 16 || SB == 32 ||
+      SB == 64) || 6 * L > k0 || R < 0 || R % (kTileRows / SB) ||
+      R / (kTileRows / SB) > kMaxTilesK1 || wp_elems != expect ||
+      smem > 227 * 1024 || (reinterpret_cast<uintptr_t>(wp) & 15))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(sigma_march_kernel);
+  cudaError_t err = cudaFuncSetAttribute(
+      sigma_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  int n_sm = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sigma_march_kernel, kThreadsK1, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   if (R == 0) return 0;
-  sigma_march_kernel<<<R / (kRows / SB), kThreads, sizeof(Smem),
+  sigma_march_kernel<<<n_sm * per_sm, kThreadsK1, smem,
                        static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -6,26 +6,75 @@
 // SB samples per ray with the transmittance carry and the rgb accumulator
 // held in VMEM across a tile's sequential block programs.
 //
-// What bounds it on the H100: bf16 matrix products (~0.59M MACs per row
-// against a few bytes of per-row input), so tensor-core throughput, and in
-// this first version the latency of wmma fragment loads from L2; the work it
-// skips (dead tiles) is what the frame time depends on most.
+// What bounds it on the H100: bf16 matrix products, 590,464 MACs per row
+// (8 trunk layers, the feature and view layers) against ~0.5 KB of per-row
+// input, so the tensor cores; next, the L2 → shared-memory traffic of the
+// 1.18 MB of weights, which every CUDA block streams once per work item.
 //
-// Design: the wrapper launches this kernel once per sample block b. A CUDA
-// block owns one 64-row slab = 64/SB whole rays (two rays at SB=32) for
-// block b, so it composites its own rays without any cross-block carry
-// inside a launch. Predication follows the reference tile of 2048/SB rays:
-// the (tile, b) pair runs iff some ray of the tile has hit ∧ block_hit[b] ∧
-// logT > log ε, and then every ray of the tile is marched. Each CUDA block
-// takes its tile's decision from logT_in, written by the previous launch;
-// the launch writes logT_out, a separate buffer, so no block reads a carry
-// that another block of the same launch is updating. A dead (tile, b)
-// writes w = 0 and carries rgb and logT through unchanged. The first and
-// skip layers' x-paths and the posenc phases arrive hoisted per ray
-// (oX + dX·t, oF + dF·t, f32); the view term γ(d)·W_dir arrives per ray.
+// Design (csrc/wg_trunk.cuh holds the shared pieces):
+// - Persistent CUDA blocks, one per SM, each of two consumer warpgroups and
+//   one producer warpgroup (one lane of it issues the copies; setmaxnreg
+//   hands the producer's registers to the consumers). A work item is 128
+//   rows (ray-major rows of sample block b, 64 per warpgroup); the
+//   predication tile of 2048/SB rays holds 16 items. Every block lists the launch's live tiles itself (the same
+//   list in every block) and strides over their items; the owner block of
+//   a dead tile writes its w = 0 and carries rgb and logT through.
+// - Layers on wgmma m64n256k16 (m64n128k16 for the view layer): A is the
+//   warpgroup's activation tile in shared memory, B a weight slice, the
+//   64×256 f32 accumulator 128 registers a thread.
+// - Weights through a ring of 3 slices of 64×256 bf16 in shared memory: the
+//   producer streams the net's slices (kernels/wgpack.py packs them
+//   once per net) with cp.async.bulk behind full/empty mbarriers, 128 rows
+//   per fetched slice, half the L2 traffic of a 64-row slab.
+// - The epilogue of each layer runs in registers and writes the layer's
+//   output in place over the warpgroup's own activation tile: bias, the
+//   hoisted x-term oX + dX·t of the first and skip layers
+//   (__fmul_rn/__fadd_rn, as the plain version rounds), relu, bf16. The σ
+//   head (256→1) rides the last trunk epilogue and the rgb head (128→3) the
+//   view epilogue, as register dot products reduced over the 4 lanes of a
+//   row.
+// - Compositing by warps: one warp per ray (SB = 32; a lane per sample) or
+//   per two rays (SB = 16), two samples a lane at SB = 64: the exclusive
+//   log(1−α) prefix is a shuffle scan with the carried logT.
+// The launch reads logT_in, written by the previous launch, and writes
+// logT_out, a separate buffer: no block reads a carry that another block
+// of the same launch is updating.
 #include "fnt_common.cuh"
+#include "wg_trunk.cuh"
 
 namespace fnt {
+namespace {
+
+constexpr int kW = 256;                      // trunk width of this kernel
+constexpr int kHalf = kW / 2;                // view-layer width
+constexpr int kStages = 3;                   // weight ring slices
+constexpr int kConsumers = 2 * 128;           // two warpgroups
+constexpr int kThreadsK2 = kConsumers + 128;  // and the producer warpgroup
+constexpr int kMaxTilesK2 = 1024;
+constexpr int kMaxRaysWg = wg::kWgRows / 16;  // rays of a warpgroup, SB ≥ 16
+constexpr int kMaxSlices = 96;
+
+struct __align__(128) SlimSmem {
+  bf16 h[2][wg::kWgRows * kW];           // activations per warpgroup
+  bf16 a0[2][wg::kWgRows * kMaxK0];      // posenc operand per warpgroup
+  bf16 ring[kStages][wg::kSliceK * kW];  // weight slices
+  // per-ray inputs of a warpgroup's rays, staged once per item: the
+  // phases (oF, dF), the current x-layer's (oX, dX) and the view term
+  float ph[2][kMaxRaysWg][2][kMaxK0];
+  float xs[2][kMaxRaysWg][2][kW];
+  bf16 dirs[2][kMaxRaysWg][kHalf];
+  float wsig[kW];                        // σ head
+  float wrgb[kHalf * 3];                 // rgb head
+  float row_t[wg::kItemRows];
+  float row_sigma[wg::kItemRows];
+  float row_rgb[wg::kItemRows][3];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  int n_live;
+  uint8_t tile_live[kMaxTilesK2];
+  uint16_t live[kMaxTilesK2];
+  // the net's biases follow (SlimArgs::n_b floats)
+};
 
 struct SlimArgs {
   const float* hit;        // (R,) AABB hit flags
@@ -37,104 +86,387 @@ struct SlimArgs {
   const bf16* dirpart;     // (R, W/2) per-ray view term
   const float* t;          // (R, NB·SB) sample positions
   const float* d;          // (R, NB·SB) scaled interval widths
-  const bf16* w;           // packed weights (Layout)
+  const bf16* w;           // packed weights (Layout): the heads
+  const bf16* wp;          // march slices (kernels/wgpack.py)
   const float* b;          // packed biases (x-layer biases are 0: hoisted)
   float* rgb;              // (R, 3) accumulated radiance
   float* w_out;            // (R, NB·SB) weights
   const float* logT_in;    // (R,) carry before block b (unused at b = 0)
   float* logT_out;         // (R,) carry after block b
-  int NB, SB, blk, L, softplus;
+  int R, NB, SB, blk, L, softplus, n_b;
   float log_eps;
+  int n_slices;
+  int slice_bytes[kMaxSlices];
   Layout lay;
 };
 
-__global__ void __launch_bounds__(kThreads) slim_march_kernel(SlimArgs a) {
-  Smem& s = smem();
+// The consumers' position in the weight ring: the slice to wait for next,
+// and the slice whose wgmmas may still run (released after the next one).
+struct RingPos {
+  int stage;
+  uint32_t phase;
+  int pend;
+};
+
+__device__ __forceinline__ void release(SlimSmem& s, int stage) {
+  if ((threadIdx.x & 31) == 0) wg::mbar_arrive(&s.empty[stage]);
+}
+
+// acc (+)= A·(the next weight slice of kk rows), A at column a_k of the
+// tile at a_addr (a_K columns). Keeps one slice's wgmmas in flight.
+template <int N>
+__device__ __forceinline__ void consume(float (&acc)[N / 2], RingPos& rp,
+                                        SlimSmem& s, uint32_t a_addr,
+                                        int a_K, int a_k, int kk,
+                                        bool zero) {
+  wg::mbar_wait(&s.full[rp.stage], rp.phase);
+  wg::mma_fence();
+  wg::mma_slice<N>(acc, a_addr, a_K, a_k, wg::smem_addr(s.ring[rp.stage]),
+                   kk, zero);
+  wg::mma_commit();
+  if (rp.pend >= 0) {
+    wg::mma_wait<1>();
+    release(s, rp.pend);
+  }
+  rp.pend = rp.stage;
+  if (++rp.stage == kStages) {
+    rp.stage = 0;
+    rp.phase ^= 1u;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void drain(float (&acc)[R], RingPos& rp,
+                                      SlimSmem& s) {
+  wg::mma_wait<0>();
+  wg::fence_regs(acc);
+  release(s, rp.pend);
+  rp.pend = -1;
+}
+
+__device__ __forceinline__ void st_pair(bf16* tile, int r, int c, int K,
+                                        float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<char*>(tile) +
+                                     wg::cm_off(r, c, K)) =
+      __floats2bfloat162_rn(v0, v1);
+}
+
+__global__ void __launch_bounds__(kThreadsK2, 1)
+    slim_march_kernel(const __grid_constant__ SlimArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  SlimSmem& s = *reinterpret_cast<SlimSmem*>(smem_raw);
+  float* bias = reinterpret_cast<float*>(smem_raw + sizeof(SlimSmem));
   const Layout& lay = a.lay;
   const int SB = a.SB, S = a.NB * a.SB;
-  const int nr = kRows / SB;              // rays in this slab
-  const long r0 = (long)blockIdx.x * nr;  // first ray of the slab
-  const int rpt = kTileRows / SB;         // rays per predication tile
-  const long tile0 = (r0 / rpt) * rpt;
+  const int rpt = kTileRows / SB;
   const bool first = a.blk == 0;
-  const long col0 = (long)a.blk * SB;     // first sample column of block b
+  const long col0 = (long)a.blk * SB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if (!tile_alive(a.hit, a.block_hit, a.logT_in, tile0, rpt, a.NB, a.blk,
-                  a.log_eps)) {
-    for (int i = threadIdx.x; i < nr * SB; i += kThreads)
-      a.w_out[(r0 + i / SB) * S + col0 + i % SB] = 0.0f;
-    if (threadIdx.x < nr) {
-      const long ray = r0 + threadIdx.x;
-      a.logT_out[ray] = first ? 0.0f : a.logT_in[ray];
-      if (first)
-        for (int c = 0; c < 3; ++c) a.rgb[ray * 3 + c] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      wg::mbar_init(&s.full[i], 1);
+      wg::mbar_init(&s.empty[i], kConsumers / 32);
+    }
+    wg::mbar_init_fence();
+  }
+  // shared memory leaves little L1: everything the epilogues read is
+  // staged here, the net's biases and heads once per block
+  for (int i = threadIdx.x; i < a.n_b; i += blockDim.x) bias[i] = a.b[i];
+  for (int i = threadIdx.x; i < kW; i += blockDim.x)
+    s.wsig[i] = bf(a.w[lay.w_sig + i]);
+  for (int i = threadIdx.x; i < kHalf * 3; i += blockDim.x)
+    s.wrgb[i] = bf(a.w[lay.w_rgb + i]);
+  const int n_live = wg::live_tiles(
+      a.R / rpt, rpt, s.tile_live, s.live, &s.n_live,
+      [&](long ray) {
+        const float lt = first ? 0.0f : a.logT_in[ray];
+        return a.hit[ray] > 0.0f && a.block_hit[ray * a.NB + a.blk] > 0.0f &&
+               lt > a.log_eps;
+      },
+      [&](int tile, int ln) {
+        const long ray0 = (long)tile * rpt;
+        for (int i = ln; i < rpt * SB; i += 32)
+          a.w_out[(ray0 + i / SB) * S + col0 + i % SB] = 0.0f;
+        for (int i = ln; i < rpt; i += 32) {
+          const long ray = ray0 + i;
+          a.logT_out[ray] = first ? 0.0f : a.logT_in[ray];
+          if (first)
+            for (int c = 0; c < 3; ++c) a.rgb[ray * 3 + c] = 0.0f;
+        }
+      });
+  const int n_items = n_live * wg::kItemsPerTile;
+
+  if (warp >= kConsumers / 32) {
+    // producer warpgroup: one lane streams the net's slices for every item
+    wg::setmaxnreg_dec<40>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+        const char* src = reinterpret_cast<const char*>(a.wp);
+        for (int sl = 0; sl < a.n_slices; ++sl) {
+          const int bytes = a.slice_bytes[sl];
+          wg::mbar_wait(&s.empty[stage], phase ^ 1u);
+          wg::mbar_expect_tx(&s.full[stage], bytes);
+          wg::bulk_load(s.ring[stage], src, bytes, &s.full[stage]);
+          src += bytes;
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      }
     }
     return;
   }
 
-  for (int r = threadIdx.x; r < kRows; r += kThreads)
-    s.row_t[r] = a.t[(r0 + r / SB) * S + col0 + r % SB];
-  __syncthreads();
-  const int n_ph = 6 * a.L;
-  for (int i = threadIdx.x; i < kRows * lay.k0; i += kThreads) {
-    const int r = i / lay.k0, c = i % lay.k0;
-    float v = 0.0f;
-    if (c < n_ph) {
-      const long q = (r0 + r / SB) * n_ph + c;
-      v = sinf(__fadd_rn(a.oF[q], __fmul_rn(a.dF[q], s.row_t[r])));
-    }
-    s.a0[r * kLdA + c] = __float2bfloat16_rn(v);
-  }
-  __syncthreads();
+  // consumers: warpgroup g owns rows [64g, 64g + 64) of each item
+  wg::setmaxnreg_inc<232>();
+  const int g = threadIdx.x >> 7, tw = threadIdx.x & 127, ww = tw >> 5;
+  const int bar = 1 + g;
+  bf16* H = s.h[g];
+  bf16* A0 = s.a0[g];
+  const uint32_t h_addr = wg::smem_addr(H), a0_addr = wg::smem_addr(A0);
+  float(*ph)[2][kMaxK0] = s.ph[g];
+  float(*xs)[2][kW] = s.xs[g];
+  bf16(*dirs)[kHalf] = s.dirs[g];
+  const int nr = wg::kWgRows / SB;   // rays of the warpgroup
+  float* row_t = s.row_t + 64 * g;
+  float* row_sigma = s.row_sigma + 64 * g;
+  float(*row_rgb)[3] = s.row_rgb + 64 * g;
+  const int k0 = lay.k0, n_ph = 6 * a.L;
+  const int xw = (lay.skip >= 0 ? 2 : 1) * kW;   // row stride of oX / dX
+  // this thread's accumulator rows rA, rA + 8 and first column pair
+  const int rA = 16 * ww + (lane >> 2), cA = 2 * (lane & 3);
+  RingPos rp{0, 0u, -1};
+  float acc[kW / 2];
+  float(&acc_v)[kHalf / 2] = *reinterpret_cast<float(*)[kHalf / 2]>(acc);
 
-  const int W = lay.width;
-  const int xw = (lay.skip >= 0 ? 2 : 1) * W;   // row stride of oX / dX
-  const int cur = run_trunk(lay, a.w, a.b, [&](int l, int r, int c) {
-    const long q = (r0 + r / SB) * xw + l * W + c;
-    return __fadd_rn(a.oX[q], __fmul_rn(a.dX[q], s.row_t[r]));
-  });
-  const int half = W / 2;
-  run_heads(lay, a.w, a.b, cur, [&](int r, int c) {
-    return bf(a.dirpart[(r0 + r / SB) * half + c]);
-  });
-
-  if (threadIdx.x < nr) {
-    const int j = threadIdx.x;
-    const long ray = r0 + j;
-    const float lt = first ? 0.0f : a.logT_in[ray];
-    float csum = 0.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-    for (int k = 0; k < SB; ++k) {
-      const int r = j * SB + k;
-      const float x = __fmul_rn(density(s.row_sigma[r], a.softplus),
-                                a.d[ray * S + col0 + k]);
-      const float wk = __fmul_rn(1.0f - expf(-x), expf(lt + csum));
-      a.w_out[ray * S + col0 + k] = wk;
-      c0 += wk * s.row_rgb[r][0];
-      c1 += wk * s.row_rgb[r][1];
-      c2 += wk * s.row_rgb[r][2];
-      csum += fmaxf(-x, kLogFloor);
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const long row0 = (long)s.live[it / wg::kItemsPerTile] * kTileRows +
+                      (it % wg::kItemsPerTile) * wg::kItemRows + 64 * g;
+    const long ray0 = row0 / SB;   // first ray of the warpgroup
+    if (tw < 64) row_t[tw] = a.t[(ray0 + tw / SB) * S + col0 + tw % SB];
+    for (int i = tw; i < nr * 2 * n_ph; i += 128) {
+      const int r = i / (2 * n_ph), which = (i / n_ph) & 1, c = i % n_ph;
+      ph[r][which][c] = (which ? a.dF : a.oF)[(ray0 + r) * n_ph + c];
     }
-    const float* prev = a.rgb + ray * 3;
-    a.rgb[ray * 3 + 0] = (first ? 0.0f : prev[0]) + c0;
-    a.rgb[ray * 3 + 1] = (first ? 0.0f : prev[1]) + c1;
-    a.rgb[ray * 3 + 2] = (first ? 0.0f : prev[2]) + c2;
-    a.logT_out[ray] = lt + csum;
+    for (int i = tw; i < nr * kHalf; i += 128)
+      dirs[i / kHalf][i % kHalf] = a.dirpart[ray0 * kHalf + i];
+    wg::wg_sync(bar);
+    // posenc operand: 32 lanes fill one core matrix per step
+    for (int i = tw; i < 32 * k0; i += 128) {
+      const int cm = i >> 5;
+      const int r = (cm & 7) * 8 + ((i & 31) >> 2);
+      const int c = (cm >> 3) * 8 + (i & 3) * 2;
+      const float(*p)[kMaxK0] = ph[r / SB];
+      float v0 = 0.0f, v1 = 0.0f;
+      if (c < n_ph) v0 = sinf(__fadd_rn(p[0][c], __fmul_rn(p[1][c], row_t[r])));
+      if (c + 1 < n_ph)
+        v1 = sinf(__fadd_rn(p[0][c + 1], __fmul_rn(p[1][c + 1], row_t[r])));
+      st_pair(A0, r, c, k0, v0, v1);
+    }
+    wg::fence_async_smem();
+    wg::wg_sync(bar);
+
+    const int rl = rA / SB;   // ray of both rows rA, rA + 8 (SB ≥ 16)
+    const float t_lo = row_t[rA], t_hi = row_t[rA + 8];
+    int xl = 0;
+    for (int i = 0; i < lay.depth; ++i) {
+      const bool xlayer = lay.w_a0[i] >= 0, last = i == lay.depth - 1;
+      if (xlayer)   // read after the wg_sync below; its last readers are done
+        for (int j = tw; j < nr * 2 * kW; j += 128) {
+          const int r = j / (2 * kW), which = (j / kW) & 1, c = j % kW;
+          xs[r][which][c] = (which ? a.dX : a.oX)[(ray0 + r) * xw + xl * kW +
+                                                  c];
+        }
+      bool zero = true;
+      if (lay.w_h[i] >= 0)
+        for (int k = 0; k < kW; k += wg::kSliceK) {
+          consume<kW>(acc, rp, s, h_addr, kW, k, wg::kSliceK, zero);
+          zero = false;
+        }
+      if (lay.w_a0[i] >= 0) consume<kW>(acc, rp, s, a0_addr, k0, 0, k0, zero);
+      drain(acc, rp, s);
+      wg::wg_sync(bar);   // the whole warpgroup is done reading H
+      const float* bl = bias + lay.b[i];
+      const float* ox = xs[rl][0];
+      const float* dx = xs[rl][1];
+      float sg_lo = 0.0f, sg_hi = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kW / 8; ++j) {
+        const int c = 8 * j + cA;
+        const float b0 = bl[c], b1 = bl[c + 1];
+        float v[4] = {__fadd_rn(acc[4 * j], b0), __fadd_rn(acc[4 * j + 1], b1),
+                      __fadd_rn(acc[4 * j + 2], b0),
+                      __fadd_rn(acc[4 * j + 3], b1)};
+        if (xlayer) {
+          const float o0 = ox[c], o1 = ox[c + 1], d0 = dx[c], d1 = dx[c + 1];
+          v[0] = __fadd_rn(v[0], __fadd_rn(o0, __fmul_rn(d0, t_lo)));
+          v[1] = __fadd_rn(v[1], __fadd_rn(o1, __fmul_rn(d1, t_lo)));
+          v[2] = __fadd_rn(v[2], __fadd_rn(o0, __fmul_rn(d0, t_hi)));
+          v[3] = __fadd_rn(v[3], __fadd_rn(o1, __fmul_rn(d1, t_hi)));
+        }
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(fmaxf(v[0], 0.0f),
+                                                        fmaxf(v[1], 0.0f));
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(fmaxf(v[2], 0.0f),
+                                                        fmaxf(v[3], 0.0f));
+        *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<char*>(H) +
+                                           wg::cm_off(rA, c, kW)) = lo;
+        *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<char*>(H) +
+                                           wg::cm_off(rA + 8, c, kW)) = hi;
+        if (last) {
+          const float s0 = s.wsig[c], s1 = s.wsig[c + 1];
+          sg_lo = fmaf(__low2float(lo), s0, fmaf(__high2float(lo), s1, sg_lo));
+          sg_hi = fmaf(__low2float(hi), s0, fmaf(__high2float(hi), s1, sg_hi));
+        }
+      }
+      xl += xlayer;
+      if (last) {
+        sg_lo += __shfl_xor_sync(0xffffffffu, sg_lo, 1);
+        sg_lo += __shfl_xor_sync(0xffffffffu, sg_lo, 2);
+        sg_hi += __shfl_xor_sync(0xffffffffu, sg_hi, 1);
+        sg_hi += __shfl_xor_sync(0xffffffffu, sg_hi, 2);
+        if ((lane & 3) == 0) {
+          row_sigma[rA] = sg_lo + bias[lay.b_sig];
+          row_sigma[rA + 8] = sg_hi + bias[lay.b_sig];
+        }
+      }
+      wg::fence_async_smem();
+      wg::wg_sync(bar);
+    }
+
+    // feature layer: bf16(h·W_feat + b), no relu, in place
+    for (int k = 0; k < kW; k += wg::kSliceK)
+      consume<kW>(acc, rp, s, h_addr, kW, k, wg::kSliceK, k == 0);
+    drain(acc, rp, s);
+    wg::wg_sync(bar);
+    {
+      const float* bl = bias + lay.b_feat;
+#pragma unroll
+      for (int j = 0; j < kW / 8; ++j) {
+        const int c = 8 * j + cA;
+        const float b0 = bl[c], b1 = bl[c + 1];
+        st_pair(H, rA, c, kW, __fadd_rn(acc[4 * j], b0),
+                __fadd_rn(acc[4 * j + 1], b1));
+        st_pair(H, rA + 8, c, kW, __fadd_rn(acc[4 * j + 2], b0),
+                __fadd_rn(acc[4 * j + 3], b1));
+      }
+    }
+    wg::fence_async_smem();
+    wg::wg_sync(bar);
+
+    // view layer (N = W/2) with the per-ray view term, then the rgb head
+    for (int k = 0; k < kW; k += wg::kSliceK)
+      consume<kHalf>(acc_v, rp, s, h_addr, kW, k, wg::kSliceK, k == 0);
+    drain(acc_v, rp, s);
+    {
+      const float* bl = bias + lay.b_view;
+      const bf16* dirp = dirs[rl];
+      const float* wr = s.wrgb;
+      float c_lo[3] = {0.0f, 0.0f, 0.0f}, c_hi[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const int c = 8 * j + cA;
+        const float2 bb = make_float2(bl[c], bl[c + 1]);
+        const float2 dv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dirp + c));
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j], dv.x), bb.x), 0.0f),
+            fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 1], dv.y), bb.y), 0.0f));
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(
+            fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 2], dv.x), bb.x), 0.0f),
+            fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 3], dv.y), bb.y), 0.0f));
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float w0 = wr[c * 3 + q], w1 = wr[(c + 1) * 3 + q];
+          c_lo[q] = fmaf(__low2float(lo), w0,
+                         fmaf(__high2float(lo), w1, c_lo[q]));
+          c_hi[q] = fmaf(__low2float(hi), w0,
+                         fmaf(__high2float(hi), w1, c_hi[q]));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        c_lo[q] += __shfl_xor_sync(0xffffffffu, c_lo[q], 1);
+        c_lo[q] += __shfl_xor_sync(0xffffffffu, c_lo[q], 2);
+        c_hi[q] += __shfl_xor_sync(0xffffffffu, c_hi[q], 1);
+        c_hi[q] += __shfl_xor_sync(0xffffffffu, c_hi[q], 2);
+        if ((lane & 3) == 0) {
+          row_rgb[rA][q] = sigmoidf(c_lo[q] + bias[lay.b_rgb + q]);
+          row_rgb[rA + 8][q] = sigmoidf(c_hi[q] + bias[lay.b_rgb + q]);
+        }
+      }
+    }
+    wg::wg_sync(bar);
+
+    // compositing: segments of `seg` lanes per ray, q samples a lane
+    const int seg = SB < 32 ? SB : 32, q = SB / seg;
+    if (ww < 2 / q) {
+      const int ray_l = ww * (32 / seg) + lane / seg;   // ray in the group
+      const int ks = (lane & (seg - 1)) * q;            // its first sample
+      const long rr = ray0 + ray_l;
+      const float lt = first ? 0.0f : a.logT_in[rr];
+      float x[2], lg[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        x[j] = lg[j] = 0.0f;
+        if (j < q) {
+          x[j] = __fmul_rn(density(row_sigma[ray_l * SB + ks + j], a.softplus),
+                           a.d[rr * S + col0 + ks + j]);
+          lg[j] = fmaxf(-x[j], kLogFloor);
+        }
+      }
+      const float incl = wg::seg_scan(q == 2 ? lg[0] + lg[1] : lg[0], seg);
+      float ex = __shfl_up_sync(0xffffffffu, incl, 1, seg);
+      if ((lane & (seg - 1)) == 0) ex = 0.0f;
+      const float total = __shfl_sync(0xffffffffu, incl, seg - 1, seg);
+      float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (j < q) {
+          const float wk = __fmul_rn(1.0f - expf(-x[j]), expf(lt + ex));
+          a.w_out[rr * S + col0 + ks + j] = wk;
+          const float* cr = row_rgb[ray_l * SB + ks + j];
+          c0 += wk * cr[0];
+          c1 += wk * cr[1];
+          c2 += wk * cr[2];
+          ex += lg[j];
+        }
+      }
+      c0 = wg::seg_sum(c0, seg);
+      c1 = wg::seg_sum(c1, seg);
+      c2 = wg::seg_sum(c2, seg);
+      if ((lane & (seg - 1)) == 0) {
+        float* out = a.rgb + rr * 3;
+        out[0] = (first ? 0.0f : out[0]) + c0;
+        out[1] = (first ? 0.0f : out[1]) + c1;
+        out[2] = (first ? 0.0f : out[2]) + c2;
+        a.logT_out[rr] = lt + total;
+      }
+    }
+    wg::wg_sync(bar);
   }
 }
 
+}  // namespace
 }  // namespace fnt
 
 extern "C" {
 
-// Marches sample block `blk` of NB. R must be a multiple of the tile
-// (2048/SB rays); SB must divide 64. Returns a cudaError_t.
+// Marches sample block `blk` of NB with the 8×256-wide fine net. R must be
+// a multiple of the tile (2048/SB rays) and at most 1024 tiles; SB is 16,
+// 32 or 64; wp holds the net's march slices (kernels/wgpack.py). Returns a
+// cudaError_t.
 int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
                    const void* dX, const void* oF, const void* dF,
                    const void* dirpart, const void* t, const void* d,
-                   const void* w, const void* b, void* rgb, void* w_out,
-                   const void* logT_in, void* logT_out, int R, int NB,
-                   int SB, int blk, int L, int depth, int width, int k0,
-                   int skip, int softplus, float log_eps, void* stream) {
+                   const void* w, const void* wp, const void* b, void* rgb,
+                   void* w_out, const void* logT_in, void* logT_out, int R,
+                   int NB, int SB, int blk, int L, int depth, int width,
+                   int k0, int skip, int softplus, float log_eps,
+                   void* stream) {
   using namespace fnt;
   SlimArgs a;
   a.hit = static_cast<const float*>(hit);
@@ -147,11 +479,13 @@ int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
   a.t = static_cast<const float*>(t);
   a.d = static_cast<const float*>(d);
   a.w = static_cast<const bf16*>(w);
+  a.wp = static_cast<const bf16*>(wp);
   a.b = static_cast<const float*>(b);
   a.rgb = static_cast<float*>(rgb);
   a.w_out = static_cast<float*>(w_out);
   a.logT_in = static_cast<const float*>(logT_in);
   a.logT_out = static_cast<float*>(logT_out);
+  a.R = R;
   a.NB = NB;
   a.SB = SB;
   a.blk = blk;
@@ -159,13 +493,37 @@ int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
   a.softplus = softplus;
   a.log_eps = log_eps;
   a.lay = make_layout(depth, width, k0, skip, 1);
-  if (layout_error(a.lay) || SB < 1 || kRows % SB || 6 * L > k0 ||
-      R % (kTileRows / SB) || blk < 0 || blk >= NB)
+  a.n_b = a.lay.b_rgb + 3;
+  const int smem = (int)sizeof(SlimSmem) + a.n_b * 4;
+  if (layout_error(a.lay) || width != kW || smem > 227 * 1024 || !(SB == 16 || SB == 32 ||
+      SB == 64) || 6 * L > k0 || R < 0 || R % (kTileRows / SB) ||
+      R / (kTileRows / SB) > kMaxTilesK2 || blk < 0 || blk >= NB ||
+      (reinterpret_cast<uintptr_t>(wp) & 15))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(slim_march_kernel);
+  // the slices in the order the consumers take them (kernels/wgpack.py)
+  int n = 0;
+  auto add = [&](int rows, int cols) {
+    for (int k = 0; k < rows; k += wg::kSliceK)
+      if (n < kMaxSlices)
+        a.slice_bytes[n++] = (rows - k < wg::kSliceK ? rows - k : wg::kSliceK)
+                             * cols * 2;
+  };
+  for (int i = 0; i < depth; ++i) {
+    if (a.lay.w_h[i] >= 0) add(kW, kW);
+    if (a.lay.w_a0[i] >= 0) add(k0, kW);
+  }
+  add(kW, kW);
+  add(kW, kHalf);
+  a.n_slices = n;
+  if (n >= kMaxSlices) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      slim_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
   if (err != cudaSuccess) return (int)err;
   if (R == 0) return 0;
-  slim_march_kernel<<<R / (kRows / SB), kThreads, sizeof(Smem),
+  slim_march_kernel<<<n_sm, kThreadsK2, smem,
                       static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -145,6 +145,7 @@ class PackedNet:
     dir_kernel: Optional[torch.Tensor]   # (Cd, W/2) f32 view-branch rows
     x_kernels: tuple           # ((Wx (3,W), b (W,)), ...) hoisted x-layers
     w32: Optional[torch.Tensor] = None   # unrounded f32 weights with grad
+    wg: Optional[torch.Tensor] = None    # march slices (wgpack), K1/K2
 
     def wview(self, off: int, rows: int, cols: int):
         return self.wf[off:off + rows * cols].view(rows, cols)

@@ -22,6 +22,7 @@ from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, _bf,
                                                    mlp_rows, pack_params,
                                                    phase_consts)
+from fashion_nerf_torch.kernels.wgpack import march_buffer
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP
 
 _LOG_FLOOR = -23.025851   # log(1e-10) floor on log(1 - α)
@@ -86,6 +87,21 @@ def sigma_march_plain(net: PackedNet, hoists, alive, t, d,
     return w, acc, logT
 
 
+def check_march_shape(R: int, SB: int, width: int, kernel_width: int):
+    """Raise unless K1/K2 take R rays of SB samples a block and a net of
+    this width (kernels.MARCH_SB, whole tiles, at most MARCH_MAX_TILES)."""
+    if width != kernel_width:
+        raise ValueError(f"net width {width}: this march kernel is built "
+                         f"for width {kernel_width}")
+    if SB not in K.MARCH_SB:
+        raise ValueError(f"SB={SB}: the march kernels take SB in "
+                         f"{K.MARCH_SB}")
+    rpt = K.TILE_ROWS // SB
+    if R % rpt or R // rpt > K.MARCH_MAX_TILES:
+        raise ValueError(f"R={R} must be a multiple of {rpt} and at most "
+                         f"{K.MARCH_MAX_TILES * rpt} rays")
+
+
 def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
     """σ-only march: CPU tensors take the plain version, CUDA tensors K1."""
     oF, dF, oWx, dWx = hoists
@@ -93,22 +109,23 @@ def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
         return sigma_march_plain(net, hoists, alive, t, d, softplus)
     R, SB = d.shape
     W, nph = net.width, 6 * net.L
-    if K.SLAB_ROWS % SB or R % (K.TILE_ROWS // SB):
-        raise ValueError(f"SB={SB} must divide {K.SLAB_ROWS}; R={R} must be "
-                         f"a multiple of {K.TILE_ROWS // SB}")
+    check_march_shape(R, SB, W, K.SIGMA_WIDTH)
     for name, x, shape in (("alive", alive, (R,)), ("oWx", oWx, (R, W)),
                            ("dWx", dWx, (R, W)), ("oF", oF, (R, nph)),
                            ("dF", dF, (R, nph)), ("t", t, (R, SB)),
                            ("d", d, (R, SB))):
         K.check(x, name, torch.float32, shape)
+    wp = march_buffer(net)
     w = torch.empty_like(d)
     acc = torch.empty((R,), dtype=torch.float32, device=d.device)
     logT = torch.empty_like(acc)
-    ptrs = [x.data_ptr() for x in (alive, oWx, dWx, oF, dF, t, d, net.w,
+    if R == 0:
+        return w, acc, logT
+    ptrs = [x.data_ptr() for x in (alive, oWx, dWx, oF, dF, t, d, net.w, wp,
                                    net.b, w, acc, logT)]
     code = K.library().fnt_sigma_march(
         *ptrs, R, SB, net.L, net.depth, net.width, net.k0, int(softplus),
-        K.stream())
+        wp.numel(), K.stream())
     K.raise_on_error(code, "fnt_sigma_march")
     K.LAUNCHES["sigma_march"] += 1
     return w, acc, logT

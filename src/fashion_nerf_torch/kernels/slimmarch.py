@@ -21,7 +21,9 @@ from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, mlp_rows,
                                                    pack_params, phase_consts)
 from fashion_nerf_torch.kernels.sigmamarch import (_LOG_FLOOR, _density,
-                                                   _march_operand)
+                                                   _march_operand,
+                                                   check_march_shape)
+from fashion_nerf_torch.kernels.wgpack import march_buffer
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP
 
 _BF = torch.bfloat16
@@ -114,9 +116,9 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     SB = S // NB
     W, nph = net.width, 6 * net.L
     nx = len(net.x_kernels)
-    if S != NB * SB or K.SLAB_ROWS % SB or R % (K.TILE_ROWS // SB):
-        raise ValueError(f"S={S}, NB={NB}: SB must divide {K.SLAB_ROWS} and "
-                         f"R={R} be a multiple of {K.TILE_ROWS // max(SB, 1)}")
+    if S != NB * SB:
+        raise ValueError(f"S={S} is not NB={NB} blocks")
+    check_march_shape(R, SB, W, K.SLIM_WIDTH)
     for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
                                                 (R, NB)),
                            ("oX", oX, (R, nx * W)), ("dX", dX, (R, nx * W)),
@@ -124,15 +126,18 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
                            ("t", t, (R, S)), ("d", d, (R, S))):
         K.check(x, name, torch.float32, shape)
     K.check(dirpart, "dirpart", _BF, (R, W // 2))
+    wp = march_buffer(net)
     rgb = torch.empty((R, 3), dtype=torch.float32, device=t.device)
     w = torch.empty_like(t)
     carry = [torch.empty((R,), dtype=torch.float32, device=t.device)
              for _ in range(2)]
+    if R == 0:
+        return rgb, w, carry[0]
     lib = K.library()
     for b in range(NB):
         ptrs = [x.data_ptr() for x in (
-            hit, block_hit, oX, dX, oF, dF, dirpart, t, d, net.w, net.b, rgb,
-            w, carry[b % 2], carry[(b + 1) % 2])]
+            hit, block_hit, oX, dX, oF, dF, dirpart, t, d, net.w, wp, net.b,
+            rgb, w, carry[b % 2], carry[(b + 1) % 2])]
         code = lib.fnt_slim_march(
             *ptrs, R, NB, SB, b, net.L, net.depth, net.width, net.k0,
             net.skip, int(softplus), float(log_eps), K.stream())

@@ -13,8 +13,8 @@ import os
 
 import numpy as np
 
-from fashion_nerf.assets import ASSETS_DIR, _flatten, load_params
-from fashion_nerf.config import Config, ModelConfig
+from fashion_nerf_torch.assets import ASSETS_DIR, _flatten, load_params
+from fashion_nerf_torch.config import Config, ModelConfig
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, load_flax_params
 
 PROPOSAL_ASSET = os.path.join(ASSETS_DIR, "proposal_synthetic.npz")

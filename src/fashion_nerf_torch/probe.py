@@ -41,7 +41,6 @@ import time
 
 import torch
 
-from fashion_nerf_torch import bench
 from fashion_nerf_torch import kernels as K
 
 _BF = torch.bfloat16
@@ -189,7 +188,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=None,
                     help="rows per call (default 2^21 for P1, 2^20 for P2)")
     args = ap.parse_args(argv)
-    device = bench.resolve_device(args.device)
+    device = K.resolve_device(args.device)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu (plain versions)")
     print(f"device: {kind}", flush=True)

@@ -36,9 +36,10 @@ import time
 import numpy as np
 import torch
 
-from fashion_nerf.assets import load_flagship
-from fashion_nerf.config import load_config
+from fashion_nerf_torch.assets import load_flagship
+from fashion_nerf_torch.config import load_config
 from fashion_nerf_torch import bench
+from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.data.synthetic import field_torch
 from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
 from fashion_nerf_torch.metrics import psnr
@@ -138,7 +139,7 @@ def run_gate(cfg_overrides=(), poses=None, device=None, H: int = 800,
     "worst", "worst_pose", "worst_mrays", "ok"}. cache: a dict that keeps
     each pose's (GT, dense) images across calls of the same size, so a
     second production config is scored against the same references."""
-    device = bench.resolve_device(device)
+    device = K.resolve_device(device)
     loaded = load_flagship()
     if loaded is None:
         raise FileNotFoundError("assets/flagship_synthetic.npz is missing")
@@ -220,7 +221,7 @@ def main(argv=None) -> int:
             "only --gate is ported; the spec sweep of "
             "scripts/quality_check.py is not (ROADMAP Queue 1 #8)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = bench.resolve_device(args.device)
+    device = K.resolve_device(args.device)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu (plain versions)")
     print(f"device: {kind}", flush=True)

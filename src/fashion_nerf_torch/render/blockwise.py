@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fashion_nerf.config import Config
+from fashion_nerf_torch.config import Config
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.core.cameras import generate_rays
 from fashion_nerf_torch.core.occupancy import (OccupancyState,

@@ -17,7 +17,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from fashion_nerf.config import Config
+from fashion_nerf_torch.config import Config
 from fashion_nerf_torch.core.cameras import generate_rays, ndc_rays
 from fashion_nerf_torch.core.occupancy import (cull_background,
                                                ray_aabb_intersect)

@@ -25,10 +25,11 @@ from typing import Callable, Optional
 
 import torch
 
-from fashion_nerf.config import Config
+from fashion_nerf_torch.config import Config
 from fashion_nerf_torch import ckpt as ckpt_lib
 from fashion_nerf_torch.core.occupancy import build_from_config
 from fashion_nerf_torch.data.pipeline import RayDataset, sample_batch
+from fashion_nerf_torch.kernels import resolve_device
 from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
 from fashion_nerf_torch.logging_ import MetricLogger
 from fashion_nerf_torch.metrics import mse_to_psnr, psnr
@@ -205,11 +206,6 @@ def _check_supported(cfg: Config) -> None:
                                   "ported (ROADMAP Queue 1 #11)")
 
 
-def default_device() -> torch.device:
-    return (torch.device("cuda", 0) if torch.cuda.is_available()
-            else torch.device("cpu"))
-
-
 def train(cfg: Config, dataset_dict: Optional[dict] = None,
           log_fn: Optional[Callable] = None, resume: bool = False,
           fault_at_step: Optional[int] = None, device=None):
@@ -219,9 +215,11 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
     resume: restore the latest checkpoint under out_dir/name/ckpt and
     continue the identical trajectory. fault_at_step: raise at that step
     (a test hook for kill-and-resume). Log entries carry the cumulative
-    counts of occupancy refreshes, culled and dense steps."""
+    counts of occupancy refreshes, culled and dense steps. device: CUDA
+    by default; the CPU (every kernel's plain version) only when asked for
+    by name; raises when CUDA is wanted and there is none."""
     _check_supported(cfg)
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     if dataset_dict is None:
         dataset_dict = load_dataset(cfg)
     dataset = RayDataset(dataset_dict["images"], dataset_dict["poses"],

@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from fashion_nerf.config import Config
+from fashion_nerf_torch.config import Config
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, init_field
 
 

@@ -67,12 +67,13 @@ def test_resume_continues_identical_trajectory(tmp_path, scene):
     """20 steps straight, against 10 steps, a restore into a fresh state,
     and 10 more: bitwise the same parameters, Adam moments and draws."""
     straight, _ = train(_cfg(tmp_path / "a", "train.iters=20"),
-                        dataset_dict=scene, log_fn=lambda e: None)
+                        dataset_dict=scene, log_fn=lambda e: None,
+                        device="cpu")
     train(_cfg(tmp_path / "b", "train.iters=10"), dataset_dict=scene,
-          log_fn=lambda e: None)
+          log_fn=lambda e: None, device="cpu")
     resumed, hist = train(_cfg(tmp_path / "b", "train.iters=20"),
                           dataset_dict=scene, log_fn=lambda e: None,
-                          resume=True)
+                          device="cpu", resume=True)
     assert resumed.step == straight.step == 20
     assert [h["step"] for h in hist if "loss" in h] == [20]
     a, b = _params(straight), _params(resumed)
@@ -85,12 +86,12 @@ def test_resume_continues_identical_trajectory(tmp_path, scene):
 def test_fault_then_resume(tmp_path, scene):
     cfg = _cfg(tmp_path, "train.iters=30", "train.seed=7")
     with pytest.raises(RuntimeError, match="injected fault"):
-        train(cfg, dataset_dict=scene, log_fn=lambda e: None,
+        train(cfg, dataset_dict=scene, log_fn=lambda e: None, device="cpu",
               fault_at_step=25)
     assert ckpt.steps(os.path.join(str(tmp_path), cfg.name, "ckpt")) == [
         10, 20]
     state, history = train(cfg, dataset_dict=scene, log_fn=lambda e: None,
-                           resume=True)
+                           device="cpu", resume=True)
     assert state.step == 30
     losses = [h["loss"] for h in history if "loss" in h]
     assert np.isfinite(losses).all()
@@ -99,5 +100,23 @@ def test_fault_then_resume(tmp_path, scene):
 
 def test_resume_without_checkpoint_starts_fresh(tmp_path, scene):
     state, _ = train(_cfg(tmp_path, "train.iters=5"), dataset_dict=scene,
-                     log_fn=lambda e: None, resume=True)
+                     log_fn=lambda e: None, device="cpu", resume=True)
     assert state.step == 5
+
+
+def test_train_needs_cuda_unless_cpu_is_named(tmp_path, scene, monkeypatch):
+    """train() and `cli train` take the CUDA device; without one they raise,
+    unless the CPU is asked for by name."""
+    from fashion_nerf_torch import cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _cfg(tmp_path, "train.iters=1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, dataset_dict=scene, log_fn=lambda e: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, dataset_dict=scene, log_fn=lambda e: None, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--config", "tiny_lego", "--out", str(tmp_path),
+                  "--set", "train.iters=1"])
+    state, _ = train(cfg, dataset_dict=scene, log_fn=lambda e: None,
+                     device="cpu")
+    assert state.step == 1

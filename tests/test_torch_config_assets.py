@@ -1,0 +1,73 @@
+"""The port's own copies of the configuration tree and of the asset IO
+agree with the reference's: every preset, with and without overrides,
+and the committed weights, bitwise."""
+
+import numpy as np
+import pytest
+
+from fashion_nerf import assets as jassets
+from fashion_nerf import config as jconfig
+from fashion_nerf_torch import assets, config
+
+OVERRIDES = (
+    [],
+    ["train.iters=7", "model.skips=1,3", "render.white_bkgd=false"],
+    ["kernels.early_term_eps=0.01", "proposal.block_samples=32",
+     "data.frame_ids=", "out_dir=/tmp/x", "model.compute_dtype=float32"],
+)
+
+
+@pytest.mark.parametrize("ovr", OVERRIDES, ids=["none", "a", "b"])
+@pytest.mark.parametrize("name", sorted(jconfig.PRESETS))
+def test_presets_equal_reference(name, ovr):
+    got = config.config_to_dict(config.load_config(name, ovr))
+    want = jconfig.config_to_dict(jconfig.load_config(name, ovr))
+    assert got == want
+
+
+def test_preset_names_and_defaults_equal_reference():
+    assert sorted(config.PRESETS) == sorted(jconfig.PRESETS)
+    assert (config.config_to_dict(config.Config())
+            == jconfig.config_to_dict(jconfig.Config()))
+
+
+def test_unknown_field_and_preset_raise():
+    with pytest.raises(KeyError):
+        config.load_config("blender_lego", ["train.nope=1"])
+    with pytest.raises(KeyError):
+        config.load_config("nope")
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+@pytest.mark.parametrize("which", ["flagship", "proposal"])
+def test_assets_load_bitwise(which):
+    if which == "flagship":
+        got, want = assets.load_flagship(), jassets.load_flagship()
+        assert assets.FLAGSHIP_CKPT == jassets.FLAGSHIP_CKPT
+    else:
+        path = f"{assets.ASSETS_DIR}/proposal_synthetic.npz"
+        got, want = assets.load_params(path), jassets.load_params(path)
+    assert assets.ASSETS_DIR == jassets.ASSETS_DIR
+    (gp, gm), (wp, wm) = got, want
+    g, w = dict(_leaves(gp)), dict(_leaves(wp))
+    assert sorted(g) == sorted(w) and len(g) > 0
+    for k in w:
+        assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+    assert sorted(gm) == sorted(wm)
+    for k in wm:
+        assert np.array_equal(gm[k], wm[k]), k
+
+
+def test_flatten_matches_reference():
+    tree = {"a": {"b": np.arange(3.0), "c": {"d": np.ones((2, 2))}}}
+    got, want = assets._flatten(tree), jassets._flatten(tree)
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    assert assets.load_flagship("/nonexistent.npz") is None

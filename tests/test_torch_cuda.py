@@ -8,6 +8,7 @@ This file imports no JAX, so it also runs on a GPU host without JAX:
 (`--noconftest` skips tests/conftest.py, which imports JAX.)"""
 
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -139,6 +140,143 @@ def test_slim_march_kernel(dev, eps):
     w_k = out_k[1]
     assert bool((w_k[:64] == 0).all())
     assert bool((w_k[128:, SB:2 * SB] == 0).all())
+
+
+def _executed(w, hit, bhit, eps):
+    """Executed (tile, block) pairs reconstructed from the weights."""
+    from fashion_nerf_torch.render.blockwise import march_liveness
+    cfg = SimpleNamespace(kernels=SimpleNamespace(early_term_eps=eps))
+    return march_liveness(w, hit, bhit, cfg)["tile_alive"]
+
+
+def _march_case(rng, case, R, NB, SB, dev):
+    """hit, block_hit, t, d of an edge case: all_dead (no alive ray),
+    one_tile (one alive ray, in tile 3), terminated (dense rays that
+    saturate), ragged (2% alive rays, 60% block flags, widths spread over
+    100×: partial tiles whose live rows are few and scattered)."""
+    S = NB * SB
+    t = torch.linspace(2.0, 6.0, S, device=dev).expand(R, S).contiguous()
+    d = torch.full((R, S), 4.0 / S, device=dev)
+    hit = torch.ones(R, device=dev)
+    bhit = torch.ones((R, NB), device=dev)
+    if case == "all_dead":
+        hit.zero_()
+    elif case == "one_tile":
+        hit.zero_()
+        hit[3 * (K.TILE_ROWS // SB) + 17] = 1.0
+    elif case == "terminated":
+        d = d * _f32(rng, R, 1, lo=20.0, hi=200.0, dev=dev)
+    elif case == "ragged":
+        hit = torch.tensor(rng.random(R) < 0.02, dtype=torch.float32,
+                           device=dev)
+        bhit = torch.tensor(rng.random((R, NB)) < 0.6, dtype=torch.float32,
+                            device=dev)
+        d = d * _f32(rng, R, 1, lo=1.0, hi=100.0, dev=dev)
+    return hit, bhit, t, d.contiguous()
+
+
+@pytest.mark.parametrize("case,SB", [
+    ("all_dead", 32), ("one_tile", 32), ("terminated", 32), ("ragged", 32),
+    ("ragged", 16), ("terminated", 64)])
+def test_slim_march_edge_cases(dev, case, SB):
+    """K2 against its plain version on 6 tiles: rgb/w/transmittance atol
+    5e-3 and identical executed (tile, block) pairs, for an all-dead launch,
+    a single live tile, terminated rays and ragged live rows."""
+    rng = np.random.default_rng(10)
+    NB, eps = 3, 1e-3
+    R = 6 * (K.TILE_ROWS // SB)
+    net = slimmarch.split_hoist(fine_net(rng).to(dev))
+    ro, rd = _rays(R, dev)
+    hf = slimmarch.hoist_rays(net, ro, rd)
+    dp = posenc_mlp.hoist_dirs(net, rd).contiguous()
+    hit, bhit, t, d = _march_case(rng, case, R, NB, SB, dev)
+    args = (net, hf, dp, hit, bhit, t, d, math.log(eps))
+    n0 = K.LAUNCHES["slim_march"]
+    out_k = slimmarch.slim_march(*args)
+    out_p = slimmarch.slim_march_plain(*args)
+    assert K.LAUNCHES["slim_march"] == n0 + NB
+    _close(out_k[0], out_p[0], 5e-3)
+    _close(out_k[1], out_p[1], 5e-3)
+    _close(out_k[2].exp(), out_p[2].exp(), 5e-3)
+    live_k = _executed(out_k[1], hit, bhit, eps)
+    live_p = _executed(out_p[1], hit, bhit, eps)
+    assert torch.equal(live_k, live_p)
+    n_exec = int(live_k.sum())
+    if case == "all_dead":
+        assert n_exec == 0 and bool((out_k[1] == 0).all())
+        assert bool((out_k[0] == 0).all() and (out_k[2] == 0).all())
+    elif case == "one_tile":
+        assert n_exec == NB and bool(live_k[3].all())
+    else:
+        cand = (hit[:, None] * bhit).view(-1, K.TILE_ROWS // SB, NB)
+        assert 0 < n_exec < int((cand.amax(dim=1) > 0).sum())
+        assert int((out_p[2] < math.log(eps)).sum()) > 0
+
+
+@pytest.mark.parametrize("case,SB", [
+    ("all_dead", 64), ("one_tile", 64), ("ragged", 64), ("ragged", 32),
+    ("ragged", 16)])
+def test_sigma_march_edge_cases(dev, case, SB):
+    """K1 against its plain version on 6 tiles: w/acc/transmittance atol
+    2e-3; dead tiles exact zeros and live tiles marched whole."""
+    rng = np.random.default_rng(11)
+    R = 6 * (K.TILE_ROWS // SB)
+    net = sigmamarch.pack_sigma(prop_net(rng).to(dev))
+    ro, rd = _rays(R, dev)
+    hz = sigmamarch.hoist_rays(net, ro, rd)
+    alive, _, t, d = _march_case(rng, case, R, 1, SB, dev)
+    n0 = K.LAUNCHES["sigma_march"]
+    w_k, acc_k, lt_k = sigmamarch.sigma_march(net, hz, alive, t, d)
+    w_p, acc_p, lt_p = sigmamarch.sigma_march_plain(net, hz, alive, t, d)
+    assert K.LAUNCHES["sigma_march"] == n0 + 1
+    _close(w_k, w_p, 2e-3)
+    _close(acc_k, acc_p, 2e-3)
+    _close(lt_k.exp(), lt_p.exp(), 2e-3)
+    live = (alive.view(-1, K.TILE_ROWS // SB) > 0).any(dim=1)
+    marched = (acc_k.view(-1, K.TILE_ROWS // SB) > 0).any(dim=1)
+    assert torch.equal(live, marched)
+    if case == "one_tile":
+        assert int(live.sum()) == 1 and bool(live[3])
+
+
+def test_march_wrappers_reject_bad_shapes(dev):
+    """K1/K2 take their nets' widths (128, 256), SB in (16, 32, 64) and
+    whole tiles; R = 0 returns empty outputs without a launch."""
+    rng = np.random.default_rng(12)
+    fnet = slimmarch.split_hoist(fine_net(rng).to(dev))
+    pnet = sigmamarch.pack_sigma(prop_net(rng).to(dev))
+
+    def k2(net, R, NB, SB):
+        ro, rd = _rays(R, dev)
+        S = NB * SB
+        return slimmarch.slim_march(
+            net, slimmarch.hoist_rays(net, ro, rd),
+            torch.zeros((R, net.width // 2), dtype=torch.bfloat16,
+                        device=dev),
+            torch.ones(R, device=dev), torch.ones((R, NB), device=dev),
+            torch.ones((R, S), device=dev), torch.ones((R, S), device=dev),
+            -6.9)
+
+    def k1(net, R, SB):
+        ro, rd = _rays(R, dev)
+        return sigmamarch.sigma_march(
+            net, sigmamarch.hoist_rays(net, ro, rd), torch.ones(R, device=dev),
+            torch.ones((R, SB), device=dev), torch.ones((R, SB), device=dev))
+
+    narrow = slimmarch.split_hoist(fine_net(rng, W=128).to(dev))
+    for call in (lambda: k2(narrow, 64, 2, 32), lambda: k2(fnet, 256, 2, 8),
+                 lambda: k2(fnet, 96, 2, 32), lambda: k1(pnet, 64, 8),
+                 lambda: k1(pnet, 48, 64),
+                 lambda: k1(sigmamarch.pack_sigma(prop_net(rng, W=64).to(
+                     dev)), 32, 64)):
+        with pytest.raises(ValueError):
+            call()
+    n0 = dict(K.LAUNCHES)
+    rgb, w, lt = k2(fnet, 0, 3, 32)
+    assert rgb.shape == (0, 3) and w.shape == (0, 96) and lt.shape == (0,)
+    w1, acc, _ = k1(pnet, 0, 64)
+    assert w1.shape == (0, 64) and acc.shape == (0,)
+    assert dict(K.LAUNCHES) == n0
 
 
 @pytest.mark.parametrize("eps", [0.0, 1e-3])
@@ -319,7 +457,7 @@ def test_train_step_kernel_vs_plain(dev, monkeypatch):
     and the plain step replays the kernel step's fine samples (the
     inverse CDF turns last-bit differences of the coarse pass into sample
     moves). Loss rel 1e-3, every gradient within 1e-2 relative RMS."""
-    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch.data.pipeline import RayDataset
     from fashion_nerf_torch.data.synthetic import make_synthetic_scene
     from fashion_nerf_torch.models.nerf_mlp import init_field

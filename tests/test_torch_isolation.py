@@ -32,20 +32,24 @@ def _modules():
 
 
 def test_imports_with_jax_blocked():
-    """Every module of the port, and chip_smoke, imports with `jax`
-    unimportable (sys.modules["jax"] = None)."""
+    """Every module of the port, and chip_smoke, imports with `jax` and the
+    JAX package `fashion_nerf` unimportable (sys.modules[...] = None), and
+    no `jax` or `fashion_nerf` module gets loaded."""
     mods = _modules()
     for m in ("render.blockwise", "render.renderer", "kernels.render",
               "train.loop", "train.state", "data.synthetic", "data.pipeline",
               "ckpt", "cli", "prng", "kernels.carrymarch", "quality",
-              "probe"):
+              "probe", "config", "assets", "kernels.wgpack"):
         assert f"fashion_nerf_torch.{m}" in mods, m
     code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['fashion_nerf'] = None; "
             f"sys.path[:0] = [{SRC!r}, {ROOT!r}]; import importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "import chip_smoke; "
-            "assert not any(k == 'jax' or k.startswith('jax.') "
-            "for k, v in sys.modules.items() if v is not None); "
+            "bad = [k for k, v in sys.modules.items() if v is not None and "
+            "(k in ('jax', 'fashion_nerf') or k.startswith('jax.') or "
+            "k.startswith('fashion_nerf.'))]; "
+            "assert not bad, bad; "
             "print('ok')")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -159,7 +163,7 @@ def test_wrappers_take_plain_on_cpu():
 
 def test_run_bench_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from fashion_nerf.config import load_config
+    from fashion_nerf_torch.config import load_config
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.run_bench(load_config("blender_lego"))
 
@@ -171,8 +175,8 @@ def test_gate_and_probe_without_cuda_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         quality.run_gate()
     with pytest.raises(RuntimeError, match="CUDA"):
-        probe.run_p1(bench.resolve_device(None))
-    assert bench.resolve_device("cpu") == torch.device("cpu")
+        probe.run_p1(K.resolve_device(None))
+    assert K.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_build_failure_raises_with_compiler_output(monkeypatch, tmp_path):

@@ -247,4 +247,5 @@ def test_cli_train_on_cpu(tmp_path, capsys):
     (["data.dataset=blender", "data.root=/nonexistent"], "#12")])
 def test_train_refuses_paths_not_ported(ovr, item):
     with pytest.raises(NotImplementedError, match=item):
-        loop.train(load_config("tiny_lego", ovr), log_fn=lambda e: None)
+        loop.train(load_config("tiny_lego", ovr), log_fn=lambda e: None,
+                   device="cpu")
