@@ -13,13 +13,17 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
 1. device: name, power limit, TF32 off;
 2. build: nvcc builds the kernels from src/fashion_nerf_torch/kernels/csrc,
    one process per source, all started together;
-3. kernels: K3 (fused field), K1 (proposal march), K2 (fine march), K6
-   (generic carry march, also against K2), K4 (field backward, twice:
-   bitwise deterministic), K5 (volume render) and the probe's chains (P1,
-   P2), each against its plain PyTorch version on the card at main-path
-   shapes, with its bound (the least time the card could take for the
-   work) and the share of it reached; K1, K2 and K6 with their executed
-   tiles or (tile, block) pairs identical to the plain version's;
+3. kernels: K3 (fused field, at the sweep's and the training step's
+   shapes), K1 (proposal march), K2 (fine march), K6 (generic carry march,
+   also against K2), K4 (field backward, twice: bitwise deterministic;
+   its rows kernel and its wgrad + sums timed apart under torch.profiler,
+   beside torch.matmul's time for the same wgrad products as a yardstick
+   and the workspace's bytes as a floor), K5 (volume render) and the
+   probe's chains (P1, P2), each against its plain PyTorch version on the
+   card at main-path shapes, with its bound (the least time the card could
+   take for the work) and the share of it reached; K1, K2 and K6 with
+   their executed tiles or (tile, block) pairs identical to the plain
+   version's;
 4. setup: flagship + proposal asset, occupancy sweep through K3;
 5. frame: the frame through the kernels (1 warm-up + 3 timed), then through
    the plain versions; PSNR between them and non-trivial-image checks;
@@ -294,6 +298,7 @@ def phase_kernels(cfg, device):
     if not ok:
         raise AssertionError("K3 disagrees with its plain version")
     results["field"] = dict(max_abs_err=e_rgb, ms=ms, plain_ms=pms, **b3)
+    del rgb_k, sig_k, rgb_p, sig_p
 
     # K3 on a random net of the same shape: no trained sensitivity, so the
     # strict bound holds on every row
@@ -310,6 +315,7 @@ def phase_kernels(cfg, device):
         f"{K3_RGB_ATOL} on every row), σ rel err {e_rsig:.3g}")
     if not (e_rnd <= K3_RGB_ATOL and e_rsig <= K3_SIGMA_REL):
         raise AssertionError("K3 disagrees with its plain version (random)")
+    kernel_k3_step(rnet, net, device)
 
     # reference occupancy through the plain field, for realistic chunk
     # inputs (and to check the K3 sweep of phase 4 against)
@@ -401,6 +407,93 @@ def phase_kernels(cfg, device):
     results["volrend"] = kernel_k5(cfg, rng, device)
     results.update(kernel_probe(device))
     return results, occ_ref
+
+
+def kernel_k3_step(net, trained, device):
+    """K3 at the fine field's shape in a training step, the shape its
+    launches are counted on: 4096 rays × 192 samples = 786,432 rows, on
+    the random net of the flagship's shape, held to K3_RGB_ATOL on every
+    row. The trained net's errors at this shape are printed beside it:
+    its rows rule (K3_ROW_SHARE, K3_RGB_MAX) is held at 65,536 rows, and
+    the largest of its rows' bf16 flips grows with the row count."""
+    from fashion_nerf_torch.kernels import posenc_mlp
+    rng = np.random.default_rng(11)
+    R, S = 4096, 192
+    n = R * S
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (n, 3)).astype(
+        np.float32)).to(device)
+    dirs = torch.from_numpy(rng.normal(size=(R, 3)).astype(
+        np.float32)).to(device)
+    dp = posenc_mlp.hoist_dirs(net, dirs).contiguous()
+    out_k = posenc_mlp.field_rows(net, pts, dp, S)
+    out_p = posenc_mlp.field_rows_plain(net, pts, dp, S)
+    torch.cuda.synchronize()
+    e_rgb = maxerr(out_k[0], out_p[0])
+    e_sig = float(((out_k[1] - out_p[1]).abs() / (1 + out_p[1].abs())).max())
+    ok = (e_rgb <= K3_RGB_ATOL and e_sig <= K3_SIGMA_REL
+          and bool(torch.isfinite(out_k[0]).all()))
+    ms = cuda_ms(lambda: posenc_mlp.field_rows(net, pts, dp, S))
+    pms = cuda_ms(lambda: posenc_mlp.field_rows_plain(net, pts, dp, S))
+    b = bound(2 * n * mlp_macs(net), nbytes(pts, dp, net.w, net.b, *out_k))
+    dpt = posenc_mlp.hoist_dirs(trained, dirs).contiguous()
+    out_k = posenc_mlp.field_rows(trained, pts, dpt, S)
+    out_p = posenc_mlp.field_rows_plain(trained, pts, dpt, S)
+    row_err = (out_k[0] - out_p[0]).abs().amax(dim=1)
+    t_max = float(row_err.max())
+    t_share = float((row_err > K3_RGB_ATOL).float().mean())
+    del out_k, out_p, row_err
+    torch.cuda.empty_cache()
+    say("kernels", f"K3 field step shape {n} rows ({R} rays × {S}), random "
+        f"net: rgb err {e_rgb:.3g} (tol {K3_RGB_ATOL} on every row), σ rel "
+        f"err {e_sig:.3g} (tol {K3_SIGMA_REL}); kernel {ms:.3f} ms, plain "
+        f"{pms:.3f} ms; {bound_line(b, ms)}; the trained net here (not "
+        f"held): rgb err max {t_max:.3g}, rows over {K3_RGB_ATOL} "
+        f"{t_share:.5f}")
+    if not ok:
+        raise AssertionError("K3 disagrees with its plain version at the "
+                             "step shape")
+
+
+def k4_parts(args) -> dict:
+    """Device ms of one K4 call by part, from torch.profiler's device
+    events: the rows kernel, wgrad, the fixed-order sums, and the rest
+    (the weight gather, allocations' fills)."""
+    from torch.profiler import ProfilerActivity, profile
+    from fashion_nerf_torch.kernels import posenc_mlp
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        posenc_mlp.field_rows_backward(*args)
+        torch.cuda.synchronize()
+    parts = {"rows": 0.0, "wgrad": 0.0, "sums": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        key = ("rows" if "bwd_rows_kernel" in e.key else
+               "wgrad" if "wgrad_kernel" in e.key else
+               "sums" if "sum_kernel" in e.key or "sum_rows" in e.key
+               else "other")
+        parts[key] += e.device_time_total / 1e3
+    return parts
+
+
+def wgrad_yardstick(net, n, device) -> float:
+    """torch.matmul's ms for K4's weight-gradient products at n rows, one
+    Aᵀ·D per weight (bf16 operands and output, cuBLAS): a yardstick of the
+    wgrad kernel, used nowhere in the port."""
+    lay, W, k0 = net.lay, net.width, net.k0
+    shapes = []
+    for i in range(net.depth):
+        if lay["w_h"][i] is not None:
+            shapes.append((W, W))
+        if lay["w_a0"][i] is not None:
+            shapes.append((k0, W))
+    shapes += ([(W, 1), (W, W), (W, W // 2), (W // 2, 3)] if net.has_vd
+               else [(W, 4)])
+    times = {}
+    for a_w, d_w in set(shapes):
+        A = torch.randn((n, a_w), device=device, dtype=torch.bfloat16)
+        D = torch.randn((n, d_w), device=device, dtype=torch.bfloat16)
+        times[a_w, d_w] = cuda_ms(lambda: torch.matmul(A.t(), D))
+        del A, D
+    torch.cuda.empty_cache()
+    return sum(times[x] for x in shapes)
 
 
 def kernel_k6(cfg, fine, dp, o, d, alive_f, bhit, tf_pad, df_pad, k2_out):
@@ -522,10 +615,20 @@ def kernel_k4(net, rng, device):
     ms = cuda_ms(lambda: posenc_mlp.field_rows_backward(*args))
     pms = cuda_ms(lambda: posenc_mlp.field_rows_backward_plain(*args))
     torch.cuda.empty_cache()
+    parts = k4_parts(args)
+    cublas = wgrad_yardstick(net, n, device)
+    # this design's own floor: the bf16 workspace written once, read once
+    ws_ms = 2 * n * posenc_mlp.bwd_workspace_cols(net) * 2 / HBM_BPS * 1e3
     say("kernels", f"K4 field backward {n} rows ({R} rays × {S}): relative "
         f"RMS against plain {json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})}"
         f" (tol {K4_REL_RMS} each); bitwise equal over two runs: {same}; "
         f"kernel {ms:.3f} ms, plain {pms:.3f} ms; {bound_line(b4, ms)}")
+    say("kernels", f"K4 parts (device ms, torch.profiler, one call): rows "
+        f"kernel {parts['rows']:.3f}, wgrad {parts['wgrad']:.3f}, sums "
+        f"{parts['sums']:.3f}, other {parts['other']:.3f}; workspace floor "
+        f"{ws_ms:.3f} ms ({posenc_mlp.bwd_workspace_cols(net) * 2} bytes a "
+        f"row, written and read once); yardstick torch.matmul for the same "
+        f"wgrad products {cublas:.3f} ms")
     if not (max(rel.values()) <= K4_REL_RMS and same and finite):
         raise AssertionError("K4 disagrees with its plain version or is "
                              "not deterministic")

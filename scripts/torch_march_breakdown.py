@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time of the Hopper marches K1 and K2 goes, on one GPU.
+"""Where the time of the Hopper kernels K1, K2, K3 and K4 goes, on one GPU.
 
-    PYTHONPATH=src python scripts/torch_march_breakdown.py
+    PYTHONPATH=src python scripts/torch_march_breakdown.py [--only march|field]
 
-Builds variants of `csrc/sigmamarch.cu` and `csrc/slimmarch.cu` with one
-part of their work taken out (the sines of the posenc operand, the
-wgmmas, the weight ring's waits and copies, the epilogue's bias and
-x-term adds, every work item), each by a text substitution that must
+Builds variants of `csrc/sigmamarch.cu` and `csrc/slimmarch.cu` (the
+marches) and of `csrc/field.cu` + `csrc/field_bwd.cu` with their shared
+`csrc/wg_field.cuh` (the field and its backward) with one part of their
+work taken out (the sines of the posenc operand, the layer wgmmas, the
+weight ring's waits and copies, the epilogue's bias and x-term adds,
+every work item; for the field also K4's workspace stores, wgrad's
+wgmmas and the whole of wgrad), each by a text substitution that must
 apply to the source as it stands, into `build/march_breakdown/` (one nvcc
-per variant, all started together), and times each on an all-live
+per variant, all started together). The marches are timed on an all-live
 8192-ray chunk of random inputs at the main path's shapes (K1: 2×128
-net, SB = 64; K2: 8×256 net, 3 blocks of 32, no termination): CUDA events
-around 20 back-to-back calls after one warm-up. The variants compute
-wrong results and exist only to be timed. Also prints the real wrappers'
-time and their kernels' device time under torch.profiler.
+net, SB = 64; K2: 8×256 net, 3 blocks of 32, no termination); K3 and K4
+at the training step's fine shape (a random 8×256 net, 4096 rays × 192
+samples = 786,432 rows) through their wrappers with the variant's
+library swapped in. CUDA events around back-to-back calls after one
+warm-up (20 for the marches and K3, 5 for K4). The variants compute wrong
+results and exist only to be timed. Also prints the real wrappers' time
+and their kernels' device time under torch.profiler.
 """
 
 from __future__ import annotations
@@ -71,37 +77,104 @@ K1 = {
          "  for (int it = blockIdx.x; it < 0; it += gridDim.x) {")],
 }
 K1["no sines, no wgmma"] = K1["no sines"] + K1["no wgmma"]
+# the field kernels: substitutions in any file of csrc/ (wg_field.cuh is
+# shared by K3 and K4, so one variant build times both)
+FIELD = {
+    "as built": [],
+    "no layer wgmma": [
+        ("  wg::mma_slice<N>(acc, a_addr, a_K, a_k, wg::smem_addr("
+         "r.slot[rp.stage]), kk,\n                   zero);\n", "")],
+    "no weight ring": [
+        ("  wg::mbar_wait(&r.full[rp.stage], rp.phase);\n  wg::mma_fence();",
+         "  wg::mma_fence();"),
+        ("    release(r, rp.pend);\n  }\n  rp.pend", "  }\n  rp.pend"),
+        ("  release(r, rp.pend);\n  rp.pend = -1;", "  rp.pend = -1;"),
+        ("    for (int sl = 0; sl < n_slices; ++sl) {",
+         "    for (int sl = 0; sl < 0; ++sl) {")],
+    "no sines": [
+        ("        v[e] = sinf(__fadd_rn(", "        v[e] = (__fadd_rn(")],
+    "no workspace stores": [
+        ("      wgf::bulk_store(dst, tile, cols * 64 * 2);\n", "")],
+    "no wgrad wgmma": [
+        ("        wg::mma_mn<N>(acc, wg::desc_mn(aa + (ks >> 3) * 2048, 2048, "
+         "128),\n                      wg::desc_mn(da + (ks >> 3) * N * 16, "
+         "N * 16, 128));", "        (void)aa, (void)da;")],
+    "no wgrad": [
+        ("      for (long kb = kb0; kb < kb1; ++kb) {\n        wg::mbar_wait",
+         "      for (long kb = kb0; kb < kb0; ++kb) {\n        wg::mbar_wait"),
+        ("  for (long kb = kb0; kb < kb1; ++kb) {\n    wg::mbar_wait",
+         "  for (long kb = kb0; kb < kb0; ++kb) {\n    wg::mbar_wait")],
+}
+FIELD["no layer wgmma, no weight ring"] = (FIELD["no layer wgmma"]
+                                           + FIELD["no weight ring"])
+FIELD["no column sums"] = [
+    ("float (&p)[16], float s0,\n"
+     "                                            float s1) {\n",
+     "float (&p)[16], float s0,\n"
+     "                                            float s1) {\n  return;\n")]
+FIELD["no posenc backward"] = [
+    ("int tw, int bar) {\n#pragma unroll",
+     "int tw, int bar) {\n  return;\n#pragma unroll")]
+FIELD["no view column pass"] = [
+    ("      for (int c = tw; c < kHalf; c += 128) {\n        const float* wr",
+     "      for (int c = tw; c < 0; c += 128) {\n        const float* wr")]
 
 
-def build_variants() -> dict:
-    """→ {(kernel, variant): the variant's C entry point}."""
+def _substitute(d: str, files: list, subs: list, what: str) -> None:
+    """Apply every (old, new) to the first of `files` under d that holds
+    old; raise if none does."""
+    for a, b in subs:
+        for f in files:
+            path = os.path.join(d, f)
+            text = open(path).read()
+            if a in text:
+                open(path, "w").write(text.replace(a, b))
+                break
+        else:
+            raise RuntimeError(f"{what}: the sources no longer hold "
+                               f"{a[:60]!r}")
+
+
+def build_variants(only) -> dict:
+    """→ {(kernel, variant): the variant's library (the field) or C entry
+    point (the marches)}."""
     shutil.rmtree(OUT, ignore_errors=True)
     jobs = []
-    for kern, src, table in (("K1", "sigmamarch.cu", K1),
-                             ("K2", "slimmarch.cu", K2)):
+    tables = []
+    if only in (None, "march"):
+        tables += [("K1", ["sigmamarch.cu"], K1), ("K2", ["slimmarch.cu"], K2)]
+    if only in (None, "field"):
+        tables.append(("field", ["wg_field.cuh", "field.cu", "field_bwd.cu"],
+                       FIELD))
+    todo = []
+    for kern, files, table in tables:   # every substitution before any nvcc
         for i, (name, subs) in enumerate(table.items()):
             d = os.path.join(OUT, f"{kern}_{i}")
             shutil.copytree(K.CSRC, d)
-            path = os.path.join(d, src)
-            text = open(path).read()
-            for a, b in subs:
-                if a not in text:
-                    raise RuntimeError(f"{kern} '{name}': the source no "
-                                       f"longer holds {a[:60]!r}")
-                text = text.replace(a, b)
-            open(path, "w").write(text)
-            so = os.path.join(d, "lib.so")
-            cmd = [K._nvcc(), *K.NVCC_FLAGS[:-2], "-shared", "-o", so, path]
-            jobs.append(((kern, name), so, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            _substitute(d, files, subs, f"{kern} '{name}'")
+            srcs = [os.path.join(d, f) for f in files if f.endswith(".cu")]
+            todo.append(((kern, name), os.path.join(d, "lib.so"), srcs))
+    for key, so, srcs in todo:
+        cmd = [K._nvcc(), *K.NVCC_FLAGS[:-2], "-shared", "-o", so, *srcs]
+        jobs.append((key, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
     fns = {}
     for key, so, proc in jobs:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{key}: nvcc failed\n{log[-4000:]}")
+        lib = ctypes.CDLL(so)
+        if key[0] == "field":
+            for sym in ("fnt_field_forward", "fnt_field_backward"):
+                getattr(lib, sym).argtypes = K._SIGNATURES[sym]
+                getattr(lib, sym).restype = ctypes.c_int
+            lib.fnt_error_string.argtypes = [ctypes.c_int]
+            lib.fnt_error_string.restype = ctypes.c_char_p
+            fns[key] = lib
+            continue
         sym = "fnt_sigma_march" if key[0] == "K1" else "fnt_slim_march"
-        fn = getattr(ctypes.CDLL(so), sym)
+        fn = getattr(lib, sym)
         fn.argtypes = K._SIGNATURES[sym]
         fns[key] = fn
     return fns
@@ -128,23 +201,81 @@ def ms_per_call(fn, n: int = 20) -> float:
     return a.elapsed_time(b) / n
 
 
+def fine_net(rng, dev):
+    W, cx = 256, 63
+    return net(rng, dev, {
+        **{f"trunk_{i}": ((cx + W) if i == 5 else (cx if i == 0 else W), W)
+           for i in range(8)},
+        "sigma_head": (W, 1), "feature": (W, W), "view_0": (W + 27, W // 2),
+        "rgb_head": (W // 2, 3)})
+
+
+def profile_ms(call, names, n: int = 5) -> float:
+    """Device ms a call of the kernels whose names hold one of `names`."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if any(k in e.key for k in names)) / n / 1e3
+
+
+def field_breakdown(fns, dev, smi) -> None:
+    """K3 and K4 at the step's fine shape with each variant library."""
+    rng = np.random.default_rng(1)
+    R, S = 4096, 192
+    n = R * S
+    fnet = posenc_mlp.pack_params(fine_net(rng, dev), hoist_x=False)
+    pts = torch.tensor(rng.uniform(-1.2, 1.2, (n, 3)), dtype=torch.float32,
+                       device=dev)
+    dp = posenc_mlp.hoist_dirs(fnet, torch.tensor(
+        rng.normal(size=(R, 3)), dtype=torch.float32, device=dev)).contiguous()
+    g_rgb = torch.tensor(1e-4 * rng.normal(size=(n, 3)), dtype=torch.float32,
+                         device=dev)
+    g_sig = torch.tensor(1e-4 * rng.normal(size=n), dtype=torch.float32,
+                         device=dev)
+    k3 = lambda: posenc_mlp.field_rows(fnet, pts, dp, S)  # noqa: E731
+    k4 = lambda: posenc_mlp.field_rows_backward(  # noqa: E731
+        fnet, pts, dp, g_rgb, g_sig, S)
+    print(f"{smi}; K3 and K4 on {n} rows ({R} rays × {S}), random 8×256 net")
+    real = K.library()
+    try:
+        for (kern, name), lib in fns.items():
+            if kern != "field":
+                continue
+            K._lib = lib
+            ms3 = ms_per_call(k3)
+            ms4 = ms_per_call(k4, 5)
+            rows = profile_ms(k4, ("bwd_rows_kernel",), 2)
+            wgrad = profile_ms(k4, ("wgrad_kernel",), 2)
+            print(f"field {name:32s} K3 {ms3:.4f} ms; K4 {ms4:.4f} ms (rows "
+                  f"kernel {rows:.4f}, wgrad {wgrad:.4f})")
+    finally:
+        K._lib = real
+    print(f"K3 wrapper: kernel's device time "
+          f"{profile_ms(k3, ('field_kernel',)):.4f} ms a call")
+
+
 def main() -> int:
+    only = None
+    if "--only" in sys.argv:
+        only = sys.argv[sys.argv.index("--only") + 1]
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    fns = build_variants()
+    fns = build_variants(only)
+    if only == "field":
+        field_breakdown(fns, dev, smi)
+        return 0
     rng = np.random.default_rng(0)
-    R, NB, SB, W = 8192, 3, 32, 256
-    cx = 63
-    fine = slimmarch.split_hoist(net(rng, dev, {
-        **{f"trunk_{i}": ((cx + W) if i == 5 else (cx if i == 0 else W), W)
-           for i in range(8)},
-        "sigma_head": (W, 1), "feature": (W, W), "view_0": (W + 27, W // 2),
-        "rgb_head": (W // 2, 3)}))
+    R, NB, SB = 8192, 3, 32
+    fine = slimmarch.split_hoist(fine_net(rng, dev))
     prop = sigmamarch.pack_sigma(net(rng, dev, {
         "trunk_0": (39, 128), "trunk_1": (128, 128), "out_head": (128, 4)}))
     ang = torch.linspace(-0.4, 0.4, R, device=dev)
@@ -184,6 +315,8 @@ def main() -> int:
     print(f"{smi}; all-live chunk of {R} rays: K1 {R // 32} tiles × 64 "
           f"samples, K2 {R // 64 * NB} (tile, block) pairs")
     for (kern, name), fn in fns.items():
+        if kern == "field":
+            continue
         ms = ms_per_call(lambda: (k1 if kern == "K1" else k2)(fn))
         print(f"{kern} {name:28s} {ms:.4f} ms a call")
     for label, call in (
@@ -201,6 +334,8 @@ def main() -> int:
                      if "march_kernel" in e.key) / 10 / 1e3
         print(f"{label}: {ms:.4f} ms a call, kernels' device time "
               f"{dev_ms:.4f} ms a call")
+    if only is None:
+        field_breakdown(fns, dev, smi)
     return 0
 
 

@@ -48,6 +48,11 @@ SLAB_ROWS = 64
 MARCH_SB = (16, 32, 64)
 SIGMA_WIDTH, SLIM_WIDTH = 128, 256
 MARCH_MAX_TILES = 1024
+# nets the field kernels K3 and K4 take (csrc/wg_field.cuh): widths, trunk
+# depths and posenc operand widths (x rows included: L = 6 → 48, 10 → 64)
+FIELD_WIDTHS = (128, 256)
+FIELD_DEPTHS = tuple(range(2, 9))
+FIELD_K0 = (48, 64)
 
 # rows per K4 pass: its bf16 workspace holds every activation and cotangent
 # of this many rows (1.3 GB at the 8×256 field)
@@ -59,10 +64,10 @@ LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "fnt_field_forward": [_P] * 6 + [_I] * 8 + [_P],
+    "fnt_field_forward": [_P] * 7 + [_I] * 8 + [_P],
     "fnt_sigma_march": [_P] * 13 + [_I] * 8 + [_P],
     "fnt_slim_march": [_P] * 16 + [_I] * 10 + [ctypes.c_float, _P],
-    "fnt_field_backward": [_P] * 14 + [ctypes.c_long] + [_I] * 11 + [_P],
+    "fnt_field_backward": [_P] * 17 + [ctypes.c_long] + [_I] * 11 + [_P],
     "fnt_volrend": [_P] * 8 + [_I] * 4 + [_P],
     "fnt_carry_march": [_P] * 15 + [_I] * 11 + [ctypes.c_float, _P],
     "fnt_tc_probe": [_P] * 3 + [_I] * 5 + [_P],

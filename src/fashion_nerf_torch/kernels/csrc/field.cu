@@ -7,96 +7,190 @@
 // What bounds it on the H100: bf16 matrix products. A row costs ~0.59M MACs
 // of the 8x256 field against 12 bytes of row input/output and a per-ray
 // 256-byte view term, so it is far above the bf16 ridge (~295 FLOP/byte);
-// the limit is tensor-core throughput, and in this first version the
-// latency of wmma fragment loads from L2.
+// the limit is tensor-core throughput, then the L2 → shared-memory stream
+// of the 1.18 MB of weights (once per 128 rows) and the per-layer
+// epilogues, which run serially with the wgmmas inside a warpgroup.
 //
-// Design: one CUDA block per 64-row slab (8 warps; sizeof(Smem) is 86,272
-// bytes by construction, so two blocks fit on an SM). The posenc operand [x | sin | cos],
-// built in f32 and rounded to bf16, and every layer's activations stay in
-// shared memory; each warp owns 16-column strips of each layer's output and
-// accumulates in f32 wmma fragments. The per-ray view term γ(d)·W_dir is
-// computed outside (a (R,27)x(27,128) product) and expanded per sample in
-// the epilogue. The reference's tile-skip flag is not used by this path.
-#include "fnt_common.cuh"
+// Design (csrc/wg_field.cuh, csrc/wg_trunk.cuh hold the shared pieces), on
+// the skeleton of the fine march (slimmarch.cu):
+// - Persistent CUDA blocks, one per SM, of two consumer warpgroups and one
+//   producer warpgroup (setmaxnreg hands the producer's registers to the
+//   consumers). A work item is 128 rows, 64 per warpgroup; a row count
+//   that is 64 mod 128 leaves the last item's second warpgroup without
+//   rows: it runs on, reading and writing nothing in device memory.
+// - Layers on wgmma m64n256k16 (m64n128k16 for the view layer, half that
+//   at width 128) from shared-memory A and B; the weights stream through a
+//   ring of 3 slices of 64 × 256 bf16 by cp.async.bulk behind full/empty
+//   mbarriers (kernels/wgpack.py packs the slices with one gather a call).
+// - The posenc operand is built per row from pts: [x | sin(x·2^f (+π/2))],
+//   the phases by __fmul_rn/__fadd_rn as the plain version rounds; the x
+//   rows stay in the operand (k0 = 64 at L = 10, 48 at L = 6).
+// - Each layer's epilogue runs in registers and writes bf16 in place over
+//   the warpgroup's activation tile: bias, relu, bf16. The σ head rides
+//   the last trunk epilogue and the rgb head the view epilogue, as
+//   register dot products reduced over the 4 lanes of a row (the 4-wide
+//   head likewise without a view branch). Biases, heads and the per-ray
+//   view term are staged in shared memory (up to 8 rays a warpgroup; more,
+//   at spr < 10, are read from device memory in the view epilogue).
+#include "wg_field.cuh"
 
 namespace fnt {
+namespace {
+
+constexpr int kStagesK3 = 3;
+
+template <int W>
+struct __align__(128) FieldSmem {
+  bf16 h[2][wg::kWgRows * W];        // activations per warpgroup
+  bf16 a0[2][wg::kWgRows * kMaxK0];  // posenc operand per warpgroup
+  wgf::Ring<kStagesK3> ring;         // weight slices
+  bf16 dirs[2][wgf::kMaxRays][W / 2];
+  float pts[2][wg::kWgRows][3];
+  float heads[W * 4];                // σ and rgb heads, or the out head
+  float row_sigma[wg::kItemRows];
+  float row_rgb[wg::kItemRows][3];
+  // the net's biases follow (FieldArgs::n_b floats)
+};
 
 struct FieldArgs {
   const float* pts;      // (n, 3)
   const bf16* dirpart;   // (n / spr, width / 2), read only with a view branch
-  const bf16* w;         // packed weights (Layout)
+  const bf16* w;         // packed weights (Layout): the heads
+  const bf16* wp;        // field slices (kernels/wgpack.py)
   const float* b;        // packed biases (Layout)
   float* rgb;            // (n, 3) post-sigmoid
   float* sigma;          // (n,) raw
-  int spr;               // samples per ray: row r takes dirpart[r / spr]
-  int L;                 // posenc frequencies
+  int n, spr, L, n_b;
+  int n_slices;
+  int slice_bytes[wgf::kMaxSlices];
   Layout lay;
 };
 
-__global__ void __launch_bounds__(kThreads) field_kernel(FieldArgs a) {
-  Smem& s = smem();
+template <int W>
+__global__ void __launch_bounds__(wgf::kThreads, 1)
+    field_kernel(const __grid_constant__ FieldArgs a) {
+  constexpr int kHalf = W / 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  FieldSmem<W>& s = *reinterpret_cast<FieldSmem<W>*>(smem_raw);
+  float* bias = reinterpret_cast<float*>(smem_raw + sizeof(FieldSmem<W>));
   const Layout& lay = a.lay;
-  const long row0 = (long)blockIdx.x * kRows;
-  // posenc operand: [x (3) | sin(2^f x) blocks | cos blocks | 0-pad]; the
-  // reference repeats x 2L times, scales block j by 2^(j mod L) and adds
-  // π/2 on the cos half, so one sin pass covers both halves
-  const int n_ph = 6 * a.L;
-  for (int i = threadIdx.x; i < kRows * lay.k0; i += kThreads) {
-    const int r = i / lay.k0, c = i % lay.k0;
-    float v = 0.0f;
-    if (c < 3) {
-      v = a.pts[(row0 + r) * 3 + c];
-    } else if (c < 3 + n_ph) {
-      const int j = (c - 3) / 3, k = (c - 3) % 3;
-      const float f = (float)(1 << (j % a.L));
-      const float off = j >= a.L ? kHalfPi : 0.0f;
-      v = sinf(__fadd_rn(__fmul_rn(a.pts[(row0 + r) * 3 + k], f), off));
-    }
-    s.a0[r * kLdA + c] = __float2bfloat16_rn(v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) wgf::ring_init(s.ring);
+  for (int i = threadIdx.x; i < a.n_b; i += blockDim.x) bias[i] = a.b[i];
+  if (lay.has_vd) {
+    for (int i = threadIdx.x; i < W; i += blockDim.x)
+      s.heads[i] = bf(a.w[lay.w_sig + i]);
+    for (int i = threadIdx.x; i < kHalf * 3; i += blockDim.x)
+      s.heads[W + i] = bf(a.w[lay.w_rgb + i]);
+  } else {
+    for (int i = threadIdx.x; i < W * 4; i += blockDim.x)
+      s.heads[i] = bf(a.w[lay.w_out + i]);
   }
   __syncthreads();
+  const int n_items = (a.n + wg::kItemRows - 1) / wg::kItemRows;
 
-  const int cur = run_trunk(lay, a.w, a.b,
-                            [](int, int, int) { return 0.0f; });
-  const int half = lay.width / 2;
-  run_heads(lay, a.w, a.b, cur, [&](int r, int c) {
-    return bf(a.dirpart[((row0 + r) / a.spr) * half + c]);
-  });
+  if (warp >= wgf::kConsumers / 32) {
+    wg::setmaxnreg_dec<40>();
+    if (warp == wgf::kConsumers / 32 && lane == 0)
+      wgf::produce(s.ring, a.wp, a.slice_bytes, a.n_slices, n_items);
+    return;
+  }
 
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    a.sigma[row0 + r] = s.row_sigma[r];
-    for (int j = 0; j < 3; ++j) a.rgb[(row0 + r) * 3 + j] = s.row_rgb[r][j];
+  wg::setmaxnreg_inc<232>();
+  const int g = threadIdx.x >> 7, tw = threadIdx.x & 127, ww = tw >> 5;
+  float(*pts)[3] = s.pts[g];
+  bf16(*dirs)[kHalf] = s.dirs[g];
+  float* row_sigma = s.row_sigma + 64 * g;
+  float(*row_rgb)[3] = s.row_rgb + 64 * g;
+  wgf::Rows t{s.h[g], s.a0[g], bias, s.heads, pts, nullptr, nullptr,
+              row_sigma, row_rgb, nullptr, tw, ww, lane, 1 + g,
+              16 * ww + (lane >> 2), 2 * (lane & 3)};
+  wgf::RingPos rp{0, 0u, -1};
+  float acc[W / 2];
+
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const long row0 = (long)it * wg::kItemRows + 64 * g;
+    const bool live = row0 < a.n;
+    for (int i = tw; i < 64 * 3; i += 128)
+      pts[i / 3][i % 3] = live ? a.pts[row0 * 3 + i] : 0.0f;
+    const long ray0 = row0 / a.spr;
+    const int nr = (int)((row0 + 63) / a.spr - ray0 + 1);
+    const bool staged = nr <= wgf::kMaxRays;
+    if (lay.has_vd && live && staged)
+      for (int i = tw; i < nr * kHalf; i += 128)
+        dirs[i / kHalf][i % kHalf] = a.dirpart[ray0 * kHalf + i];
+    t.dir_lo = t.dir_hi = dirs[0];
+    if (lay.has_vd && live) {
+      const long q_lo = (row0 + t.rA) / a.spr, q_hi = (row0 + t.rA + 8) / a.spr;
+      t.dir_lo = staged ? dirs[q_lo - ray0] : a.dirpart + q_lo * kHalf;
+      t.dir_hi = staged ? dirs[q_hi - ray0] : a.dirpart + q_hi * kHalf;
+    }
+    wg::wg_sync(t.bar);
+    wgf::posenc_tile(t.A0, lay.k0, a.L, pts, tw);
+    wg::fence_async_smem();
+    wg::wg_sync(t.bar);
+
+    wgf::forward<W>(lay, t, s.ring, rp, acc, [](int, int) {}, [] {});
+
+    if (live && tw < 64) {
+      a.sigma[row0 + tw] = row_sigma[tw];
+      for (int q = 0; q < 3; ++q) a.rgb[(row0 + tw) * 3 + q] = row_rgb[tw][q];
+    }
+    wg::wg_sync(t.bar);
   }
 }
 
+template <int W>
+int launch_field(FieldArgs& a, cudaStream_t st) {
+  const int smem = (int)sizeof(FieldSmem<W>) + a.n_b * 4;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      field_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (a.n == 0) return 0;
+  const int n_items = (a.n + wg::kItemRows - 1) / wg::kItemRows;
+  field_kernel<W><<<n_items < n_sm ? n_items : n_sm, wgf::kThreads, smem,
+                    st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 }  // namespace fnt
 
 extern "C" {
 
-// n must be a multiple of 64 (make_fused_field pads). Returns a cudaError_t.
+// The field on n rows (a multiple of 64 and of spr), width 128 or 256,
+// depth 2-8, k0 48 or 64. wp holds the net's field slices
+// (kernels/wgpack.py::field_buffer). Returns a cudaError_t.
 int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
-                      const void* b, void* rgb, void* sigma, int n, int spr,
-                      int L, int depth, int width, int k0, int skip,
-                      int has_vd, void* stream) {
+                      const void* wp, const void* b, void* rgb, void* sigma,
+                      int n, int spr, int L, int depth, int width, int k0,
+                      int skip, int has_vd, void* stream) {
   using namespace fnt;
   FieldArgs a;
   a.pts = static_cast<const float*>(pts);
   a.dirpart = static_cast<const bf16*>(dirpart);
   a.w = static_cast<const bf16*>(w);
+  a.wp = static_cast<const bf16*>(wp);
   a.b = static_cast<const float*>(b);
   a.rgb = static_cast<float*>(rgb);
   a.sigma = static_cast<float*>(sigma);
+  a.n = n;
   a.spr = spr;
   a.L = L;
   a.lay = make_layout(depth, width, k0, skip, has_vd);
-  if (layout_error(a.lay) || n % kRows || spr < 1 || 3 + 6 * L > k0)
+  a.n_b = has_vd ? a.lay.b_rgb + 3 : a.lay.b_out + 4;
+  a.n_slices = wgf::field_slice_bytes(a.lay, false, a.slice_bytes);
+  if (wgf::field_layout_error(a.lay) || a.n_slices < 0 || n < 0 ||
+      n % wg::kWgRows || spr < 1 || n % spr || 3 + 6 * L > k0 ||
+      (reinterpret_cast<uintptr_t>(wp) & 15))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(field_kernel);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
-  field_kernel<<<n / kRows, kThreads, sizeof(Smem),
-                 static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return width == 256 ? launch_field<256>(a, st) : launch_field<128>(a, st);
 }
 
 const char* fnt_error_string(int code) {

@@ -5,26 +5,45 @@
 // the forward of a 512-row tile in VMEM, backprops it, and accumulates the
 // weight gradients across its sequential grid into one VMEM output.
 //
-// What bounds it on the H100: bf16 matrix products again, three times the
-// forward's (recompute, dgrad, wgrad: ~3.2 MFLOP per row of the 8x256
-// field), plus the bytes of the workspace below (~10 KB per row written once
-// and read once).
+// What bounds it on the H100: bf16 matrix products, three times the
+// forward's (recompute, dgrad, wgrad: ~3.5 MFLOP per row of the 8x256
+// field, 2.8 ms at 786,432 rows); and in this design the bytes of the bf16
+// workspace below (9,920 bytes a row at 8×256, written once and read at
+// least once: ~4.7 ms at 786,432 rows and 3.35 TB/s), which is the higher
+// floor.
 //
 // Design. Blocks run in parallel and in no order, so the TPU's carried wgrad
 // sum has no counterpart; and a block's shared memory cannot hold a
-// 64-row slab's eight trunk activations (8 x 33 KB) next to its working
-// buffers. So K4 is four kernels, launched per pass of up to `chunk` rows:
-//  1. bwd_rows_kernel, one block per 64-row slab (as K3): recomputes the
-//     forward, writing every layer's bf16 input/output to a global
-//     workspace; backprops the heads and the trunk in reverse with bf16
-//     dgrad products on the tensor cores (nvcuda::wmma, f32 accumulation),
-//     relu masks read back from the stored activations, writing every
-//     bf16-rounded pre-activation cotangent to the workspace; backprops the
-//     posenc phases into d_pts; and writes its bias-gradient column sums
-//     and its per-ray view-term cotangent sums as per-slab partials.
-//  2. wgrad_kernel: every weight gradient A^T·D over the pass's rows, one
-//     64x64 output tile per block and a fixed split of the rows per
-//     blockIdx.y, into per-split partials.
+// 64-row slab's eight trunk activations next to its working buffers. So K4
+// is four kernels, launched per pass of up to `chunk` rows:
+//  1. bwd_rows_kernel: persistent blocks of two consumer warpgroups and one
+//     producer warpgroup, 128 rows an item, as K3 (field.cu). The forward
+//     recompute is K3's wgmma layer loop (wg_field.cuh); every layer's bf16
+//     output tile goes to the workspace as it lies in shared memory, by one
+//     bulk store (cp.async.bulk), and its relu bits, one word per thread
+//     and 32 columns, to a small buffer in device memory (`masks`), which
+//     the dgrad epilogues read back.
+//     The dgrad products dZ·Wᵀ run on wgmma too, with the weights'
+//     transposes packed as slices of their own
+//     (kernels/wgpack.py::field_slices_t) and streamed through the same ring
+//     after the forward's: the weights are packed on every call anyway, and
+//     packed transposes keep B in the K-major layout the forward uses. Each
+//     bf16-rounded pre-activation cotangent is the next A operand in
+//     shared memory and goes to the workspace for wgrad. The heads are
+//     register dot products; the posenc backward takes the f32 sum of the
+//     skip and first layers' posenc cotangents (the skip layer's waits in
+//     device memory) through the phases' f32 cosines once, one thread per
+//     (row, coordinate) over a shared-memory copy of it. Bias-gradient
+//     column sums and per-ray view-term sums are written as per-64-row-slab
+//     partials.
+//  2. wgrad_kernel: every weight gradient Aᵀ·D over the pass's rows, with
+//     rows as the K dimension, on wgmma: a 128 × N output tile per block
+//     (N = the cotangent's width: 256, 128, 64 or 16), two consumer
+//     warpgroups of m64nN, and a fixed split of the rows per blockIdx.y
+//     into per-split partials. The operands are the workspace's 64-row
+//     blocks, brought in by bulk copies, in the rows kernel's core-matrix
+//     layout, which with rows as K is MN-major: the wgmma transpose bits
+//     read them as they are.
 //  3. sum_rows_kernel: the partials summed in a fixed order into the
 //     outputs (weights over splits, biases over slabs), added to what the
 //     earlier passes left there.
@@ -38,19 +57,19 @@
 // unrounded cotangents (of the rounded ones for the rgb head, the feature
 // layer and the no-view-branch head, as the reference sums those after
 // rounding), sin/cos are f32.
-#include <type_traits>
-
-#include "fnt_common.cuh"
+#include "wg_field.cuh"
 
 namespace fnt {
 
 constexpr int kMaxProds = 2 * kMaxDepth + 4;
-constexpr int kHead = 16;       // padded width of the head cotangents
-constexpr int kWTile = 64;      // wgrad output tile (rows and columns)
-constexpr int kWRows = 32;      // rows of the reduction per wgrad stage
+constexpr int kHead = 16;        // padded width of the head cotangents
+constexpr int kStagesK4 = 3;     // weight ring slices of the rows kernel
+constexpr int kWgStages = 4;     // operand ring stages of wgrad
 
 // Column offsets of the workspace regions (each region is `rows` x width,
-// row-major). Must equal kernels/posenc_mlp.py::bwd_workspace_cols.
+// in 64-row blocks, each in the core-matrix layout of a shared-memory tile:
+// element (r, c) at wg::cm_off(r, c, width) bytes). Must equal
+// kernels/posenc_mlp.py::bwd_workspace_cols.
 struct Regions {
   long a0, h[kMaxDepth], feat, h2, dpre[kMaxDepth], dfeat, dh2, draw, dsig;
   long cols;
@@ -73,472 +92,601 @@ inline Regions make_regions(const Layout& L) {
   return g;
 }
 
+namespace {
+
+template <int W>
 struct __align__(128) BwdSmem {
-  bf16 h[2][kRows * kLdH];        // activations, then cotangents
-  bf16 a0[kRows * kLdA];          // posenc operand
-  float scratch[kWarps][256];     // one 16x16 f32 tile per warp
-  float d_a0[kRows * kMaxK0];     // f32 cotangent of the posenc operand
-  float rgb[kRows][3];            // post-sigmoid rgb
-  float d_raw[kRows][4];          // bf16-valued head cotangents
-  float gs[kRows];                // σ cotangent
+  bf16 h[2][wg::kWgRows * W];        // activations, then cotangents
+  bf16 a0[2][wg::kWgRows * kMaxK0];  // posenc operand, then column sums
+  wgf::Ring<kStagesK4> ring;
+  bf16 dirs[2][wgf::kMaxRays][W / 2];
+  float pts[2][wg::kWgRows][3];
+  float grgb[2][wg::kWgRows][3];     // rgb cotangents
+  float gs[2][wg::kWgRows];          // σ cotangents
+  float draw[2][wg::kWgRows][4];     // bf16-valued head cotangents
+  float dpts[2][wg::kWgRows][3];     // position cotangents
+  float heads[W * 4];
+  float row_sigma[wg::kItemRows];
+  float row_rgb[wg::kItemRows][3];
+  // the net's biases follow (RowsArgs::n_b floats)
 };
-
-__device__ __forceinline__ BwdSmem& bsm() {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  return *reinterpret_cast<BwdSmem*>(smem_raw);
-}
-
-// C = A1·B1 (+ A2·B2) over the slab's kRows rows and N output columns,
-// then v' = epi(r, c, v) on every element; colsum(c, Σ_r v') once per
-// column, summed in a fixed order (each lane over its rows, then the lane
-// pair). A* are bf16 in shared memory (row strides lda*, K* columns). B*
-// are bf16 in device memory, row-major K x N with row stride ldb, or with
-// BT given transposed: element (k, n) at B[n * ldb + k] (the dgrad
-// products read the forward's weights this way).
-template <bool BT, class Epi, class ColSum>
-__device__ __forceinline__ void mma_slab(const bf16* A1, int lda1, int K1,
-                                         const bf16* B1, const bf16* A2,
-                                         int lda2, int K2, const bf16* B2,
-                                         int ldb, int N, Epi epi,
-                                         ColSum colsum) {
-  using BLay = typename std::conditional<BT, wmma::col_major,
-                                         wmma::row_major>::type;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* scratch = bsm().scratch[warp];
-  for (int ct = warp; ct * 16 < N; ct += kWarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kRows / 16];
-#pragma unroll
-    for (int m = 0; m < kRows / 16; ++m) wmma::fill_fragment(acc[m], 0.0f);
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLay> fb;
-    for (int op = 0; op < 2; ++op) {
-      const bf16* A = op ? A2 : A1;
-      const bf16* B = op ? B2 : B1;
-      const int lda = op ? lda2 : lda1, K = op ? K2 : K1;
-      for (int k = 0; k < K; k += 16) {
-        const bf16* bp = BT ? B + (size_t)ct * 16 * ldb + k
-                            : B + (size_t)k * ldb + ct * 16;
-        wmma::load_matrix_sync(fb, bp, ldb);
-#pragma unroll
-        for (int m = 0; m < kRows / 16; ++m) {
-          wmma::load_matrix_sync(fa, A + m * 16 * lda + k, lda);
-          wmma::mma_sync(acc[m], fa, fb, acc[m]);
-        }
-      }
-    }
-    // lane's column within the strip is lane & 15 for every element it
-    // visits (e = lane + 32j), so its partial column sum needs no sharing
-    float part = 0.0f;
-#pragma unroll
-    for (int m = 0; m < kRows / 16; ++m) {
-      wmma::store_matrix_sync(scratch, acc[m], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        part += epi(m * 16 + (e >> 4), ct * 16 + (e & 15), scratch[e]);
-      __syncwarp();
-    }
-    part += __shfl_xor_sync(0xffffffffu, part, 16);
-    if (lane < 16) colsum(ct * 16 + lane, part);
-  }
-}
-
-// One product A·B (see above).
-template <bool BT, class Epi, class ColSum>
-__device__ __forceinline__ void mma_one(const bf16* A, int lda, int K,
-                                        const bf16* B, int ldb, int N,
-                                        Epi epi, ColSum colsum) {
-  mma_slab<BT>(A, lda, K, B, nullptr, 0, 0, nullptr, ldb, N, epi, colsum);
-}
-
-// Copy a slab (kRows x width bf16, shared row stride lds) to the workspace.
-__device__ __forceinline__ void store_slab(const bf16* src, int lds,
-                                           bf16* dst, int width) {
-  const int vpr = width / 8;
-  for (int i = threadIdx.x; i < kRows * vpr; i += kThreads) {
-    const int r = i / vpr, v = i % vpr;
-    *reinterpret_cast<uint4*>(dst + (size_t)r * width + v * 8) =
-        *reinterpret_cast<const uint4*>(src + r * lds + v * 8);
-  }
-}
 
 struct RowsArgs {
   const float* pts;      // (n, 3)
   const bf16* dirpart;   // (n / spr, width / 2)
-  const bf16* w;
+  const bf16* w;         // packed weights (Layout): the heads
+  const bf16* wp;        // field slices, then their transposes (wgpack.py)
   const float* b;
   const float* g_rgb;    // (n, 3)
   const float* g_sigma;  // (n,)
   float* d_pts;          // (n, 3)
-  float* dpart;          // (n / kRows, M, width / 2) per-slab ray sums
-  float* bpart;          // (chunk / kRows, n_b) per-slab bias sums
+  float* dpart;          // (n / 64, M, width / 2) per-slab ray sums
+  float* bpart;          // (chunk / 64, n_b) per-slab bias sums
   bf16* ws;              // workspace, regions of `rows` rows
+  float* a0s;            // (chunk / 64, k0 / 2, 128) the skip layer's
+                         // posenc cotangent, per thread of a warpgroup
+  uint32_t* masks;       // (chunk / 64 + 1, depth, W / 64, 128) relu bits of
+                         // the trunk layers, per thread (the last slab is
+                         // a warpgroup without rows)
   long rows;             // rows of the pass (region height)
-  int slab0;             // first slab of the pass
+  long r0;               // first row of the pass
   int spr, L, M, n_b;
+  int n_slices;
+  int slice_bytes[wgf::kMaxSlices];
   Layout lay;
   Regions reg;
 };
 
-__global__ void __launch_bounds__(kThreads) bwd_rows_kernel(RowsArgs a) {
-  BwdSmem& s = bsm();
-  const Layout& lay = a.lay;
-  const int W = lay.width, half = W / 2, D = lay.depth;
-  const int slab = a.slab0 + blockIdx.x;
-  const long row0 = (long)slab * kRows;            // global row
-  const long lrow0 = (long)blockIdx.x * kRows;     // row in the pass
-  // a slab's rows in the region at column offset col (width columns)
-  auto slab_of = [&](long col, int width) {
-    return a.ws + col * a.rows + lrow0 * width;
-  };
-  float* bsum = a.bpart + (long)blockIdx.x * a.n_b;
-
-  // ---- posenc operand (as K3), and the cotangent accumulator
-  const int n_ph = 6 * a.L;
-  for (int i = threadIdx.x; i < kRows * lay.k0; i += kThreads) {
-    const int r = i / lay.k0, c = i % lay.k0;
-    float v = 0.0f;
-    if (c < 3) {
-      v = a.pts[(row0 + r) * 3 + c];
-    } else if (c < 3 + n_ph) {
-      const int j = (c - 3) / 3, k = (c - 3) % 3;
-      const float f = (float)(1 << (j % a.L));
-      const float off = j >= a.L ? kHalfPi : 0.0f;
-      v = sinf(__fadd_rn(__fmul_rn(a.pts[(row0 + r) * 3 + k], f), off));
-    }
-    s.a0[r * kLdA + c] = __float2bfloat16_rn(v);
-    s.d_a0[r * kMaxK0 + c] = 0.0f;
-  }
-  for (int r = threadIdx.x; r < kRows; r += kThreads)
-    s.gs[r] = a.g_sigma[row0 + r];
-  __syncthreads();
-  store_slab(s.a0, kLdA, slab_of(a.reg.a0, lay.k0), lay.k0);
-
-  auto no_sum = [](int, float) {};
-  // ---- forward recompute of the trunk; every output to the workspace
-  int cur = 1;
-  for (int i = 0; i < D; ++i) {
-    const int out = cur ^ 1;
-    bf16* H = s.h[out];
-    const float* bias = a.b + lay.b[i];
-    auto epi = [&](int r, int c, float v) {
-      H[r * kLdH + c] = __float2bfloat16_rn(fmaxf(__fadd_rn(v, bias[c]),
-                                                  0.0f));
-      return 0.0f;
-    };
-    // the skip layer sums h·W_h and a0·W_a0 in one accumulator, as K3
-    if (lay.w_h[i] >= 0 && lay.w_a0[i] >= 0)
-      mma_slab<false>(s.h[cur], kLdH, W, a.w + lay.w_h[i], s.a0, kLdA,
-                      lay.k0, a.w + lay.w_a0[i], W, W, epi, no_sum);
-    else if (lay.w_h[i] >= 0)
-      mma_one<false>(s.h[cur], kLdH, W, a.w + lay.w_h[i], W, W, epi, no_sum);
-    else
-      mma_one<false>(s.a0, kLdA, lay.k0, a.w + lay.w_a0[i], W, W, epi,
-                     no_sum);
-    __syncthreads();
-    store_slab(H, kLdH, slab_of(a.reg.h[i], W), W);
-    cur = out;
-  }
-  // s.h[cur] = h_{D-1}
-
-  if (lay.has_vd) {
-    // ---- heads forward: feat, h2, rgb (σ is not needed: its head is the
-    // identity and its cotangent is g_sigma)
-    bf16* Fe = s.h[cur ^ 1];
-    const float* b_feat = a.b + lay.b_feat;
-    mma_one<false>(s.h[cur], kLdH, W, a.w + lay.w_feat, W, W,
-                    [&](int r, int c, float v) {
-                      Fe[r * kLdH + c] =
-                          __float2bfloat16_rn(__fadd_rn(v, b_feat[c]));
-                      return 0.0f;
-                    }, no_sum);
-    __syncthreads();
-    store_slab(Fe, kLdH, slab_of(a.reg.feat, W), W);
-    bf16* H2 = s.h[cur];
-    const float* b_view = a.b + lay.b_view;
-    mma_one<false>(Fe, kLdH, W, a.w + lay.w_view, half, half,
-                    [&](int r, int c, float v) {
-                      const float d = bf(a.dirpart[((row0 + r) / a.spr) *
-                                                   half + c]);
-                      v = __fadd_rn(__fadd_rn(v, d), b_view[c]);
-                      H2[r * kLdH + c] = __float2bfloat16_rn(fmaxf(v, 0.0f));
-                      return 0.0f;
-                    }, no_sum);
-    __syncthreads();
-    store_slab(H2, kLdH, slab_of(a.reg.h2, half), half);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const bf16* wr = a.w + lay.w_rgb;
-    for (int r = warp; r < kRows; r += kWarps) {
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-      for (int k = lane; k < half; k += 32) {
-        const float hv = bf(H2[r * kLdH + k]);
-        a0 = fmaf(hv, bf(wr[k * 3 + 0]), a0);
-        a1 = fmaf(hv, bf(wr[k * 3 + 1]), a1);
-        a2 = fmaf(hv, bf(wr[k * 3 + 2]), a2);
-      }
-      a0 = warp_sum(a0); a1 = warp_sum(a1); a2 = warp_sum(a2);
-      if (lane == 0) {
-        s.rgb[r][0] = sigmoidf(a0 + a.b[lay.b_rgb + 0]);
-        s.rgb[r][1] = sigmoidf(a1 + a.b[lay.b_rgb + 1]);
-        s.rgb[r][2] = sigmoidf(a2 + a.b[lay.b_rgb + 2]);
-      }
-    }
-    __syncthreads();
-
-    // ---- rgb head: d_raw = bf16(g·s·(1−s)); σ head: bf16(g_sigma)
-    bf16* draw = slab_of(a.reg.draw, kHead);
-    bf16* dsig = slab_of(a.reg.dsig, kHead);
-    for (int i = threadIdx.x; i < kRows * kHead; i += kThreads) {
-      const int r = i / kHead, j = i % kHead;
-      float v = 0.0f, sv = 0.0f;
-      if (j < 3) {
-        const float sg = s.rgb[r][j];
-        v = bf(__float2bfloat16_rn(__fmul_rn(
-            __fmul_rn(a.g_rgb[(row0 + r) * 3 + j], sg),
-            __fsub_rn(1.0f, sg))));
-        s.d_raw[r][j] = v;
-      }
-      if (j == 0) sv = bf(__float2bfloat16_rn(s.gs[r]));
-      draw[(size_t)r * kHead + j] = __float2bfloat16_rn(v);
-      dsig[(size_t)r * kHead + j] = __float2bfloat16_rn(sv);
-    }
-    __syncthreads();
-    if (threadIdx.x < 4) {
-      const int j = threadIdx.x;
-      float t = 0.0f;
-      for (int r = 0; r < kRows; ++r) t += j < 3 ? s.d_raw[r][j] : s.gs[r];
-      bsum[j < 3 ? lay.b_rgb + j : lay.b_sig] = t;
-    }
-    // ---- view layer: d_h2pre = [h2 > 0]·(d_raw·W_rgbᵀ), in place of h2;
-    // its per-ray sums are the cotangent of the per-ray view term
-    const long q0 = row0 / a.spr;
-    float* dsl = a.dpart + (long)slab * a.M * half;
-    bf16* dh2 = slab_of(a.reg.dh2, half);
-    for (int c = threadIdx.x; c < half; c += kThreads) {
-      const float w0 = bf(wr[c * 3 + 0]), w1 = bf(wr[c * 3 + 1]),
-                  w2 = bf(wr[c * 3 + 2]);
-      float tot = 0.0f, ray = 0.0f;
-      long q = q0;
-      for (int r = 0; r < kRows; ++r) {
-        const long qr = (row0 + r) / a.spr;
-        if (qr != q) {
-          dsl[(q - q0) * half + c] = ray;
-          ray = 0.0f;
-          q = qr;
-        }
-        float v = fmaf(s.d_raw[r][2], w2,
-                       fmaf(s.d_raw[r][1], w1, s.d_raw[r][0] * w0));
-        if (!(bf(H2[r * kLdH + c]) > 0.0f)) v = 0.0f;
-        tot += v;
-        ray += v;
-        const bf16 vb = __float2bfloat16_rn(v);
-        H2[r * kLdH + c] = vb;
-        dh2[(size_t)r * half + c] = vb;
-      }
-      dsl[(q - q0) * half + c] = ray;
-      for (long j = q - q0 + 1; j < a.M; ++j) dsl[j * half + c] = 0.0f;
-      bsum[lay.b_view + c] = tot;
-    }
-    __syncthreads();
-    // ---- feature layer: d_feat = bf16(d_h2pre·W_viewᵀ), into Fe
-    mma_one<true>(H2, kLdH, half, a.w + lay.w_view, half, W,
-                   [&](int r, int c, float v) {
-                     const bf16 vb = __float2bfloat16_rn(v);
-                     Fe[r * kLdH + c] = vb;
-                     return bf(vb);
-                   },
-                   [&](int c, float t) { bsum[lay.b_feat + c] = t; });
-    __syncthreads();
-    store_slab(Fe, kLdH, slab_of(a.reg.dfeat, W), W);
-    // ---- last trunk layer: d_h = d_feat·W_featᵀ + bf16(g_σ)·w_σ, masked
-    const bf16* hl = slab_of(a.reg.h[D - 1], W);
-    const bf16* wsig = a.w + lay.w_sig;
-    bf16* P = s.h[cur];
-    mma_one<true>(Fe, kLdH, W, a.w + lay.w_feat, W, W,
-                   [&](int r, int c, float v) {
-                     v = __fadd_rn(v, __fmul_rn(
-                         bf(__float2bfloat16_rn(s.gs[r])), bf(wsig[c])));
-                     if (!(bf(hl[(size_t)r * W + c]) > 0.0f)) v = 0.0f;
-                     P[r * kLdH + c] = __float2bfloat16_rn(v);
-                     return v;
-                   },
-                   [&](int c, float t) { bsum[lay.b[D - 1] + c] = t; });
-    __syncthreads();
-  } else {
-    // ---- one 4-wide head: lanes 0-2 sigmoid rgb, lane 3 identity σ
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const bf16* wo = a.w + lay.w_out;
-    const bf16* Hl = s.h[cur];
-    for (int r = warp; r < kRows; r += kWarps) {
-      float acc[3] = {0.0f, 0.0f, 0.0f};
-      for (int k = lane; k < W; k += 32) {
-        const float hv = bf(Hl[r * kLdH + k]);
+// One stage of colsum_pair's butterfly: lanes 2M apart swap halves of
+// p[0, 2M), each keeping the sums of one half in p[0, M) (lane bit 4, 3 or
+// 2 set: the upper half).
+template <int M>
+__device__ __forceinline__ void colsum_stage(float (&p)[16], int lane,
+                                             int& base) {
+  const int up = lane & (2 * M);
 #pragma unroll
-        for (int j = 0; j < 3; ++j) acc[j] = fmaf(hv, bf(wo[k * 4 + j]),
-                                                  acc[j]);
-      }
+  for (int k = 0; k < M; ++k) {
+    const float send = up ? p[k] : p[k + M];
+    p[k] = (up ? p[k + M] : p[k]) + __shfl_xor_sync(0xffffffffu, send, 2 * M);
+  }
+  base += up ? M : 0;
+}
+
+// Column sums of the warpgroup's 64 rows, in a fixed order: the thread's
+// two rows (s0, s1: columns 8j + cA and + 1 of the epilogue's step j), the
+// 8 row groups of a warp, then the 4 warps in order (colsum_out). The
+// warp's sums run on 8 steps at once (p): a transposing butterfly over
+// lanes xor 16, 8, 4 halves the values a lane holds at each stage, so 14
+// shuffles leave each lane the sums of 2 of the 64 columns.
+__device__ __forceinline__ void colsum_pair(float* cs, int N, int ww,
+                                            int lane, int cA, int j,
+                                            float (&p)[16], float s0,
+                                            float s1) {
+  p[2 * (j & 7)] = s0;
+  p[2 * (j & 7) + 1] = s1;
+  if ((j & 7) != 7) return;
+  int base = 0;
+  colsum_stage<8>(p, lane, base);
+  colsum_stage<4>(p, lane, base);
+  colsum_stage<2>(p, lane, base);
+  const int c = 8 * ((j & ~7) + base / 2) + cA;
+  cs[ww * N + c] = p[0];
+  cs[ww * N + c + 1] = p[1];
+}
+
+__device__ __forceinline__ void colsum_out(const float* cs, int N, int tw,
+                                           float* dst, bool live) {
+  for (int c = tw; c < N; c += 128)
+    if (live) dst[c] = ((cs[c] + cs[N + c]) + cs[2 * N + c]) + cs[3 * N + c];
+}
+
+// The posenc backward: acc = d_a0, the posenc operand's cotangent, on the
+// thread's accumulator positions (K0 columns). It goes row-major through
+// the f32 scratch S (64 × K0, free shared memory) so that each of the
+// 64 × 3 (row, coordinate) pairs is one thread's short loop over its
+// phases: d_x = d_a0[x] + Σ_b d_a0[sin/cos b]·cos(P_b)·2^(b mod L), to
+// dpts. The warpgroup must be done with S before the call and sync after.
+template <int K0>
+__device__ __forceinline__ void posenc_bwd(const float (&acc)[K0 / 2],
+                                           float* S, const float (*pts)[3],
+                                           float (*dpts)[3], int L, int rA,
+                                           int cA, int tw, int bar) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) acc[j] = warp_sum(acc[j]);
-      if (lane == 0)
-        for (int j = 0; j < 3; ++j)
-          s.rgb[r][j] = sigmoidf(acc[j] + a.b[lay.b_out + j]);
-    }
-    __syncthreads();
-    bf16* draw = slab_of(a.reg.draw, kHead);
-    for (int i = threadIdx.x; i < kRows * kHead; i += kThreads) {
-      const int r = i / kHead, j = i % kHead;
-      float v = 0.0f;
-      if (j < 3) {
-        const float sg = s.rgb[r][j];
-        v = __fmul_rn(__fmul_rn(a.g_rgb[(row0 + r) * 3 + j], sg),
-                      __fsub_rn(1.0f, sg));
-      } else if (j == 3) {
-        v = s.gs[r];
+  for (int j = 0; j < K0 / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(S + (rA + 8 * h) * K0 + 8 * j + cA) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  wg::wg_sync(bar);
+  for (int t = tw; t < 64 * 3; t += 128) {
+    const int r = t / 3, q = t % 3;
+    const float* d = S + r * K0 + 3 + q;
+    const float x = pts[r][q];
+    float dx = S[r * K0 + q];
+    for (int half = 0; half < 2; ++half) {
+      const float off = half ? kHalfPi : 0.0f;
+      float f = 1.0f;
+      for (int k = 0; k < L; ++k, f *= 2.0f, d += 3) {
+        const float P = __fadd_rn(__fmul_rn(x, f), off);
+        dx = __fadd_rn(dx, __fmul_rn(__fmul_rn(*d, cosf(P)), f));
       }
-      v = bf(__float2bfloat16_rn(v));
-      if (j < 4) s.d_raw[r][j] = v;
-      draw[(size_t)r * kHead + j] = __float2bfloat16_rn(v);
     }
-    __syncthreads();
-    if (threadIdx.x < 4) {
-      float t = 0.0f;
-      for (int r = 0; r < kRows; ++r) t += s.d_raw[r][threadIdx.x];
-      bsum[lay.b_out + threadIdx.x] = t;
-    }
-    // d_h = d_raw·W_outᵀ (K = 4, by hand), masked by h_{D-1} > 0, written
-    // in place of h_{D-1}
-    bf16* P = s.h[cur];
-    for (int c = threadIdx.x; c < W; c += kThreads) {
-      const float w0 = bf(wo[c * 4 + 0]), w1 = bf(wo[c * 4 + 1]),
-                  w2 = bf(wo[c * 4 + 2]), w3 = bf(wo[c * 4 + 3]);
-      float tot = 0.0f;
-      for (int r = 0; r < kRows; ++r) {
-        float v = fmaf(s.d_raw[r][3], w3,
-                       fmaf(s.d_raw[r][2], w2,
-                            fmaf(s.d_raw[r][1], w1, s.d_raw[r][0] * w0)));
-        if (!(bf(P[r * kLdH + c]) > 0.0f)) v = 0.0f;
-        tot += v;
-        P[r * kLdH + c] = __float2bfloat16_rn(v);
-      }
-      bsum[lay.b[D - 1] + c] = tot;
-    }
-    __syncthreads();
-  }
-
-  // ---- trunk backward. s.h[cur] holds bf16(d_pre) of layer D-1.
-  for (int i = D - 1; i >= 0; --i) {
-    bf16* P = s.h[cur];
-    store_slab(P, kLdH, slab_of(a.reg.dpre[i], W), W);
-    if (lay.w_a0[i] >= 0) {
-      float* da0 = s.d_a0;
-      mma_one<true>(P, kLdH, W, a.w + lay.w_a0[i], W, lay.k0,
-                     [&](int r, int c, float v) {
-                       da0[r * kMaxK0 + c] += v;
-                       return 0.0f;
-                     }, no_sum);
-    }
-    if (lay.w_h[i] >= 0) {
-      bf16* Pn = s.h[cur ^ 1];
-      const bf16* hp = slab_of(a.reg.h[i - 1], W);
-      mma_one<true>(P, kLdH, W, a.w + lay.w_h[i], W, W,
-                     [&](int r, int c, float v) {
-                       if (!(bf(hp[(size_t)r * W + c]) > 0.0f)) v = 0.0f;
-                       Pn[r * kLdH + c] = __float2bfloat16_rn(v);
-                       return v;
-                     },
-                     [&](int c, float t) { bsum[lay.b[i - 1] + c] = t; });
-      cur ^= 1;
-    }
-    __syncthreads();
-  }
-
-  // ---- posenc backward: d_x = d_a0[x] + Σ_b d_a0[sin/cos]·cos(P)·2^(b mod L)
-  for (int i = threadIdx.x; i < kRows * 3; i += kThreads) {
-    const int r = i / 3, j = i % 3;
-    const float x = a.pts[(row0 + r) * 3 + j];
-    float t = 0.0f;
-    for (int blk = 0; blk < 2 * a.L; ++blk) {
-      const float f = (float)(1 << (blk % a.L));
-      const float off = blk >= a.L ? kHalfPi : 0.0f;
-      const float P = __fadd_rn(__fmul_rn(x, f), off);
-      t = __fadd_rn(t, __fmul_rn(__fmul_rn(s.d_a0[r * kMaxK0 + 3 + 3 * blk +
-                                                  j], cosf(P)), f));
-    }
-    a.d_pts[(row0 + r) * 3 + j] = __fadd_rn(t, s.d_a0[r * kMaxK0 + j]);
+    dpts[r][q] = dx;
   }
 }
 
-// One weight gradient A^T·D: A (rows x a_w) and D (rows x d_w) workspace
+template <int W>
+__global__ void __launch_bounds__(wgf::kThreads, 1)
+    bwd_rows_kernel(const __grid_constant__ RowsArgs a) {
+  constexpr int kHalf = W / 2, kWords = W / 64;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  BwdSmem<W>& s = *reinterpret_cast<BwdSmem<W>*>(smem_raw);
+  float* bias = reinterpret_cast<float*>(smem_raw + sizeof(BwdSmem<W>));
+  const Layout& lay = a.lay;
+  const Regions& reg = a.reg;
+  const int D = lay.depth, k0 = lay.k0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) wgf::ring_init(s.ring);
+  for (int i = threadIdx.x; i < a.n_b; i += blockDim.x) bias[i] = a.b[i];
+  if (lay.has_vd) {
+    for (int i = threadIdx.x; i < W; i += blockDim.x)
+      s.heads[i] = bf(a.w[lay.w_sig + i]);
+    for (int i = threadIdx.x; i < kHalf * 3; i += blockDim.x)
+      s.heads[W + i] = bf(a.w[lay.w_rgb + i]);
+  } else {
+    for (int i = threadIdx.x; i < W * 4; i += blockDim.x)
+      s.heads[i] = bf(a.w[lay.w_out + i]);
+  }
+  __syncthreads();
+  const int n_items = (int)((a.rows + wg::kItemRows - 1) / wg::kItemRows);
+
+  if (warp >= wgf::kConsumers / 32) {
+    wg::setmaxnreg_dec<40>();
+    if (warp == wgf::kConsumers / 32 && lane == 0)
+      wgf::produce(s.ring, a.wp, a.slice_bytes, a.n_slices, n_items);
+    return;
+  }
+
+  wg::setmaxnreg_inc<232>();
+  const int g = threadIdx.x >> 7, tw = threadIdx.x & 127, ww = tw >> 5;
+  bf16* H = s.h[g];
+  const uint32_t h_addr = wg::smem_addr(H);
+  float(*pts)[3] = s.pts[g];
+  float(*grgb)[3] = s.grgb[g];
+  float* gs = s.gs[g];
+  float(*draw)[4] = s.draw[g];
+  float(*dpts)[3] = s.dpts[g];
+  bf16(*dirs)[kHalf] = s.dirs[g];
+  float* cs = reinterpret_cast<float*>(s.a0[g]);   // 4 × W column sums
+  float* row_sigma = s.row_sigma + 64 * g;
+  float(*row_rgb)[3] = s.row_rgb + 64 * g;
+  wgf::Rows t{H, s.a0[g], bias, s.heads, pts, nullptr, nullptr, row_sigma,
+              row_rgb, nullptr, tw, ww, lane, 1 + g, 16 * ww + (lane >> 2),
+              2 * (lane & 3)};
+  const int rA = t.rA, cA = t.cA, bar = t.bar;
+  // A final tile (64 rows × cols in the core-matrix layout) goes to its
+  // workspace block as it is, by one bulk store that one thread issues;
+  // guard() waits until the stores have read their tiles, before a tile (H
+  // or A0) is overwritten, and precedes a warpgroup barrier.
+  bool pending = false;
+  auto guard = [&]() {
+    if (pending && tw == 0) wgf::bulk_wait_read<0>();
+    pending = false;
+  };
+  auto store = [&](const bf16* tile, int cols, bf16* dst) {
+    if (tw == 0) {
+      wgf::bulk_store(dst, tile, cols * 64 * 2);
+      wgf::bulk_commit();
+    }
+    pending = true;
+  };
+  wgf::RingPos rp{0, 0u, -1};
+  float acc[W / 2];
+  float csp[16];   // column-sum partials of 8 epilogue steps (colsum_pair)
+
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const long lrow0 = (long)it * wg::kItemRows + 64 * g;   // in the pass
+    const bool live = lrow0 < a.rows;
+    const long row0 = a.r0 + lrow0;                        // global
+    const long ls = lrow0 / 64;                            // slab in pass
+    // the slab's block of the region at column offset col (width columns)
+    auto blk = [&](long col, int width) {
+      return a.ws + col * a.rows + ls * width * 64;
+    };
+    float* bsum = a.bpart + ls * a.n_b;
+    uint32_t* mask = a.masks + ls * D * kWords * 128;
+    t.mask = mask;
+    for (int i = tw; i < 64 * 3; i += 128) {
+      pts[i / 3][i % 3] = live ? a.pts[row0 * 3 + i] : 0.0f;
+      grgb[i / 3][i % 3] = live ? a.g_rgb[row0 * 3 + i] : 0.0f;
+    }
+    if (tw < 64) gs[tw] = live ? a.g_sigma[row0 + tw] : 0.0f;
+    const long ray0 = row0 / a.spr;
+    const int nr = (int)((row0 + 63) / a.spr - ray0 + 1);
+    const bool staged = nr <= wgf::kMaxRays;
+    if (lay.has_vd && live && staged)
+      for (int i = tw; i < nr * kHalf; i += 128)
+        dirs[i / kHalf][i % kHalf] = a.dirpart[ray0 * kHalf + i];
+    t.dir_lo = t.dir_hi = dirs[0];
+    if (lay.has_vd && live) {
+      const long q_lo = (row0 + rA) / a.spr, q_hi = (row0 + rA + 8) / a.spr;
+      t.dir_lo = staged ? dirs[q_lo - ray0] : a.dirpart + q_lo * kHalf;
+      t.dir_hi = staged ? dirs[q_hi - ray0] : a.dirpart + q_hi * kHalf;
+    }
+    guard();
+    wg::wg_sync(bar);
+    wgf::posenc_tile(t.A0, k0, a.L, pts, tw);
+    wg::fence_async_smem();
+    wg::wg_sync(bar);
+    if (live) store(t.A0, k0, blk(reg.a0, k0));
+
+    // ---- forward recompute; every output to the workspace
+    wgf::forward<W>(lay, t, s.ring, rp, acc, [&](int kind, int i) {
+      if (!live) return;
+      if (kind == 0) store(H, W, blk(reg.h[i], W));
+      else if (kind == 1) store(H, W, blk(reg.feat, W));
+      else store(H, kHalf, blk(reg.h2, kHalf));
+    }, guard);
+
+    // ---- head cotangents: d_raw = bf16(g·s·(1−s)) (rgb), bf16(g_σ)
+    if (tw < 64) {
+      const int r = tw;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float sg = row_rgb[r][q];
+        draw[r][q] = bf(__float2bfloat16_rn(__fmul_rn(
+            __fmul_rn(grgb[r][q], sg), __fsub_rn(1.0f, sg))));
+      }
+      draw[r][3] = bf(__float2bfloat16_rn(gs[r]));
+      if (live) {
+        bf16* dr = blk(reg.draw, kHead);
+        bf16* ds = blk(reg.dsig, kHead);
+        const int nh = lay.has_vd ? 3 : 4;
+        for (int j = 0; j < kHead; ++j) {
+          const int e = wg::cm_off(r, j, kHead) / 2;
+          dr[e] = __float2bfloat16_rn(j < nh ? draw[r][j] : 0.0f);
+          ds[e] = __float2bfloat16_rn(lay.has_vd && j == 0 ? draw[r][3]
+                                                           : 0.0f);
+        }
+      }
+    }
+    guard();
+    wg::wg_sync(bar);
+    if (tw < 4 && live) {
+      const int j = tw;
+      float tot = 0.0f;
+      if (lay.has_vd) {
+        for (int r = 0; r < 64; ++r) tot += j < 3 ? draw[r][j] : gs[r];
+        bsum[j < 3 ? lay.b_rgb + j : lay.b_sig] = tot;
+      } else {
+        for (int r = 0; r < 64; ++r) tot += draw[r][j];
+        bsum[lay.b_out + j] = tot;
+      }
+    }
+
+    uint32_t mw[kWords];
+    auto load_mask = [&](int layer) {
+#pragma unroll
+      for (int w = 0; w < kWords; ++w)
+        mw[w] = mask[(layer * kWords + w) * 128 + tw];
+    };
+    auto on = [&](int j, int q) {
+      return (mw[j / 8] >> (4 * (j % 8) + q)) & 1u;
+    };
+
+    if (lay.has_vd) {
+      // ---- view layer: d_h2pre = [h2 > 0]·(d_raw·W_rgbᵀ), in place of
+      // h2 (a column a thread); its per-ray sums are the cotangent of the
+      // per-ray view term
+      const long q0 = row0 / a.spr;
+      float* dsl = a.dpart + (row0 / 64) * a.M * kHalf;
+      for (int c = tw; c < kHalf; c += 128) {
+        const float* wr = s.heads + W + c * 3;
+        const float w0 = wr[0], w1 = wr[1], w2 = wr[2];
+        float tot = 0.0f, ray = 0.0f;
+        long q = q0;
+        int in_ray = (int)(row0 - q0 * a.spr);   // row's place in its ray
+        for (int r = 0; r < 64; ++r, ++in_ray) {
+          if (in_ray == a.spr) {
+            if (live) dsl[(q - q0) * kHalf + c] = ray;
+            ray = 0.0f;
+            ++q;
+            in_ray = 0;
+          }
+          float v = fmaf(draw[r][2], w2, fmaf(draw[r][1], w1, draw[r][0] * w0));
+          bf16* e = reinterpret_cast<bf16*>(reinterpret_cast<char*>(H) +
+                                            wg::cm_off(r, c, kHalf));
+          if (!(bf(*e) > 0.0f)) v = 0.0f;
+          tot += v;
+          ray += v;
+          *e = __float2bfloat16_rn(v);
+        }
+        if (live) {
+          dsl[(q - q0) * kHalf + c] = ray;
+          for (long j = q - q0 + 1; j < a.M; ++j) dsl[j * kHalf + c] = 0.0f;
+          bsum[lay.b_view + c] = tot;
+        }
+      }
+      wg::fence_async_smem();
+      wg::wg_sync(bar);
+      if (live) store(H, kHalf, blk(reg.dh2, kHalf));
+
+      // ---- feature layer: d_feat = bf16(d_h2pre·W_viewᵀ)
+      for (int k = 0; k < kHalf; k += wg::kSliceK)
+        wgf::consume<W>(acc, rp, s.ring, h_addr, kHalf, k, wg::kSliceK,
+                        k == 0);
+      wgf::drain(acc, rp, s.ring);
+      guard();
+      wg::wg_sync(bar);
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const int c = 8 * j + cA;
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[4 * j],
+                                                        acc[4 * j + 1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[4 * j + 2],
+                                                        acc[4 * j + 3]);
+        wgf::st_pair(H, rA, c, W, lo);
+        wgf::st_pair(H, rA + 8, c, W, hi);
+        colsum_pair(cs, W, ww, lane, cA, j, csp,
+                    __low2float(lo) + __low2float(hi),
+                    __high2float(lo) + __high2float(hi));
+      }
+      wg::fence_async_smem();
+      wg::wg_sync(bar);
+      colsum_out(cs, W, tw, bsum + lay.b_feat, live);
+      if (live) store(H, W, blk(reg.dfeat, W));
+
+      // ---- last trunk layer: d_h = d_feat·W_featᵀ + bf16(g_σ)·w_σ, masked
+      for (int k = 0; k < W; k += wg::kSliceK)
+        wgf::consume<W>(acc, rp, s.ring, h_addr, W, k, wg::kSliceK, k == 0);
+      wgf::drain(acc, rp, s.ring);
+      guard();
+      wg::wg_sync(bar);
+      load_mask(D - 1);
+      const float g_lo = draw[rA][3], g_hi = draw[rA + 8][3];
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const int c = 8 * j + cA;
+        const float s0 = s.heads[c], s1 = s.heads[c + 1];
+        float v[4] = {__fadd_rn(acc[4 * j], __fmul_rn(g_lo, s0)),
+                      __fadd_rn(acc[4 * j + 1], __fmul_rn(g_lo, s1)),
+                      __fadd_rn(acc[4 * j + 2], __fmul_rn(g_hi, s0)),
+                      __fadd_rn(acc[4 * j + 3], __fmul_rn(g_hi, s1))};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) if (!on(j, q)) v[q] = 0.0f;
+        wgf::st_pair(H, rA, c, W, __floats2bfloat162_rn(v[0], v[1]));
+        wgf::st_pair(H, rA + 8, c, W, __floats2bfloat162_rn(v[2], v[3]));
+        colsum_pair(cs, W, ww, lane, cA, j, csp, v[0] + v[2],
+                    v[1] + v[3]);
+      }
+    } else {
+      // ---- 4-wide head: d_h = d_raw·W_outᵀ (K = 4, by hand), masked
+      load_mask(D - 1);
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const int c = 8 * j + cA;
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float* wo = s.heads + (c + (q & 1)) * 4;
+          const float(&d)[4] = draw[rA + 8 * (q >> 1)];
+          v[q] = fmaf(d[3], wo[3], fmaf(d[2], wo[2],
+                                        fmaf(d[1], wo[1], d[0] * wo[0])));
+          if (!on(j, q)) v[q] = 0.0f;
+        }
+        wgf::st_pair(H, rA, c, W, __floats2bfloat162_rn(v[0], v[1]));
+        wgf::st_pair(H, rA + 8, c, W, __floats2bfloat162_rn(v[2], v[3]));
+        colsum_pair(cs, W, ww, lane, cA, j, csp, v[0] + v[2],
+                    v[1] + v[3]);
+      }
+    }
+    wg::fence_async_smem();
+    wg::wg_sync(bar);
+    colsum_out(cs, W, tw, bsum + lay.b[D - 1], live);
+
+    // ---- trunk backward. H holds bf16(d_pre) of layer i. The skip
+    // layer's posenc cotangent waits in device memory (per thread) for
+    // layer 0's, and their f32 sum, as the plain version sums them, goes
+    // through the phases' cosines once.
+    float* stash = a.a0s + ls * (k0 / 2) * 128 + tw;
+    auto posenc_part = [&](auto& acc_a, int i) {
+      constexpr int n = sizeof(acc_a) / sizeof(float);
+      if (i > 0) {
+        if (live) {
+#pragma unroll
+          for (int j = 0; j < n; ++j) stash[j * 128] = acc_a[j];
+        }
+        return;
+      }
+      if (lay.skip > 0 && live) {
+#pragma unroll
+        for (int j = 0; j < n; ++j)
+          acc_a[j] = __fadd_rn(stash[j * 128], acc_a[j]);
+      }
+      guard();             // layer 0's cotangent store has read H
+      wg::wg_sync(bar);    // and so have the warpgroup's wgmmas
+      posenc_bwd<2 * n>(acc_a, reinterpret_cast<float*>(H), pts, dpts, a.L,
+                        rA, cA, tw, bar);
+    };
+    for (int i = D - 1; i >= 0; --i) {
+      if (live) store(H, W, blk(reg.dpre[i], W));
+      if (lay.w_a0[i] >= 0) {
+        if (k0 == 64) {
+          float(&acc_a)[32] = *reinterpret_cast<float(*)[32]>(acc);
+          for (int k = 0; k < W; k += wg::kSliceK)
+            wgf::consume<64>(acc_a, rp, s.ring, h_addr, W, k, wg::kSliceK,
+                             k == 0);
+          wgf::drain(acc_a, rp, s.ring);
+          posenc_part(acc_a, i);
+        } else {
+          float(&acc_a)[24] = *reinterpret_cast<float(*)[24]>(acc);
+          for (int k = 0; k < W; k += wg::kSliceK)
+            wgf::consume<48>(acc_a, rp, s.ring, h_addr, W, k, wg::kSliceK,
+                             k == 0);
+          wgf::drain(acc_a, rp, s.ring);
+          posenc_part(acc_a, i);
+        }
+      }
+      if (lay.w_h[i] >= 0) {
+        for (int k = 0; k < W; k += wg::kSliceK)
+          wgf::consume<W>(acc, rp, s.ring, h_addr, W, k, wg::kSliceK, k == 0);
+        wgf::drain(acc, rp, s.ring);
+        guard();
+        wg::wg_sync(bar);   // the warpgroup is done reading H
+        load_mask(i - 1);
+  #pragma unroll
+        for (int j = 0; j < W / 8; ++j) {
+          const int c = 8 * j + cA;
+          float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                        acc[4 * j + 3]};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) if (!on(j, q)) v[q] = 0.0f;
+          wgf::st_pair(H, rA, c, W, __floats2bfloat162_rn(v[0], v[1]));
+          wgf::st_pair(H, rA + 8, c, W, __floats2bfloat162_rn(v[2], v[3]));
+          colsum_pair(cs, W, ww, lane, cA, j, csp, v[0] + v[2],
+                      v[1] + v[3]);
+        }
+        wg::fence_async_smem();
+        wg::wg_sync(bar);
+        colsum_out(cs, W, tw, bsum + lay.b[i - 1], live);
+      }
+    }
+    wg::wg_sync(bar);
+    for (int i = tw; i < 64 * 3; i += 128)
+      if (live) a.d_pts[row0 * 3 + i] = dpts[i / 3][i % 3];
+    wg::wg_sync(bar);
+  }
+  if (tw == 0) wgf::bulk_wait<0>();   // the workspace stores are done
+}
+
+// One weight gradient Aᵀ·D: A (rows x a_w) and D (rows x d_w) workspace
 // regions; the output block (a_w x out_cols, row-major) sits at out_off of
-// the flat gradient. Columns d_w > out_cols are zero padding.
+// the flat gradient. Columns d_w > out_cols are zero padding. tiles_m
+// output tiles of 128 rows of A's columns.
 struct Prod {
   long a_col, d_col;
-  int a_w, d_w, out_off, out_cols, tiles_n, tile0;
+  int a_w, d_w, out_off, out_cols, tiles_m, tile0;
 };
 
 struct WgradArgs {
   const bf16* ws;
   long rows;             // rows of the pass (region height)
-  long rows_per_split;
+  long rows_per_split;   // a multiple of 64
   float* part;           // (n_split, n_w)
   long n_w;
   int n_prod;
   Prod p[kMaxProds];
 };
 
-__global__ void __launch_bounds__(kThreads) wgrad_kernel(WgradArgs a) {
-  __shared__ __align__(128) bf16 As[kWRows][kWTile + 8];
-  __shared__ __align__(128) bf16 Ds[kWRows][kWTile + 8];
-  __shared__ __align__(128) float out[kWarps][2][256];
-  int pi = 0;
-  while (pi + 1 < a.n_prod && a.p[pi + 1].tile0 <= (int)blockIdx.x) ++pi;
-  const Prod& p = a.p[pi];
-  const int lt = blockIdx.x - p.tile0;
-  const int m0 = (lt / p.tiles_n) * kWTile, n0 = (lt % p.tiles_n) * kWTile;
+struct __align__(128) WgradSmem {
+  bf16 a[kWgStages][128 * 64];   // A tile: 64 rows × 128 of A's columns
+  bf16 d[kWgStages][256 * 64];   // D tile: 64 rows × N columns
+  uint64_t full[kWgStages];
+  uint64_t empty[kWgStages];
+};
+
+template <int N>
+__device__ __forceinline__ void wgrad_tile(const WgradArgs& a, const Prod& p,
+                                           int m0, WgradSmem& s) {
   const long r_begin = (long)blockIdx.y * a.rows_per_split;
   const long r_end = r_begin + a.rows_per_split < a.rows
                          ? r_begin + a.rows_per_split : a.rows;
-  const bf16* A = a.ws + p.a_col * a.rows;
-  const bf16* Dm = a.ws + p.d_col * a.rows;
+  const long kb0 = r_begin / 64, kb1 = r_end > r_begin ? r_end / 64 : kb0;
+  const int a_cols = p.a_w - m0 < 128 ? p.a_w - m0 : 128;
+  const int a_bytes = a_cols * 64 * 2, d_bytes = N * 64 * 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;   // 4 x 2 warps, 16 x 32 each
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-  const int rr = threadIdx.x >> 3, vv = threadIdx.x & 7;   // 32 rows x 8 vec
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (long r = r_begin; r < r_end; r += kWRows) {
-    const int ca = m0 + vv * 8, cd = n0 + vv * 8;
-    *reinterpret_cast<uint4*>(&As[rr][vv * 8]) =
-        ca < p.a_w ? *reinterpret_cast<const uint4*>(
-                         A + (r + rr) * p.a_w + ca) : zero;
-    *reinterpret_cast<uint4*>(&Ds[rr][vv * 8]) =
-        cd < p.d_w ? *reinterpret_cast<const uint4*>(
-                         Dm + (r + rr) * p.d_w + cd) : zero;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWRows; kk += 16) {
-      // A^T tile: element (m, k) = As[k][m], i.e. column-major
-      wmma::load_matrix_sync(fa, &As[kk][wm * 16], kWTile + 8);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        wmma::load_matrix_sync(fb, &Ds[kk][wn * 32 + f * 16], kWTile + 8);
-        wmma::mma_sync(acc[f], fa, fb, acc[f]);
+  if (warp >= wgf::kConsumers / 32) {
+    wg::setmaxnreg_dec<40>();
+    if (warp == wgf::kConsumers / 32 && lane == 0) {
+      const bf16* A = a.ws + p.a_col * a.rows + (long)m0 * 8;
+      const bf16* Dm = a.ws + p.d_col * a.rows;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (long kb = kb0; kb < kb1; ++kb) {
+        wg::mbar_wait(&s.empty[stage], phase ^ 1u);
+        wg::mbar_expect_tx(&s.full[stage], a_bytes + d_bytes);
+        // the tile's 8-row groups: a_cols × 16 bytes each, a_w × 16 apart
+        for (int rg = 0; rg < 8; ++rg)
+          wg::bulk_load(s.a[stage] + rg * 1024,
+                        A + kb * p.a_w * 64 + rg * p.a_w * 8, a_bytes / 8,
+                        &s.full[stage]);
+        wg::bulk_load(s.d[stage], Dm + kb * N * 64, d_bytes, &s.full[stage]);
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1u;
+        }
       }
     }
-    __syncthreads();
+    return;
   }
-  float* dst = a.part + (long)blockIdx.y * a.n_w + p.out_off;
-  for (int f = 0; f < 2; ++f) {
-    wmma::store_matrix_sync(out[warp][f], acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int row = m0 + wm * 16 + (e >> 4);
-      const int col = n0 + wn * 32 + f * 16 + (e & 15);
-      if (row < p.a_w && col < p.out_cols)
-        dst[(long)row * p.out_cols + col] = out[warp][f][e];
+  wg::setmaxnreg_inc<232>();
+  const int g = threadIdx.x >> 7, ww = (threadIdx.x & 127) >> 5;
+  const bool run = m0 + 64 * g < p.a_w;   // this warpgroup's rows exist
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  int stage = 0, pend = -1;
+  uint32_t phase = 0;
+  for (long kb = kb0; kb < kb1; ++kb) {
+    wg::mbar_wait(&s.full[stage], phase);
+    wg::mma_fence();
+    if (run) {
+      // MN-major: 8-row (K) groups 2048 (A) and N·16 (D) bytes apart,
+      // core matrices along MN 128 bytes apart; warpgroup 1 takes A's
+      // columns 64-127
+      const uint32_t aa = wg::smem_addr(s.a[stage]) + 1024u * g;
+      const uint32_t da = wg::smem_addr(s.d[stage]);
+#pragma unroll
+      for (int ks = 0; ks < 64; ks += 16)
+        wg::mma_mn<N>(acc, wg::desc_mn(aa + (ks >> 3) * 2048, 2048, 128),
+                      wg::desc_mn(da + (ks >> 3) * N * 16, N * 16, 128));
     }
+    wg::mma_commit();
+    if (pend >= 0) {
+      wg::mma_wait<1>();
+      if (lane == 0) wg::mbar_arrive(&s.empty[pend]);
+    }
+    pend = stage;
+    if (++stage == kWgStages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+  wg::mma_wait<0>();
+  wg::fence_regs(acc);
+  if (pend >= 0 && lane == 0) wg::mbar_arrive(&s.empty[pend]);
+  float* dst = a.part + (long)blockIdx.y * a.n_w + p.out_off;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int m = m0 + 64 * g + 16 * ww + (lane >> 2) + 8 * ((i >> 1) & 1);
+    const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    if (run && m < p.a_w && c < p.out_cols)
+      dst[(long)m * p.out_cols + c] = acc[i];
+  }
+}
+
+__global__ void __launch_bounds__(wgf::kThreads, 1)
+    wgrad_kernel(const __grid_constant__ WgradArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  WgradSmem& s = *reinterpret_cast<WgradSmem*>(smem_raw);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWgStages; ++i) {
+      wg::mbar_init(&s.full[i], 1);
+      wg::mbar_init(&s.empty[i], wgf::kConsumers / 32);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+  int pi = 0;
+  while (pi + 1 < a.n_prod && a.p[pi + 1].tile0 <= (int)blockIdx.x) ++pi;
+  const Prod& p = a.p[pi];
+  const int m0 = ((int)blockIdx.x - p.tile0) * 128;
+  switch (p.d_w) {
+    case 256: wgrad_tile<256>(a, p, m0, s); break;
+    case 128: wgrad_tile<128>(a, p, m0, s); break;
+    case 64: wgrad_tile<64>(a, p, m0, s); break;
+    default: wgrad_tile<16>(a, p, m0, s); break;
   }
 }
 
@@ -552,8 +700,8 @@ __global__ void sum_rows_kernel(const float* part, int n_part, long m,
   out[i] = t;
 }
 
-// d_dir[q][c] = Σ over the slabs that hold ray q of their partial, in slab
-// order.
+// d_dir[q][c] = Σ over the 64-row slabs that hold ray q of their partial,
+// in slab order.
 __global__ void dir_sum_kernel(const float* dpart, float* d_dir, long n_rays,
                                int spr, int M, int half) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -569,34 +717,53 @@ __global__ void dir_sum_kernel(const float* dpart, float* d_dir, long n_rays,
   d_dir[i] = t;
 }
 
+template <int W>
+int launch_rows(RowsArgs& ra, int n_sm, cudaStream_t st, bool launch) {
+  const int smem = (int)sizeof(BwdSmem<W>) + ra.n_b * 4;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (!launch)
+    return (int)cudaFuncSetAttribute(
+        bwd_rows_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+  const int items = (int)((ra.rows + wg::kItemRows - 1) / wg::kItemRows);
+  bwd_rows_kernel<W><<<items < n_sm ? items : n_sm, wgf::kThreads, smem,
+                       st>>>(ra);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 }  // namespace fnt
 
 extern "C" {
 
-// n must be a multiple of 64 and of spr, chunk a multiple of 64.
+// n must be a multiple of 64 and of spr, chunk a multiple of 64; width 128
+// or 256, depth 2-8, k0 48 or 64; wp holds the net's field slices and
+// their transposes (kernels/wgpack.py::field_buffer(net, True)).
 // Returns a cudaError_t.
 int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
-                       const void* b, const void* g_rgb, const void* g_sigma,
-                       void* d_pts, void* d_dir, void* d_w, void* d_b,
-                       void* ws, void* wpart, void* bpart, void* dpart,
-                       long ws_numel, int n, int spr, int L, int depth,
-                       int width, int k0, int skip, int has_vd, int chunk,
-                       int n_split, int M, void* stream) {
+                       const void* wp, const void* b, const void* g_rgb,
+                       const void* g_sigma, void* d_pts, void* d_dir,
+                       void* d_w, void* d_b, void* ws, void* a0s,
+                       void* masks, void* wpart, void* bpart, void* dpart,
+                       long ws_numel, int n,
+                       int spr, int L, int depth, int width, int k0,
+                       int skip, int has_vd, int chunk, int n_split, int M,
+                       void* stream) {
   using namespace fnt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Layout lay = make_layout(depth, width, k0, skip, has_vd);
   const Regions reg = make_regions(lay);
-  if (layout_error(lay) || n % kRows || chunk % kRows || chunk < kRows ||
-      spr < 1 || n % spr || 3 + 6 * L > k0 || n_split < 1 || M < 1 ||
-      (long)chunk * reg.cols > ws_numel)
+  RowsArgs ra;
+  ra.n_slices = wgf::field_slice_bytes(lay, true, ra.slice_bytes);
+  if (wgf::field_layout_error(lay) || ra.n_slices < 0 || n < 0 ||
+      n % kRows || chunk % kRows || chunk < kRows || spr < 1 || n % spr ||
+      3 + 6 * L > k0 || n_split < 1 || M < 1 ||
+      (long)chunk * reg.cols > ws_numel ||
+      (reinterpret_cast<uintptr_t>(wp) & 15))
     return (int)cudaErrorInvalidValue;
   const int half = width / 2;
-  int n_w = 0, n_b = 0;
-  {
-    // the flat sizes: the layout's last offsets plus the last blocks
-    if (has_vd) { n_w = lay.w_rgb + half * 3; n_b = lay.b_rgb + 3; }
-    else { n_w = lay.w_out + width * 4; n_b = lay.b_out + 4; }
-  }
+  const int n_w = has_vd ? lay.w_rgb + half * 3 : lay.w_out + width * 4;
+  const int n_b = has_vd ? lay.b_rgb + 3 : lay.b_out + 4;
   // the weight-gradient products, in layout order
   WgradArgs wa{};
   int np = 0, tiles = 0;
@@ -605,9 +772,9 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
     Prod& p = wa.p[np++];
     p.a_col = a_col; p.a_w = a_w; p.d_col = d_col; p.d_w = d_w;
     p.out_off = out_off; p.out_cols = out_cols;
-    p.tiles_n = (out_cols + kWTile - 1) / kWTile;
+    p.tiles_m = (a_w + 127) / 128;
     p.tile0 = tiles;
-    tiles += ((a_w + kWTile - 1) / kWTile) * p.tiles_n;
+    tiles += p.tiles_m;
   };
   for (int i = 0; i < depth; ++i) {
     if (lay.w_h[i] >= 0)
@@ -628,16 +795,10 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
   wa.part = static_cast<float*>(wpart);
   wa.n_w = n_w;
 
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(BwdSmem));
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
-
-  RowsArgs ra;
   ra.pts = static_cast<const float*>(pts);
   ra.dirpart = static_cast<const bf16*>(dirpart);
   ra.w = static_cast<const bf16*>(w);
+  ra.wp = static_cast<const bf16*>(wp);
   ra.b = static_cast<const float*>(b);
   ra.g_rgb = static_cast<const float*>(g_rgb);
   ra.g_sigma = static_cast<const float*>(g_sigma);
@@ -645,37 +806,53 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
   ra.dpart = static_cast<float*>(dpart);
   ra.bpart = static_cast<float*>(bpart);
   ra.ws = static_cast<bf16*>(ws);
+  ra.a0s = static_cast<float*>(a0s);
+  ra.masks = static_cast<uint32_t*>(masks);
   ra.spr = spr; ra.L = L; ra.M = M; ra.n_b = n_b;
   ra.lay = lay;
   ra.reg = reg;
+
+  int err = width == 256 ? launch_rows<256>(ra, 0, st, false)
+                         : launch_rows<128>(ra, 0, st, false);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(WgradSmem));
+  if (e != cudaSuccess) return (int)e;
+  int n_sm = 0;
+  e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (n == 0) return 0;
+
   for (long r0 = 0; r0 < n; r0 += chunk) {
     const long rows = n - r0 < chunk ? n - r0 : chunk;
     const int slabs = (int)(rows / kRows);
     ra.rows = rows;
-    ra.slab0 = (int)(r0 / kRows);
-    bwd_rows_kernel<<<slabs, kThreads, sizeof(BwdSmem), st>>>(ra);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ra.r0 = r0;
+    err = width == 256 ? launch_rows<256>(ra, n_sm, st, true)
+                       : launch_rows<128>(ra, n_sm, st, true);
+    if (err) return err;
     wa.rows = rows;
-    wa.rows_per_split = ((rows + n_split - 1) / n_split + kWRows - 1) /
-                        kWRows * kWRows;
-    wgrad_kernel<<<dim3(tiles, n_split), kThreads, 0, st>>>(wa);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    wa.rows_per_split = ((rows + n_split - 1) / n_split + 63) / 64 * 64;
+    wgrad_kernel<<<dim3(tiles, n_split), wgf::kThreads, sizeof(WgradSmem),
+                   st>>>(wa);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     const int acc = r0 > 0;
     sum_rows_kernel<<<(n_w + 255) / 256, 256, 0, st>>>(
         static_cast<const float*>(wpart), n_split, n_w,
         static_cast<float*>(d_w), acc);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     sum_rows_kernel<<<(n_b + 255) / 256, 256, 0, st>>>(
         static_cast<const float*>(bpart), slabs, n_b,
         static_cast<float*>(d_b), acc);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   if (has_vd) {
     const long n_rays = n / spr;
     dir_sum_kernel<<<(int)((n_rays * half + 255) / 256), 256, 0, st>>>(
         static_cast<const float*>(dpart), static_cast<float*>(d_dir), n_rays,
         spr, M, half);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   return 0;
 }

@@ -1,8 +1,9 @@
 // Shared device code of the field kernels: the packed-weight layout and the
 // numerics helpers (every kernel), and the shared-memory slab, the wmma
-// layer loop and the per-tile predication of field.cu, carrymarch.cu and
-// field_bwd.cu. The wgmma marches (sigmamarch.cu, slimmarch.cu) have their
-// own loop in wg_trunk.cuh.
+// layer loop and the per-tile predication of the generic carry march
+// (carrymarch.cu), the one kernel still on this loop. The wgmma kernels
+// (sigmamarch.cu, slimmarch.cu, field.cu, field_bwd.cu) have their own
+// loop in wg_trunk.cuh and wg_field.cuh.
 //
 // A CUDA block of the slab kernels evaluates one slab of kRows MLP rows. The slab's activations
 // stay in shared memory across every layer (two bf16 ping-pong buffers plus

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from fashion_nerf_torch import kernels as K
+from fashion_nerf_torch.kernels import wgpack
 from fashion_nerf_torch.core.posenc import posenc
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP
 
@@ -129,7 +130,7 @@ def _layout(depth: int, width: int, k0: int, skip: int, has_vd: bool):
 
 @dataclass
 class PackedNet:
-    """A NeRFMLP packed for the slab kernels and their plain versions."""
+    """A NeRFMLP packed for the kernels and their plain versions."""
     w: torch.Tensor            # flat bf16 weights (never carries grad)
     wf: torch.Tensor           # the same values in f32 (plain versions)
     b: torch.Tensor            # flat f32 biases (carries grad when packed so)
@@ -145,7 +146,8 @@ class PackedNet:
     dir_kernel: Optional[torch.Tensor]   # (Cd, W/2) f32 view-branch rows
     x_kernels: tuple           # ((Wx (3,W), b (W,)), ...) hoisted x-layers
     w32: Optional[torch.Tensor] = None   # unrounded f32 weights with grad
-    wg: Optional[torch.Tensor] = None    # march slices (wgpack), K1/K2
+    wg: Optional[torch.Tensor] = None    # wgmma slices (wgpack), K1/K2/K3
+    wgt: Optional[torch.Tensor] = None   # and their transposes after them, K4
 
     def wview(self, off: int, rows: int, cols: int):
         return self.wf[off:off + rows * cols].view(rows, cols)
@@ -286,6 +288,27 @@ def field_rows_plain(net: PackedNet, pts, dirpart, spr: int):
     return rgb, sigma
 
 
+def check_field_shape(n: int, spr: int, width: int, depth: int,
+                      k0: int) -> None:
+    """Raise unless K3/K4 take n rows of spr samples a ray and a net of
+    this width, depth and posenc operand width (kernels.FIELD_WIDTHS,
+    FIELD_DEPTHS, FIELD_K0: the 8×256 fields and the 2×128 proposal net,
+    L = 10 or 6); n a multiple of 64 (half work items are fine) and of
+    spr."""
+    if width not in K.FIELD_WIDTHS:
+        raise ValueError(f"net width {width}: the field kernels take widths "
+                         f"{K.FIELD_WIDTHS}")
+    if depth not in K.FIELD_DEPTHS:
+        raise ValueError(f"net depth {depth}: the field kernels take depths "
+                         f"{K.FIELD_DEPTHS[0]}-{K.FIELD_DEPTHS[-1]}")
+    if k0 not in K.FIELD_K0:
+        raise ValueError(f"posenc operand width {k0}: the field kernels take "
+                         f"{K.FIELD_K0} (L = 10 or 6 with the x rows)")
+    if spr < 1 or n < 0 or n % K.SLAB_ROWS or n % spr:
+        raise ValueError(f"rows {n} not a multiple of {K.SLAB_ROWS} and "
+                         f"of spr={spr} (spr ≥ 1)")
+
+
 def field_rows(net: PackedNet, pts, dirpart, spr: int):
     """Fused field on rows → (rgb (n,3), σ (n,)). n must be a multiple of
     64 and of spr. CPU tensors: plain version; CUDA tensors: kernel K3."""
@@ -294,16 +317,16 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int):
         return field_rows_plain(net, pts, dirpart, spr)
     if not net.x_rows:
         raise ValueError("field_rows needs a net packed with hoist_x=False")
-    if n % K.SLAB_ROWS or n % spr:
-        raise ValueError(f"rows {n} not a multiple of {K.SLAB_ROWS} and "
-                         f"of spr={spr}")
+    check_field_shape(n, spr, net.width, net.depth, net.k0)
     K.check(pts, "pts", torch.float32, (n, 3))
     K.check(dirpart, "dirpart", _BF, (n // spr, dirpart.shape[1]))
     if net.has_vd and dirpart.shape[1] != net.width // 2:
         raise ValueError(f"dirpart width {dirpart.shape[1]}")
     rgb = torch.empty((n, 3), dtype=torch.float32, device=pts.device)
     sigma = torch.empty((n,), dtype=torch.float32, device=pts.device)
-    ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, net.b, rgb, sigma)]
+    wp = wgpack.field_buffer(net)
+    ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, wp, net.b, rgb,
+                                   sigma)]
     code = K.library().fnt_field_forward(
         *ptrs, n, spr, net.L, net.depth, net.width, net.k0, net.skip,
         int(net.has_vd), K.stream())
@@ -427,9 +450,7 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     if not net.x_rows:
         raise ValueError("field_rows_backward needs a net packed with "
                          "hoist_x=False")
-    if n % K.SLAB_ROWS or n % spr:
-        raise ValueError(f"rows {n} not a multiple of {K.SLAB_ROWS} and "
-                         f"of spr={spr}")
+    check_field_shape(n, spr, net.width, net.depth, net.k0)
     K.check(pts, "pts", torch.float32, (n, 3))
     K.check(dirpart, "dirpart", _BF, (n // spr, dirpart.shape[1]))
     K.check(g_rgb, "g_rgb", torch.float32, (n, 3))
@@ -451,9 +472,13 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
         (n // spr, half), dtype=f32, device=dev)
     d_w = torch.empty(net.lay["n_w"], dtype=f32, device=dev)
     d_b = torch.empty(net.lay["n_b"], dtype=f32, device=dev)
-    ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, net.b, g_rgb,
-                                   g_sigma, d_pts, d_dir, d_w, d_b, ws,
-                                   wpart, bpart, dpart)]
+    wp = wgpack.field_buffer(net, transposed=True)
+    a0s = torch.empty(chunk * net.k0, dtype=f32, device=dev)
+    masks = torch.empty((chunk // K.SLAB_ROWS + 1) * net.depth * net.width
+                        * 2, dtype=torch.int32, device=dev)
+    ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, wp, net.b, g_rgb,
+                                   g_sigma, d_pts, d_dir, d_w, d_b, ws, a0s,
+                                   masks, wpart, bpart, dpart)]
     code = K.library().fnt_field_backward(
         *ptrs, ws.numel(), n, spr, net.L, net.depth, net.width, net.k0,
         net.skip, int(net.has_vd), chunk, n_split, M, K.stream())

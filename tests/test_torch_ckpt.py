@@ -65,15 +65,22 @@ def _params(state):
 
 def test_resume_continues_identical_trajectory(tmp_path, scene):
     """20 steps straight, against 10 steps, a restore into a fresh state,
-    and 10 more: bitwise the same parameters, Adam moments and draws."""
-    straight, _ = train(_cfg(tmp_path / "a", "train.iters=20"),
-                        dataset_dict=scene, log_fn=lambda e: None,
-                        device="cpu")
-    train(_cfg(tmp_path / "b", "train.iters=10"), dataset_dict=scene,
-          log_fn=lambda e: None, device="cpu")
-    resumed, hist = train(_cfg(tmp_path / "b", "train.iters=20"),
-                          dataset_dict=scene, log_fn=lambda e: None,
-                          device="cpu", resume=True)
+    and 10 more: bitwise the same parameters, Adam moments and draws.
+    Bitwise equality is the property, so both runs take one CPU thread: a
+    loaded multi-threaded BLAS may split a sum differently between calls."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        straight, _ = train(_cfg(tmp_path / "a", "train.iters=20"),
+                            dataset_dict=scene, log_fn=lambda e: None,
+                            device="cpu")
+        train(_cfg(tmp_path / "b", "train.iters=10"), dataset_dict=scene,
+              log_fn=lambda e: None, device="cpu")
+        resumed, hist = train(_cfg(tmp_path / "b", "train.iters=20"),
+                              dataset_dict=scene, log_fn=lambda e: None,
+                              device="cpu", resume=True)
+    finally:
+        torch.set_num_threads(threads)
     assert resumed.step == straight.step == 20
     assert [h["step"] for h in hist if "loss" in h] == [20]
     a, b = _params(straight), _params(resumed)

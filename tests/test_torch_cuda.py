@@ -53,6 +53,17 @@ def prop_net(rng, W=128, L=6):
                       "out_head": (W, 4)})
 
 
+def noview_net(rng, W=256, L=6):
+    """4×W without a view branch, the skip after layer 1."""
+    cx = 3 * (2 * L + 1)
+    return _net(rng, {"trunk_0": (cx, W), "trunk_1": (W, W),
+                      "trunk_2": (cx + W, W), "trunk_3": (W, W),
+                      "out_head": (W, 4)})
+
+
+FIELD_NETS = {"fine": fine_net, "prop": prop_net, "noview": noview_net}
+
+
 def _f32(rng, *shape, lo=-1.0, hi=1.0, dev=None):
     return torch.tensor(rng.uniform(lo, hi, shape), dtype=torch.float32,
                         device=dev)
@@ -71,18 +82,43 @@ def _close(a, b, atol):
     assert float((a - b).abs().max()) <= atol
 
 
-def test_field_kernel(dev):
-    """Random net: rgb atol 5e-3, σ within 2e-2·(1+|σ|), every row."""
+@pytest.mark.parametrize("which,n,spr", [
+    ("fine", 4096, 64), ("fine", 4160, 64), ("fine", 1088, 1),
+    ("fine", 3072, 192), ("prop", 4160, 64), ("prop", 1088, 1),
+    ("noview", 4096, 64), ("noview", 1088, 1)])
+def test_field_kernel(dev, which, n, spr):
+    """Random nets of widths 256 and 128, L = 10 and 6, with and without the
+    view branch, whole and half (n ≡ 64 mod 128) work items: rgb atol
+    5e-3, σ within 2e-2·(1+|σ|), every row."""
     rng = np.random.default_rng(0)
-    net = posenc_mlp.pack_params(fine_net(rng).to(dev), hoist_x=False)
-    pts = _f32(rng, 4096, 3, lo=-1.2, hi=1.2, dev=dev)
-    dp = posenc_mlp.hoist_dirs(net, _f32(rng, 64, 3, dev=dev)).contiguous()
+    net = posenc_mlp.pack_params(FIELD_NETS[which](rng).to(dev),
+                                 hoist_x=False)
+    pts = _f32(rng, n, 3, lo=-1.2, hi=1.2, dev=dev)
+    dp = posenc_mlp.hoist_dirs(net, _f32(rng, n // spr, 3,
+                                         dev=dev)).contiguous()
     n0 = K.LAUNCHES["field"]
-    rgb_k, sig_k = posenc_mlp.field_rows(net, pts, dp, 64)
-    rgb_p, sig_p = posenc_mlp.field_rows_plain(net, pts, dp, 64)
+    rgb_k, sig_k = posenc_mlp.field_rows(net, pts, dp, spr)
+    rgb_p, sig_p = posenc_mlp.field_rows_plain(net, pts, dp, spr)
+    torch.cuda.synchronize()
     assert K.LAUNCHES["field"] == n0 + 1
+    assert rgb_k.shape == (n, 3) and sig_k.shape == (n,)
     _close(rgb_k, rgb_p, 5e-3)
     assert bool(((sig_k - sig_p).abs() <= 2e-2 * (1 + sig_p.abs())).all())
+
+
+def test_field_kernels_reject_width_64(dev):
+    """A 64-wide net raises ValueError in K3's and K4's wrappers, naming
+    the widths they take."""
+    rng = np.random.default_rng(8)
+    net = posenc_mlp.pack_params(prop_net(rng, W=64).to(dev), hoist_x=False)
+    pts = _f32(rng, 128, 3, dev=dev)
+    dp = torch.zeros((2, 32), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="widths"):
+        posenc_mlp.field_rows(net, pts, dp, 64)
+    with pytest.raises(ValueError, match="widths"):
+        posenc_mlp.field_rows_backward(net, pts, dp, _f32(rng, 128, 3,
+                                                          dev=dev),
+                                       _f32(rng, 128, dev=dev), 64)
 
 
 @pytest.mark.parametrize("case", ["mixed", "all_dead"])
@@ -374,11 +410,14 @@ def _bwd_inputs(rng, net, n, spr, dev):
 
 
 @pytest.mark.parametrize("spr,n,chunk", [(64, 4096, None), (96, 3072, 1024),
-                                         (1, 1024, None), (192, 3072, 640)])
+                                         (1, 1024, None), (192, 3072, 640),
+                                         (64, 4160, None), (1, 1088, None),
+                                         (64, 4160, 1088), (192, 3264, 704)])
 def test_field_backward_kernel(dev, monkeypatch, spr, n, chunk):
     """K4 against its plain version: every output within 1e-2 relative RMS,
-    over one or several passes (chunk) and any samples per ray; and twice
-    the same inputs give bitwise the same gradients."""
+    over one or several passes (chunk), any samples per ray and half work
+    items (n or the pass ≡ 64 mod 128); and twice the same inputs give
+    bitwise the same gradients."""
     rng = np.random.default_rng(4)
     net = posenc_mlp.pack_params(fine_net(rng).to(dev), hoist_x=False)
     args = _bwd_inputs(rng, net, n, spr, dev)
@@ -397,24 +436,38 @@ def test_field_backward_kernel(dev, monkeypatch, spr, n, chunk):
         assert torch.equal(a, a2), name
 
 
-def test_field_backward_kernel_no_viewdirs(dev):
-    """The 4-wide head (no view branch) and a padded posenc operand."""
+@pytest.mark.parametrize("which,n,spr,chunk", [
+    ("prop", 2048, 64, None), ("prop", 4160, 64, 1088),
+    ("noview", 1088, 1, None), ("noview", 4160, 64, 640)])
+def test_field_backward_kernel_no_viewdirs(dev, monkeypatch, which, n, spr,
+                                           chunk):
+    """The 4-wide head (no view branch) and a padded posenc operand (L = 6,
+    k0 = 48), at widths 128 and 256, over one or several passes; bitwise
+    the same over two runs."""
     rng = np.random.default_rng(5)
-    net = posenc_mlp.pack_params(prop_net(rng).to(dev), hoist_x=False)
-    args = _bwd_inputs(rng, net, 2048, 64, dev)
-    out_k = posenc_mlp.field_rows_backward(net, *args, 64)
-    out_p = posenc_mlp.field_rows_backward_plain(net, *args, 64)
-    for name, a, b in zip(("d_pts", "d_dir", "d_w", "d_b"), out_k, out_p):
+    net = posenc_mlp.pack_params(FIELD_NETS[which](rng).to(dev),
+                                 hoist_x=False)
+    args = _bwd_inputs(rng, net, n, spr, dev)
+    if chunk is not None:
+        monkeypatch.setattr(K, "BWD_CHUNK_ROWS", chunk)
+    out_k = posenc_mlp.field_rows_backward(net, *args, spr)
+    out_k2 = posenc_mlp.field_rows_backward(net, *args, spr)
+    out_p = posenc_mlp.field_rows_backward_plain(net, *args, spr)
+    for name, a, a2, b in zip(("d_pts", "d_dir", "d_w", "d_b"), out_k,
+                              out_k2, out_p):
         if name != "d_dir":
             assert _rel_rms(a, b) <= 1e-2, (name, _rel_rms(a, b))
+        assert torch.equal(a, a2), name
     assert bool((out_k[1] == 0).all())
 
 
-def test_fused_field_gradients_kernel_vs_plain(dev):
+@pytest.mark.parametrize("which", ["fine", "prop"])
+def test_fused_field_gradients_kernel_vs_plain(dev, which):
     """A loss through make_fused_field on the card: K3 + K4 against the
-    plain versions, every parameter's gradient within 1e-2 relative RMS."""
+    plain versions, every parameter's gradient within 1e-2 relative RMS
+    (24 rays × 40 samples: 960 rows, a half work item at the end)."""
     rng = np.random.default_rng(6)
-    model = fine_net(rng).to(dev)
+    model = FIELD_NETS[which](rng).to(dev)
     pts = _f32(rng, 24, 40, 3, lo=-1.2, hi=1.2, dev=dev)
     dirs = _f32(rng, 24, 3, dev=dev)
     grads = []
@@ -465,7 +518,7 @@ def test_train_step_kernel_vs_plain(dev, monkeypatch):
     from fashion_nerf_torch.train.loop import TrainStep, sparsity_points
     from fashion_nerf_torch.train.state import TrainState, make_optimizer
     cfg = load_config("blender_lego", [
-        "model.net_depth=3", "model.net_width=64", "model.posenc_xyz=6",
+        "model.net_depth=3", "model.net_width=128", "model.posenc_xyz=6",
         "model.skips=1", "train.batch_rays=256", "sampling.n_coarse=32",
         "sampling.n_fine=32", "sampling.perturb=false"])
     s = make_synthetic_scene(n_views=2, H=24, W=24, n_samples=32)

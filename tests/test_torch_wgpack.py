@@ -126,6 +126,9 @@ def test_plain_versions_keep_any_block_size_on_cpu():
     d = torch.full((R, SB), 0.1)
     out = sigmamarch.sigma_march(net, hz, torch.ones(R), t, d)
     ref = sigmamarch.sigma_march_plain(net, hz, torch.ones(R), t, d)
+    # two CPU runs of the same f32 matmul chain: a loaded BLAS may split
+    # its sums differently from one call to the next, so the last bit may
+    # differ
     for a, b in zip(out, ref):
-        assert torch.equal(a, b)
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
     assert K.LAUNCHES["sigma_march"] == 0 and net.wg is None
