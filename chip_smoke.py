@@ -7,14 +7,16 @@ committed trained weights, the occupancy sweep and the committed proposal
 net), the same frame through the generic carry march
 (`kernels.carry_hoist=false`), the 7-pose quality gate through both
 marches (`python -m fashion_nerf_torch.quality --gate`), the `blender_lego`
-trainer at full width (`train()`, from random init) and the tensor-core
+trainer at full width (`train()`, from random init), the same trainer on a
+width-32 net, which the field kernels run zero-padded, and the tensor-core
 probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
 
 1. device: name, power limit, TF32 off;
 2. build: nvcc builds the kernels from src/fashion_nerf_torch/kernels/csrc,
    one process per source, all started together;
 3. kernels: K3 (fused field, at the sweep's and the training step's
-   shapes), K1 (proposal march), K2 (fine march), K6 (generic carry march,
+   shapes), K3 and K4 on nets of width 32 and 64, which run zero-padded,
+   K1 (proposal march), K2 (fine march), K6 (generic carry march,
    also against K2), K4 (field backward, twice: bitwise deterministic;
    its rows kernel and its wgrad + sums timed apart under torch.profiler,
    beside torch.matmul's time for the same wgrad products as a yardstick
@@ -39,11 +41,14 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
     val PSNR the reference measured for those weights;
 11. train: `train()` at full width for a few tens of steps, through an
     occupancy refresh, culled steps, dense steps, an eval and a checkpoint;
-12. probe: TFLOP/s of each P1 variant and each P2 shape, and one
-    torch.matmul at the field layer's shape as a yardstick.
+12. train-small: `train()` of a width-32, depth-3, L = 4 net with
+    `kernels.use_pallas=true`: K3 and K4 on the padded net;
+13. probe: TFLOP/s of each P1 variant and each P2 shape, and as yardsticks
+    one torch.matmul at the field layer's shape and P1's chain as ten
+    torch.matmul calls.
 
-The launch counters are reset just before each path (phases 4, 6, 11 and
-12) and read right after it, so they count that path only. Any failure
+The launch counters are reset just before each path (phases 4, 6, 11, 12
+and 13) and read right after it, so they count that path only. Any failure
 raises (non-zero exit). Imports nothing of JAX. The last line is the device
 JSON object.
 """
@@ -316,6 +321,7 @@ def phase_kernels(cfg, device):
     if not (e_rnd <= K3_RGB_ATOL and e_rsig <= K3_SIGMA_REL):
         raise AssertionError("K3 disagrees with its plain version (random)")
     kernel_k3_step(rnet, net, device)
+    kernel_small_nets(device)
 
     # reference occupancy through the plain field, for realistic chunk
     # inputs (and to check the K3 sweep of phase 4 against)
@@ -454,6 +460,71 @@ def kernel_k3_step(net, trained, device):
                              "step shape")
 
 
+def kernel_small_nets(device):
+    """K3 and K4 on nets below the kernels' widths, which the wrappers run
+    zero-padded: width 32, depth 3, L = 4 and width 64, depth 4, L = 6 with
+    a skip layer, 65,536 rows (1024 rays × 64), against the plain versions
+    on the unpadded nets. K3 on every row (K3_RGB_ATOL, K3_SIGMA_REL), K4
+    per tensor (K4_REL_RMS) with its gradients in the unpadded layout."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.kernels import posenc_mlp
+    from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+    rng = np.random.default_rng(21)
+    n, spr = 65536, 64
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (n, 3)).astype(
+        np.float32)).to(device)
+    dirs = torch.from_numpy(rng.normal(size=(n // spr, 3)).astype(
+        np.float32)).to(device)
+    g_rgb = torch.from_numpy((1e-4 * rng.normal(size=(n, 3))).astype(
+        np.float32)).to(device)
+    g_sig = torch.from_numpy((1e-4 * rng.normal(size=n)).astype(
+        np.float32)).to(device)
+    for W, depth, L, skip in ((32, 3, 4, None), (64, 4, 6, 2)):
+        cx = 3 * (2 * L + 1)
+        shapes = {f"trunk_{i}": ((cx + W) if i == skip
+                                 else (cx if i == 0 else W), W)
+                  for i in range(depth)}
+        shapes.update(sigma_head=(W, 1), feature=(W, W),
+                      view_0=(W + 27, W // 2), rgb_head=(W // 2, 3))
+        model = load_flax_params(random_tree({"params": {
+            k: {"kernel": np.empty(v), "bias": np.empty(v[1])}
+            for k, v in shapes.items()}}, rng), compute_dtype="bfloat16",
+            device=device)
+        net = posenc_mlp.pack_params(model, hoist_x=False)
+        dp = posenc_mlp.hoist_dirs(net, dirs).contiguous()
+        n0 = dict(K.LAUNCHES)
+        rgb_k, sig_k = posenc_mlp.field_rows(net, pts, dp, spr)
+        rgb_p, sig_p = posenc_mlp.field_rows_plain(net, pts, dp, spr)
+        args = (net, pts, dp, g_rgb, g_sig, spr)
+        out_k = posenc_mlp.field_rows_backward(*args)
+        out_p = posenc_mlp.field_rows_backward_plain(*args)
+        torch.cuda.synchronize()
+        launched = (K.LAUNCHES["field"] - n0["field"],
+                    K.LAUNCHES["field_bwd"] - n0["field_bwd"])
+        e_rgb = maxerr(rgb_k, rgb_p)
+        e_sig = float(((sig_k - sig_p).abs() / (1 + sig_p.abs())).max())
+        rel = {k: rel_rms(a, b) for k, a, b in zip(
+            ("d_pts", "d_dir", "d_w", "d_b"), out_k, out_p)}
+        shapes_ok = all(a.shape == b.shape for a, b in zip(out_k, out_p))
+        ms3 = cuda_ms(lambda: posenc_mlp.field_rows(net, pts, dp, spr))
+        ms4 = cuda_ms(lambda: posenc_mlp.field_rows_backward(*args))
+        big = net.padded
+        say("kernels", f"K3/K4 on a {depth}×{W} net, L = {L}, padded to "
+            f"{big.depth}×{big.width}, k0 {net.k0} → {big.k0}, {n} rows: K3 "
+            f"rgb err {e_rgb:.3g} (tol {K3_RGB_ATOL} on every row), σ rel "
+            f"err {e_sig:.3g} (tol {K3_SIGMA_REL}); K4 relative RMS "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})} "
+            f"(tol {K4_REL_RMS} each), gradients in the unpadded layout: "
+            f"{shapes_ok}; launches K3 {launched[0]}, K4 {launched[1]}; K3 "
+            f"{ms3:.3f} ms, K4 {ms4:.3f} ms")
+        if not (e_rgb <= K3_RGB_ATOL and e_sig <= K3_SIGMA_REL and shapes_ok
+                and max(rel.values()) <= K4_REL_RMS and launched == (1, 1)
+                and out_k[2].numel() == net.lay["n_w"]
+                and bool(torch.isfinite(rgb_k).all())):
+            raise AssertionError(f"K3/K4 on the padded {depth}×{W} net "
+                                 "disagree with their plain versions")
+
+
 def k4_parts(args) -> dict:
     """Device ms of one K4 call by part, from torch.profiler's device
     events: the rows kernel, wgrad, the fixed-order sums, and the rest
@@ -543,15 +614,18 @@ def kernel_probe(device):
     """P1 and P2 against their plain chains at the probe's shapes (2^21
     rows for P1, 2^20 for P2), each distinct launch once: relative RMS ≤
     PROBE_REL_RMS, every element within PROBE_MAX_REL·max|plain|. The
-    timed rows are P1's chain+relu (the field's trunk) and P2's
-    w256 d9 dependent."""
+    kernels line's rows are P1's chain+relu (the field's trunk, each layer
+    stored in shared memory as the field kernels store it) and P2's
+    w256 d9 dependent; P1's chain f32hold (the activations held in
+    registers) is timed beside them."""
     from fashion_nerf_torch import probe
     cases = [("probe_p1", name, probe.P1_ROWS, probe.P1_WIDTH,
               probe.P1_DEPTH, mode, relu, 0.06)
              for name, mode, relu, same in probe.P1_VARIANTS if not same]
     cases += [("probe_p2", name, probe.P2_ROWS, w, dep, mode, False, 0.05)
               for name, w, dep, mode, same in probe.P2_SHAPES if not same]
-    timed = {"chain+relu", "w256 d9 dependent"}
+    # timed rows; the first two are the kernels line's P1 and P2
+    timed = ("chain+relu", "w256 d9 dependent", "chain f32hold")
     out = {"probe_p1": dict(max_abs_err=0.0), "probe_p2":
            dict(max_abs_err=0.0)}
     for key, name, n, w, dep, mode, relu, scale in cases:
@@ -577,7 +651,8 @@ def kernel_probe(device):
             bp = bound(2 * n * dep * w * w, nbytes(x, *ws) + n * w * 4)
             say("kernels", f"{key} {name}: kernel {ms:.3f} ms, plain "
                 f"{pms:.3f} ms; {bound_line(bp, ms)}")
-            out[key].update(ms=ms, plain_ms=pms, **bp)
+            if name in timed[:2]:
+                out[key].update(ms=ms, plain_ms=pms, **bp)
         del x, ws
         torch.cuda.empty_cache()
     return out
@@ -847,15 +922,34 @@ def phase_probe(device, gpu, smi):
             + probe.run_p2(device, log=lambda m: say("probe", "P2 " + m)))
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
-    # yardstick: cuBLAS's own wgmma kernels at the field layer's shape (the
-    # port never calls it)
-    x = torch.randn((probe.P1_ROWS, 256), device=device, dtype=torch.bfloat16)
-    wy = torch.randn((256, 256), device=device, dtype=torch.bfloat16)
-    ms = cuda_ms(lambda: torch.matmul(x, wy))
-    del x, wy
+    # yardsticks, which the port never calls: one torch.matmul at the field
+    # layer's shape, and P1's chain+relu as ten torch.matmul calls with the
+    # relu and the bf16 cast between (bf16 in, f32 out of the last)
+    x, ws = probe.make_inputs(probe.P1_ROWS, probe.P1_WIDTH, probe.P1_DEPTH,
+                              0.06, 0, device)
+    ms = cuda_ms(lambda: torch.matmul(x, ws[0]))
+    flop = 2 * probe.P1_ROWS * probe.P1_WIDTH ** 2
     say("probe", f"yardstick torch.matmul ({probe.P1_ROWS}×256)·(256×256) "
-        f"bf16: {ms:.3f} ms, {2 * probe.P1_ROWS * 256 * 256 / ms / 1e9:.1f} "
-        f"TFLOP/s")
+        f"bf16: {ms:.3f} ms, {flop / ms / 1e9:.1f} TFLOP/s")
+    try:    # whether this torch's mm writes f32 from bf16 operands
+        torch.mm(x[:64], ws[0], out_dtype=torch.float32)
+        last = lambda h: torch.mm(h, ws[0], out_dtype=torch.float32)  # noqa
+        how = "f32 written by the last product"
+    except TypeError:
+        last = lambda h: torch.mm(h, ws[0]).float()  # noqa: E731
+        how = "the last product's bf16 output cast to f32"
+
+    def chain10():
+        h = x
+        for w in ws:
+            h = torch.relu(torch.mm(h, w))
+        return last(h)
+
+    ms10 = cuda_ms(chain10)
+    say("probe", f"yardstick chain+relu as ten torch.matmul calls ({how}): "
+        f"{ms10:.3f} ms, {flop * (probe.P1_DEPTH + 1) / ms10 / 1e9:.1f} "
+        f"TFLOP/s (a composition of calls, not one call)")
+    del x, ws
     say("probe", f"launches {launches}; {gpu} | {smi}")
     if not (launches["probe_p1"] > 0 and launches["probe_p2"] > 0
             and all(math.isfinite(r["tflops"]) and r["tflops"] > 0
@@ -1057,6 +1151,54 @@ def phase_train(scene, device, gpu, smi):
     return launches, dict(rays_per_sec=rate, seconds=secs)
 
 
+def phase_train_small(scene, device, gpu, smi):
+    """`train()` of a net below the field kernels' widths (3×32, L = 4)
+    with `kernels.use_pallas=true`: the fields run K3 and K4 on the
+    zero-padded net, through dense steps, a refresh, culled steps and an
+    eval."""
+    import shutil
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.train.loop import train
+    run_dir = RUN_DIR + "_small"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cfg = load_config("blender_lego", [
+        "model.net_depth=3", "model.net_width=32", "model.posenc_xyz=4",
+        "kernels.use_pallas=true", "train.iters=12", "train.log_every=2",
+        "train.occ_warmup=4", "train.occ_refresh_every=1000",
+        "train.occ_dense_every=4", "train.eval_every=12",
+        "train.ckpt_every=1000000", f"out_dir={run_dir}"])
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        state, hist = train(cfg, dataset_dict=scene, device=device,
+                            log_fn=lambda e: None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    logs = [h for h in hist if "loss" in h]
+    evals = [h["val_psnr"] for h in hist if "val_psnr" in h]
+    last = logs[-1]
+    say("train-small", f"{state.step} steps of a {cfg.model.net_depth}×"
+        f"{cfg.model.net_width} net (L = {cfg.model.posenc_xyz}) in "
+        f"{secs:.2f} s; loss {logs[0]['loss']:.5f} at step "
+        f"{logs[0]['step']} → {last['loss']:.5f} at step {last['step']}; "
+        f"refreshes {last['refreshes']}, culled steps "
+        f"{last['culled_steps']}, dense steps {last['dense_steps']}; eval "
+        f"{evals}; launches {launches}; {gpu} | {smi}")
+    checks = {
+        "finite": all(math.isfinite(h["loss"]) for h in logs),
+        "kinds": (last["refreshes"] >= 1 and last["culled_steps"] >= 1
+                  and last["dense_steps"] >= 1),
+        "eval": len(evals) == 1 and math.isfinite(evals[0]),
+        "launches": launches["field"] > 0 and launches["field_bwd"] > 0,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"train-small checks failed: {failed}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -1083,6 +1225,7 @@ def main() -> int:
     phase_step(device, ds, gpu, smi)
     phase_eval(device, ds)
     train_launches, _ = phase_train(scene, device, gpu, smi)
+    phase_train_small(scene, device, gpu, smi)
     probe_launches = phase_probe(device, gpu, smi)
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included; {gpu} | {smi}")

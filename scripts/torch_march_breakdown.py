@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the Hopper kernels K1, K2, K3 and K4 goes, on one GPU.
+"""Where the time of the Hopper kernels K1, K2, K3, K4, K6 and the probe
+goes, on one GPU.
 
-    PYTHONPATH=src python scripts/torch_march_breakdown.py [--only march|field]
+    PYTHONPATH=src python scripts/torch_march_breakdown.py \
+        [--only march|field|carry|probe]
 
 Builds variants of `csrc/sigmamarch.cu` and `csrc/slimmarch.cu` (the
 marches) and of `csrc/field.cu` + `csrc/field_bwd.cu` with their shared
@@ -20,6 +22,18 @@ library swapped in. CUDA events around back-to-back calls after one
 warm-up (20 for the marches and K3, 5 for K4). The variants compute wrong
 results and exist only to be timed. Also prints the real wrappers' time
 and their kernels' device time under torch.profiler.
+
+`--only carry` (K6: `csrc/carrymarch.cu` with `csrc/wg_field.cuh`) takes
+out the layer wgmmas, the ring, the sines and the compositing, on the same
+all-live chunk as K2 with a random 8×256 net. `--only probe`
+(`csrc/tcprobe.cu`) takes out the wgmmas, the ring, the epilogue's stores
+and the loads of x, cuts the ring from 5 slots to the field kernels' 3,
+and makes the two consumer warpgroups take turns at the tensor cores
+(named barriers around each column block's wgmmas; it needs the 5-slot
+ring and two warpgroups, so it is timed on P1 only), on P1's chain+relu
+(2^21 rows) and P2's w512 d9 dependent (2^20 rows). Both run through their
+wrappers with the variant's library swapped in (20 calls; 5 for the
+probe). Without `--only`, the marches and the field run.
 """
 
 from __future__ import annotations
@@ -37,8 +51,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from fashion_nerf_torch import kernels as K  # noqa: E402
-from fashion_nerf_torch.kernels import (posenc_mlp, sigmamarch,  # noqa: E402
-                                        slimmarch, wgpack)
+from fashion_nerf_torch import probe  # noqa: E402
+from fashion_nerf_torch.kernels import (carrymarch, posenc_mlp,  # noqa: E402
+                                        sigmamarch, slimmarch, wgpack)
 from fashion_nerf_torch.models.nerf_mlp import load_flax_params  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "march_breakdown")
@@ -118,6 +133,71 @@ FIELD["no posenc backward"] = [
 FIELD["no view column pass"] = [
     ("      for (int c = tw; c < kHalf; c += 128) {\n        const float* wr",
      "      for (int c = tw; c < 0; c += 128) {\n        const float* wr")]
+# K6: the field's loop (wg_field.cuh) inside carrymarch.cu
+CARRY = {
+    "as built": [],
+    "no layer wgmma": FIELD["no layer wgmma"],
+    "no weight ring": FIELD["no weight ring"],
+    "no sines": FIELD["no sines"],
+    "no compositing": [("    if (ww < 2 / q) {", "    if (false) {")],
+    "no layer wgmma, no weight ring": FIELD["no layer wgmma, no weight ring"],
+}
+# the probe: the same ring and consume, its own producer and epilogue
+# ("no wgmma, no weight ring" is filled in below the table)
+PROBE_RING = FIELD["no weight ring"][:3] + [
+    ("    for (int ks = 0; ks < KS; ++ks) {\n      wg::mbar_wait(",
+     "    for (int ks = 0; ks < 0; ++ks) {\n      wg::mbar_wait("),
+    # the held chain's own copy of consume
+    ("            wg::mbar_wait(&s.ring.full[rp.stage], rp.phase);\n", ""),
+    ("              wgf::release(s.ring, rp.pend);\n", "")]
+PROBE = {
+    "as built": [],
+    "no wgmma": FIELD["no layer wgmma"] + [
+        ("              mma_rs_n256(acc, held[m], held[m + 1], held[m + 2], "
+         "held[m + 3],\n", "              (void)(acc, held[m], held[m + 1], "
+         "held[m + 2], held[m + 3],\n")],
+    "no weight ring": PROBE_RING,
+    # the stores sit behind a test that never holds, so the accumulators
+    # stay live: with the epilogue's loop cut out instead, ptxas drops the
+    # wgmmas whose results nobody reads and the variant runs faster than the
+    # tensor cores could
+    "no epilogue stores": [
+        ("          wgf::st_pair(dst, rA, c, W, lo);\n"
+         "          wgf::st_pair(dst, rA + 8, c, W, hi);",
+         "          if (a.n < 0) wgf::st_pair(dst, rA, c, W, lo);\n"
+         "          if (a.n < 0) wgf::st_pair(dst, rA + 8, c, W, hi);"),
+        ("          if (live) {\n            *reinterpret_cast<float2*>(o_lo",
+         "          if (live && a.n < 0) {\n"
+         "            *reinterpret_cast<float2*>(o_lo")],
+    "no loads of x": [
+        ("        if (live)\n          v = *reinterpret_cast<const uint4*>",
+         "        if (false)\n          v = *reinterpret_cast<const uint4*>")],
+    "no wgmma, no weight ring": None,
+    # the ring of the field kernels: the warpgroups can drift only two
+    # slices apart, so their epilogues coincide
+    "ring of 3 slots": [("constexpr int kDeepP = 5, kShallowP = 3;",
+                         "constexpr int kDeepP = 3, kShallowP = 3;")],
+    # the two warpgroups take turns at the tensor cores: one issues a
+    # column block's wgmmas while the other runs its epilogue
+    "ordered warpgroups": [
+        ("  float acc[kColsP / 2];\n",
+         "  float acc[kColsP / 2];\n"
+         "  if (g == 1) asm volatile(\"bar.arrive 3, 256;\" ::: \"memory\");\n"),
+        ("      if (kHold && step > 0) {\n",
+         "      asm volatile(\"bar.sync %0, 256;\" ::\"r\"(3 + g) : "
+         "\"memory\");\n"
+         "      if (kHold && step > 0) {\n"),
+        ("      wgf::drain(acc, rp, s.ring);\n      if constexpr (kHold)",
+         "      asm volatile(\"bar.arrive %0, 256;\" ::\"r\"(4 - g) : "
+         "\"memory\");\n"
+         "      wgf::drain(acc, rp, s.ring);\n      if constexpr (kHold)"),
+        ("    wg::wg_sync(bar);   // the tiles are free for the next item's "
+         "rows\n  }\n",
+         "    wg::wg_sync(bar);   // the tiles are free for the next item's "
+         "rows\n  }\n"
+         "  if (g == 0) asm volatile(\"bar.sync 3, 256;\" ::: \"memory\");\n")],
+}
+PROBE["no wgmma, no weight ring"] = PROBE["no wgmma"] + PROBE_RING
 
 
 def _substitute(d: str, files: list, subs: list, what: str) -> None:
@@ -146,6 +226,12 @@ def build_variants(only) -> dict:
     if only in (None, "field"):
         tables.append(("field", ["wg_field.cuh", "field.cu", "field_bwd.cu"],
                        FIELD))
+    if only == "carry":    # field.cu: it defines fnt_error_string
+        tables.append(("carry", ["wg_field.cuh", "carrymarch.cu", "field.cu"],
+                       CARRY))
+    if only == "probe":
+        tables.append(("probe", ["wg_field.cuh", "tcprobe.cu", "field.cu"],
+                       PROBE))
     todo = []
     for kern, files, table in tables:   # every substitution before any nvcc
         for i, (name, subs) in enumerate(table.items()):
@@ -165,10 +251,12 @@ def build_variants(only) -> dict:
         if proc.returncode:
             raise RuntimeError(f"{key}: nvcc failed\n{log[-4000:]}")
         lib = ctypes.CDLL(so)
-        if key[0] == "field":
-            for sym in ("fnt_field_forward", "fnt_field_backward"):
-                getattr(lib, sym).argtypes = K._SIGNATURES[sym]
-                getattr(lib, sym).restype = ctypes.c_int
+        if key[0] in ("field", "carry", "probe"):
+            for sym in ("fnt_field_forward", "fnt_field_backward",
+                        "fnt_carry_march", "fnt_tc_probe"):
+                if hasattr(lib, sym):
+                    getattr(lib, sym).argtypes = K._SIGNATURES[sym]
+                    getattr(lib, sym).restype = ctypes.c_int
             lib.fnt_error_string.argtypes = [ctypes.c_int]
             lib.fnt_error_string.restype = ctypes.c_char_p
             fns[key] = lib
@@ -257,6 +345,80 @@ def field_breakdown(fns, dev, smi) -> None:
           f"{profile_ms(k3, ('field_kernel',)):.4f} ms a call")
 
 
+def _chunk(dev, R, NB, SB):
+    """An all-live chunk: rays of a fan, NB·SB samples over [2, 6], thin
+    intervals (no termination)."""
+    ang = torch.linspace(-0.4, 0.4, R, device=dev)
+    ro = torch.zeros((R, 3), device=dev)
+    ro[:, 2] = 4.0
+    rd = torch.stack([torch.sin(ang), 0.1 * torch.cos(3 * ang),
+                      -torch.cos(ang)], dim=-1)
+    S = NB * SB
+    t = torch.linspace(2.0, 6.0, S, device=dev).expand(R, S).contiguous()
+    d = torch.full((R, S), 4.0 / S / 10, device=dev)
+    return (ro, rd, t, d, torch.ones(R, device=dev),
+            torch.ones((R, NB), device=dev))
+
+
+def _swapped(fns, kern, call, n, label, skip=()) -> None:
+    """Time call() with each variant library of `kern` in place of the
+    built one, but for the variants named in `skip`."""
+    real = K.library()
+    try:
+        for (k, name), lib in fns.items():
+            if k != kern or name in skip:
+                continue
+            K._lib = lib
+            try:
+                print(f"{label} {name:32s} {ms_per_call(call, n):.4f} ms a "
+                      "call")
+            except RuntimeError as e:   # a variant's tiles may not fit
+                print(f"{label} {name:32s} refused: {e}")
+    finally:
+        K._lib = real
+
+
+def carry_breakdown(fns, dev, smi) -> None:
+    """K6 on the all-live chunk K2 is timed on, with each variant."""
+    rng = np.random.default_rng(0)
+    R, NB, SB = 8192, 3, 32
+    model = fine_net(rng, dev)
+    net = posenc_mlp.pack_params(model, hoist_x=False)
+    ro, rd, t, d, hit, bhit = _chunk(dev, R, NB, SB)
+    dp = posenc_mlp.hoist_dirs(net, rd).contiguous()
+    call = lambda: carrymarch.carry_march(  # noqa: E731
+        net, dp, ro, rd, hit, bhit, t, d, -6.9)
+    print(f"{smi}; K6 on an all-live chunk of {R} rays × {NB}×{SB}, random "
+          f"8×256 net: {R // 64 * NB} (tile, block) pairs")
+    _swapped(fns, "carry", call, 20, "K6")
+    snet = slimmarch.split_hoist(model)
+    hf = slimmarch.hoist_rays(snet, ro, rd)
+    ms2 = ms_per_call(lambda: slimmarch.slim_march(snet, hf, dp, hit, bhit,
+                                                   t, d, -6.9))
+    print(f"K6 wrapper: {ms_per_call(call):.4f} ms a call, kernels' device "
+          f"time {profile_ms(call, ('carry_march_kernel',)):.4f} ms; K2 on "
+          f"the same chunk {ms2:.4f} ms a call")
+
+
+def probe_breakdown(fns, dev, smi) -> None:
+    """P1's chain+relu and chain f32hold and P2's w512 d9 dependent with
+    each variant."""
+    for label, n, w, dep, mode, relu, scale in (
+            ("P1 chain+relu w256 d9", probe.P1_ROWS, 256, 9, "chain", True,
+             0.06),
+            ("P1 chain f32hold w256 d9", probe.P1_ROWS, 256, 9, "hold", True,
+             0.06),
+            ("P2 w512 d9 dependent", probe.P2_ROWS, 512, 9, "dependent",
+             False, 0.05)):
+        x, ws = probe.make_inputs(n, w, dep, scale, 0, dev)
+        print(f"{smi}; {label}, {n} rows")
+        # one consumer warpgroup at width 512: nothing to take turns with
+        _swapped(fns, "probe",
+                 lambda: probe.tc_chain(x, ws, mode, relu), 5, label,
+                 skip=("ordered warpgroups",) if w > 256 else ())
+        del x, ws
+
+
 def main() -> int:
     only = None
     if "--only" in sys.argv:
@@ -270,8 +432,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     fns = build_variants(only)
-    if only == "field":
-        field_breakdown(fns, dev, smi)
+    if only in ("field", "carry", "probe"):
+        {"field": field_breakdown, "carry": carry_breakdown,
+         "probe": probe_breakdown}[only](fns, dev, smi)
         return 0
     rng = np.random.default_rng(0)
     R, NB, SB = 8192, 3, 32

@@ -11,6 +11,20 @@ Eight kernels, CUDA C++ for sm_90a under `csrc/`:
 - P1/P2 `tcprobe.cu`: the tensor-core probe's bf16 chains (probe.py),
   counted as `probe_p1` (the field's chain) and `probe_p2` (the sweep).
 
+Every kernel with matrix products runs on Hopper's warpgroup matrix
+multiply (`wgmma`) with its weights brought into shared memory by bulk
+asynchronous copies behind mbarriers: K1 and K2 on the loop of
+`csrc/wg_trunk.cuh`; K3, K4, K6 and the probe on that of
+`csrc/wg_field.cuh` (a producer warpgroup streaming weight slices through
+a ring to two consumer warpgroups). K5 has no matrix product and is plain
+CUDA. Shapes: K1 width 128 and K2 width 256, SB in MARCH_SB; K3, K4 and
+K6 widths FIELD_WIDTHS, depths FIELD_DEPTHS and posenc operand widths
+FIELD_K0, and a narrower net runs zero-padded to the nearest of them
+(`posenc_mlp.pad_packed`: the same function, at the padded net's cost in
+tensor-core time); the probe widths that are multiples of 256 up to 1024,
+others zero-padded. What cannot be padded into the range raises
+ValueError.
+
 Path rule, the same in every wrapper: tensors on the CPU take the plain
 PyTorch version; tensors on a CUDA device take the kernel, or the call
 raises. Nothing falls back from one to the other. The sources are built on
@@ -41,15 +55,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # MLP rows per predication tile: a march tile is TILE_ROWS // SB rays (the
 # reference's _TILE). Part of the result: every ray of a live tile is marched.
 TILE_ROWS = 2048
-# rows per CUDA block of the slab kernels (csrc/fnt_common.cuh kRows)
+# rows of one consumer warpgroup's tile (csrc/fnt_common.cuh kRows): row
+# counts are its multiples
 SLAB_ROWS = 64
-# samples per block the marches K1 and K2 take, their nets' widths, and the
-# most predication tiles one launch takes (csrc/sigmamarch.cu, slimmarch.cu)
+# samples per block the marches K1, K2 and K6 take, K1's and K2's widths,
+# and the most predication tiles one launch takes (csrc/sigmamarch.cu,
+# slimmarch.cu, carrymarch.cu; K6's wrapper launches per range of tiles)
 MARCH_SB = (16, 32, 64)
 SIGMA_WIDTH, SLIM_WIDTH = 128, 256
 MARCH_MAX_TILES = 1024
-# nets the field kernels K3 and K4 take (csrc/wg_field.cuh): widths, trunk
-# depths and posenc operand widths (x rows included: L = 6 → 48, 10 → 64)
+# nets the field kernels K3, K4 and K6 take (csrc/wg_field.cuh): widths,
+# trunk depths and posenc operand widths (x rows included: L = 6 → 48,
+# 10 → 64); narrower nets are zero-padded to them (posenc_mlp.pad_packed)
 FIELD_WIDTHS = (128, 256)
 FIELD_DEPTHS = tuple(range(2, 9))
 FIELD_K0 = (48, 64)
@@ -69,8 +86,8 @@ _SIGNATURES = {
     "fnt_slim_march": [_P] * 16 + [_I] * 10 + [ctypes.c_float, _P],
     "fnt_field_backward": [_P] * 17 + [ctypes.c_long] + [_I] * 11 + [_P],
     "fnt_volrend": [_P] * 8 + [_I] * 4 + [_P],
-    "fnt_carry_march": [_P] * 15 + [_I] * 11 + [ctypes.c_float, _P],
-    "fnt_tc_probe": [_P] * 3 + [_I] * 5 + [_P],
+    "fnt_carry_march": [_P] * 16 + [_I] * 11 + [ctypes.c_float, _P],
+    "fnt_tc_probe": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _lib = None

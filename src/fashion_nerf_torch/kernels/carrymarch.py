@@ -10,6 +10,11 @@ but the per-ray view term: each sample's position o + d·t (f32, no fused
 multiply-add) is built where the field is evaluated, and the operand is
 [bf16(x) | bf16(sin P)].
 
+The kernel is the fused field's forward (`wgf::forward`, the wgmma layer
+loop of K3) inside the fine march's skeleton: widths 128 and 256, depth
+2-8, a posenc operand of 48 or 64 columns, SB in MARCH_SB; narrower nets
+run zero-padded.
+
 Predication is per (tile, block), tile = TILE_ROWS // SB rays: the pair
 runs iff some ray of the tile has hit ∧ block_hit[b] ∧ logT > log ε, and
 then every ray of the tile is marched. A dead pair writes w = 0 and leaves
@@ -24,8 +29,10 @@ import torch
 
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, field_operand,
-                                                   mlp_rows)
+                                                   kernel_net, mlp_rows,
+                                                   pad_dirpart)
 from fashion_nerf_torch.kernels.slimmarch import block_weights, live_rows
+from fashion_nerf_torch.kernels.wgpack import field_buffer
 
 _BF = torch.bfloat16
 
@@ -71,7 +78,10 @@ def carry_march_plain(net: PackedNet, dirpart, rays_o, rays_d, hit,
 def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
                 d, log_eps: float, softplus: bool = False):
     """Generic carry march: CPU tensors take the plain version, CUDA
-    tensors K6 (one launch per sample block)."""
+    tensors K6, one launch per sample block and per MARCH_MAX_TILES tiles
+    of rays. SB must be in MARCH_SB. A net narrower than the kernel's
+    widths runs padded with zeros (`posenc_mlp.pad_packed`): the same
+    function at the padded net's cost."""
     if not K.on_cuda(dirpart, rays_o, rays_d, hit, block_hit, t, d, net.w):
         return carry_march_plain(net, dirpart, rays_o, rays_d, hit,
                                  block_hit, t, d, log_eps, softplus)
@@ -80,16 +90,24 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
     R, S = t.shape
     NB = block_hit.shape[1]
     SB = S // NB
-    if S != NB * SB or K.SLAB_ROWS % SB or R % (K.TILE_ROWS // SB):
-        raise ValueError(f"S={S}, NB={NB}: SB must divide {K.SLAB_ROWS} and "
-                         f"R={R} be a multiple of {K.TILE_ROWS // max(SB, 1)}")
+    if S != NB * SB or SB not in K.MARCH_SB:
+        raise ValueError(f"S={S}, NB={NB}: the carry march takes SB in "
+                         f"MARCH_SB = {K.MARCH_SB}")
+    rpt = K.TILE_ROWS // SB
+    if R % rpt:
+        raise ValueError(f"R={R} must be a multiple of {rpt}")
     for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
                                                 (R, NB)),
                            ("rays_o", rays_o, (R, 3)),
                            ("rays_d", rays_d, (R, 3)),
                            ("t", t, (R, S)), ("d", d, (R, S))):
         K.check(x, name, torch.float32, shape)
-    K.check(dirpart, "dirpart", _BF, (R, net.width // 2))
+    K.check(dirpart, "dirpart", _BF, (R, dirpart.shape[1]))
+    if net.has_vd and dirpart.shape[1] != net.width // 2:
+        raise ValueError(f"dirpart width {dirpart.shape[1]}")
+    knet = kernel_net(net)
+    dirpart = pad_dirpart(net, knet, dirpart)
+    wp = field_buffer(knet)
     dev = t.device
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
     depth = torch.empty((R,), dtype=torch.float32, device=dev)
@@ -97,14 +115,19 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
     w = torch.empty_like(t)
     carry = [torch.empty_like(depth) for _ in range(2)]
     lib = K.library()
+    step = K.MARCH_MAX_TILES * rpt
     for b in range(NB):
-        ptrs = [x.data_ptr() for x in (
-            hit, block_hit, rays_o, rays_d, dirpart, t, d, net.w, net.b, rgb,
-            depth, acc, w, carry[b % 2], carry[(b + 1) % 2])]
-        code = lib.fnt_carry_march(
-            *ptrs, R, NB, SB, b, net.L, net.depth, net.width, net.k0,
-            net.skip, int(net.has_vd), int(softplus), float(log_eps),
-            K.stream())
-        K.raise_on_error(code, "fnt_carry_march")
-        K.LAUNCHES["carry_march"] += 1
+        for r0 in range(0, R, step):
+            rays = slice(r0, min(R, r0 + step))
+            ptrs = [x.data_ptr() for x in (
+                hit[rays], block_hit[rays], rays_o[rays], rays_d[rays],
+                dirpart[rays], t[rays], d[rays], knet.w, wp, knet.b,
+                rgb[rays], depth[rays], acc[rays], w[rays],
+                carry[b % 2][rays], carry[(b + 1) % 2][rays])]
+            code = lib.fnt_carry_march(
+                *ptrs, rays.stop - r0, NB, SB, b, knet.L, knet.depth,
+                knet.width, knet.k0, knet.skip, int(knet.has_vd),
+                int(softplus), float(log_eps), K.stream())
+            K.raise_on_error(code, "fnt_carry_march")
+            K.LAUNCHES["carry_march"] += 1
     return rgb, depth, acc, w, carry[NB % 2]

@@ -7,32 +7,66 @@
 // accumulators held in VMEM across a tile's sequential block programs,
 // building each sample's position o + d·t inside the kernel.
 //
-// What bounds it on the H100: the same bf16 matrix products as K2 (the
-// first and skip layers take [x | sin | cos] from the operand instead of a
-// hoisted x-path, so 3 more operand columns inside the same padded 64), so
-// tensor-core throughput, and in this first version the latency of wmma
-// fragment loads from L2; the work it skips (dead tiles) is what a frame's
-// time depends on most.
+// What bounds it on the H100: the same bf16 matrix products as the fine
+// march K2 (the first and skip layers take [x | sin | cos] from the operand
+// instead of a hoisted x-path: 3 more operand columns inside the same padded
+// 64), so tensor-core throughput; next the L2 → shared-memory stream of the
+// weights, once per 128 rows, the 6L accurate sines a row and the per-layer
+// epilogues, which run serially with the wgmmas inside a warpgroup. The work
+// it skips (dead (tile, block) pairs) is what a frame's time depends on most.
 //
-// Design: K2's skeleton (csrc/slimmarch.cu) with K3's operand build
-// (csrc/field.cu). The wrapper launches this kernel once per sample block b.
-// A CUDA block owns one 64-row slab = 64/SB whole rays for block b and
-// composites them itself. Predication follows the reference tile of
-// 2048/SB rays: the (tile, b) pair runs iff some ray of the tile has
-// hit ∧ block_hit[b] ∧ logT > log ε, and then every ray of the tile is
-// marched. The decision reads logT_in, written by the previous launch; the
-// launch writes logT_out, so no block reads a carry that another block of
-// the same launch updates. A dead pair writes w = 0 and carries rgb, depth,
-// acc and logT through unchanged. Each row's position is o + d·t in f32
-// without contraction (__fmul_rn/__fadd_rn, as the plain version rounds),
-// the operand is [bf16(x) | bf16(sin P)] with P = x·2^(j mod L) (+π/2 on
-// the cos half) in f32; the view term γ(d)·W_dir arrives per ray. The
-// reference's selector-matmul lane gathers and its triangular-matmul prefix
-// are TPU workarounds: here t is indexed directly and the exclusive log-T
-// prefix is a sequential f32 sum, clamped at log(1e-10) per sample.
-#include "fnt_common.cuh"
+// Design: the fused field's forward (wgf::forward, csrc/wg_field.cuh, as
+// field.cu runs it) inside the fine march's skeleton (csrc/slimmarch.cu):
+// - Persistent CUDA blocks, one per SM, of two consumer warpgroups and one
+//   producer warpgroup. A work item is 128 ray-major rows of sample block b,
+//   64 per warpgroup = 64/SB whole rays. Every block lists the launch's live
+//   predication tiles (2048/SB rays) itself and strides over their items;
+//   the owner of a dead tile writes its w = 0 and carries rgb, depth, acc
+//   and logT through.
+// - The producer's one lane streams the net's field slices
+//   (kernels/wgpack.py::field_buffer, x rows inside the posenc operand's
+//   slice) through the ring of 3 slots of 64 × 256 bf16 with cp.async.bulk
+//   behind full/empty mbarriers; both warpgroups take every slice.
+// - Each row's position is o + d·t in f32 without contraction
+//   (__fmul_rn/__fadd_rn, as the plain version rounds), staged per item in
+//   shared memory with t and the rays' view terms; wgf::posenc_tile builds
+//   the operand [bf16(x) | bf16(sin P)] from it, and wgf::forward leaves
+//   raw σ and post-sigmoid rgb per row in shared memory.
+// - Compositing by warps, as K2: one warp per ray (SB = 32, a lane per
+//   sample), per two rays (SB = 16), or two samples a lane (SB = 64); the
+//   exclusive log(1−α) prefix, clamped at log(1e-10) per sample, is a
+//   shuffle scan on the carried logT, and rgb, depth (Σ w·t) and acc (Σ w)
+//   are segment sums added to the accumulators in device memory.
+// Predication is part of the result: a (tile, b) pair runs iff some ray of
+// the tile has hit ∧ block_hit[b] ∧ logT > log ε, and then every ray of the
+// tile is marched. The decision reads logT_in, written by the previous
+// launch; the launch writes logT_out, so no block reads a carry that another
+// block of the same launch updates.
+#include "wg_field.cuh"
 
 namespace fnt {
+namespace {
+
+constexpr int kStagesK6 = 3;
+constexpr int kMaxTilesK6 = 1024;
+constexpr int kMaxRaysK6 = wg::kWgRows / 16;   // rays of a warpgroup, SB ≥ 16
+
+template <int W>
+struct __align__(128) CarrySmem {
+  bf16 h[2][wg::kWgRows * W];        // activations per warpgroup
+  bf16 a0[2][wg::kWgRows * kMaxK0];  // posenc operand per warpgroup
+  wgf::Ring<kStagesK6> ring;         // weight slices
+  bf16 dirs[2][kMaxRaysK6][W / 2];   // view terms of a warpgroup's rays
+  float pts[2][wg::kWgRows][3];
+  float heads[W * 4];                // σ and rgb heads, or the out head
+  float row_t[wg::kItemRows];
+  float row_sigma[wg::kItemRows];
+  float row_rgb[wg::kItemRows][3];
+  int n_live;
+  uint8_t tile_live[kMaxTilesK6];
+  uint16_t live[kMaxTilesK6];
+  // the net's biases follow (CarryArgs::n_b floats)
+};
 
 struct CarryArgs {
   const float* hit;        // (R,) AABB hit flags
@@ -42,7 +76,8 @@ struct CarryArgs {
   const bf16* dirpart;     // (R, W/2) per-ray view term (view branch only)
   const float* t;          // (R, NB·SB) sample positions
   const float* d;          // (R, NB·SB) scaled interval widths
-  const bf16* w;           // packed weights (Layout, x rows in the operand)
+  const bf16* w;           // packed weights (Layout): the heads
+  const bf16* wp;          // field slices (kernels/wgpack.py)
   const float* b;          // packed biases
   float* rgb;              // (R, 3) accumulated radiance
   float* depth;            // (R,) accumulated Σ w·t
@@ -50,111 +85,193 @@ struct CarryArgs {
   float* w_out;            // (R, NB·SB) weights
   const float* logT_in;    // (R,) carry before block b (unused at b = 0)
   float* logT_out;         // (R,) carry after block b
-  int NB, SB, blk, L, softplus;
+  int R, NB, SB, blk, L, softplus, n_b;
   float log_eps;
+  int n_slices;
+  int slice_bytes[wgf::kMaxSlices];
   Layout lay;
 };
 
-__global__ void __launch_bounds__(kThreads) carry_march_kernel(CarryArgs a) {
-  Smem& s = smem();
+template <int W>
+__global__ void __launch_bounds__(wgf::kThreads, 1)
+    carry_march_kernel(const __grid_constant__ CarryArgs a) {
+  constexpr int kHalf = W / 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  CarrySmem<W>& s = *reinterpret_cast<CarrySmem<W>*>(smem_raw);
+  float* bias = reinterpret_cast<float*>(smem_raw + sizeof(CarrySmem<W>));
   const Layout& lay = a.lay;
   const int SB = a.SB, S = a.NB * a.SB;
-  const int nr = kRows / SB;              // rays in this slab
-  const long r0 = (long)blockIdx.x * nr;  // first ray of the slab
-  const int rpt = kTileRows / SB;         // rays per predication tile
-  const long tile0 = (r0 / rpt) * rpt;
+  const int rpt = kTileRows / SB;
   const bool first = a.blk == 0;
-  const long col0 = (long)a.blk * SB;     // first sample column of block b
+  const long col0 = (long)a.blk * SB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if (!tile_alive(a.hit, a.block_hit, a.logT_in, tile0, rpt, a.NB, a.blk,
-                  a.log_eps)) {
-    for (int i = threadIdx.x; i < nr * SB; i += kThreads)
-      a.w_out[(r0 + i / SB) * S + col0 + i % SB] = 0.0f;
-    if (threadIdx.x < nr) {
-      const long ray = r0 + threadIdx.x;
-      a.logT_out[ray] = first ? 0.0f : a.logT_in[ray];
-      if (first) {
-        for (int c = 0; c < 3; ++c) a.rgb[ray * 3 + c] = 0.0f;
-        a.depth[ray] = 0.0f;
-        a.acc[ray] = 0.0f;
-      }
-    }
+  if (threadIdx.x == 0) wgf::ring_init(s.ring);
+  for (int i = threadIdx.x; i < a.n_b; i += blockDim.x) bias[i] = a.b[i];
+  if (lay.has_vd) {
+    for (int i = threadIdx.x; i < W; i += blockDim.x)
+      s.heads[i] = bf(a.w[lay.w_sig + i]);
+    for (int i = threadIdx.x; i < kHalf * 3; i += blockDim.x)
+      s.heads[W + i] = bf(a.w[lay.w_rgb + i]);
+  } else {
+    for (int i = threadIdx.x; i < W * 4; i += blockDim.x)
+      s.heads[i] = bf(a.w[lay.w_out + i]);
+  }
+  const int n_live = wg::live_tiles(
+      a.R / rpt, rpt, s.tile_live, s.live, &s.n_live,
+      [&](long ray) {
+        const float lt = first ? 0.0f : a.logT_in[ray];
+        return a.hit[ray] > 0.0f && a.block_hit[ray * a.NB + a.blk] > 0.0f &&
+               lt > a.log_eps;
+      },
+      [&](int tile, int ln) {
+        const long ray0 = (long)tile * rpt;
+        for (int i = ln; i < rpt * SB; i += 32)
+          a.w_out[(ray0 + i / SB) * S + col0 + i % SB] = 0.0f;
+        for (int i = ln; i < rpt; i += 32) {
+          const long ray = ray0 + i;
+          a.logT_out[ray] = first ? 0.0f : a.logT_in[ray];
+          if (first) {
+            for (int c = 0; c < 3; ++c) a.rgb[ray * 3 + c] = 0.0f;
+            a.depth[ray] = 0.0f;
+            a.acc[ray] = 0.0f;
+          }
+        }
+      });
+  const int n_items = n_live * wg::kItemsPerTile;
+
+  if (warp >= wgf::kConsumers / 32) {
+    wg::setmaxnreg_dec<40>();
+    if (warp == wgf::kConsumers / 32 && lane == 0)
+      wgf::produce(s.ring, a.wp, a.slice_bytes, a.n_slices, n_items);
     return;
   }
 
-  for (int r = threadIdx.x; r < kRows; r += kThreads)
-    s.row_t[r] = a.t[(r0 + r / SB) * S + col0 + r % SB];
-  __syncthreads();
-  // posenc operand of pts = o + d·t: [x (3) | sin(2^f x) blocks | cos
-  // blocks | 0-pad], the cos half as sin(· + π/2) like the field kernel
-  const int n_ph = 6 * a.L;
-  for (int i = threadIdx.x; i < kRows * lay.k0; i += kThreads) {
-    const int r = i / lay.k0, c = i % lay.k0;
-    const long ray = r0 + r / SB;
-    float v = 0.0f;
-    if (c < 3 + n_ph) {
-      const int k = c < 3 ? c : (c - 3) % 3;
-      const float x = __fadd_rn(a.rays_o[ray * 3 + k],
-                                __fmul_rn(a.rays_d[ray * 3 + k], s.row_t[r]));
-      if (c < 3) {
-        v = x;
-      } else {
-        const int j = (c - 3) / 3;
-        const float f = (float)(1 << (j % a.L));
-        const float off = j >= a.L ? kHalfPi : 0.0f;
-        v = sinf(__fadd_rn(__fmul_rn(x, f), off));
+  // consumers: warpgroup g owns rows [64g, 64g + 64) of each item
+  wg::setmaxnreg_inc<232>();
+  const int g = threadIdx.x >> 7, tw = threadIdx.x & 127, ww = tw >> 5;
+  float(*pts)[3] = s.pts[g];
+  bf16(*dirs)[kHalf] = s.dirs[g];
+  float* row_t = s.row_t + 64 * g;
+  float* row_sigma = s.row_sigma + 64 * g;
+  float(*row_rgb)[3] = s.row_rgb + 64 * g;
+  const int nr = wg::kWgRows / SB;   // rays of the warpgroup
+  wgf::Rows t{s.h[g], s.a0[g], bias, s.heads, pts, nullptr, nullptr,
+              row_sigma, row_rgb, nullptr, tw, ww, lane, 1 + g,
+              16 * ww + (lane >> 2), 2 * (lane & 3)};
+  // rows rA and rA + 8 lie in one ray (SB ≥ 16)
+  t.dir_lo = t.dir_hi = dirs[t.rA / SB];
+  wgf::RingPos rp{0, 0u, -1};
+  float acc[W / 2];
+
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const long row0 = (long)s.live[it / wg::kItemsPerTile] * kTileRows +
+                      (it % wg::kItemsPerTile) * wg::kItemRows + 64 * g;
+    const long ray0 = row0 / SB;   // first ray of the warpgroup
+    if (tw < 64) row_t[tw] = a.t[(ray0 + tw / SB) * S + col0 + tw % SB];
+    if (lay.has_vd)
+      for (int i = tw; i < nr * kHalf; i += 128)
+        dirs[i / kHalf][i % kHalf] = a.dirpart[ray0 * kHalf + i];
+    wg::wg_sync(t.bar);
+    for (int i = tw; i < 64 * 3; i += 128) {
+      const int r = i / 3, k = i % 3;
+      const long ray = ray0 + r / SB;
+      pts[r][k] = __fadd_rn(a.rays_o[ray * 3 + k],
+                            __fmul_rn(a.rays_d[ray * 3 + k], row_t[r]));
+    }
+    wg::wg_sync(t.bar);
+    wgf::posenc_tile(t.A0, lay.k0, a.L, pts, tw);
+    wg::fence_async_smem();
+    wg::wg_sync(t.bar);
+
+    wgf::forward<W>(lay, t, s.ring, rp, acc, [](int, int) {}, [] {});
+
+    // compositing: segments of `seg` lanes per ray, q samples a lane
+    const int seg = SB < 32 ? SB : 32, q = SB / seg;
+    if (ww < 2 / q) {
+      const int ray_l = ww * (32 / seg) + lane / seg;   // ray in the group
+      const int ks = (lane & (seg - 1)) * q;            // its first sample
+      const long rr = ray0 + ray_l;
+      const float lt = first ? 0.0f : a.logT_in[rr];
+      float x[2], lg[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        x[j] = lg[j] = 0.0f;
+        if (j < q) {
+          x[j] = __fmul_rn(density(row_sigma[ray_l * SB + ks + j], a.softplus),
+                           a.d[rr * S + col0 + ks + j]);
+          lg[j] = fmaxf(-x[j], kLogFloor);
+        }
+      }
+      const float incl = wg::seg_scan(q == 2 ? lg[0] + lg[1] : lg[0], seg);
+      float ex = __shfl_up_sync(0xffffffffu, incl, 1, seg);
+      if ((lane & (seg - 1)) == 0) ex = 0.0f;
+      const float total = __shfl_sync(0xffffffffu, incl, seg - 1, seg);
+      float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, dep = 0.0f, ac = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (j < q) {
+          const int r = ray_l * SB + ks + j;
+          const float wk = __fmul_rn(1.0f - expf(-x[j]), expf(lt + ex));
+          a.w_out[rr * S + col0 + ks + j] = wk;
+          c0 += wk * row_rgb[r][0];
+          c1 += wk * row_rgb[r][1];
+          c2 += wk * row_rgb[r][2];
+          dep += wk * row_t[r];
+          ac += wk;
+          ex += lg[j];
+        }
+      }
+      c0 = wg::seg_sum(c0, seg);
+      c1 = wg::seg_sum(c1, seg);
+      c2 = wg::seg_sum(c2, seg);
+      dep = wg::seg_sum(dep, seg);
+      ac = wg::seg_sum(ac, seg);
+      if ((lane & (seg - 1)) == 0) {
+        float* out = a.rgb + rr * 3;
+        out[0] = (first ? 0.0f : out[0]) + c0;
+        out[1] = (first ? 0.0f : out[1]) + c1;
+        out[2] = (first ? 0.0f : out[2]) + c2;
+        a.depth[rr] = (first ? 0.0f : a.depth[rr]) + dep;
+        a.acc[rr] = (first ? 0.0f : a.acc[rr]) + ac;
+        a.logT_out[rr] = lt + total;
       }
     }
-    s.a0[r * kLdA + c] = __float2bfloat16_rn(v);
-  }
-  __syncthreads();
-
-  const int cur = run_trunk(lay, a.w, a.b,
-                            [](int, int, int) { return 0.0f; });
-  const int half = lay.width / 2;
-  run_heads(lay, a.w, a.b, cur, [&](int r, int c) {
-    return bf(a.dirpart[(r0 + r / SB) * half + c]);
-  });
-
-  if (threadIdx.x < nr) {
-    const int j = threadIdx.x;
-    const long ray = r0 + j;
-    const float lt = first ? 0.0f : a.logT_in[ray];
-    float csum = 0.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, dep = 0.0f,
-          ac = 0.0f;
-    for (int k = 0; k < SB; ++k) {
-      const int r = j * SB + k;
-      const float x = __fmul_rn(density(s.row_sigma[r], a.softplus),
-                                a.d[ray * S + col0 + k]);
-      const float wk = __fmul_rn(1.0f - expf(-x), expf(lt + csum));
-      a.w_out[ray * S + col0 + k] = wk;
-      c0 += wk * s.row_rgb[r][0];
-      c1 += wk * s.row_rgb[r][1];
-      c2 += wk * s.row_rgb[r][2];
-      dep += wk * s.row_t[r];
-      ac += wk;
-      csum += fmaxf(-x, kLogFloor);
-    }
-    a.rgb[ray * 3 + 0] = (first ? 0.0f : a.rgb[ray * 3 + 0]) + c0;
-    a.rgb[ray * 3 + 1] = (first ? 0.0f : a.rgb[ray * 3 + 1]) + c1;
-    a.rgb[ray * 3 + 2] = (first ? 0.0f : a.rgb[ray * 3 + 2]) + c2;
-    a.depth[ray] = (first ? 0.0f : a.depth[ray]) + dep;
-    a.acc[ray] = (first ? 0.0f : a.acc[ray]) + ac;
-    a.logT_out[ray] = lt + csum;
+    wg::wg_sync(t.bar);
   }
 }
 
+template <int W>
+int launch_carry(CarryArgs& a, cudaStream_t st) {
+  const int smem = (int)sizeof(CarrySmem<W>) + a.n_b * 4;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      carry_march_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (a.R == 0) return 0;
+  carry_march_kernel<W><<<n_sm, wgf::kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 }  // namespace fnt
 
 extern "C" {
 
-// Marches sample block `blk` of NB. R must be a multiple of the tile
-// (2048/SB rays); SB must divide 64. Returns a cudaError_t.
+// Marches sample block `blk` of NB with a field packed with its x rows in
+// the posenc operand: width 128 or 256, depth 2-8, k0 48 or 64. R must be a
+// multiple of the tile (2048/SB rays) and at most 1024 tiles; SB is 16, 32
+// or 64; wp holds the net's field slices (kernels/wgpack.py::field_buffer).
+// Returns a cudaError_t.
 int fnt_carry_march(const void* hit, const void* block_hit,
                     const void* rays_o, const void* rays_d,
                     const void* dirpart, const void* t, const void* d,
-                    const void* w, const void* b, void* rgb, void* depth,
-                    void* acc, void* w_out, const void* logT_in,
+                    const void* w, const void* wp, const void* b, void* rgb,
+                    void* depth, void* acc, void* w_out, const void* logT_in,
                     void* logT_out, int R, int NB, int SB, int blk, int L,
                     int depth_layers, int width, int k0, int skip,
                     int has_vd, int softplus, float log_eps, void* stream) {
@@ -168,6 +285,7 @@ int fnt_carry_march(const void* hit, const void* block_hit,
   a.t = static_cast<const float*>(t);
   a.d = static_cast<const float*>(d);
   a.w = static_cast<const bf16*>(w);
+  a.wp = static_cast<const bf16*>(wp);
   a.b = static_cast<const float*>(b);
   a.rgb = static_cast<float*>(rgb);
   a.depth = static_cast<float*>(depth);
@@ -175,6 +293,7 @@ int fnt_carry_march(const void* hit, const void* block_hit,
   a.w_out = static_cast<float*>(w_out);
   a.logT_in = static_cast<const float*>(logT_in);
   a.logT_out = static_cast<float*>(logT_out);
+  a.R = R;
   a.NB = NB;
   a.SB = SB;
   a.blk = blk;
@@ -182,15 +301,15 @@ int fnt_carry_march(const void* hit, const void* block_hit,
   a.softplus = softplus;
   a.log_eps = log_eps;
   a.lay = make_layout(depth_layers, width, k0, skip, has_vd);
-  if (layout_error(a.lay) || SB < 1 || kRows % SB || 3 + 6 * L > k0 ||
-      R % (kTileRows / SB) || blk < 0 || blk >= NB)
+  a.n_b = has_vd ? a.lay.b_rgb + 3 : a.lay.b_out + 4;
+  a.n_slices = wgf::field_slice_bytes(a.lay, false, a.slice_bytes);
+  if (wgf::field_layout_error(a.lay) || a.n_slices < 0 ||
+      !(SB == 16 || SB == 32 || SB == 64) || 3 + 6 * L > k0 || R < 0 ||
+      R % (kTileRows / SB) || R / (kTileRows / SB) > kMaxTilesK6 || blk < 0 ||
+      blk >= NB || (reinterpret_cast<uintptr_t>(wp) & 15))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(carry_march_kernel);
-  if (err != cudaSuccess) return (int)err;
-  if (R == 0) return 0;
-  carry_march_kernel<<<R / (kRows / SB), kThreads, sizeof(Smem),
-                       static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return width == 256 ? launch_carry<256>(a, st) : launch_carry<128>(a, st);
 }
 
 }  // extern "C"

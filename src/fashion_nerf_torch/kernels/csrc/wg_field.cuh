@@ -1,7 +1,8 @@
-// Shared device code of the wgmma field kernels (field.cu K3, field_bwd.cu
-// K4): the weight ring, the posenc operand of positions, the forward of the
-// packed field on one warpgroup's 64 rows, and the bulk stores that copy
-// K4's activation tiles to its workspace.
+// Shared device code of the kernels on the streamed wgmma layer loop
+// (field.cu K3, field_bwd.cu K4, carrymarch.cu K6, and the ring for
+// tcprobe.cu): the weight ring, the posenc operand of positions, the
+// forward of the packed field on one warpgroup's 64 rows, and the bulk
+// stores that copy K4's activation tiles to its workspace.
 //
 // Block shape (as slimmarch.cu): two consumer warpgroups and one producer
 // warpgroup; a work item is 128 rows, 64 per consumer warpgroup. The

@@ -1,5 +1,6 @@
 // Shared device code of the Hopper kernels (sigmamarch.cu, slimmarch.cu,
-// and through wg_field.cuh field.cu and field_bwd.cu): the warpgroup
+// and through wg_field.cuh field.cu, field_bwd.cu, carrymarch.cu and
+// tcprobe.cu): the warpgroup
 // matrix multiply (wgmma) layer loop, its shared-memory
 // operand layout, the mbarrier/bulk-copy primitives that bring weights into
 // shared memory, and the warp-level compositing scan.

@@ -14,6 +14,12 @@ The layers' posenc operand ("a0") is [x | sin | cos] for the field and
 [sin | cos] for the marches, whose x-paths are linear in t and hoisted
 per ray; its width is padded with zero rows to a multiple of 16.
 
+Shapes. K3, K4 and K6 take widths 128 and 256, depths 2-8 and a posenc
+operand of 48 or 64 columns (`check_field_shape`). The wrappers run any
+narrower net zero-padded to the nearest such shape (`pad_packed`,
+`kernel_net`) and cut K4's gradients back to the unpadded layout, so the
+reference's small nets (width 16-64, L = 2-4) run through the kernels.
+
 Numerics (kernel and plain version alike): bf16 operands rounded to
 nearest even, f32 accumulation, activations rounded back to bf16 after the
 relu, posenc phases in f32.
@@ -148,6 +154,9 @@ class PackedNet:
     w32: Optional[torch.Tensor] = None   # unrounded f32 weights with grad
     wg: Optional[torch.Tensor] = None    # wgmma slices (wgpack), K1/K2/K3
     wgt: Optional[torch.Tensor] = None   # and their transposes after them, K4
+    padded: Optional["PackedNet"] = None  # this net padded for K3/K4/K6
+    unpad: Optional[tuple] = None        # of a padded net: (pos_w, pos_b),
+    #                                      where the unpadded entries lie
 
     def wview(self, off: int, rows: int, cols: int):
         return self.wf[off:off + rows * cols].view(rows, cols)
@@ -309,17 +318,138 @@ def check_field_shape(n: int, spr: int, width: int, depth: int,
                          f"of spr={spr} (spr ≥ 1)")
 
 
+_PAD_POS: dict = {}
+
+
+def pad_target(width: int, depth: int, k0: int) -> tuple:
+    """(width, k0) of the nearest net the field kernels take that a net of
+    this width, depth and posenc operand width pads into: the width up to
+    128 or 256, k0 up to 48 or 64. Raises ValueError, naming why, for a net
+    that no padding brings into the range: wider than 256, deeper than 8,
+    a posenc operand over 64 columns (3 + 6L > 64), or a single trunk layer
+    (depth 1 is not padded with a layer; it raises)."""
+    if depth not in K.FIELD_DEPTHS:
+        raise ValueError(f"net depth {depth}: the field kernels take depths "
+                         f"{K.FIELD_DEPTHS[0]}-{K.FIELD_DEPTHS[-1]}, and "
+                         "padding adds no layer")
+    wide = [w for w in K.FIELD_WIDTHS if w >= width]
+    if width < 1 or not wide:
+        raise ValueError(f"net width {width}: the field kernels take widths "
+                         f"{K.FIELD_WIDTHS}, narrower nets padded")
+    ks = [k for k in K.FIELD_K0 if k >= k0]
+    if not ks:
+        raise ValueError(f"posenc operand width {k0}: the field kernels take "
+                         f"at most {K.FIELD_K0[-1]} columns (3 + 6L ≤ 64)")
+    return wide[0], ks[0]
+
+
+def _pad_positions(net: PackedNet, Wp: int, k0p: int, device):
+    """(pos_w, pos_b, layout): where each entry of the net's flat weight
+    and bias buffers lies in the flat buffers of the same net at width Wp
+    and posenc operand width k0p (every tensor keeps its rows and columns
+    from 0; the view layer is Wp/2 wide). Built once per shape and device."""
+    key = (net.depth, net.width, net.k0, net.skip, net.has_vd, Wp, k0p,
+           str(device))
+    if key not in _PAD_POS:
+        W, k0, lay = net.width, net.k0, net.lay
+        big = _layout(net.depth, Wp, k0p, net.skip, net.has_vd)
+        pos_w = torch.empty(lay["n_w"], dtype=torch.int64)
+        pos_b = torch.empty(lay["n_b"], dtype=torch.int64)
+
+        def put(pos, off, off_p, rows, cols, cols_p):
+            r = torch.arange(rows)[:, None]
+            c = torch.arange(cols)[None, :]
+            pos[off:off + rows * cols] = (off_p + r * cols_p + c).reshape(-1)
+
+        for i in range(net.depth):
+            if lay["w_h"][i] is not None:
+                put(pos_w, lay["w_h"][i], big["w_h"][i], W, W, Wp)
+            if lay["w_a0"][i] is not None:
+                put(pos_w, lay["w_a0"][i], big["w_a0"][i], k0, W, Wp)
+            put(pos_b, lay["b"][i], big["b"][i], 1, W, Wp)
+        if net.has_vd:
+            h, hp = W // 2, Wp // 2
+            for name, rows, cols, cols_p, nb in (
+                    ("sig", W, 1, 1, 1), ("feat", W, W, Wp, W),
+                    ("view", W, h, hp, h), ("rgb", h, 3, 3, 3)):
+                put(pos_w, lay["w_" + name], big["w_" + name], rows, cols,
+                    cols_p)
+                put(pos_b, lay["b_" + name], big["b_" + name], 1, nb, nb)
+        else:
+            put(pos_w, lay["w_out"], big["w_out"], W, 4, 4)
+            put(pos_b, lay["b_out"], big["b_out"], 1, 4, 4)
+        _PAD_POS[key] = (pos_w.to(device), pos_b.to(device), big)
+    return _PAD_POS[key]
+
+
+def pad_packed(net: PackedNet) -> PackedNet:
+    """The field-packed `net` (hoist_x=False) padded to the nearest shape
+    K3, K4 and K6 take (`pad_target`): zero weight rows and columns and
+    zero biases in the `_layout` order, the view layer at half the padded
+    width, `dir_kernel` with zero columns. A padded column is relu(0 + 0) =
+    0 (0 + 0 in the feature layer), bf16(0) = 0, and a padded row multiplies
+    an exact zero, so the padded net computes the same function: every f32
+    sum gains only +0.0 terms. The padded net's `unpad` holds where the
+    original entries lie, for cutting gradients back. The kernels then
+    spend the padded net's multiply-adds on every row; that is the price
+    of one kernel for every width."""
+    if not net.x_rows:
+        raise ValueError("pad_packed takes a net packed with hoist_x=False")
+    Wp, k0p = pad_target(net.width, net.depth, net.k0)
+    pos_w, pos_b, lay = _pad_positions(net, Wp, k0p, net.w.device)
+    w = torch.zeros(lay["n_w"], dtype=_BF, device=net.w.device)
+    w[pos_w] = net.w
+    b = torch.zeros(lay["n_b"], dtype=torch.float32, device=net.b.device)
+    b[pos_b] = net.b.detach()
+    dk = net.dir_kernel
+    if dk is not None:
+        dk = F.pad(dk.detach(), (0, Wp // 2 - dk.shape[1]))
+    return PackedNet(w=w, wf=w.float(), b=b, depth=net.depth, width=Wp,
+                     k0=k0p, skip=net.skip, has_vd=net.has_vd, L=net.L,
+                     L_dir=net.L_dir, x_rows=True, lay=lay, dir_kernel=dk,
+                     x_kernels=(), unpad=(pos_w, pos_b))
+
+
+def kernel_net(net: PackedNet) -> PackedNet:
+    """`net` itself when K3, K4 and K6 take its shape, else its padded
+    version, built on first use and kept on the net (a net packed anew on
+    every call, as a training step packs it, pads once per call). Raises
+    ValueError for a net that cannot be padded into the range."""
+    if (net.width in K.FIELD_WIDTHS and net.depth in K.FIELD_DEPTHS
+            and net.k0 in K.FIELD_K0):
+        return net
+    if net.padded is None:
+        net.padded = pad_packed(net)
+    return net.padded
+
+
+def pad_dirpart(net: PackedNet, knet: PackedNet, dirpart):
+    """The per-ray view term widened with zero columns to the padded net's
+    view layer."""
+    if knet is net or not net.has_vd:
+        return dirpart
+    if dirpart.shape[1] != net.width // 2:
+        raise ValueError(f"dirpart width {dirpart.shape[1]}")
+    return F.pad(dirpart, (0, knet.width // 2 - dirpart.shape[1]))
+
+
 def field_rows(net: PackedNet, pts, dirpart, spr: int):
     """Fused field on rows → (rgb (n,3), σ (n,)). n must be a multiple of
-    64 and of spr. CPU tensors: plain version; CUDA tensors: kernel K3."""
+    64 and of spr. CPU tensors: plain version; CUDA tensors: kernel K3. A
+    net narrower than the kernel's widths, or with a narrower posenc
+    operand, runs padded with zeros (`pad_packed`): the same function at
+    the padded net's cost in tensor-core time."""
     n = pts.shape[0]
     if not K.on_cuda(pts, dirpart, net.w):
         return field_rows_plain(net, pts, dirpart, spr)
     if not net.x_rows:
         raise ValueError("field_rows needs a net packed with hoist_x=False")
+    unpadded = net
+    net = kernel_net(unpadded)
     check_field_shape(n, spr, net.width, net.depth, net.k0)
     K.check(pts, "pts", torch.float32, (n, 3))
     K.check(dirpart, "dirpart", _BF, (n // spr, dirpart.shape[1]))
+    dirpart = pad_dirpart(unpadded, net, dirpart)
     if net.has_vd and dirpart.shape[1] != net.width // 2:
         raise ValueError(f"dirpart width {dirpart.shape[1]}")
     rgb = torch.empty((n, 3), dtype=torch.float32, device=pts.device)
@@ -442,7 +572,9 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
                         spr: int):
     """VJP of `field_rows` → (d_pts (n,3), d_dirpart (n/spr, W/2), d_w,
     d_b), all f32. CPU tensors: plain version; CUDA tensors: kernel K4,
-    which is deterministic (fixed-order reductions, no float atomics)."""
+    which is deterministic (fixed-order reductions, no float atomics). A
+    net outside the kernel's widths runs padded (`pad_packed`), and d_w,
+    d_b and d_dirpart come back in the unpadded net's layout."""
     n = pts.shape[0]
     if not K.on_cuda(pts, dirpart, net.w, g_rgb, g_sigma):
         return field_rows_backward_plain(net, pts, dirpart, g_rgb, g_sigma,
@@ -450,11 +582,14 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     if not net.x_rows:
         raise ValueError("field_rows_backward needs a net packed with "
                          "hoist_x=False")
+    unpadded, cols = net, dirpart.shape[1]
+    net = kernel_net(unpadded)
     check_field_shape(n, spr, net.width, net.depth, net.k0)
     K.check(pts, "pts", torch.float32, (n, 3))
-    K.check(dirpart, "dirpart", _BF, (n // spr, dirpart.shape[1]))
+    K.check(dirpart, "dirpart", _BF, (n // spr, cols))
     K.check(g_rgb, "g_rgb", torch.float32, (n, 3))
     K.check(g_sigma, "g_sigma", torch.float32, (n,))
+    dirpart = pad_dirpart(unpadded, net, dirpart)
     half = dirpart.shape[1]
     if net.has_vd and half != net.width // 2:
         raise ValueError(f"dirpart width {half}")
@@ -484,6 +619,11 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
         net.skip, int(net.has_vd), chunk, n_split, M, K.stream())
     K.raise_on_error(code, "fnt_field_backward")
     K.LAUNCHES["field_bwd"] += 1
+    if net.unpad is not None:
+        # the original entries' gradients; those of the padding are zeros
+        pos_w, pos_b = net.unpad
+        return (d_pts, d_dir[:, :cols].contiguous(),
+                d_w.index_select(0, pos_w), d_b.index_select(0, pos_b))
     return d_pts, d_dir, d_w, d_b
 
 

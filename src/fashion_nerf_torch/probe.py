@@ -2,7 +2,9 @@
 
 Counterpart of `scripts/mfu_probe.py`: how many bf16 tensor-core TFLOP/s a
 hand-written chain of square products at the field's shape reaches on this
-card. Run as
+card. The kernel runs on the wgmma layer loop of the field kernels
+(csrc/wg_trunk.cuh, the weight ring of csrc/wg_field.cuh) without their
+sines, biases and heads, so its rate is that loop's ceiling. Run as
 
     python -m fashion_nerf_torch.probe [--shapes] [--device cpu|cuda]
                                        [--rows N]
@@ -15,12 +17,17 @@ their f32 outputs summed). P2 (`--shapes`, the reference's `bench`): 2^20
 rows through a width × depth sweep, a dependent chain (cast per layer,
 f32 out) or an independent sum Σ_k x·W_k.
 
-Two rows of the reference differ from a sibling only in how Mosaic
-schedules them on the TPU, not in what they compute: P1's `chain f32hold`
-(the cast moved to the product's input) computes `chain+relu`, and P2's
-`il=1` row (one 2048-row slice in place of four) computes `w256 d9
-dependent`. The CUDA kernel has no such schedule knob, so each is reported
-as its own row and is the same launch as its sibling.
+Two rows of the reference differ from a sibling only in their schedule,
+not in what they compute. P1's `chain f32hold` (the cast moved to the
+product's input) computes `chain+relu`: here it is the kernel's `hold`
+mode, which keeps a layer's output in registers, packed as the next
+layer's A fragments, and lets the wgmmas read A from there, so no layer
+stores to shared memory. `chain+relu` stores each layer in shared memory
+as the field kernels do, so the two rows are that loop's ceiling and what
+holding the activations in registers would buy it. P2's `il=1` row (one
+2048-row slice in place of four) computes `w256 d9 dependent`; the kernel
+has no such knob, so it is reported as its own row and is the same launch
+as its sibling. `2 streams` runs its two chains one after the other.
 
 FLOP counts are the reference's: 2·W²·(depth + 1) per row for P1 (the
 final product included), 2·W²·depth per row for P2. Times: 1 warm-up and
@@ -29,8 +36,13 @@ final product included), 2·W²·depth per row for P2. Times: 1 warm-up and
 a seed.
 
 `tc_chain` takes the kernel on CUDA tensors and `tc_chain_plain`, the same
-chain in torch with the same rounding points, on CPU tensors. Without a
-CUDA device the probe raises unless `--device cpu` is given.
+chain in torch with the same rounding points, on CPU tensors. The kernel
+takes widths that are multiples of 256; other widths are zero-padded, and
+shapes whose activation tiles do not fit in shared memory in one launch
+are composed of its launches (`single_launch`, `_run`). The weights are
+laid out for the kernel inside every call, so the times include it (the
+reference's probe feeds plain (W, W) arrays too). Without a CUDA device
+the probe raises unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -40,21 +52,28 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from fashion_nerf_torch import kernels as K
 
 _BF = torch.bfloat16
-MODES = {"chain": 0, "streams": 1, "dependent": 2, "independent": 3}
+# mode → the kernel's mode; `hold` is the chain with its activations held
+# in registers
+MODES = {"chain": 0, "streams": 1, "dependent": 2, "independent": 3,
+         "hold": 0}
 # the launch counter of each mode's probe
-_COUNTER = {"chain": "probe_p1", "streams": "probe_p1",
+_COUNTER = {"chain": "probe_p1", "streams": "probe_p1", "hold": "probe_p1",
             "dependent": "probe_p2", "independent": "probe_p2"}
+
+PASS_COLS = 256       # columns of one wgmma pass; the kernel's widths are
+MAX_WIDTH = 1024      # its multiples up to MAX_WIDTH (csrc/tcprobe.cu)
 
 P1_ROWS, P2_ROWS = 1 << 21, 1 << 20
 P1_WIDTH, P1_DEPTH = 256, 9
 # (name, mode, relu, same launch as)
 P1_VARIANTS = (("chain", "chain", False, None),
                ("chain+relu", "chain", True, None),
-               ("chain f32hold", "chain", True, "chain+relu"),
+               ("chain f32hold", "hold", True, None),
                ("2 streams", "streams", True, None))
 # (name, width, depth, mode, same launch as)
 P2_SHAPES = (("w256 d9 dependent", 256, 9, "dependent", None),
@@ -73,7 +92,7 @@ def _mm(h, w):
 
 def tc_chain_plain(x, ws, mode: str, relu: bool = False):
     """Plain version: x (n, W) bf16, ws (depth, W, W) bf16 → (n, W) f32."""
-    if mode == "chain":
+    if mode in ("chain", "hold"):
         h = x
         for w in ws:
             v = _mm(h, w)
@@ -98,9 +117,81 @@ def tc_chain_plain(x, ws, mode: str, relu: bool = False):
     raise ValueError(f"mode {mode!r}")
 
 
+def pack_probe_weights(ws):
+    """(depth, W, W) bf16, W a multiple of PASS_COLS → the kernel's weight
+    stream: per layer and block of PASS_COLS output columns, the 64-row K
+    slices in order, each in the K-major core-matrix layout of `wgpack`
+    (element (k, n) of a slice at (n // 8)·512 + (k // 8)·64 + (n % 8)·8 +
+    k % 8). One permuted copy on ws's device."""
+    D, W, _ = ws.shape
+    v = ws.reshape(D, W // 64, 8, 8, W // PASS_COLS, PASS_COLS // 8, 8)
+    return v.permute(0, 4, 1, 5, 2, 6, 3).contiguous().reshape(-1)
+
+
+def single_launch(mode: str, width: int, depth: int) -> bool:
+    """Whether one launch of the kernel takes `mode` at this (padded)
+    width: its activation tiles must fit in shared memory beside the
+    weight ring (csrc/tcprobe.cu::probe_plan). A chain keeps two tiles a
+    warpgroup once a layer is more than one column pass, two streams keep
+    two tiles at one pass only; the independent sum and a one-layer
+    dependent chain keep x alone."""
+    if mode == "independent" or (mode == "dependent" and depth == 1):
+        return width <= MAX_WIDTH
+    if mode in ("streams", "hold"):
+        return width == PASS_COLS
+    return width <= 2 * PASS_COLS
+
+
+def _launch(x, ws, mode: str, relu: bool, counter: str):
+    """One launch of the kernel on padded inputs: x (n, W), ws (D, W, W)."""
+    n, W = x.shape
+    out = torch.empty((n, W), dtype=torch.float32, device=x.device)
+    wp = pack_probe_weights(ws)
+    code = K.library().fnt_tc_probe(x.data_ptr(), wp.data_ptr(),
+                                    out.data_ptr(), n, W, ws.shape[0],
+                                    int(relu), MODES[mode],
+                                    int(mode == "hold"), K.stream())
+    K.raise_on_error(code, "fnt_tc_probe")
+    K.LAUNCHES[counter] += 1
+    return out
+
+
+def _run(x, ws, mode: str, relu: bool, counter: str):
+    """`mode` on padded inputs: one launch where the kernel takes the
+    shape, else composed of its launches (but for `hold`, which raises
+    beyond one pass). Two streams wider than one pass
+    are two chains (over the even and the odd layers) whose f32 outputs
+    are added; a chain wider than two passes runs layer by layer, each a
+    one-layer dependent launch (bf16-rounded f32 out; the relu commutes
+    with the rounding), its last product a one-layer independent launch."""
+    W = x.shape[1]
+    if single_launch(mode, W, ws.shape[0]):
+        return _launch(x, ws, mode, relu, counter)
+    if mode == "hold":
+        raise ValueError(f"hold takes widths up to {PASS_COLS}: a wider "
+                         "layer's output does not fit in registers")
+    if mode == "streams":
+        pairs = len(range(0, ws.shape[0] - 1, 2))
+        return (_run(x, ws[0::2][:pairs], "chain", True, counter)
+                + _run(x, ws[1::2][:pairs], "chain", True, counter))
+    h = x
+    for k in range(ws.shape[0]):
+        v = _launch(h, ws[k:k + 1], "dependent", False, counter)
+        if mode == "dependent" and k == ws.shape[0] - 1:
+            return v
+        h = (torch.relu(v) if relu else v).to(_BF)
+    return _launch(h, ws[:1], "independent", False, counter)
+
+
 def tc_chain(x, ws, mode: str, relu: bool = False):
     """The probe's chain: CPU tensors take the plain version, CUDA tensors
-    the kernel (one launch, counted under probe_p1 or probe_p2)."""
+    the kernel (counted under probe_p1 or probe_p2 at every launch: one
+    for the probe's own shapes). Any width that is a multiple of 16 up to
+    MAX_WIDTH: a width the kernel does not take directly is zero-padded to
+    the next multiple of PASS_COLS (zero columns stay exact zeros through
+    relu and the bf16 cast, zero rows add exact zeros) and the output cut
+    back. The weights are laid out for the kernel inside the call
+    (`pack_probe_weights`), so the probe's times include it."""
     if not K.on_cuda(x, ws):
         return tc_chain_plain(x, ws, mode, relu)
     if mode not in MODES:
@@ -109,15 +200,22 @@ def tc_chain(x, ws, mode: str, relu: bool = False):
     D = ws.shape[0]
     if n % K.SLAB_ROWS:
         raise ValueError(f"rows {n} not a multiple of {K.SLAB_ROWS}")
+    if W < 16 or W % 16 or W > MAX_WIDTH:
+        raise ValueError(f"width {W} not a multiple of 16 up to {MAX_WIDTH}")
+    if D < 1 or (mode == "streams" and D < 2):
+        raise ValueError(f"depth {D}: {mode} needs at least "
+                         f"{2 if mode == 'streams' else 1} layers")
     K.check(x, "x", _BF, (n, W))
     K.check(ws, "ws", _BF, (D, W, W))
-    out = torch.empty((n, W), dtype=torch.float32, device=x.device)
-    code = K.library().fnt_tc_probe(x.data_ptr(), ws.data_ptr(),
-                                    out.data_ptr(), n, W, D, int(relu),
-                                    MODES[mode], K.stream())
-    K.raise_on_error(code, "fnt_tc_probe")
-    K.LAUNCHES[_COUNTER[mode]] += 1
-    return out
+    Wp = -(-W // PASS_COLS) * PASS_COLS
+    if Wp != W:
+        x = F.pad(x, (0, Wp - W))
+        ws = F.pad(ws, (0, Wp - W, 0, Wp - W))
+    if n == 0:
+        return torch.empty((0, W), dtype=torch.float32, device=x.device)
+    out = _run(x, ws, mode, relu and mode in ("chain", "hold"),
+               _COUNTER[mode])
+    return out if Wp == W else out[:, :W].contiguous()
 
 
 def make_inputs(n: int, width: int, depth: int, scale: float, seed: int,

@@ -61,7 +61,25 @@ def noview_net(rng, W=256, L=6):
                       "out_head": (W, 4)})
 
 
-FIELD_NETS = {"fine": fine_net, "prop": prop_net, "noview": noview_net}
+def small_net(rng, W, depth, L, vd, skip=None):
+    """A net below the kernels' widths: `depth` layers of width W, layer
+    `skip` taking the skip, with or without the view branch."""
+    cx = 3 * (2 * L + 1)
+    shapes = {f"trunk_{i}": ((cx + W) if i == skip else (cx if i == 0 else W),
+                             W) for i in range(depth)}
+    if vd:
+        shapes.update(sigma_head=(W, 1), feature=(W, W),
+                      view_0=(W + 27, W // 2), rgb_head=(W // 2, 3))
+    else:
+        shapes["out_head"] = (W, 4)
+    return _net(rng, shapes)
+
+
+FIELD_NETS = {"fine": fine_net, "prop": prop_net, "noview": noview_net,
+              "w32": lambda rng: small_net(rng, 32, 3, 4, True),
+              "w64": lambda rng: small_net(rng, 64, 4, 6, True, skip=2),
+              "w16": lambda rng: small_net(rng, 16, 3, 2, False),
+              "w64nv": lambda rng: small_net(rng, 64, 3, 4, False)}
 
 
 def _f32(rng, *shape, lo=-1.0, hi=1.0, dev=None):
@@ -107,18 +125,74 @@ def test_field_kernel(dev, which, n, spr):
 
 
 def test_field_kernels_reject_width_64(dev):
-    """A 64-wide net raises ValueError in K3's and K4's wrappers, naming
-    the widths they take."""
+    """Nets of width 64 and 32 (depth 3, L = 4) no longer raise: K3 and K4
+    run them zero-padded and match the plain versions on the unpadded net
+    (K3 5e-3 on every row, K4 1e-2 relative RMS, gradients in the unpadded
+    layout). The refusals that remain raise ValueError: width 512, depth
+    9, L = 12."""
     rng = np.random.default_rng(8)
-    net = posenc_mlp.pack_params(prop_net(rng, W=64).to(dev), hoist_x=False)
+    for W in (64, 32):
+        net = posenc_mlp.pack_params(small_net(rng, W, 3, 4, True).to(dev),
+                                     hoist_x=False)
+        args = _bwd_inputs(rng, net, 128, 64, dev)
+        n0 = dict(K.LAUNCHES)
+        rgb_k, sig_k = posenc_mlp.field_rows(net, args[0], args[1], 64)
+        rgb_p, sig_p = posenc_mlp.field_rows_plain(net, args[0], args[1], 64)
+        out_k = posenc_mlp.field_rows_backward(net, *args, 64)
+        out_p = posenc_mlp.field_rows_backward_plain(net, *args, 64)
+        assert K.LAUNCHES["field"] == n0["field"] + 1
+        assert K.LAUNCHES["field_bwd"] == n0["field_bwd"] + 1
+        _close(rgb_k, rgb_p, 5e-3)
+        assert bool(((sig_k - sig_p).abs() <= 2e-2 * (1 + sig_p.abs())).all())
+        for a, b in zip(out_k, out_p):
+            assert a.shape == b.shape and _rel_rms(a, b) <= 1e-2
     pts = _f32(rng, 128, 3, dev=dev)
-    dp = torch.zeros((2, 32), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="widths"):
-        posenc_mlp.field_rows(net, pts, dp, 64)
-    with pytest.raises(ValueError, match="widths"):
-        posenc_mlp.field_rows_backward(net, pts, dp, _f32(rng, 128, 3,
-                                                          dev=dev),
-                                       _f32(rng, 128, dev=dev), 64)
+    g3, g1 = _f32(rng, 128, 3, dev=dev), _f32(rng, 128, dev=dev)
+    for model, match in ((small_net(rng, 512, 3, 4, True), "width"),
+                         (small_net(rng, 64, 9, 4, True), "depth"),
+                         (small_net(rng, 64, 3, 12, True), "posenc")):
+        net = posenc_mlp.pack_params(model.to(dev), hoist_x=False)
+        dp = torch.zeros((2, net.width // 2), dtype=torch.bfloat16,
+                         device=dev)
+        with pytest.raises(ValueError, match=match):
+            posenc_mlp.field_rows(net, pts, dp, 64)
+        with pytest.raises(ValueError, match=match):
+            posenc_mlp.field_rows_backward(net, pts, dp, g3, g1, 64)
+
+
+@pytest.mark.parametrize("which,n,spr", [
+    ("w32", 4160, 64), ("w32", 1088, 1), ("w64", 3072, 192),
+    ("w64", 4096, 64), ("w16", 2048, 64), ("w64nv", 1088, 1)])
+def test_field_kernels_padded_nets(dev, which, n, spr):
+    """Widths 16, 32 and 64, L = 2, 4 and 6, depth 3 and 4, with a skip
+    layer, with and without the view branch: K3 and K4 on the zero-padded
+    net against the plain versions on the unpadded net. K3: rgb 5e-3 and σ
+    2e-2·(1+|σ|) on every row. K4: 1e-2 relative RMS per tensor, in the
+    unpadded layout, bitwise the same over two runs."""
+    rng = np.random.default_rng(9)
+    net = posenc_mlp.pack_params(FIELD_NETS[which](rng).to(dev),
+                                 hoist_x=False)
+    args = _bwd_inputs(rng, net, n, spr, dev)
+    n0 = dict(K.LAUNCHES)
+    rgb_k, sig_k = posenc_mlp.field_rows(net, args[0], args[1], spr)
+    rgb_p, sig_p = posenc_mlp.field_rows_plain(net, args[0], args[1], spr)
+    out_k = posenc_mlp.field_rows_backward(net, *args, spr)
+    out_k2 = posenc_mlp.field_rows_backward(net, *args, spr)
+    out_p = posenc_mlp.field_rows_backward_plain(net, *args, spr)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["field"] == n0["field"] + 1
+    assert K.LAUNCHES["field_bwd"] == n0["field_bwd"] + 2
+    assert net.padded is not None and net.padded.width == 128
+    _close(rgb_k, rgb_p, 5e-3)
+    assert bool(((sig_k - sig_p).abs() <= 2e-2 * (1 + sig_p.abs())).all())
+    for name, a, a2, b in zip(("d_pts", "d_dir", "d_w", "d_b"), out_k,
+                              out_k2, out_p):
+        assert a.shape == b.shape, name
+        assert torch.equal(a, a2), name
+        if name == "d_dir" and not net.has_vd:
+            assert bool((a == 0).all())
+            continue
+        assert _rel_rms(a, b) <= 1e-2, (name, _rel_rms(a, b))
 
 
 @pytest.mark.parametrize("case", ["mixed", "all_dead"])
@@ -359,25 +433,142 @@ def test_carry_march_kernel(dev, eps):
         carrymarch.carry_march(snet, *args[1:])
 
 
+@pytest.mark.parametrize("which,SB,case", [
+    ("fine", 16, "ragged"), ("fine", 32, "ragged"), ("fine", 64, "ragged"),
+    ("fine", 32, "all_dead"), ("fine", 32, "one_tile"),
+    ("fine", 64, "terminated"), ("prop", 32, "ragged"),
+    ("prop", 64, "terminated"), ("noview", 16, "ragged"),
+    ("w64", 32, "ragged"), ("w64", 16, "terminated"), ("w64nv", 64, "ragged"),
+    ("w32", 32, "ragged")])
+def test_carry_march_shapes_and_edge_cases(dev, which, SB, case):
+    """K6 against its plain version on 6 tiles at SB 16, 32 and 64, widths
+    256 and 128 and zero-padded widths 64 and 32, with and without the
+    view branch: rgb/acc/w/transmittance atol 5e-3, depth 5e-3·far, and
+    identical executed (tile, block) pairs, for an all-dead launch, a
+    single live tile, terminated rays and ragged live rows."""
+    rng = np.random.default_rng(13)
+    NB, eps, far = 3, 1e-3, 6.0
+    R = 6 * (K.TILE_ROWS // SB)
+    net = posenc_mlp.pack_params(FIELD_NETS[which](rng).to(dev),
+                                 hoist_x=False)
+    ro, rd = _rays(R, dev)
+    dp = posenc_mlp.hoist_dirs(net, rd).contiguous()
+    hit, bhit, t, d = _march_case(rng, case, R, NB, SB, dev)
+    args = (net, dp, ro, rd, hit, bhit, t, d, math.log(eps))
+    n0 = K.LAUNCHES["carry_march"]
+    out_k = carrymarch.carry_march(*args)
+    out_p = carrymarch.carry_march_plain(*args)
+    assert K.LAUNCHES["carry_march"] == n0 + NB
+    for name, a, b, tol in zip(("rgb", "depth", "acc", "w"), out_k, out_p,
+                               (5e-3, 5e-3 * far, 5e-3, 5e-3)):
+        assert float((a - b).abs().max()) <= tol, name
+    _close(out_k[4].exp(), out_p[4].exp(), 5e-3)
+    live_k = _executed(out_k[3], hit, bhit, eps)
+    live_p = _executed(out_p[3], hit, bhit, eps)
+    assert torch.equal(live_k, live_p)
+    n_exec = int(live_k.sum())
+    if case == "all_dead":
+        assert n_exec == 0
+        assert all(bool((x == 0).all()) for x in out_k)
+    elif case == "one_tile":
+        assert n_exec == NB and bool(live_k[3].all())
+    else:
+        cand = (hit[:, None] * bhit).view(-1, K.TILE_ROWS // SB, NB)
+        assert 0 < n_exec <= int((cand.amax(dim=1) > 0).sum())
+
+
+def test_carry_march_wrapper_splits_and_rejects(dev, monkeypatch):
+    """More tiles than one launch takes are marched in ranges of rays (the
+    same outputs as one launch); SB outside MARCH_SB, ragged tiles and a
+    net that cannot be padded raise ValueError; R = 0 launches nothing."""
+    rng = np.random.default_rng(14)
+    NB, SB = 2, 32
+    R = 4 * (K.TILE_ROWS // SB)
+    net = posenc_mlp.pack_params(prop_net(rng).to(dev), hoist_x=False)
+    ro, rd = _rays(R, dev)
+    dp = posenc_mlp.hoist_dirs(net, rd).contiguous()
+    hit, bhit, t, d = _march_case(rng, "ragged", R, NB, SB, dev)
+    args = (net, dp, ro, rd, hit, bhit, t, d, math.log(1e-3))
+    whole = carrymarch.carry_march(*args)
+    monkeypatch.setattr(K, "MARCH_MAX_TILES", 3)
+    n0 = K.LAUNCHES["carry_march"]
+    split = carrymarch.carry_march(*args)
+    assert K.LAUNCHES["carry_march"] == n0 + 2 * NB
+    for a, b in zip(whole, split):
+        assert torch.equal(a, b)
+
+    def call(net_, R_, SB_):
+        S = NB * SB_
+        return carrymarch.carry_march(
+            net_, torch.zeros((R_, net_.width // 2), dtype=torch.bfloat16,
+                              device=dev), ro[:R_].contiguous(),
+            rd[:R_].contiguous(), torch.ones(R_, device=dev),
+            torch.ones((R_, NB), device=dev), torch.ones((R_, S), device=dev),
+            torch.ones((R_, S), device=dev), -6.9)
+
+    wide = posenc_mlp.pack_params(small_net(rng, 512, 3, 4, False).to(dev),
+                                  hoist_x=False)
+    for bad in (lambda: call(net, 256, 8), lambda: call(net, 96, 32),
+                lambda: call(wide, 64, 32)):
+        with pytest.raises(ValueError):
+            bad()
+    n0 = K.LAUNCHES["carry_march"]
+    out = call(net, 0, 32)
+    assert out[0].shape == (0, 3) and out[3].shape == (0, 64)
+    assert K.LAUNCHES["carry_march"] == n0
+
+
 @pytest.mark.parametrize("mode,width,depth,relu", [
     ("chain", 256, 9, False), ("chain", 256, 9, True),
     ("streams", 256, 9, True), ("dependent", 512, 9, False),
     ("dependent", 256, 3, False), ("independent", 1024, 4, False),
-    ("independent", 256, 9, False)])
+    ("independent", 256, 9, False), ("chain", 192, 9, True),
+    ("streams", 192, 9, True), ("dependent", 192, 9, False),
+    ("independent", 192, 9, False), ("chain", 512, 3, True),
+    ("independent", 768, 3, False), ("dependent", 64, 3, False),
+    ("hold", 256, 9, True), ("hold", 256, 9, False), ("hold", 192, 2, True)])
 def test_tc_probe_kernel(dev, mode, width, depth, relu):
-    """P1/P2 against the plain chain: relative RMS 1e-2 and every element
-    within 2e-2 of the plain output's largest magnitude (bf16 1-ulp flips
-    of an activation carry into the next layers)."""
+    """P1/P2 against the plain chain, each one launch: relative RMS 1e-2
+    and every element within 2e-2 of the plain output's largest magnitude
+    (bf16 1-ulp flips of an activation carry into the next layers). Widths
+    that are no multiple of 256 run zero-padded."""
     from fashion_nerf_torch import probe
     x, ws = probe.make_inputs(4096, width, depth, 0.06, 3, dev)
-    key = "probe_p1" if mode in ("chain", "streams") else "probe_p2"
+    key = "probe_p1" if mode in ("chain", "streams", "hold") else "probe_p2"
     n0 = K.LAUNCHES[key]
     got = probe.tc_chain(x, ws, mode, relu)
     want = probe.tc_chain_plain(x, ws, mode, relu)
     assert K.LAUNCHES[key] == n0 + 1
+    assert got.shape == (4096, width)
     assert _rel_rms(got, want) <= 1e-2
     assert float((got - want).abs().max()) <= 2e-2 * float(
         want.abs().max())
+
+
+@pytest.mark.parametrize("mode,width,depth,relu,launches", [
+    ("streams", 512, 5, True, 2), ("chain", 768, 3, True, 4),
+    ("chain", 864, 2, False, 3), ("dependent", 1024, 2, False, 2),
+    ("streams", 528, 4, True, 6)])
+def test_tc_probe_composed_shapes(dev, mode, width, depth, relu, launches):
+    """Shapes whose tiles do not fit one launch (a chain over 512 wide, two
+    streams over 256) are composed of the kernel's launches and hold the
+    same bounds; 320 rows, so the last work item is half empty."""
+    from fashion_nerf_torch import probe
+    x, ws = probe.make_inputs(320, width, depth, 0.04, 4, dev)
+    key = "probe_p1" if mode in ("chain", "streams") else "probe_p2"
+    n0 = K.LAUNCHES[key]
+    got = probe.tc_chain(x, ws, mode, relu)
+    want = probe.tc_chain_plain(x, ws, mode, relu)
+    assert K.LAUNCHES[key] == n0 + launches
+    assert _rel_rms(got, want) <= 1e-2
+    assert float((got - want).abs().max()) <= 2e-2 * float(
+        want.abs().max())
+    for bad in (lambda: probe.tc_chain(x[:, :24].contiguous(), ws, mode),
+                lambda: probe.tc_chain(x[:100].contiguous(), ws, mode),
+                lambda: probe.tc_chain(x, ws[:1], "streams"),
+                lambda: probe.tc_chain(x, ws, "hold")):
+        with pytest.raises(ValueError):
+            bad()
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -461,11 +652,13 @@ def test_field_backward_kernel_no_viewdirs(dev, monkeypatch, which, n, spr,
     assert bool((out_k[1] == 0).all())
 
 
-@pytest.mark.parametrize("which", ["fine", "prop"])
+@pytest.mark.parametrize("which", ["fine", "prop", "w32", "w64"])
 def test_fused_field_gradients_kernel_vs_plain(dev, which):
     """A loss through make_fused_field on the card: K3 + K4 against the
     plain versions, every parameter's gradient within 1e-2 relative RMS
-    (24 rays × 40 samples: 960 rows, a half work item at the end)."""
+    (24 rays × 40 samples: 960 rows, a half work item at the end); the
+    small nets run zero-padded and their gradients reach the unpadded
+    parameters."""
     rng = np.random.default_rng(6)
     model = FIELD_NETS[which](rng).to(dev)
     pts = _f32(rng, 24, 40, 3, lo=-1.2, hi=1.2, dev=dev)
