@@ -25,7 +25,9 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
    card at main-path shapes, with its bound (the least time the card could
    take for the work) and the share of it reached; K1, K2 and K6 with
    their executed tiles or (tile, block) pairs identical to the plain
-   version's;
+   version's; K1 and K5, whose calls are short, with the kernel's own
+   device time (torch.profiler, inputs warm and after an L2 flush) beside
+   the event time of a call of the wrapper;
 4. setup: flagship + proposal asset, occupancy sweep through K3;
 5. frame: the frame through the kernels (1 warm-up + 3 timed), then through
    the plain versions; PSNR between them and non-trivial-image checks;
@@ -45,10 +47,16 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
     `kernels.use_pallas=true`: K3 and K4 on the padded net;
 13. probe: TFLOP/s of each P1 variant and each P2 shape, and as yardsticks
     one torch.matmul at the field layer's shape and P1's chain as ten
-    torch.matmul calls.
+    torch.matmul calls;
+14. cli: `python -m fashion_nerf_torch` (`cli.main`) at full width from a
+    checkpoint of the committed weights: `eval` through the kernels and
+    with `kernels.use_pallas=false`, `render` over the scene's poses (the
+    PNGs read back), two `train --resume` steps at a vanishing learning
+    rate and `eval` again, which distils a proposal for the moved weights,
+    `bench`, and `parity` on a root without scenes.
 
 The launch counters are reset just before each path (phases 4, 6, 11, 12
-and 13) and read right after it, so they count that path only. Any failure
+and 13, and each subcommand of 14) and read right after it, so they count that path only. Any failure
 raises (non-zero exit). Imports nothing of JAX. The last line is the device
 JSON object.
 """
@@ -100,6 +108,8 @@ PROBE_MAX_REL = 2e-2          # activation carry on; every element within
 REF_GATE_DELTAS = (-0.059, -0.041, -0.098, +0.033, -0.018, +0.002, -0.072)
 GATE_BAND = 0.05              # each pose's delta within this of the
                               # reference's (its run-to-run noise is ±0.002)
+CLI_PSNR_TOL = 0.2            # eval through the kernels against plain, dB
+DISTILL_STEPS = 2000          # the preset's proposal.distill_steps
 REPS = 5                      # timed calls per kernel (median)
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, dense): bf16
 # tensor cores, float32 outside them, device memory
@@ -145,6 +155,35 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> dict:
+    """Device milliseconds of the kernel named `kernel` in a call of fn(),
+    from torch.profiler's device events (mean of `reps` calls): "warm",
+    called back to back on the same inputs, and "cold", each call after
+    256 MB were written to push the inputs out of the 50 MB L2. A short
+    kernel's own time: events around a call of its Python wrapper also
+    time the wrapper's checks, allocations and ctypes call."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 * 2 ** 20, device="cuda")
+    out = {}
+    for label in ("warm", "cold"):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if label == "cold":
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        if len(hits) != 1 or hits[0].count != reps:
+            raise RuntimeError(f"profiler found {[(e.key, e.count) for e in hits]}"
+                               f" for {kernel!r}, expected {reps} launches")
+        out[label] = hits[0].device_time_total / reps / 1e3
+    if not all(v > 0 for v in out.values()):
+        raise RuntimeError(f"profiler gave no device time for {kernel!r}")
+    return out
 
 
 def maxerr(a, b) -> float:
@@ -353,7 +392,10 @@ def phase_kernels(cfg, device):
     tiles_p = (w_p.view(-1, rpt1 * p_sb) != 0).any(dim=1)
     same1 = bool(torch.equal(tiles_k, tiles_p))
     n_live1 = int(live1.sum())
-    ms = cuda_ms(lambda: sigmamarch.sigma_march(*args1))
+    call_ms = cuda_ms(lambda: sigmamarch.sigma_march(*args1))
+    dev1 = device_ms(lambda: sigmamarch.sigma_march(*args1),
+                     "sigma_march_kernel")
+    ms = dev1["cold"]
     pms = cuda_ms(lambda: sigmamarch.sigma_march_plain(*args1))
     b1 = bound(2 * n_live1 * 2048 * mlp_macs(prop),
                nbytes(alive, *hz, t_pad, d_pad, prop.w, prop.b, w_k, acc_k,
@@ -361,11 +403,13 @@ def phase_kernels(cfg, device):
     say("kernels", f"K1 sigma march chunk {c} ({R} rays × {p_sb}): "
         f"w/acc err {e1:.3g} (tol {K1_ATOL}); live tiles {n_live1}/"
         f"{R // rpt1} (marched whole); tiles with a nonzero weight "
-        f"{int(tiles_k.sum())}, identical to plain: {same1}; kernel {ms:.3f} ms, plain {pms:.3f} ms; "
-        f"{bound_line(b1, ms)}")
+        f"{int(tiles_k.sum())}, identical to plain: {same1}; kernel on the device {ms:.4f} ms "
+        f"(inputs warm {dev1['warm']:.4f}), a call of the wrapper "
+        f"{call_ms:.3f} ms, plain {pms:.3f} ms; {bound_line(b1, ms)}")
     if not (e1 <= K1_ATOL and n_live1 < live1.numel() and same1):
         raise AssertionError("K1 disagrees with its plain version")
-    results["sigma_march"] = dict(max_abs_err=e1, ms=ms, plain_ms=pms, **b1)
+    results["sigma_march"] = dict(max_abs_err=e1, ms=ms, wrapper_ms=call_ms,
+                                  plain_ms=pms, **b1)
 
     # K2: the chunk's fine march, 8192 rays × 96 samples, NB = 3
     SB = cfg.kernels.block_samples
@@ -729,19 +773,33 @@ def kernel_k5(cfg, rng, device):
     torch.cuda.synchronize()
     err = {k: maxerr(a, b) for k, a, b in zip(("rgb", "depth", "acc",
                                                "weights"), out_k, out_p)}
-    ms = cuda_ms(lambda: render.volrend(*args))
+    call_ms = cuda_ms(lambda: render.volrend(*args))
+    dev5 = device_ms(lambda: render.volrend(*args), "volrend_kernel")
+    ms = dev5["cold"]
     pms = cuda_ms(lambda: render.volrend_plain(*args))
+    # yardstick of the memory system, used nowhere in the port: the rate of
+    # torch's device copy of 256 MB (read and written), and K5's bytes at
+    # that rate
+    src = torch.empty(64 * 2 ** 20, device=device)
+    dst = torch.empty_like(src)
+    rate = 2 * nbytes(src) / (cuda_ms(lambda: dst.copy_(src)) * 1e-3)
+    copy_ms = nbytes(rgb, sigma, t, dnorm, *out_k) / rate * 1e3
+    del src, dst
     # ~20 float32 operations a sample (δ, α, the floor, the scan, w, four
     # sums) outside the tensor cores
     b5 = bound(20 * R * S, nbytes(rgb, sigma, t, dnorm, *out_k), PEAK_F32)
     say("kernels", f"K5 volume render {R} rays × {S}: max abs err "
         f"{json.dumps({k: float(f'{v:.3g}') for k, v in err.items()})} "
-        f"(tol {K5_ATOL}, depth {K5_ATOL * far:g}); kernel {ms:.3f} ms, "
-        f"plain {pms:.3f} ms; {bound_line(b5, ms)}")
+        f"(tol {K5_ATOL}, depth {K5_ATOL * far:g}); kernel on the device "
+        f"{ms:.4f} ms (inputs warm {dev5['warm']:.4f}), a call of the "
+        f"wrapper {call_ms:.3f} ms, plain {pms:.3f} ms; {bound_line(b5, ms)}"
+        f"; yardstick: torch's device copy moves {rate / 1e12:.3f} TB/s, "
+        f"K5's bytes at that rate {copy_ms:.4f} ms")
     if not (max(err["rgb"], err["acc"], err["weights"]) <= K5_ATOL
             and err["depth"] <= K5_ATOL * far):
         raise AssertionError("K5 disagrees with its plain version")
-    return dict(max_abs_err=max(err.values()), ms=ms, plain_ms=pms, **b5)
+    return dict(max_abs_err=max(err.values()), ms=ms, wrapper_ms=call_ms,
+                plain_ms=pms, **b5)
 
 
 def phase_setup(cfg, device, occ_ref):
@@ -1199,6 +1257,160 @@ def phase_train_small(scene, device, gpu, smi):
     return launches
 
 
+def phase_cli(scene, device, gpu, smi):
+    """`python -m fashion_nerf_torch` at blender_lego's full width from a
+    checkpoint of the committed flagship weights, every subcommand through
+    `cli.main` on the hermetic training scene:
+
+    - `eval` through the kernels (occupancy through K3, the asset's
+      proposal, the frame through K1 + K2) and with
+      `kernels.use_pallas=false` (the dense renderer, plain torch): PSNRs
+      within CLI_PSNR_TOL of each other and of the reference's, the frames
+      ≥ FRAME_PSNR_MIN dB apart;
+    - `render` over the scene's poses: the PNGs decode to the frames;
+    - `train --resume` for two steps at a vanishing learning rate, so that
+      the asset's signature no longer matches, then `eval`: a proposal is
+      distilled on the card (DISTILL_STEPS steps), and its frame is held
+      against the asset's;
+    - `bench`, and `parity` on a root without scenes (exit code 1)."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    from fashion_nerf_torch import ckpt as ckpt_lib
+    from fashion_nerf_torch import cli, png
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.metrics import psnr
+    run = RUN_DIR + "_cli"
+    shutil.rmtree(run, ignore_errors=True)
+    base = ["--config", "blender_lego", "--out", run]
+    cfg = load_config("blender_lego", [f"out_dir={run}"])
+    state, _ = committed_state(cfg, device)
+    ckpt_dir = os.path.join(run, cfg.name, "ckpt")
+    ckpt_lib.save(ckpt_dir, state)
+    del state
+
+    def call(cmd, *overrides, flags=()):
+        """cli.main → (exit code, stdout lines, stderr, seconds, launches,
+        the frames an eval rendered)."""
+        argv = ([cmd] + base + list(flags)
+                + [x for kv in overrides for x in ("--set", kv)])
+        out, err, frames = io.StringIO(), io.StringIO(), []
+        eval_views = cli.eval_views
+
+        def recording(*a, **kw):
+            scores, imgs = eval_views(*a, **kw)
+            frames.extend(imgs)
+            return scores, imgs
+
+        K.reset_launches()
+        t0 = time.perf_counter()
+        cli.eval_views = recording
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(argv, dataset=scene)
+        finally:
+            cli.eval_views = eval_views
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for line in err.getvalue().splitlines():
+            say("cli", f"{cmd} stderr: {line}")
+        return (rc, out.getvalue().strip().splitlines(), err.getvalue(),
+                secs, dict(K.LAUNCHES), frames)
+
+    checks = {}
+    # eval: the kernels, then the plain dense renderer
+    rc, out, _, secs_k, launches, (img_k,) = call("eval")
+    row_k = json.loads(out[-1])
+    rc_p, out, _, secs_p, launches_p, (img_p,) = call(
+        "eval", "kernels.use_pallas=false")
+    row_p = json.loads(out[-1])
+    p_kp = float(psnr(img_k, img_p))
+    say("cli", f"eval from {ckpt_dir}: {json.dumps(row_k)} in {secs_k:.3f} s "
+        f"through the kernels, launches {launches}; {json.dumps(row_p)} in "
+        f"{secs_p:.3f} s with kernels.use_pallas=false (dense, plain), "
+        f"launches {sum(launches_p.values())}; frames {p_kp:.2f} dB apart "
+        f"(min {FRAME_PSNR_MIN}); the reference's {EVAL_PSNR:.4f} dB")
+    checks["eval"] = (
+        rc == 0 and rc_p == 0 and row_k["n_views"] == 1
+        and sorted(row_k) == ["n_views", "psnr", "ssim"]
+        and abs(row_k["psnr"] - row_p["psnr"]) <= CLI_PSNR_TOL
+        and abs(row_p["psnr"] - EVAL_PSNR) <= EVAL_PSNR_TOL
+        and 0.9 < row_k["ssim"] <= 1.0 and p_kp >= FRAME_PSNR_MIN
+        and all(launches[k] > 0 for k in ("field", "sigma_march",
+                                          "slim_march"))
+        and not any(launches_p.values()))
+
+    # render: the scene's poses → PNGs
+    rc, out, err, secs, launches, _ = call("render")
+    row = json.loads(out[-1])
+    files = sorted(f for f in os.listdir(row["out"]) if f.endswith(".png"))
+    n = len(scene["poses"])
+    _, render_fn, _ = cli._setup(cfg, device, scene)
+    worst, stds = 0, []
+    for i in (0, n - 1):
+        got = png.read_png(os.path.join(row["out"], f"{i:03d}.png"))
+        with torch.no_grad():
+            want = render_fn(scene["poses"][i])["rgb"].clamp(0, 1)
+        want = (want * 255).to(torch.uint8).cpu().numpy()
+        worst = max(worst, int(np.abs(got.astype(int) - want).max()))
+        stds.append(float(got.std()))
+    say("cli", f"render: {row['frames']} frames in {secs:.3f} s, "
+        f"{len(files)} PNGs in {row['out']}; first and last decode to the "
+        f"frames within {worst} of 255 levels, pixel std {stds}; launches "
+        f"{launches}")
+    checks["render"] = (rc == 0 and row["frames"] == n == len(files)
+                        and worst <= 1 and min(stds) > 1.0
+                        and "seconds a frame min" in err
+                        and launches["slim_march"] > 0)
+
+    # two steps at a vanishing learning rate move the weights off the
+    # asset's signature; eval then distils a proposal for them
+    rc, out, _, secs, _, _ = call(
+        "train", "train.iters=2", "train.lr_init=1e-7", "train.lr_final=1e-8",
+        "train.log_every=2", "train.ckpt_every=2", "train.eval_every=1000",
+        flags=["--resume"])
+    checks["resume"] = rc == 0 and ckpt_lib.steps(ckpt_dir) == [0, 2]
+    rc, out, err, secs_d, launches, (img_d,) = call(
+        "eval", f"proposal.distill_steps={DISTILL_STEPS}")
+    row_d = json.loads(out[-1])
+    m = re.search(r"distilled in (\d+) steps \(([\d.]+) s on cuda\), final "
+                  r"log-density MSE ([\d.eE+-]+)", err)
+    if m is None:
+        raise AssertionError(f"no distillation line on stderr: {err!r}")
+    p_da = float(psnr(img_d, img_k))
+    say("cli", f"eval after 2 steps at lr 1e-7 (checkpoints "
+        f"{ckpt_lib.steps(ckpt_dir)}): the asset no longer matches; proposal "
+        f"distilled on the card in {m.group(1)} steps, {m.group(2)} s, final "
+        f"log-density MSE {m.group(3)}; {json.dumps(row_d)} in {secs_d:.3f} "
+        f"s; its frame against the asset's frame {p_da:.2f} dB (min "
+        f"{FRAME_PSNR_MIN}); launches {launches}")
+    checks["distilled"] = (
+        rc == 0 and int(m.group(1)) == DISTILL_STEPS
+        and math.isfinite(float(m.group(3))) and p_da >= FRAME_PSNR_MIN
+        and abs(row_d["psnr"] - row_k["psnr"]) <= CLI_PSNR_TOL
+        and launches["sigma_march"] > 0)
+
+    rc, out, _, secs, launches, _ = call("bench")
+    bench = json.loads(out[-1])
+    say("cli", f"bench in {secs:.3f} s: {json.dumps(bench)}")
+    checks["bench"] = (rc == 0 and bench["value"] > 0 and bench["proposal"]
+                       and bench["launches_per_frame"]["slim_march"] > 0)
+
+    empty = os.path.join(run, "no_scenes")
+    os.makedirs(empty, exist_ok=True)
+    rc, out, err, _, _, _ = call("parity", f"data.root={empty}")
+    say("cli", f"parity on a root without scenes: exit code {rc}")
+    checks["parity"] = (rc == 1 and not out
+                        and json.loads(err)["error"] == "no scenes found")
+    say("cli", f"checks {checks}; {gpu} | {smi}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"cli checks failed: {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -1227,6 +1439,7 @@ def main() -> int:
     train_launches, _ = phase_train(scene, device, gpu, smi)
     phase_train_small(scene, device, gpu, smi)
     probe_launches = phase_probe(device, gpu, smi)
+    phase_cli(scene, device, gpu, smi)
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included; {gpu} | {smi}")
     # K1 and K2 run on the render path, K6 on the carry_hoist=false render

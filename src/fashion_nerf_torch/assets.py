@@ -11,7 +11,7 @@ directory: the trained flagship weights (`flagship_synthetic.npz`) and the
 from __future__ import annotations
 
 import os
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -44,6 +44,16 @@ def _unflatten(flat: dict) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
     return tree
+
+
+def save_params(path: str, params: Any, meta: Optional[dict] = None,
+                dtype=np.float32) -> None:
+    """Write a nested parameter dict to one compressed npz."""
+    flat = {k: v.astype(dtype) for k, v in _flatten(params).items()}
+    for k, v in (meta or {}).items():
+        flat[_META + k] = np.asarray(v)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, **flat)
 
 
 def load_params(path: str):

@@ -26,7 +26,6 @@ from fashion_nerf_torch.models.proposal import attach_proposal
 from fashion_nerf_torch.render.blockwise import render_image_blockwise
 
 
-
 def bench_pose(W: int):
     """Focal and camera-to-world of the reference bench: blender-standard
     fov, camera at z = 4 looking down −z."""
@@ -56,7 +55,14 @@ def setup(cfg: Config, device):
     with torch.no_grad():
         occ = build_from_config(cfg, lambda p, v: field(nets["fine"], p, v),
                                 device=device)
-    params = attach_proposal(cfg, nets, device=device)
+    # the committed asset, signed for the committed weights; the bench
+    # measures that pair and does not distil a stand-in
+    params = attach_proposal(cfg, nets, allow_distill=False, device=device)
+    if (cfg.proposal.enabled and cfg.sampling.n_fine > 0
+            and "proposal" not in params):
+        raise FileNotFoundError(
+            "assets/proposal_synthetic.npz is missing or was not distilled "
+            "for the committed flagship weights and this config")
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     return params, occ, time.perf_counter() - t0

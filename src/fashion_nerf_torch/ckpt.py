@@ -2,7 +2,10 @@
 
 A checkpoint is one `torch.save` file per step, `step_<N>.pt`, holding the
 whole TrainState: both nets, Adam's moments, the step and the state of
-the step's generator, so resume continues the identical trajectory.
+the step's generator, so resume continues the identical trajectory. A
+checkpoint restores on either kind of device; a generator's state is
+particular to its kind, so across kinds the draws go on from the template's
+generator and only the trajectory's identity is lost.
 Retention keeps the latest `keep` checkpoints and, beside them, the one
 with the best `val_psnr` among those saved with one (the reference's
 LatestN ∪ BestN policy). The metrics of the kept steps live in
@@ -63,6 +66,7 @@ def save(directory: str, state, keep: int = 3,
         "nets": {k: v.state_dict() for k, v in state.nets().items()},
         "optimizer": state.optimizer.state_dict(),
         "generator": state.generator.get_state(),
+        "generator_device": state.generator.device.type,
     }
     path = _path(directory, state.step)
     torch.save(payload, path + ".tmp")
@@ -91,6 +95,8 @@ def restore(directory: str, state, step: Optional[int] = None):
     for name, net in state.nets().items():
         net.load_state_dict(payload["nets"][name])
     state.optimizer.load_state_dict(payload["optimizer"])
-    state.generator.set_state(payload["generator"])
+    kind = state.generator.device.type
+    if payload.get("generator_device", kind) == kind:
+        state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state

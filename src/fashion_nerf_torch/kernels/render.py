@@ -53,11 +53,13 @@ def volrend(rgb, sigma, t_vals, dnorm, white_bkgd: bool,
     K.check(sigma, "sigma", torch.float32, (R, S))
     K.check(t_vals, "t_vals", torch.float32, (R, S))
     K.check(dnorm, "dnorm", torch.float32, (R,))
-    dev = sigma.device
-    rgb_map = torch.empty((R, 3), device=dev)
-    depth = torch.empty((R,), device=dev)
-    acc = torch.empty((R,), device=dev)
-    weights = torch.empty((R, S), device=dev)
+    # one allocation for the four outputs; the results are views of it
+    buf = torch.empty((R * (S + 5),), device=sigma.device)
+    weights, rgb_map, depth, acc = (
+        v.view(shape) for v, shape in zip(
+            buf.split((R * S, 3 * R, R, R)), ((R, S), (R, 3), (R,), (R,))))
+    if R == 0:
+        return rgb_map, depth, acc, weights
     ptrs = [x.data_ptr() for x in (rgb, sigma, t_vals, dnorm, rgb_map,
                                    depth, acc, weights)]
     code = K.library().fnt_volrend(*ptrs, R, S, int(white_bkgd),

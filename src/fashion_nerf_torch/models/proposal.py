@@ -1,23 +1,39 @@
 """σ-only proposal field; counterpart of `fashion_nerf.models.proposal`.
 
 A 2×128 σ-only MLP (posenc L=6) shapes the fine-pass PDF at render time in
-place of the full coarse network. The port loads it from the committed
-asset (assets/proposal_synthetic.npz), matched to the fine weights by the
-reference's sha256 teacher signature. Distillation is not ported yet.
+place of the full coarse network. `attach_proposal` takes it from the
+committed asset (assets/proposal_synthetic.npz) when the asset's sha256
+teacher signature matches the fine weights, and otherwise distils a new one
+from the fine field (`distill_proposal`): Adam steps that match
+log(1 + σ) at random points, 7/8 of them inside the occupancy box and 1/8
+across the whole scan box so that σ outside stays pinned at the teacher's.
+`distill_proposal` runs the student as a plain module under autograd, as
+the reference does outside its kernels, unless it is handed another field;
+`attach_proposal` hands it the fused field (K3, with K4 as its backward)
+for the teacher and the student where the config trains through it.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import os
+import sys
+import time
+from typing import Callable, Optional
 
 import numpy as np
+import torch
 
-from fashion_nerf_torch.assets import ASSETS_DIR, _flatten, load_params
+from fashion_nerf_torch.assets import (ASSETS_DIR, _flatten, load_params,
+                                       save_params)
 from fashion_nerf_torch.config import Config, ModelConfig
-from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, load_flax_params
+from fashion_nerf_torch.kernels.sigmamarch import _density
+from fashion_nerf_torch.models.nerf_mlp import (NeRFMLP, init_field,
+                                                load_flax_params)
 
 PROPOSAL_ASSET = os.path.join(ASSETS_DIR, "proposal_synthetic.npz")
+DISTILL_SEED = 7              # the seed `attach_proposal` distils from
 
 
 def proposal_model_config(cfg: Config) -> ModelConfig:
@@ -29,6 +45,108 @@ def proposal_model_config(cfg: Config) -> ModelConfig:
         sigma_activation=cfg.model.sigma_activation,
         compute_dtype=cfg.model.compute_dtype,
         conditioned=False, n_latents=0)
+
+
+def init_proposal(cfg: Config, generator: torch.Generator,
+                  device=None) -> NeRFMLP:
+    """A freshly initialised proposal net, drawn from `generator`."""
+    return init_field(proposal_model_config(cfg), generator, device)
+
+
+def log_density(sigma_raw, sigma_activation: str = "relu"):
+    """log(1 + act(σ)): what the distillation matches."""
+    return torch.log1p(_density(sigma_raw, sigma_activation == "softplus"))
+
+
+def _module_field(net: NeRFMLP, pts, viewdirs):
+    return net.field(pts, viewdirs)
+
+
+def distill_loss(student: NeRFMLP, pts, targets,
+                 sigma_activation: str = "relu", field: Callable = None):
+    """mean((log1p(act(σ_student(pts))) − targets)²) for pts (B, 1, 3) and
+    targets (B,), the log-densities of the teacher at pts. field: an
+    unbound field (net, pts, viewdirs) → (rgb, σ raw) to run the student
+    through (default: the module's own plain field)."""
+    dirs = torch.tensor([0.0, 0.0, -1.0], device=pts.device).expand(
+        pts.shape[0], 3)
+    _, s_raw = (field or _module_field)(student, pts, dirs)
+    return torch.mean((log_density(s_raw[:, 0], sigma_activation)
+                       - targets) ** 2)
+
+
+def distill_points(generator: torch.Generator, batch: int, bmin, bmax, wmin,
+                   wmax):
+    """(batch, 1, 3) points: each uniform in the box [bmin, bmax] with
+    probability 7/8, else at the same relative position of [wmin, wmax]."""
+    dev = bmin.device
+    u = torch.rand((batch, 1, 3), generator=generator, device=dev)
+    sel = torch.rand((batch, 1, 1), generator=generator, device=dev) < 0.875
+    return torch.where(sel, bmin + u * (bmax - bmin), wmin + u * (wmax - wmin))
+
+
+def distill_proposal(cfg: Config, teacher: Callable,
+                     generator: torch.Generator, box_min=None, box_max=None,
+                     steps: Optional[int] = None, device=None,
+                     field: Callable = None) -> NeRFMLP:
+    """Fit the proposal σ to a trained teacher field by log-density matching.
+
+    teacher: bound field (pts (B,1,3), viewdirs (B,3)) → (rgb, σ raw), run
+      under no_grad with the fixed view direction (0, 0, −1).
+    generator: seeds every draw (the initial weights and the points), so
+      the result is a function of its state alone.
+    box_min/box_max: (3,) sampling region of 7/8 of the points (the
+      occupancy box when there is one); the rest sample occupancy.world.
+    steps: in place of cfg.proposal.distill_steps.
+    field: the unbound field the student runs through (`distill_loss`).
+
+    Adam with a cosine schedule from proposal.distill_lr to 0 over the
+    steps (optax's `cosine_decay_schedule`, read at the pre-update count).
+    Returns the proposal net on `device`."""
+    pcfg = cfg.proposal
+    steps = int(pcfg.distill_steps if steps is None else steps)
+    batch = int(pcfg.distill_batch)
+    device = torch.device(device or "cpu")
+    act = cfg.model.sigma_activation
+
+    def vec(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=device
+                               ).expand(3)
+
+    wmin, wmax = vec(cfg.occupancy.world_min), vec(cfg.occupancy.world_max)
+    bmin = wmin if box_min is None else vec(box_min)
+    bmax = wmax if box_max is None else vec(box_max)
+    dirs = torch.tensor([0.0, 0.0, -1.0], device=device).expand(batch, 3)
+
+    # one seed each for the weights (drawn on the CPU) and the points
+    # (drawn on the device), both taken from `generator`
+    seeds = torch.randint(0, 2 ** 62, (2,), generator=generator,
+                          device=generator.device).tolist()
+    student = init_proposal(cfg, torch.Generator().manual_seed(seeds[0]),
+                            device)
+    g_data = torch.Generator(device=device).manual_seed(seeds[1])
+    opt = torch.optim.Adam(student.parameters(), lr=pcfg.distill_lr,
+                           betas=(0.9, 0.999), eps=1e-8)
+    t0 = time.perf_counter()
+    loss = torch.zeros((), device=device)
+    for i in range(steps):
+        pts = distill_points(g_data, batch, bmin, bmax, wmin, wmax)
+        with torch.no_grad():
+            y = log_density(teacher(pts, dirs)[1][:, 0], act)
+        for group in opt.param_groups:
+            group["lr"] = pcfg.distill_lr * 0.5 * (
+                1.0 + math.cos(math.pi * i / steps))
+        with torch.enable_grad():
+            loss = distill_loss(student, pts, y, act, field)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        opt.step()
+    final = float(loss.detach())    # the one host sync
+    secs = time.perf_counter() - t0
+    print(f"fashion-nerf-torch: proposal distilled in {steps} steps "
+          f"({secs:.2f} s on {device.type}), final log-density MSE "
+          f"{final:.4g}", file=sys.stderr)
+    return student
 
 
 def _teacher_signature(fine_params) -> str:
@@ -46,34 +164,81 @@ def _teacher_signature(fine_params) -> str:
     return h.hexdigest()
 
 
-def attach_proposal(cfg: Config, params: dict, path: str = PROPOSAL_ASSET,
-                    device=None) -> dict:
-    """Return a copy of `params` with "proposal" (a NeRFMLP) attached from
-    the committed asset. Raises when the asset is missing or was distilled
-    for another config or other fine weights: distillation of a new
-    proposal is ROADMAP Queue 1 #13 and is not ported."""
-    if not (cfg.proposal.enabled and cfg.sampling.n_fine > 0
-            and "fine" in params):
-        return params
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"proposal asset {path} missing; distillation is not ported "
-            "(ROADMAP Queue 1 #13)")
-    prop, meta = load_params(path)
-    sig = _teacher_signature(params["fine"])
-    want = {"config": cfg.name, "teacher_sig": sig,
+def _asset_meta(cfg: Config, fine_params) -> dict:
+    return {"config": cfg.name,
+            "teacher_sig": _teacher_signature(fine_params),
             "net_depth": cfg.proposal.net_depth,
             "net_width": cfg.proposal.net_width,
             "posenc": cfg.proposal.posenc_xyz}
-    got = {k: (str(meta.get(k, "")) if isinstance(v, str)
-               else int(meta.get(k, -1))) for k, v in want.items()}
-    if got != want:
-        bad = sorted(k for k in want if got[k] != want[k])
-        raise ValueError(
-            f"proposal asset {path} does not match these fine weights / "
-            f"config (mismatch in {bad}); distilling a new proposal is not "
-            "ported (ROADMAP Queue 1 #13)")
-    if device is None and isinstance(params["fine"], NeRFMLP):
-        device = next(params["fine"].parameters()).device
-    return {**params, "proposal": load_flax_params(
-        prop, compute_dtype=cfg.model.compute_dtype, device=device)}
+
+
+def _distill_fields(cfg: Config):
+    """(teacher's, student's) unbound fields: the fused field where the
+    config renders, and trains, through it (K3 forward, K4 backward; their
+    plain versions on the CPU), else the modules' own plain fields."""
+    k = cfg.kernels
+    if not (k.use_pallas and k.fused_mlp):
+        return _module_field, _module_field
+    from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
+    fused = make_fused_field(cfg)
+    return fused, (fused if k.fused_backward else _module_field)
+
+
+def attach_proposal(cfg: Config, params: dict, occ=None, cond=None,
+                    generator: Optional[torch.Generator] = None,
+                    allow_distill: bool = True, use_asset: bool = True,
+                    path: str = PROPOSAL_ASSET, device=None) -> dict:
+    """Return a copy of `params` with "proposal" (a NeRFMLP) attached, in
+    the reference's resolution order:
+
+      1. the committed asset, when its meta matches this config and these
+         fine weights (and `use_asset`);
+      2. a proposal distilled here from params["fine"], when
+         `allow_distill`;
+      3. `params` unchanged: the blockwise renderer then takes the full
+         coarse march.
+
+    occ: an OccupancyState whose box tightens the distillation's points.
+    generator: the distillation's draws (default: seed DISTILL_SEED).
+    cond: refused; conditioned teachers are not ported."""
+    if not (cfg.proposal.enabled and cfg.sampling.n_fine > 0
+            and "fine" in params):
+        return params
+    if cond is not None:
+        raise NotImplementedError("conditioned teachers are not ported "
+                                  "(ROADMAP Queue 1 #11)")
+    fine = params["fine"]
+    if device is None and isinstance(fine, NeRFMLP):
+        device = next(fine.parameters()).device
+    if use_asset and os.path.exists(path):
+        prop, meta = load_params(path)
+        want = _asset_meta(cfg, fine)
+        got = {k: (str(meta.get(k, "")) if isinstance(v, str)
+                   else int(meta.get(k, -1))) for k, v in want.items()}
+        if got == want:
+            return {**params, "proposal": load_flax_params(
+                prop, compute_dtype=cfg.model.compute_dtype, device=device)}
+    if not allow_distill:
+        return params
+    if not isinstance(fine, NeRFMLP):
+        fine = load_flax_params(fine, compute_dtype=cfg.model.compute_dtype,
+                                device=device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(DISTILL_SEED)
+    teacher_field, student_field = _distill_fields(cfg)
+    prop = distill_proposal(
+        cfg, lambda pts, dirs: teacher_field(fine, pts, dirs), generator,
+        box_min=None if occ is None else occ.box_min,
+        box_max=None if occ is None else occ.box_max, device=device,
+        field=student_field)
+    return {**params, "proposal": prop}
+
+
+def save_proposal_asset(cfg: Config, proposal: NeRFMLP, fine_params,
+                        path: Optional[str] = None) -> str:
+    """Write a distilled proposal in the asset's format, signed for these
+    fine weights, so that later runs skip the distillation."""
+    path = path or PROPOSAL_ASSET
+    save_params(path, proposal.to_flax_params(),
+                meta=_asset_meta(cfg, fine_params))
+    return path

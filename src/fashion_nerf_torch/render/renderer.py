@@ -1,6 +1,7 @@
 """Dense renderer: stratified → coarse field → volume render → importance
 resample → fine field → volume render. Counterpart of
-`fashion_nerf.render.renderer` (`render_rays`, `render_image`).
+`fashion_nerf.render.renderer` (`render_rays`, `render_image`,
+`render_path`).
 
 Training renders ray batches with jitter and σ noise drawn from an explicit
 generator; evaluation is deterministic and renders whole images in chunks
@@ -126,3 +127,15 @@ def render_image(field_coarse: Callable, field_fine: Optional[Callable],
         outs.append({k: head[k] for k in ("rgb", "depth", "acc", "disp")})
     return {k: torch.cat([o[k] for o in outs])[:n].reshape(
         (H, W) + outs[0][k].shape[1:]) for k in outs[0]}
+
+
+def render_path(field_coarse: Callable, field_fine: Optional[Callable],
+                poses, H: int, W: int, focal, cfg: Config,
+                use_fused_render: bool = False, occ=None,
+                plain: bool = False, device=None):
+    """Render a camera path (test poses, a spiral, a rotation) with
+    `render_image`, one pose after the other → rgb frames (N, H, W, 3)."""
+    return torch.stack([
+        render_image(field_coarse, field_fine, H, W, focal, c2w, cfg,
+                     use_fused_render=use_fused_render, occ=occ, plain=plain,
+                     device=device)["rgb"] for c2w in poses])

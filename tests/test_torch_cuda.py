@@ -675,16 +675,20 @@ def test_fused_field_gradients_kernel_vs_plain(dev, which):
         assert _rel_rms(a, b) <= 1e-2
 
 
-@pytest.mark.parametrize("S", [64, 192, 37])
+@pytest.mark.parametrize("S", [1, 31, 37, 64, 192, 200, 2052])
 @pytest.mark.parametrize("white", [False, True])
 def test_volrend_kernel(dev, S, white):
     """K5 against its plain version: rgb, acc and weights atol 1e-4, depth
-    1e-4·far, on rays that do and do not saturate."""
+    1e-4·far, on rays that do and do not saturate. R = 100 is no multiple
+    of a block's 8 rays; S = 1 and 31 leave lanes of the warp idle, 37 and
+    200 end inside a round of 32, 2052 is a long ray."""
     from fashion_nerf_torch.kernels import render
     rng = np.random.default_rng(7)
     R = 100
     rgb = _f32(rng, R, S, 3, lo=0.0, hi=1.0, dev=dev)
     sigma = _f32(rng, R, S, lo=-20.0, hi=60.0, dev=dev)
+    if S > 1000:
+        sigma = sigma * 0.05                      # weight far along the ray
     sigma[:20] = -1.0                             # empty rays
     t = torch.sort(_f32(rng, R, S, lo=2.0, hi=6.0, dev=dev), dim=1).values
     dnorm = _f32(rng, R, lo=0.8, hi=1.3, dev=dev)
@@ -694,7 +698,88 @@ def test_volrend_kernel(dev, S, white):
     assert K.LAUNCHES["volrend"] == n0 + 1
     for name, a, b, tol in zip(("rgb", "depth", "acc", "weights"), out_k,
                                out_p, (1e-4, 6e-4, 1e-4, 1e-4)):
+        assert a.shape == b.shape, name
         assert float((a - b).abs().max()) <= tol, name
+    if S > 1000:
+        assert float(out_k[3][:, 1100:].max()) > 1e-4
+
+
+@pytest.mark.parametrize("case", ["softplus", "offset", "one_ray", "no_ray"])
+def test_volrend_kernel_cases(dev, case):
+    """K5 with the softplus density, with inputs that are views at a
+    4-byte offset (not 16-byte aligned), on one ray, and on none."""
+    from fashion_nerf_torch.kernels import render
+    rng = np.random.default_rng(11)
+    R, S = {"one_ray": 1, "no_ray": 0}.get(case, 67), 64
+    pad = 1 if case == "offset" else 0
+
+    def view(x):
+        flat = torch.empty(x.numel() + pad, device=dev)
+        flat[pad:] = x.flatten()
+        return flat[pad:].view(x.shape)
+
+    rgb = view(_f32(rng, R, S, 3, lo=0.0, hi=1.0, dev=dev))
+    sigma = view(_f32(rng, R, S, lo=-5.0, hi=30.0, dev=dev))
+    t = view(torch.sort(_f32(rng, R, S, lo=2.0, hi=6.0, dev=dev),
+                        dim=1).values)
+    dnorm = _f32(rng, R, lo=0.8, hi=1.3, dev=dev)
+    if pad:
+        assert rgb.data_ptr() % 16 == 4 and rgb.is_contiguous()
+    soft = case == "softplus"
+    out_k = render.volrend(rgb, sigma, t, dnorm, True, soft)
+    out_p = render.volrend_plain(rgb, sigma, t, dnorm, True, soft)
+    torch.cuda.synchronize()
+    for name, a, b, tol in zip(("rgb", "depth", "acc", "weights"), out_k,
+                               out_p, (1e-4, 6e-4, 1e-4, 1e-4)):
+        assert a.shape == b.shape, name
+        if R:
+            assert float((a - b).abs().max()) <= tol, name
+
+
+def test_cli_eval_launches_kernels_only(dev, tmp_path, monkeypatch, capsys):
+    """`eval` through `cli.main` on the card, from a checkpoint of a random
+    full-width `blender_lego` state: the occupancy sweep launches K3, the
+    frame K1 and K2, a proposal is distilled for the weights, and no plain
+    version of a kernel is called."""
+    import json
+
+    from fashion_nerf_torch import ckpt as ckpt_lib
+    from fashion_nerf_torch import cli
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.data.synthetic import make_synthetic_scene
+    from fashion_nerf_torch.kernels import render
+    from fashion_nerf_torch.train.state import create_train_state
+
+    def refuse(name):
+        def fn(*a, **kw):
+            raise AssertionError(f"{name} called on the card")
+        return fn
+
+    for mod, name in ((posenc_mlp, "field_rows_plain"),
+                      (sigmamarch, "sigma_march_plain"),
+                      (slimmarch, "slim_march_plain"),
+                      (carrymarch, "carry_march_plain"),
+                      (render, "volrend_plain")):
+        monkeypatch.setattr(mod, name, refuse(name))
+    ovr = ["proposal.distill_steps=20", "occupancy.sigma_threshold=0.0",
+           f"out_dir={tmp_path}"]
+    cfg = load_config("blender_lego", ovr)
+    state = create_train_state(cfg, torch.Generator().manual_seed(0),
+                               torch.Generator(dev).manual_seed(0), dev)
+    ckpt_lib.save(str(tmp_path / "blender_lego" / "ckpt"), state)
+    scene = make_synthetic_scene(n_views=2, H=40, W=40, n_samples=32)
+    K.reset_launches()
+    argv = ["eval", "--config", "blender_lego", "--out", str(tmp_path)]
+    for kv in ovr[:2]:
+        argv += ["--set", kv]
+    assert cli.main(argv, dataset=scene) == 0
+    torch.cuda.synchronize()
+    cap = capsys.readouterr()
+    row = json.loads(cap.out.strip().splitlines()[-1])
+    assert math.isfinite(row["psnr"]) and row["n_views"] == 1
+    assert "proposal distilled in 20 steps" in cap.err
+    assert all(K.LAUNCHES[k] > 0 for k in ("field", "sigma_march",
+                                           "slim_march"))
 
 
 def test_train_step_kernel_vs_plain(dev, monkeypatch):

@@ -39,7 +39,8 @@ def test_imports_with_jax_blocked():
     for m in ("render.blockwise", "render.renderer", "kernels.render",
               "train.loop", "train.state", "data.synthetic", "data.pipeline",
               "ckpt", "cli", "prng", "kernels.carrymarch", "quality",
-              "probe", "config", "assets", "kernels.wgpack"):
+              "probe", "config", "assets", "kernels.wgpack", "parity", "png",
+              "models.proposal", "__main__"):
         assert f"fashion_nerf_torch.{m}" in mods, m
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['fashion_nerf'] = None; "

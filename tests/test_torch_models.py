@@ -1,6 +1,6 @@
 """The port's fields (fashion_nerf_torch.models) against the JAX reference:
 weights carried across from the reference's parameter trees, the proposal
-asset's sha256 teacher match."""
+asset's sha256 teacher match and the distillation on a mismatch."""
 
 import dataclasses
 
@@ -111,13 +111,23 @@ def test_attach_proposal_finds_asset(flagship):
         asset["params"]["trunk_0"]["kernel"])
 
 
-def test_attach_proposal_raises_on_other_weights(flagship):
-    """A fine net the asset was not distilled for raises (distillation is
-    not ported) instead of silently reusing the asset."""
+def test_attach_proposal_raises_on_other_weights(flagship, capsys):
+    """A fine net the asset was not distilled for never reuses the asset:
+    with allow_distill=False the params come back without a proposal (the
+    renderer then takes the full coarse march), and with it a proposal is
+    distilled for these weights."""
     params, _ = flagship
-    cfg = load_config("blender_lego")
-    fine = load_flax_params(params["fine"])
+    cfg = load_config("blender_lego", ["proposal.distill_steps=2",
+                                       "proposal.distill_batch=64"])
+    fine = load_flax_params(params["fine"], compute_dtype="bfloat16")
     with torch.no_grad():
         fine.trunk[3].bias[0] += 1e-3
-    with pytest.raises(ValueError, match="Queue 1 #13"):
-        attach_proposal(cfg, {"fine": fine})
+    nets = {"fine": fine}
+    assert attach_proposal(cfg, nets, allow_distill=False) is nets
+    out = attach_proposal(cfg, nets)
+    assert "proposal distilled in 2 steps" in capsys.readouterr().err
+    prop = out["proposal"]
+    assert (prop.depth, prop.width, prop.use_viewdirs) == (2, 128, False)
+    asset, _ = load_params(PROPOSAL_ASSET)
+    assert not np.array_equal(prop.trunk[0].weight.detach().numpy().T,
+                              asset["params"]["trunk_0"]["kernel"])
