@@ -53,12 +53,29 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
     with `kernels.use_pallas=false`, `render` over the scene's poses (the
     PNGs read back), two `train --resume` steps at a vanishing learning
     rate and `eval` again, which distils a proposal for the moved weights,
-    `bench`, and `parity` on a root without scenes.
+    `bench`, and `parity` on a root without scenes;
+15. tryon: the garment-conditioned try-on serving path at `viton_tryon`'s
+    full width: `preprocess` on the procedural pair with the committed
+    matcher (its cond stack against the same function on the CPU), the
+    matcher's held-out IoUs on the card, a conditioned state built from
+    the committed flagship nets (TRYON_CC cond rows of N(0, 0.01²) at the
+    reference's row offsets, a seeded encoder; no JAX) and saved through
+    `ckpt`, the 800×800 conditioned frame through K1 + K2 and K1 + K6 and
+    the plain versions after a cond-aware sweep through K3 and a
+    conditioned-teacher distillation, two garments' frames, `eval` and
+    `render` of the checkpoint, `render` of a `dynamic_tryon` checkpoint
+    over 4 poses (latents 0-3), and the refusal of `train`.
+
+In [kernels], K3, K2 and K6 also run a conditioned net: K3 and K6 through
+their cond window (a per-ray condpart), K2 with the cond folded into its
+x-intercepts, the marches at the conditioned (halved) tile.
 
 The launch counters are reset just before each path (phases 4, 6, 11, 12
-and 13, and each subcommand of 14) and read right after it, so they count that path only. Any failure
-raises (non-zero exit). Imports nothing of JAX. The last line is the device
-JSON object.
+and 13, each subcommand of 14, each path of 15) and read right after it,
+so they count that path only; a conditioned net's launches of K2, K3 and
+K6 count under "slim_march_cond", "field_cond" and "carry_march_cond".
+Any failure raises (non-zero exit). Imports nothing of JAX. The last line
+is the device JSON object.
 """
 
 from __future__ import annotations
@@ -111,6 +128,16 @@ GATE_BAND = 0.05              # each pose's delta within this of the
 CLI_PSNR_TOL = 0.2            # eval through the kernels against plain, dB
 DISTILL_STEPS = 2000          # the preset's proposal.distill_steps
 REPS = 5                      # timed calls per kernel (median)
+# [tryon]: the conditioned fixture and the try-on checks
+TRYON_CC = 64                 # viton_tryon's model.condition_dim
+TRYON_COND_STD = 0.01         # the fixture's cond rows: N(0, 0.01²), small
+                              # enough to keep the flagship's geometry
+MATCHER_IOU = (0.9293, 0.6395)  # assets/matcher_synthetic.npz __meta__:
+MATCHER_IOU_TOL = 0.005         # iou_learned, iou_baseline (seeds 2e6 + 0..15)
+PREPROCESS_ATOL = 1e-4        # the card's cond stack against the CPU's
+TRYON_DISTILL_STEPS = 500     # proposal.distill_steps in [tryon] (the preset's
+                              # 2000 take ~16 s a subcommand; 500 keep the
+                              # phase short)
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, dense): bf16
 # tensor cores, float32 outside them, device memory
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
@@ -134,6 +161,14 @@ SOURCES = {
                  "scripts/mfu_probe.py:30"),
     "probe_p2": ("src/fashion_nerf_torch/kernels/csrc/tcprobe.cu",
                  "scripts/mfu_probe.py:131"),
+    # the conditioned instantiations: K3's and K6's cond window, K2 at the
+    # conditioned tile with the cond in its hoisted intercepts
+    "field_cond": ("src/fashion_nerf_torch/kernels/csrc/field.cu",
+                   "src/fashion_nerf/kernels/posenc_mlp_pallas.py:279"),
+    "slim_march_cond": ("src/fashion_nerf_torch/kernels/csrc/slimmarch.cu",
+                        "src/fashion_nerf/kernels/slimmarch_pallas.py:113"),
+    "carry_march_cond": ("src/fashion_nerf_torch/kernels/csrc/carrymarch.cu",
+                         "src/fashion_nerf/kernels/blockmarch_pallas.py:53"),
 }
 
 
@@ -453,6 +488,9 @@ def phase_kernels(cfg, device):
     results["slim_march"] = dict(max_abs_err=e2, ms=ms, plain_ms=pms, **b2)
     results["carry_march"] = kernel_k6(cfg, fine, dp, o, d, alive_f, bhit,
                                        tf_pad, df_pad, (rgb_k, wf_k))
+    results.update(kernel_cond(cfg, trained, pts, dirs,
+                               (o, d, alive_f, bhit, tf_pad, df_pad),
+                               results, device))
     results["field_bwd"] = kernel_k4(net, rng, device)
     results["volrend"] = kernel_k5(cfg, rng, device)
     results.update(kernel_probe(device))
@@ -652,6 +690,149 @@ def kernel_k6(cfg, fine, dp, o, d, alive_f, bhit, tf_pad, df_pad, k2_out):
     if not ok:
         raise AssertionError("K6 disagrees with its plain version or K2")
     return dict(max_abs_err=max(err.values()), ms=ms, plain_ms=pms, **b6)
+
+
+def cond_tree(tree, cc: int, rng):
+    """A field tree with cc cond rows of N(0, TRYON_COND_STD²) inserted at
+    rows [cx, cx + cc) of trunk_0 and of the skip layer: the reference's
+    layout of a conditioned NeRFMLP ([γ(x) | cond] and [γ(x) | cond | h])."""
+    p = {k: dict(v) for k, v in tree["params"].items()}
+    cx, width = p["trunk_0"]["kernel"].shape
+    for name, leaf in p.items():
+        k = leaf["kernel"]
+        if name == "trunk_0" or (name.startswith("trunk_")
+                                 and k.shape[0] == cx + width):
+            rows = rng.normal(0.0, TRYON_COND_STD, (cc, width))
+            leaf["kernel"] = np.concatenate(
+                [k[:cx], rows.astype(np.float32), k[cx:]])
+    return {"params": p}
+
+
+def kernel_cond(cfg, trained, pts, dirs, chunk, results, device):
+    """K3, K2 and K6 on the conditioned flagship (cond_tree of the
+    committed fine net, TRYON_CC cond rows): K3 at the sweep's 65,536 rows
+    with a cond per ray through its cond window; K2 (the cond folded into
+    oX) and K6 (its cond window) on the 8192-ray chunk of K2's check with
+    one scene cond vector, at the conditioned tile of 1024 rows. Each
+    against its plain version with the unconditioned checks' tolerances
+    and identical executed (tile, block) pairs; times beside the
+    unconditioned kernels'. The bound is the unconditioned work (the cond
+    is hoisted) plus the condpart's bytes."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.kernels import carrymarch, posenc_mlp, slimmarch
+    from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+    from fashion_nerf_torch.render.blockwise import march_liveness
+    rng = np.random.default_rng(21)
+    fine = load_flax_params(cond_tree(trained["fine"], TRYON_CC, rng),
+                            compute_dtype="bfloat16", device=device,
+                            cond_dim=TRYON_CC)
+    out = {}
+
+    # K3: 1024 rays × 64 samples, a cond vector per ray
+    net = posenc_mlp.pack_params(fine, hoist_x=False)
+    dp = posenc_mlp.hoist_dirs(net, dirs).contiguous()
+    cond = torch.from_numpy(rng.normal(size=(dirs.shape[0], TRYON_CC)).astype(
+        np.float32)).to(device)
+    cp = posenc_mlp.hoist_cond(net, cond)
+    rgb_k, sig_k = posenc_mlp.field_rows(net, pts, dp, 64, cp)
+    rgb_p, sig_p = posenc_mlp.field_rows_plain(net, pts, dp, 64, cp)
+    rgb_0, _ = posenc_mlp.field_rows(net, pts, dp, 64, torch.zeros_like(cp))
+    torch.cuda.synchronize()
+    row_err = (rgb_k - rgb_p).abs().amax(dim=1)
+    e_rgb = float(row_err.max())
+    share = float((row_err > K3_RGB_ATOL).float().mean())
+    e_sig = float(((sig_k - sig_p).abs() / (1 + sig_p.abs())).max())
+    moved = maxerr(rgb_k, rgb_0)
+    ms = cuda_ms(lambda: posenc_mlp.field_rows(net, pts, dp, 64, cp))
+    pms = cuda_ms(lambda: posenc_mlp.field_rows_plain(net, pts, dp, 64, cp))
+    b3 = bound(2 * pts.shape[0] * mlp_macs(net),
+               nbytes(pts, dp, cp, net.w, net.b, rgb_k, sig_k))
+    say("kernels", f"K3 field with the cond window, 65536 rows (condpart "
+        f"{tuple(cp.shape)} bf16): rgb err max {e_rgb:.3g} (tol "
+        f"{K3_RGB_MAX}), rows over {K3_RGB_ATOL} {share:.5f} (tol "
+        f"{K3_ROW_SHARE}), σ rel err {e_sig:.3g}; the cond moves rgb by "
+        f"{moved:.3g}; kernel {ms:.3f} ms (unconditioned "
+        f"{results['field']['ms']:.3f}), plain {pms:.3f} ms; "
+        f"{bound_line(b3, ms)}")
+    if not (e_rgb <= K3_RGB_MAX and share <= K3_ROW_SHARE
+            and e_sig <= K3_SIGMA_REL and moved > 1e-3):
+        raise AssertionError("K3 with a cond disagrees with its plain version")
+    out["field_cond"] = dict(max_abs_err=e_rgb, ms=ms, plain_ms=pms, **b3)
+    del rgb_k, rgb_p, rgb_0, sig_k, sig_p
+
+    # K2 and K6: the chunk, one scene cond vector, the halved tile
+    o, d, alive_f, bhit, tf_pad, df_pad = chunk
+    R, S = tf_pad.shape
+    NB = bhit.shape[1]
+    SB = S // NB
+    log_eps = math.log(cfg.kernels.early_term_eps)
+    scene_cond = torch.from_numpy(rng.normal(size=(1, TRYON_CC)).astype(
+        np.float32)).to(device).expand(R, TRYON_CC)
+    fnet = slimmarch.split_hoist(fine)
+    cnet = posenc_mlp.pack_params(fine, hoist_x=False)
+    if not fnet.tile_rows == cnet.tile_rows == K.TILE_ROWS // 2:
+        raise AssertionError("a conditioned net must march the halved tile")
+    cpr = posenc_mlp.hoist_cond(fnet, scene_cond)
+    hf = slimmarch.hoist_rays(fnet, o, d, cpr)
+    dpr = posenc_mlp.hoist_dirs(fnet, d).contiguous()
+    hit = alive_f.float().contiguous()
+    args2 = (fnet, hf, dpr, hit, bhit, tf_pad.contiguous(),
+             df_pad.contiguous(), log_eps)
+    args6 = (cnet, dpr, o, d, hit, bhit, tf_pad.contiguous(),
+             df_pad.contiguous(), log_eps)
+    s_k, s_p = slimmarch.slim_march(*args2), slimmarch.slim_march_plain(*args2)
+    c_k = carrymarch.carry_march(*args6, condpart=cpr)
+    c_p = carrymarch.carry_march_plain(*args6, condpart=cpr)
+    torch.cuda.synchronize()
+    tile = K.TILE_ROWS // 2
+
+    def executed(w):
+        return march_liveness(w, hit, bhit, cfg, tile_rows=tile)["tile_alive"]
+
+    ex = {k: executed(w) for k, w in (("K2", s_k[1]), ("K2 plain", s_p[1]),
+                                       ("K6", c_k[3]), ("K6 plain", c_p[3]))}
+    full = march_liveness(s_k[1], hit, bhit, cfg)["tile_alive"]
+    same = {k: bool(torch.equal(v, ex["K2 plain"])) for k, v in ex.items()}
+    e2 = max(maxerr(s_k[0], s_p[0]), maxerr(s_k[1], s_p[1]))
+    e6 = {k: maxerr(a, b) for k, a, b in zip(("rgb", "depth", "acc", "w"),
+                                             c_k, c_p)}
+    e62 = max(maxerr(c_k[0], s_k[0]), maxerr(c_k[3], s_k[1]))
+    n_ex = int(ex["K2 plain"].sum())
+    ms2 = cuda_ms(lambda: slimmarch.slim_march(*args2))
+    pms2 = cuda_ms(lambda: slimmarch.slim_march_plain(*args2))
+    ms6 = cuda_ms(lambda: carrymarch.carry_march(*args6, condpart=cpr))
+    pms6 = cuda_ms(lambda: carrymarch.carry_march_plain(*args6, condpart=cpr))
+    b2 = bound(2 * n_ex * tile * mlp_macs(fnet),
+               nbytes(hit, bhit, *hf, dpr, tf_pad, df_pad, fnet.w, fnet.b,
+                      s_k[0], s_k[1], s_k[2]))
+    b6 = bound(2 * n_ex * tile * mlp_macs(cnet),
+               nbytes(dpr, cpr, o, d, hit, bhit, tf_pad, df_pad, cnet.w,
+                      cnet.b, *c_k[:4]))
+    far = cfg.render.far
+    say("kernels", f"K2 fine march with a cond (in oX) and K6 with its cond "
+        f"window, the same chunk ({R} rays × {NB}×{SB}) at the conditioned "
+        f"tile of {tile // SB} rays: K2 rgb/w err {e2:.3g}, K6 "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in e6.items()})} (tol "
+        f"{K2_ATOL}, depth {K6_ATOL * far:g}), K6 against K2 {e62:.3g}; "
+        f"executed (tile, block) {n_ex}/{ex['K2'].numel()} (at the 64-ray "
+        f"tile {int(full.sum())}/{full.numel()}), identical to plain: "
+        f"{same}; K2 {ms2:.3f} ms (unconditioned "
+        f"{results['slim_march']['ms']:.3f}), plain {pms2:.3f} ms, "
+        f"{bound_line(b2, ms2)}; K6 {ms6:.3f} ms (unconditioned "
+        f"{results['carry_march']['ms']:.3f}), plain {pms6:.3f} ms, "
+        f"{bound_line(b6, ms6)}")
+    ok = (e2 <= K2_ATOL and all(same.values()) and e62 <= K6_ATOL
+          and max(e6["rgb"], e6["acc"], e6["w"]) <= K6_ATOL
+          and e6["depth"] <= K6_ATOL * far and 0 < n_ex < ex["K2"].numel()
+          and bool(torch.isfinite(s_k[0]).all())
+          and bool(torch.isfinite(c_k[0]).all()))
+    if not ok:
+        raise AssertionError("K2 or K6 with a cond disagrees with its plain "
+                             "version")
+    out["slim_march_cond"] = dict(max_abs_err=e2, ms=ms2, plain_ms=pms2, **b2)
+    out["carry_march_cond"] = dict(max_abs_err=max(e6.values()), ms=ms6,
+                                   plain_ms=pms6, **b6)
+    return out
 
 
 def kernel_probe(device):
@@ -1348,7 +1529,7 @@ def phase_cli(scene, device, gpu, smi):
     row = json.loads(out[-1])
     files = sorted(f for f in os.listdir(row["out"]) if f.endswith(".png"))
     n = len(scene["poses"])
-    _, render_fn, _ = cli._setup(cfg, device, scene)
+    _, render_fn, _, _ = cli._setup(cfg, device, scene)
     worst, stds = 0, []
     for i in (0, n - 1):
         got = png.read_png(os.path.join(row["out"], f"{i:03d}.png"))
@@ -1411,6 +1592,296 @@ def phase_cli(scene, device, gpu, smi):
         raise AssertionError(f"cli checks failed: {failed}")
 
 
+def tryon_params(cfg, rng) -> dict:
+    """The [tryon] state as the reference's params trees (numpy), made with
+    no JAX: the committed flagship coarse and fine trees with the config's
+    cond rows (cond_tree), a seeded garment encoder (LeCun-normal conv and
+    dense kernels, zero biases) and, for a dynamic config, a seeded latent
+    table (N(0, 1/dim)), as the reference initialises them."""
+    from fashion_nerf_torch.assets import load_flagship
+    from fashion_nerf_torch.models.nerf_mlp import cond_width
+    m = cfg.model
+    trained, _ = load_flagship()
+    params = {k: cond_tree(trained[k], cond_width(m), rng)
+              for k in ("coarse", "fine")}
+    chans = (7, 16, 32, 64)
+
+    def dense(fan_in, shape):
+        return {"kernel": (rng.normal(size=shape) / np.sqrt(fan_in)).astype(
+            np.float32), "bias": np.zeros(shape[-1], np.float32)}
+
+    enc = {f"conv_{i}": dense(9 * chans[i], (3, 3, chans[i], chans[i + 1]))
+           for i in range(3)}
+    enc["proj"] = dense(chans[-1], (chans[-1], m.condition_dim))
+    params["encoder"] = {"params": enc}
+    if m.n_latents > 0:
+        params["latents"] = {"params": {"codes": {"embedding": rng.normal(
+            0.0, m.latent_dim ** -0.5, (m.n_latents, m.latent_dim)).astype(
+                np.float32)}}}
+    return params
+
+
+def phase_tryon(device, gpu, smi):
+    """The try-on serving path at viton_tryon's full width (8×256 coarse
+    and fine fields, L = 10, a 64-wide garment code into trunk_0 and the
+    skip layer; p64 + f96, chunk 16384):
+
+    - `preprocess` of the procedural pair with the committed matcher: the
+      cond .npy and the PNGs read back, the cond stack held to the same
+      function on the CPU (PREPROCESS_ATOL); the matcher's held-out IoUs on
+      the card against the asset's meta;
+    - a conditioned state (tryon_params) carried into the port's state
+      (`state_from_params`) and saved through `ckpt`;
+    - the 800×800 frame at the scene's val pose (focal scaled by 800/H):
+      the cond-aware occupancy sweep (K3's cond window) and a proposal
+      distilled with the conditioned teacher, then the frame through K1 +
+      K2, K1 + K6 and the plain versions (1 warm-up + 3 timed each through
+      the kernels), each kernel frame against its plain frame and K6's
+      against K2's; a second garment (procedural pair seed 1) gives another
+      frame;
+    - `eval` (through the kernels and with kernels.use_pallas=false) and
+      `render` of the checkpoint; `render` of a dynamic_tryon checkpoint
+      over 4 poses (latents 0-3), each kernel frame against its plain
+      frame; `train` refuses a conditioned config."""
+    import contextlib
+    import io
+    import shutil
+    from fashion_nerf_torch import ckpt as ckpt_lib
+    from fashion_nerf_torch import cli, png
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.core.occupancy import build_from_config
+    from fashion_nerf_torch.data.viton import synth_viton_pair
+    from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
+    from fashion_nerf_torch.metrics import psnr
+    from fashion_nerf_torch.models.conditioned import encode_garment
+    from fashion_nerf_torch.models.proposal import attach_proposal
+    from fashion_nerf_torch.render import blockwise
+    from fashion_nerf_torch.train.loop import (_eval_cond, load_dataset,
+                                               resolve_garment)
+    from fashion_nerf_torch.train.state import state_from_params
+    from fashion_nerf_torch.tryon.matcher import eval_iou, load_matcher
+    from fashion_nerf_torch.tryon.pipeline import (_preprocess_device,
+                                                   build_conditioning,
+                                                   to_device)
+    t_phase = time.perf_counter()
+    run = RUN_DIR + "_tryon"
+    shutil.rmtree(run, ignore_errors=True)
+    steps = f"proposal.distill_steps={TRYON_DISTILL_STEPS}"
+    say("tryon", f"distillations run {TRYON_DISTILL_STEPS} steps "
+        f"(proposal.distill_steps; the preset's is {DISTILL_STEPS}) to keep "
+        "the phase short")
+    checks = {}
+
+    def call(argv, dataset=None):
+        """cli.main → (exit code, stdout lines, stderr, seconds,
+        launches)."""
+        out, err = io.StringIO(), io.StringIO()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv + ["--out", run], dataset=dataset)
+        torch.cuda.synchronize()
+        for line in err.getvalue().splitlines():
+            say("tryon", f"{argv[0]} stderr: {line}")
+        return (rc, out.getvalue().strip().splitlines(), err.getvalue(),
+                time.perf_counter() - t0, dict(K.LAUNCHES))
+
+    # preprocess on the card, against the same function on the CPU
+    rc, out, _, secs, _ = call(["preprocess", "--config", "viton_tryon"])
+    row = json.loads(out[-1])
+    cond_card = np.load(os.path.join(row["out"], "synthetic_cond.npy"))
+    imgs = [png.read_png(os.path.join(row["out"], f"synthetic_{n}.png"))
+            for n in ("agnostic", "warped_cloth", "tryon_overlay")]
+    pair = synth_viton_pair()
+    cpu = _preprocess_device(*to_device(pair, "cpu"), H=64, W=64,
+                             matcher=load_matcher(device="cpu"))["cond"]
+    e_pre = float(np.abs(cond_card - cpu.numpy()).max())
+    t0 = time.perf_counter()
+    iou = eval_iou(load_matcher(device=device),
+                   list(range(2_000_000, 2_000_016)), device=device)
+    iou_s = time.perf_counter() - t0
+    say("tryon", f"preprocess in {secs:.3f} s: {json.dumps(row)}; cond stack "
+        f"{cond_card.shape} against the CPU's {e_pre:.3g} (tol "
+        f"{PREPROCESS_ATOL}); PNGs {[i.shape for i in imgs]}; matcher "
+        f"held-out IoU on the card learned {iou[0]:.4f}, baseline "
+        f"{iou[1]:.4f} (the asset's {MATCHER_IOU}, tol {MATCHER_IOU_TOL}) in "
+        f"{iou_s:.2f} s")
+    checks["preprocess"] = (
+        rc == 0 and row["matcher"] and row["pairs"] == 1
+        and cond_card.shape == (64, 64, 7) and e_pre <= PREPROCESS_ATOL
+        and all(i.shape == (64, 64, 3) and i.std() > 1.0 for i in imgs))
+    checks["matcher_iou"] = all(abs(a - b) <= MATCHER_IOU_TOL
+                                for a, b in zip(iou, MATCHER_IOU))
+
+    # the conditioned state, saved through ckpt
+    cfg = load_config("viton_tryon", [f"out_dir={run}", steps])
+    rng = np.random.default_rng(8)
+    state = state_from_params(cfg, tryon_params(cfg, rng),
+                              torch.Generator(device=device).manual_seed(0),
+                              device)
+    ckpt_lib.save(os.path.join(run, cfg.name, "ckpt"), state)
+    scene = load_dataset(cfg, device)
+    nets = state.nets()
+    garment = resolve_garment(cfg, scene, scene["H"], scene["W"], device)
+    cond = _eval_cond(cfg, nets, garment)
+
+    # setup: the cond-aware sweep through K3, the conditioned teacher
+    field = make_fused_field(cfg)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    occ = build_from_config(cfg, lambda p, v, c: field(state.fine, p, v, c),
+                            device=device, cond=cond)
+    params = attach_proposal(cfg, nets, occ=occ, cond=cond, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_launches = dict(K.LAUNCHES)
+    checks["setup"] = ("proposal" in params
+                       and setup_launches["field_cond"] > 0
+                       and int(occ.boxes_occ.sum()) > 0)
+
+    H = W = FRAME
+    focal = float(scene["focal"]) * FRAME / scene["H"]
+    pose = scene["val_pose"]
+    generic = load_config("viton_tryon", [f"out_dir={run}", steps,
+                                          "kernels.carry_hoist=false"])
+
+    def frame(c, cfg_, plain=False):
+        with torch.no_grad():
+            return blockwise.render_image_blockwise(
+                params, cfg_, H, W, focal, pose, occ=occ, plain=plain,
+                device=device, cond=c)
+
+    frames, secs, launches = {}, {}, {}
+    for label, cfg_ in (("K1 + K2", cfg), ("K1 + K6", generic)):
+        K.reset_launches()
+        frame(cond, cfg_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            frames[label] = frame(cond, cfg_)
+        torch.cuda.synchronize()
+        secs[label] = (time.perf_counter() - t0) / 3
+        launches[label] = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        frames[label + " plain"] = frame(cond, cfg_, plain=True)
+        torch.cuda.synchronize()
+        secs[label + " plain"] = time.perf_counter() - t0
+    rgb2, rgb6 = frames["K1 + K2"]["rgb"], frames["K1 + K6"]["rgb"]
+    p2 = float(psnr(rgb2, frames["K1 + K2 plain"]["rgb"]))
+    p6 = float(psnr(rgb6, frames["K1 + K6 plain"]["rgb"]))
+    p62 = float(psnr(rgb6, rgb2))
+    live = frames["K1 + K2"]["chunk_live"]
+    n_chunks = -(-H * W // cfg.render.chunk)
+    n_live = launches["K1 + K2"]["sigma_march"] // 4  # one K1 a live chunk
+    # a second garment: the procedural pair of seed 1
+    g1 = build_conditioning(synth_viton_pair(seed=1), 64, 64, cfg=cfg,
+                            device=device)
+    with torch.no_grad():
+        cond1 = encode_garment(nets["encoder"], g1)
+    rgb_g1 = frame(cond1, cfg)["rgb"]
+    dg = maxerr(rgb_g1, rgb2)
+    say("tryon", f"setup: occupancy 64³ through K3's cond window + a "
+        f"proposal distilled with the cond teacher in {setup_s:.2f} s, "
+        f"launches {setup_launches}; {H}x{W} frame at the val pose: "
+        f"{secs['K1 + K2']:.4f} s through K1 + K2, {secs['K1 + K6']:.4f} s "
+        f"through K1 + K6 (1 warm-up + 3), plain {secs['K1 + K2 plain']:.4f}"
+        f" and {secs['K1 + K6 plain']:.4f} s; PSNR K2 vs plain {p2:.2f} dB, "
+        f"K6 vs plain {p6:.2f} dB, K6 vs K2 {p62:.2f} dB (min "
+        f"{FRAME_PSNR_MIN}); live chunks {n_live}/{n_chunks}; acc max "
+        f"{float(frames['K1 + K2']['acc'].max()):.4f}; the seed-1 garment's "
+        f"frame differs by {dg:.4g} (max abs); launches {launches}; "
+        f"{gpu} | {smi}")
+    checks["frames"] = (
+        p2 >= FRAME_PSNR_MIN and p6 >= FRAME_PSNR_MIN
+        and p62 >= FRAME_PSNR_MIN and 0 < n_live < n_chunks
+        and bool(live.any()) and not bool(live.all())
+        and tuple(rgb2.shape) == (H, W, 3) and bool(torch.isfinite(rgb2).all())
+        and float(frames["K1 + K2"]["acc"].max()) > 0.5 and dg > 1e-3
+        and all(launches["K1 + K2"][k] > 0 for k in ("sigma_march",
+                                                    "slim_march_cond"))
+        and launches["K1 + K6"]["carry_march_cond"] > 0
+        and launches["K1 + K2"]["slim_march"] == 0)
+    del frames, params, occ
+
+    # the command line from the checkpoint
+    base = ["--config", "viton_tryon", "--set", steps]
+    rc, out, _, secs_k, launches_e = call(["eval"] + base, scene)
+    row_k = json.loads(out[-1])
+    rc_p, out, _, secs_p, launches_p = call(
+        ["eval"] + base + ["--set", "kernels.use_pallas=false"], scene)
+    row_p = json.loads(out[-1])
+    say("tryon", f"eval: {json.dumps(row_k)} in {secs_k:.3f} s through the "
+        f"kernels, launches {launches_e}; {json.dumps(row_p)} in "
+        f"{secs_p:.3f} s with kernels.use_pallas=false (dense, plain), "
+        f"launches {sum(launches_p.values())} (tol {CLI_PSNR_TOL} dB)")
+    checks["eval"] = (
+        rc == 0 and rc_p == 0 and row_k["n_views"] == 1
+        and abs(row_k["psnr"] - row_p["psnr"]) <= CLI_PSNR_TOL
+        and all(launches_e[k] > 0 for k in ("field_cond", "sigma_march",
+                                            "slim_march_cond"))
+        and not any(launches_p.values()))
+    rc, out, err, secs_r, launches_r = call(["render"] + base, scene)
+    row = json.loads(out[-1])
+    pngs = [png.read_png(os.path.join(row["out"], f"{i:03d}.png"))
+            for i in range(row["frames"])]
+    say("tryon", f"render: {row['frames']} frames in {secs_r:.3f} s, "
+        f"launches {launches_r}")
+    checks["render"] = (rc == 0 and row["frames"] == len(scene["poses"])
+                        and all(p.shape == (64, 64, 3) for p in pngs)
+                        and min(p.std() for p in pngs) > 1.0
+                        and launches_r["slim_march_cond"] > 0)
+
+    # dynamic_tryon over 4 poses (latents 0-3): the kernel frames beside
+    # the plain versions' on the same inputs
+    cfg_d = load_config("dynamic_tryon", [f"out_dir={run}", steps])
+    state_d = state_from_params(cfg_d, tryon_params(cfg_d, rng),
+                                torch.Generator(device=device), device)
+    ckpt_lib.save(os.path.join(run, cfg_d.name, "ckpt"), state_d)
+    scene_d = load_dataset(cfg_d, device)
+    scene_d["poses"] = scene_d["poses"][:4]
+    seen = []
+    render_fn = blockwise.render_image_blockwise
+
+    def recording(*a, **kw):
+        out_k = render_fn(*a, **kw)
+        seen.append((out_k["rgb"], render_fn(*a, **{**kw, "plain": True})[
+            "rgb"], kw["cond"]))
+        return out_k
+
+    blockwise.render_image_blockwise = recording
+    try:
+        rc, out, _, secs_d, launches_d = call(
+            ["render", "--config", "dynamic_tryon", "--set", steps], scene_d)
+    finally:
+        blockwise.render_image_blockwise = render_fn
+    row_d = json.loads(out[-1])
+    p_d = [float(psnr(a, b)) for a, b, _ in seen]
+    distinct = len({tuple(c.tolist()) for _, _, c in seen})
+    say("tryon", f"dynamic_tryon render: {row_d['frames']} frames in "
+        f"{secs_d:.3f} s (each beside its plain frame), PSNR kernel vs plain"
+        f" {[round(p, 2) for p in p_d]} dB (min {FRAME_PSNR_MIN}); distinct "
+        f"cond vectors {distinct}; launches {launches_d}")
+    checks["dynamic"] = (rc == 0 and row_d["frames"] == 4 and len(seen) == 4
+                         and min(p_d) >= FRAME_PSNR_MIN and distinct == 4
+                         and launches_d["slim_march_cond"] > 0)
+    try:
+        call(["train", "--config", "viton_tryon"])
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    say("tryon", f"train --config viton_tryon refuses: {refused!r}")
+    checks["refusal"] = "next try-on slice" in refused
+    say("tryon", f"checks {checks}; phase {time.perf_counter() - t_phase:.1f}"
+        f" s; {gpu} | {smi}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"tryon checks failed: {failed}")
+    return {**setup_launches, **{
+        k: launches["K1 + K2"][k] + launches["K1 + K6"][k]
+        for k in ("slim_march_cond", "carry_march_cond")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -1440,23 +1911,33 @@ def main() -> int:
     phase_train_small(scene, device, gpu, smi)
     probe_launches = phase_probe(device, gpu, smi)
     phase_cli(scene, device, gpu, smi)
+    del scene, ds
+    torch.cuda.empty_cache()
+    tryon_launches = phase_tryon(device, gpu, smi)
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included; {gpu} | {smi}")
     # K1 and K2 run on the render path, K6 on the carry_hoist=false render
-    # path, K3, K4 and K5 on the training path, P1 and P2 on the probe
+    # path, K3, K4 and K5 on the training path, P1 and P2 on the probe; the
+    # conditioned K3 on the try-on setup's sweep and teacher, the
+    # conditioned K2 and K6 on the try-on frames
     launches = {**{k: render_launches[k] for k in ("sigma_march",
                                                    "slim_march")},
                 "carry_march": generic_launches["carry_march"],
                 **{k: train_launches[k] for k in ("field", "field_bwd",
                                                   "volrend")},
-                **{k: probe_launches[k] for k in ("probe_p1", "probe_p2")}}
+                **{k: probe_launches[k] for k in ("probe_p1", "probe_p2")},
+                **{k: tryon_launches[k] for k in ("field_cond",
+                                                  "slim_march_cond",
+                                                  "carry_march_cond")}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
          **results[name]} for name in ("sigma_march", "slim_march",
                                        "field", "field_bwd", "volrend",
                                        "carry_march", "probe_p1",
-                                       "probe_p2")]}))
+                                       "probe_p2", "field_cond",
+                                       "slim_march_cond",
+                                       "carry_march_cond")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))

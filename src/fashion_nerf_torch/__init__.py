@@ -11,5 +11,8 @@ the proposal march, the fine march and the fused field; and the
 `blender_lego` trainer (`python -m fashion_nerf_torch.cli train`), with
 kernels for the fused field's backward and the dense volume render; the
 7-pose quality gate (`python -m fashion_nerf_torch.quality --gate`) with the
-generic carry march, and the tensor-core probe.
+generic carry march, and the tensor-core probe; the command line from a
+checkpoint (`python -m fashion_nerf_torch`); and the garment try-on serving
+path (`tryon/`, `preprocess`, `eval` / `render` of the try-on presets),
+with the cond windows of the fused field and the generic carry march.
 """

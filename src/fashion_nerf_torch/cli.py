@@ -14,16 +14,23 @@
 - `parity` evaluates every scene directory under data.root against its
   published anchor, from the checkpoints at DIR/<scene>/NAME/ckpt.
 - `bench` prints the render benchmark's JSON (`bench.run_bench`).
-- `preprocess` is not ported (try-on, ROADMAP Queue 1 #11).
+- `preprocess` runs the try-on preprocessing over every pair under
+  data.root (or the procedural pair) and writes DIR/NAME/preprocess/
+  <id>_{agnostic,warped_cloth,tryon_overlay}.png and <id>_cond.npy.
 
 `render` and `eval` sweep the occupancy grid of the fine field, attach the
 proposal net (the committed asset, or one distilled here) and render
 through the blockwise fast path when the config is eligible for it
 (`kernels.use_pallas`, `kernels.blockwise`, `kernels.fused_mlp` and a fine
-pass), otherwise through the dense renderer. Everything runs on the CUDA
-device and raises when there is none, unless `--device cpu` asks for the
-CPU, where every kernel takes its plain version. The resolved config is
-written to DIR/NAME/config.json.
+pass), otherwise through the dense renderer. A conditioned config (the
+try-on presets) renders with the scene's cond vector: the garment code of
+its conditioning stack ⊕, for `dynamic_tryon`, a per-frame latent; the
+sweep and the proposal take frame 0's cond, which every frame of a
+dynamic render shares (latent i % n_latents for frame i), as the
+reference does. Training a conditioned config is not ported (ROADMAP
+Queue 1 #11). Everything runs on the CUDA device and raises when there is
+none, unless `--device cpu` asks for the CPU, where every kernel takes its
+plain version. The resolved config is written to DIR/NAME/config.json.
 """
 
 from __future__ import annotations
@@ -39,9 +46,6 @@ import time
 from typing import Optional
 
 SUBCOMMANDS = ("train", "render", "eval", "preprocess", "bench", "parity")
-_NOT_PORTED = {
-    "preprocess": "ROADMAP Queue 1 #11",
-}
 
 
 def _parser():
@@ -77,9 +81,6 @@ def main(argv=None, dataset: Optional[dict] = None) -> int:
     one `cfg.data` names, for a caller that runs several subcommands on one
     scene in one process."""
     args = _parser().parse_args(argv)
-    if args.cmd in _NOT_PORTED:
-        raise NotImplementedError(f"`{args.cmd}` is not ported yet "
-                                  f"({_NOT_PORTED[args.cmd]})")
     import torch
     from fashion_nerf_torch.config import config_to_dict, load_config
     from fashion_nerf_torch.kernels import resolve_device
@@ -88,9 +89,6 @@ def main(argv=None, dataset: Optional[dict] = None) -> int:
         # --out is the run directory of every subcommand: checkpoints live
         # under <out>/<config>/ckpt, render writes <out>/<config>/render
         cfg = dataclasses.replace(cfg, out_dir=args.out)
-    if cfg.model.conditioned or cfg.model.n_latents > 0:
-        raise NotImplementedError("conditioned and latent fields are not "
-                                  "ported (ROADMAP Queue 1 #11)")
     device = resolve_device(args.device)
     if args.sanitize:
         torch.autograd.set_detect_anomaly(True)
@@ -110,6 +108,9 @@ def main(argv=None, dataset: Optional[dict] = None) -> int:
                 return _cmd_eval(cfg, device, dataset)
             if args.cmd == "bench":
                 return _cmd_bench(cfg, device)
+            if args.cmd == "preprocess":
+                from fashion_nerf_torch.tryon.pipeline import preprocess_cli
+                return preprocess_cli(cfg, device)
             return _cmd_parity(cfg, device, dataset)
 
 
@@ -159,10 +160,10 @@ def _fast_path(cfg) -> bool:
 
 
 def _blockwise_render_fn(cfg, params, H, W, focal, occ, device):
-    """The fast path for whole-image renders, pose → output dict: the
-    blockwise early-terminated march that the bench measures. None when
-    the config is not eligible (kernels off or coarse-only): the dense
-    renderer serves then."""
+    """The fast path for whole-image renders, (pose, cond vector or None)
+    → output dict: the blockwise early-terminated march that the bench
+    measures. None when the config is not eligible (kernels off or
+    coarse-only): the dense renderer serves then."""
     if not _fast_path(cfg):
         if cfg.kernels.use_pallas and cfg.kernels.blockwise:
             # the fast path was asked for and the config excludes it
@@ -171,69 +172,86 @@ def _blockwise_render_fn(cfg, params, H, W, focal, occ, device):
                   "dense renderer", file=sys.stderr)
         return None
     from fashion_nerf_torch.render.blockwise import render_image_blockwise
-    return lambda pose: render_image_blockwise(
-        params, cfg, H, W, focal, pose, occ=occ, device=device)
+    return lambda pose, cond=None: render_image_blockwise(
+        params, cfg, H, W, focal, pose, occ=occ, device=device, cond=cond)
 
 
-def _with_proposal(cfg, params, occ, device):
+def _with_proposal(cfg, params, occ, device, cond=None):
     """`params` with the σ-only proposal net attached (the asset, or one
-    distilled for these weights); unchanged unless proposal.enabled and the
+    distilled for these weights, with a conditioned teacher run at the
+    scene's cond vector); unchanged unless proposal.enabled and the
     blockwise fast path is eligible."""
     if not (_fast_path(cfg) and cfg.proposal.enabled):
         return params
     from fashion_nerf_torch.models.proposal import attach_proposal
-    return attach_proposal(cfg, params, occ=occ, device=device)
+    return attach_proposal(cfg, params, occ=occ, cond=cond, device=device)
 
 
-def _maybe_occ(cfg, field, net, device):
+def _maybe_occ(cfg, field, net, device, cond=None):
     """Occupancy culling state of a restored model, whenever the config
-    enables it: the grid means something only on trained weights."""
+    enables it: the grid means something only on trained weights. A
+    conditioned field is swept at the scene's cond vector."""
     if not cfg.occupancy.enabled:
         return None
     from fashion_nerf_torch.core.occupancy import build_from_config
-    return build_from_config(cfg, lambda p, v: field(net, p, v),
-                             device=device)
+    return build_from_config(cfg, lambda p, v, *c: field(net, p, v, *c),
+                             device=device, cond=cond)
 
 
 def _setup(cfg, device, dataset):
     """Restore the run and prepare its renders → (dataset dict, renderer
-    pose → output dict, dense). The renderer is the blockwise fast path
-    (dense is None) or, when the config is not eligible, `render_image`
-    (dense holds its arguments, for `render_path`)."""
+    (pose, cond=frame 0's) → output dict, dense, frame_cond). The renderer
+    is the blockwise fast path (dense is None) or, when the config is not
+    eligible, `render_image` (dense holds its arguments, for
+    `render_path`). frame_cond(i) is frame i's cond vector (None for an
+    unconditioned config)."""
     from fashion_nerf_torch.render.renderer import render_image
-    from fashion_nerf_torch.train.loop import load_dataset, make_fields
+    from fashion_nerf_torch.train.loop import (_eval_cond, load_dataset,
+                                               make_fields, resolve_garment)
     state = _restored_state(cfg, device)
-    d = load_dataset(cfg) if dataset is None else dataset
+    d = load_dataset(cfg, device) if dataset is None else dataset
     H, W, focal = int(d["H"]), int(d["W"]), float(d["focal"])
+    nets = state.nets()
+    garment = resolve_garment(cfg, d, H, W, device)
+
+    def frame_cond(i):
+        return _eval_cond(cfg, nets, garment,
+                          frame_id=i % max(cfg.model.n_latents, 1))
+
+    cond = frame_cond(0)
     field_c, field_f = make_fields(cfg)
     use_fine = cfg.sampling.n_fine > 0 and state.fine is not None
-    occ = (_maybe_occ(cfg, field_f, state.fine, device) if use_fine
-           else _maybe_occ(cfg, field_c, state.coarse, device))
-    params = _with_proposal(cfg, state.nets(), occ, device)
+    occ = (_maybe_occ(cfg, field_f, state.fine, device, cond) if use_fine
+           else _maybe_occ(cfg, field_c, state.coarse, device, cond))
+    params = _with_proposal(cfg, nets, occ, device, cond)
     bw = _blockwise_render_fn(cfg, params, H, W, focal, occ, device)
     if bw is not None:
-        return d, bw, None
-    fc = (lambda pts, vd: field_c(state.coarse, pts, vd))
-    ff = ((lambda pts, vd: field_f(state.fine, pts, vd)) if use_fine
+        return d, (lambda pose, c=cond: bw(pose, c)), None, frame_cond
+    fc = (lambda pts, vd, *c: field_c(state.coarse, pts, vd, *c))
+    ff = ((lambda pts, vd, *c: field_f(state.fine, pts, vd, *c)) if use_fine
           else None)
     dense = dict(field_coarse=fc, field_fine=ff, H=H, W=W, focal=focal,
                  cfg=cfg, occ=occ, device=device)
-    return d, (lambda pose: render_image(c2w=pose, **dense)), dense
+    return (d, (lambda pose, c=cond: render_image(c2w=pose, cond=c, **dense)),
+            {**dense, "cond": cond}, frame_cond)
 
 
 def _cmd_render(cfg, device, dataset):
     import numpy as np
     from fashion_nerf_torch.png import write_png
     from fashion_nerf_torch.render.renderer import render_path
-    d, render, dense = _setup(cfg, device, dataset)
+    d, render, dense, frame_cond = _setup(cfg, device, dataset)
     poses = d.get("render_poses", d["poses"])
     t0 = time.perf_counter()
     secs = []
-    if dense is None:
+    if dense is None or cfg.model.n_latents > 0:
+        # a dynamic render takes frame i's latent i % n_latents
         frames = []
-        for pose in poses:
+        for i, pose in enumerate(poses):
             t1 = time.perf_counter()
-            frames.append(render(pose)["rgb"].cpu())     # waits for the frame
+            out = (render(pose, frame_cond(i)) if cfg.model.n_latents > 0
+                   else render(pose))
+            frames.append(out["rgb"].cpu())     # waits for the frame
             secs.append(time.perf_counter() - t1)
         arr = np.stack([f.numpy() for f in frames])
     else:
@@ -267,7 +285,7 @@ def eval_views(cfg, device, dataset=None):
     import numpy as np
     import torch
     from fashion_nerf_torch.metrics import psnr, ssim
-    d, render, _ = _setup(cfg, device, dataset)
+    d, render, _, _ = _setup(cfg, device, dataset)
     test_images = d.get("test_images", np.asarray(d["val_image"])[None])
     test_poses = d.get("test_poses", np.asarray(d["val_pose"])[None])
     scores, frames = [], []

@@ -130,9 +130,19 @@ def effective_margin_cells(ocfg) -> int:
     return max(ocfg.margin_cells, world)
 
 
-def build_from_config(cfg, field: Callable, device=None) -> OccupancyState:
-    """Config-driven build; `field` is the BOUND fine field."""
+def build_from_config(cfg, field: Callable, device=None,
+                      cond=None) -> OccupancyState:
+    """Config-driven build; `field` is the BOUND fine field. cond: the
+    per-scene cond vector (Cc,) of a conditioned field, whose density
+    depends on it: the field is then called as field(pts, viewdirs, cond
+    (R, Cc)), and the grid holds for this cond only."""
     ocfg = cfg.occupancy
+    if cond is not None:
+        unbound = field
+
+        def field(pts, dirs):
+            return unbound(pts, dirs, cond.expand(pts.shape[0],
+                                                  cond.shape[-1]))
     return build_occupancy(
         field, ocfg.world_min, ocfg.world_max,
         resolution=ocfg.resolution,

@@ -15,12 +15,15 @@ loop of K3) inside the fine march's skeleton: widths 128 and 256, depth
 2-8, a posenc operand of 48 or 64 columns, SB in MARCH_SB; narrower nets
 run zero-padded.
 
-Predication is per (tile, block), tile = TILE_ROWS // SB rays: the pair
-runs iff some ray of the tile has hit ∧ block_hit[b] ∧ logT > log ε, and
-then every ray of the tile is marched. A dead pair writes w = 0 and leaves
-rgb, depth, acc and logT as they are. White background is added by the
-caller. The reference's conditioned window (`has_cond`) is not ported:
-the port has no conditioned field yet (ROADMAP Queue 1 #11).
+A conditioned net takes its per-ray condpart (R, n_cond·W) bf16
+(`posenc_mlp.hoist_cond`), the reference's cond window: slice i is added
+in f32 to the i-th conditioned layer's accumulator before its bias.
+
+Predication is per (tile, block), tile = net.tile_rows // SB rays (halved
+for a conditioned net): the pair runs iff some ray of the tile has hit ∧
+block_hit[b] ∧ logT > log ε, and then every ray of the tile is marched. A
+dead pair writes w = 0 and leaves rgb, depth, acc and logT as they are.
+White background is added by the caller.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ from __future__ import annotations
 import torch
 
 from fashion_nerf_torch import kernels as K
-from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, field_operand,
-                                                   kernel_net, mlp_rows,
-                                                   pad_dirpart)
+from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, check_condpart,
+                                                   field_operand, kernel_net,
+                                                   mlp_rows, pad_condpart,
+                                                   pad_dirpart, per_row)
 from fashion_nerf_torch.kernels.slimmarch import block_weights, live_rows
 from fashion_nerf_torch.kernels.wgpack import field_buffer
 
@@ -39,14 +43,15 @@ _BF = torch.bfloat16
 
 def carry_march_plain(net: PackedNet, dirpart, rays_o, rays_d, hit,
                       block_hit, t, d, log_eps: float,
-                      softplus: bool = False):
+                      softplus: bool = False, condpart=None):
     """Plain version of K6. hit (R,), block_hit (R, NB), rays_o and rays_d
-    (R, 3), t and d (R, NB·SB) f32, dirpart (R, W/2) bf16. → rgb (R, 3),
-    depth (R,), acc (R,), w (R, NB·SB), logT (R,)."""
+    (R, 3), t and d (R, NB·SB) f32, dirpart (R, W/2) bf16, condpart (R,
+    n_cond·W) bf16 or None. → rgb (R, 3), depth (R,), acc (R,), w (R,
+    NB·SB), logT (R,)."""
     R, S = t.shape
     NB = block_hit.shape[1]
     SB = S // NB
-    rpt = K.TILE_ROWS // SB
+    rpt = net.tile_rows // SB
     dev = t.device
     rgb = torch.zeros((R, 3), dtype=torch.float32, device=dev)
     depth = torch.zeros((R,), dtype=torch.float32, device=dev)
@@ -63,9 +68,10 @@ def carry_march_plain(net: PackedNet, dirpart, rays_o, rays_d, hit,
         pts = (rays_o[idx][:, None, :]
                + rays_d[idx][:, None, :] * tt[..., None])
         a0 = field_operand(pts.reshape(-1, 3), net.L, net.k0)
-        dir_rows = (dirpart[idx].float().repeat_interleave(SB, dim=0)
-                    if net.has_vd else None)
-        rgb_s, sigma = mlp_rows(net, a0, dir_rows=dir_rows)
+        dir_rows = per_row(dirpart[idx], SB) if net.has_vd else None
+        cond_rows = None if condpart is None else per_row(condpart[idx], SB)
+        rgb_s, sigma = mlp_rows(net, a0, dir_rows=dir_rows,
+                                cond_rows=cond_rows)
         wb, logT[idx] = block_weights(sigma.view(-1, SB), d[idx, cols],
                                       logT[idx], softplus)
         w[idx, cols] = wb
@@ -76,15 +82,17 @@ def carry_march_plain(net: PackedNet, dirpart, rays_o, rays_d, hit,
 
 
 def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
-                d, log_eps: float, softplus: bool = False):
+                d, log_eps: float, softplus: bool = False, condpart=None):
     """Generic carry march: CPU tensors take the plain version, CUDA
     tensors K6, one launch per sample block and per MARCH_MAX_TILES tiles
-    of rays. SB must be in MARCH_SB. A net narrower than the kernel's
-    widths runs padded with zeros (`posenc_mlp.pad_packed`): the same
-    function at the padded net's cost."""
-    if not K.on_cuda(dirpart, rays_o, rays_d, hit, block_hit, t, d, net.w):
+    of rays. SB must be in MARCH_SB; a conditioned net takes its condpart.
+    A net narrower than the kernel's widths runs padded with zeros
+    (`posenc_mlp.pad_packed`): the same function at the padded net's cost."""
+    if not K.on_cuda(dirpart, rays_o, rays_d, hit, block_hit, t, d, net.w,
+                     condpart):
         return carry_march_plain(net, dirpart, rays_o, rays_d, hit,
-                                 block_hit, t, d, log_eps, softplus)
+                                 block_hit, t, d, log_eps, softplus,
+                                 condpart)
     if not net.x_rows:
         raise ValueError("carry_march needs a net packed with hoist_x=False")
     R, S = t.shape
@@ -93,7 +101,8 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
     if S != NB * SB or SB not in K.MARCH_SB:
         raise ValueError(f"S={S}, NB={NB}: the carry march takes SB in "
                          f"MARCH_SB = {K.MARCH_SB}")
-    rpt = K.TILE_ROWS // SB
+    tile_rows = net.tile_rows
+    rpt = tile_rows // SB
     if R % rpt:
         raise ValueError(f"R={R} must be a multiple of {rpt}")
     for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
@@ -103,10 +112,13 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
                            ("t", t, (R, S)), ("d", d, (R, S))):
         K.check(x, name, torch.float32, shape)
     K.check(dirpart, "dirpart", _BF, (R, dirpart.shape[1]))
+    check_condpart(net, condpart, R)
     if net.has_vd and dirpart.shape[1] != net.width // 2:
         raise ValueError(f"dirpart width {dirpart.shape[1]}")
     knet = kernel_net(net)
     dirpart = pad_dirpart(net, knet, dirpart)
+    condpart = pad_condpart(net, knet.width, condpart)
+    cw = 0 if condpart is None else condpart.shape[1]
     wp = field_buffer(knet)
     dev = t.device
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
@@ -125,9 +137,10 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
                 rgb[rays], depth[rays], acc[rays], w[rays],
                 carry[b % 2][rays], carry[(b + 1) % 2][rays])]
             code = lib.fnt_carry_march(
-                *ptrs, rays.stop - r0, NB, SB, b, knet.L, knet.depth,
-                knet.width, knet.k0, knet.skip, int(knet.has_vd),
-                int(softplus), float(log_eps), K.stream())
+                *ptrs, condpart[rays].data_ptr() if cw else None, cw,
+                rays.stop - r0, NB, SB, b, knet.L, knet.depth, knet.width,
+                knet.k0, knet.skip, int(knet.has_vd), int(softplus),
+                tile_rows, float(log_eps), K.stream())
             K.raise_on_error(code, "fnt_carry_march")
-            K.LAUNCHES["carry_march"] += 1
+            K.LAUNCHES["carry_march_cond" if cw else "carry_march"] += 1
     return rgb, depth, acc, w, carry[NB % 2]

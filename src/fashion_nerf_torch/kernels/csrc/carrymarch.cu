@@ -22,7 +22,8 @@
 //   64 per warpgroup = 64/SB whole rays. Every block lists the launch's live
 //   predication tiles (2048/SB rays) itself and strides over their items;
 //   the owner of a dead tile writes its w = 0 and carries rgb, depth, acc
-//   and logT through.
+//   and logT through. The tile is tile_rows rows: 2048, or 1024 for a
+//   conditioned net, as the reference halves its conditioned plans' tile.
 // - The producer's one lane streams the net's field slices
 //   (kernels/wgpack.py::field_buffer, x rows inside the posenc operand's
 //   slice) through the ring of 3 slots of 64 × 256 bf16 with cp.async.bulk
@@ -32,6 +33,12 @@
 //   shared memory with t and the rays' view terms; wgf::posenc_tile builds
 //   the operand [bf16(x) | bf16(sin P)] from it, and wgf::forward leaves
 //   raw σ and post-sigmoid rgb per row in shared memory.
+// - The cond window (a conditioned net, condpart non-null): the ray's
+//   condpart row (n_cond·W bf16, the hoisted cond @ cond_kernel) is read
+//   from device memory (L2) in the epilogues of the layers that take the
+//   posenc operand, slice i added in f32 to the i-th one's accumulator
+//   before its bias (wgf::forward<W, true>). A null condpart runs the
+//   kernel instantiated without it.
 // - Compositing by warps, as K2: one warp per ray (SB = 32, a lane per
 //   sample), per two rays (SB = 16), or two samples a lane (SB = 64); the
 //   exclusive log(1−α) prefix, clamped at log(1e-10) per sample, is a
@@ -74,6 +81,7 @@ struct CarryArgs {
   const float* rays_o;     // (R, 3)
   const float* rays_d;     // (R, 3)
   const bf16* dirpart;     // (R, W/2) per-ray view term (view branch only)
+  const bf16* condpart;    // (R, cw) per-ray cond term, or null
   const float* t;          // (R, NB·SB) sample positions
   const float* d;          // (R, NB·SB) scaled interval widths
   const bf16* w;           // packed weights (Layout): the heads
@@ -86,13 +94,15 @@ struct CarryArgs {
   const float* logT_in;    // (R,) carry before block b (unused at b = 0)
   float* logT_out;         // (R,) carry after block b
   int R, NB, SB, blk, L, softplus, n_b;
+  int cw;                  // condpart columns (n_cond·W), 0 without one
+  int tile_rows;           // rows of a predication tile (2048 or 1024)
   float log_eps;
   int n_slices;
   int slice_bytes[wgf::kMaxSlices];
   Layout lay;
 };
 
-template <int W>
+template <int W, bool kCond>
 __global__ void __launch_bounds__(wgf::kThreads, 1)
     carry_march_kernel(const __grid_constant__ CarryArgs a) {
   constexpr int kHalf = W / 2;
@@ -101,7 +111,8 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   float* bias = reinterpret_cast<float*>(smem_raw + sizeof(CarrySmem<W>));
   const Layout& lay = a.lay;
   const int SB = a.SB, S = a.NB * a.SB;
-  const int rpt = kTileRows / SB;
+  const int rpt = a.tile_rows / SB;
+  const int items_per_tile = a.tile_rows / wg::kItemRows;
   const bool first = a.blk == 0;
   const long col0 = (long)a.blk * SB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -138,7 +149,7 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
           }
         }
       });
-  const int n_items = n_live * wg::kItemsPerTile;
+  const int n_items = n_live * items_per_tile;
 
   if (warp >= wgf::kConsumers / 32) {
     wg::setmaxnreg_dec<40>();
@@ -165,9 +176,10 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   float acc[W / 2];
 
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const long row0 = (long)s.live[it / wg::kItemsPerTile] * kTileRows +
-                      (it % wg::kItemsPerTile) * wg::kItemRows + 64 * g;
+    const long row0 = (long)s.live[it / items_per_tile] * a.tile_rows +
+                      (it % items_per_tile) * wg::kItemRows + 64 * g;
     const long ray0 = row0 / SB;   // first ray of the warpgroup
+    if (kCond) t.cond_lo = t.cond_hi = a.condpart + (ray0 + t.rA / SB) * a.cw;
     if (tw < 64) row_t[tw] = a.t[(ray0 + tw / SB) * S + col0 + tw % SB];
     if (lay.has_vd)
       for (int i = tw; i < nr * kHalf; i += 128)
@@ -184,7 +196,7 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
     wg::fence_async_smem();
     wg::wg_sync(t.bar);
 
-    wgf::forward<W>(lay, t, s.ring, rp, acc, [](int, int) {}, [] {});
+    wgf::forward<W, kCond>(lay, t, s.ring, rp, acc, [](int, int) {}, [] {});
 
     // compositing: segments of `seg` lanes per ray, q samples a lane
     const int seg = SB < 32 ? SB : 32, q = SB / seg;
@@ -241,19 +253,19 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   }
 }
 
-template <int W>
+template <int W, bool kCond>
 int launch_carry(CarryArgs& a, cudaStream_t st) {
   const int smem = (int)sizeof(CarrySmem<W>) + a.n_b * 4;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      carry_march_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      carry_march_kernel<W, kCond>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int n_sm = 0;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
   if (err != cudaSuccess) return (int)err;
   if (a.R == 0) return 0;
-  carry_march_kernel<W><<<n_sm, wgf::kThreads, smem, st>>>(a);
+  carry_march_kernel<W, kCond><<<n_sm, wgf::kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -263,18 +275,21 @@ int launch_carry(CarryArgs& a, cudaStream_t st) {
 extern "C" {
 
 // Marches sample block `blk` of NB with a field packed with its x rows in
-// the posenc operand: width 128 or 256, depth 2-8, k0 48 or 64. R must be a
-// multiple of the tile (2048/SB rays) and at most 1024 tiles; SB is 16, 32
-// or 64; wp holds the net's field slices (kernels/wgpack.py::field_buffer).
-// Returns a cudaError_t.
+// the posenc operand: width 128 or 256, depth 2-8, k0 48 or 64. condpart:
+// null, or (R, cw) bf16 with cw = W times the layers that take the posenc
+// operand. The predication tile is tile_rows (2048 or 1024) rows; R must
+// be a multiple of it (tile_rows/SB rays) and at most 1024 tiles; SB is
+// 16, 32 or 64; wp holds the net's field slices
+// (kernels/wgpack.py::field_buffer). Returns a cudaError_t.
 int fnt_carry_march(const void* hit, const void* block_hit,
                     const void* rays_o, const void* rays_d,
                     const void* dirpart, const void* t, const void* d,
                     const void* w, const void* wp, const void* b, void* rgb,
                     void* depth, void* acc, void* w_out, const void* logT_in,
-                    void* logT_out, int R, int NB, int SB, int blk, int L,
-                    int depth_layers, int width, int k0, int skip,
-                    int has_vd, int softplus, float log_eps, void* stream) {
+                    void* logT_out, const void* condpart, int cw, int R,
+                    int NB, int SB, int blk, int L, int depth_layers,
+                    int width, int k0, int skip, int has_vd, int softplus,
+                    int tile_rows, float log_eps, void* stream) {
   using namespace fnt;
   CarryArgs a;
   a.hit = static_cast<const float*>(hit);
@@ -282,6 +297,9 @@ int fnt_carry_march(const void* hit, const void* block_hit,
   a.rays_o = static_cast<const float*>(rays_o);
   a.rays_d = static_cast<const float*>(rays_d);
   a.dirpart = static_cast<const bf16*>(dirpart);
+  a.condpart = static_cast<const bf16*>(condpart);
+  a.cw = cw;
+  a.tile_rows = tile_rows;
   a.t = static_cast<const float*>(t);
   a.d = static_cast<const float*>(d);
   a.w = static_cast<const bf16*>(w);
@@ -305,11 +323,19 @@ int fnt_carry_march(const void* hit, const void* block_hit,
   a.n_slices = wgf::field_slice_bytes(a.lay, false, a.slice_bytes);
   if (wgf::field_layout_error(a.lay) || a.n_slices < 0 ||
       !(SB == 16 || SB == 32 || SB == 64) || 3 + 6 * L > k0 || R < 0 ||
-      R % (kTileRows / SB) || R / (kTileRows / SB) > kMaxTilesK6 || blk < 0 ||
-      blk >= NB || (reinterpret_cast<uintptr_t>(wp) & 15))
+      !(tile_rows == kTileRows || tile_rows == kTileRows / 2) ||
+      R % (tile_rows / SB) || R / (tile_rows / SB) > kMaxTilesK6 || blk < 0 ||
+      blk >= NB || (reinterpret_cast<uintptr_t>(wp) & 15) ||
+      (condpart != nullptr) != (cw > 0) ||
+      (cw > 0 && (cw != wgf::cond_layers(a.lay) * width ||
+                  (reinterpret_cast<uintptr_t>(condpart) & 3))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return width == 256 ? launch_carry<256>(a, st) : launch_carry<128>(a, st);
+  if (cw > 0)
+    return width == 256 ? launch_carry<256, true>(a, st)
+                        : launch_carry<128, true>(a, st);
+  return width == 256 ? launch_carry<256, false>(a, st)
+                      : launch_carry<128, false>(a, st);
 }
 
 }  // extern "C"

@@ -32,6 +32,13 @@
 //   head likewise without a view branch). Biases, heads and the per-ray
 //   view term are staged in shared memory (up to 8 rays a warpgroup; more,
 //   at spr < 10, are read from device memory in the view epilogue).
+// - The cond window (the reference's condpart window of conditioned
+//   plans): with a non-null condpart (n / spr, cw) bf16, the hoisted
+//   per-ray cond @ cond_kernel, each row's accumulator in the epilogue of
+//   the i-th layer that takes the posenc operand (trunk_0, the skip layer)
+//   adds the f32 of its ray's slice i before the bias, read from device
+//   memory (L2-resident: one row serves spr rows). A null condpart runs
+//   the kernel instantiated without it.
 #include "wg_field.cuh"
 
 namespace fnt {
@@ -55,18 +62,20 @@ struct __align__(128) FieldSmem {
 struct FieldArgs {
   const float* pts;      // (n, 3)
   const bf16* dirpart;   // (n / spr, width / 2), read only with a view branch
+  const bf16* condpart;  // (n / spr, cw) per-ray cond term, or null
   const bf16* w;         // packed weights (Layout): the heads
   const bf16* wp;        // field slices (kernels/wgpack.py)
   const float* b;        // packed biases (Layout)
   float* rgb;            // (n, 3) post-sigmoid
   float* sigma;          // (n,) raw
   int n, spr, L, n_b;
+  int cw;                // condpart columns (n_cond·W), 0 without one
   int n_slices;
   int slice_bytes[wgf::kMaxSlices];
   Layout lay;
 };
 
-template <int W>
+template <int W, bool kCond>
 __global__ void __launch_bounds__(wgf::kThreads, 1)
     field_kernel(const __grid_constant__ FieldArgs a) {
   constexpr int kHalf = W / 2;
@@ -126,12 +135,19 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
       t.dir_lo = staged ? dirs[q_lo - ray0] : a.dirpart + q_lo * kHalf;
       t.dir_hi = staged ? dirs[q_hi - ray0] : a.dirpart + q_hi * kHalf;
     }
+    if (kCond) {
+      // a warpgroup without rows reads ray 0's (its outputs are dropped)
+      const long q_lo = live ? (row0 + t.rA) / a.spr : 0;
+      const long q_hi = live ? (row0 + t.rA + 8) / a.spr : 0;
+      t.cond_lo = a.condpart + q_lo * a.cw;
+      t.cond_hi = a.condpart + q_hi * a.cw;
+    }
     wg::wg_sync(t.bar);
     wgf::posenc_tile(t.A0, lay.k0, a.L, pts, tw);
     wg::fence_async_smem();
     wg::wg_sync(t.bar);
 
-    wgf::forward<W>(lay, t, s.ring, rp, acc, [](int, int) {}, [] {});
+    wgf::forward<W, kCond>(lay, t, s.ring, rp, acc, [](int, int) {}, [] {});
 
     if (live && tw < 64) {
       a.sigma[row0 + tw] = row_sigma[tw];
@@ -141,20 +157,21 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   }
 }
 
-template <int W>
+template <int W, bool kCond>
 int launch_field(FieldArgs& a, cudaStream_t st) {
   const int smem = (int)sizeof(FieldSmem<W>) + a.n_b * 4;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      field_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      field_kernel<W, kCond>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   int n_sm = 0;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
   if (err != cudaSuccess) return (int)err;
   if (a.n == 0) return 0;
   const int n_items = (a.n + wg::kItemRows - 1) / wg::kItemRows;
-  field_kernel<W><<<n_items < n_sm ? n_items : n_sm, wgf::kThreads, smem,
-                    st>>>(a);
+  field_kernel<W, kCond><<<n_items < n_sm ? n_items : n_sm, wgf::kThreads,
+                           smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -165,11 +182,14 @@ extern "C" {
 
 // The field on n rows (a multiple of 64 and of spr), width 128 or 256,
 // depth 2-8, k0 48 or 64. wp holds the net's field slices
-// (kernels/wgpack.py::field_buffer). Returns a cudaError_t.
+// (kernels/wgpack.py::field_buffer). condpart: null, or (n / spr, cw) bf16
+// with cw = W times the layers that take the posenc operand. Returns a
+// cudaError_t.
 int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
                       const void* wp, const void* b, void* rgb, void* sigma,
-                      int n, int spr, int L, int depth, int width, int k0,
-                      int skip, int has_vd, void* stream) {
+                      const void* condpart, int cw, int n, int spr, int L,
+                      int depth, int width, int k0, int skip, int has_vd,
+                      void* stream) {
   using namespace fnt;
   FieldArgs a;
   a.pts = static_cast<const float*>(pts);
@@ -179,6 +199,8 @@ int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
   a.b = static_cast<const float*>(b);
   a.rgb = static_cast<float*>(rgb);
   a.sigma = static_cast<float*>(sigma);
+  a.condpart = static_cast<const bf16*>(condpart);
+  a.cw = cw;
   a.n = n;
   a.spr = spr;
   a.L = L;
@@ -187,10 +209,17 @@ int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
   a.n_slices = wgf::field_slice_bytes(a.lay, false, a.slice_bytes);
   if (wgf::field_layout_error(a.lay) || a.n_slices < 0 || n < 0 ||
       n % wg::kWgRows || spr < 1 || n % spr || 3 + 6 * L > k0 ||
-      (reinterpret_cast<uintptr_t>(wp) & 15))
+      (reinterpret_cast<uintptr_t>(wp) & 15) ||
+      (condpart != nullptr) != (cw > 0) ||
+      (cw > 0 && (cw != wgf::cond_layers(a.lay) * width ||
+                  (reinterpret_cast<uintptr_t>(condpart) & 3))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return width == 256 ? launch_field<256>(a, st) : launch_field<128>(a, st);
+  if (cw > 0)
+    return width == 256 ? launch_field<256, true>(a, st)
+                        : launch_field<128, true>(a, st);
+  return width == 256 ? launch_field<256, false>(a, st)
+                      : launch_field<128, false>(a, st);
 }
 
 const char* fnt_error_string(int code) {

@@ -16,7 +16,9 @@
 //   one producer warpgroup (one lane of it issues the copies; setmaxnreg
 //   hands the producer's registers to the consumers). A work item is 128
 //   rows (ray-major rows of sample block b, 64 per warpgroup); the
-//   predication tile of 2048/SB rays holds 16 items. Every block lists the launch's live tiles itself (the same
+//   predication tile of tile_rows/SB rays holds tile_rows/128 items
+//   (tile_rows 2048, or 1024 for a conditioned net, whose cond is folded
+//   into oX). Every block lists the launch's live tiles itself (the same
 //   list in every block) and strides over their items; the owner block of
 //   a dead tile writes its w = 0 and carries rgb and logT through.
 // - Layers on wgmma m64n256k16 (m64n128k16 for the view layer): A is the
@@ -94,6 +96,8 @@ struct SlimArgs {
   const float* logT_in;    // (R,) carry before block b (unused at b = 0)
   float* logT_out;         // (R,) carry after block b
   int R, NB, SB, blk, L, softplus, n_b;
+  int tile_rows;           // rows of a predication tile: 2048, 1024 when
+                           // the net is conditioned (as the reference)
   float log_eps;
   int n_slices;
   int slice_bytes[kMaxSlices];
@@ -158,7 +162,8 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
   float* bias = reinterpret_cast<float*>(smem_raw + sizeof(SlimSmem));
   const Layout& lay = a.lay;
   const int SB = a.SB, S = a.NB * a.SB;
-  const int rpt = kTileRows / SB;
+  const int rpt = a.tile_rows / SB;
+  const int items_per_tile = a.tile_rows / wg::kItemRows;
   const bool first = a.blk == 0;
   const long col0 = (long)a.blk * SB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -195,7 +200,7 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
             for (int c = 0; c < 3; ++c) a.rgb[ray * 3 + c] = 0.0f;
         }
       });
-  const int n_items = n_live * wg::kItemsPerTile;
+  const int n_items = n_live * items_per_tile;
 
   if (warp >= kConsumers / 32) {
     // producer warpgroup: one lane streams the net's slices for every item
@@ -244,8 +249,8 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
   float(&acc_v)[kHalf / 2] = *reinterpret_cast<float(*)[kHalf / 2]>(acc);
 
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const long row0 = (long)s.live[it / wg::kItemsPerTile] * kTileRows +
-                      (it % wg::kItemsPerTile) * wg::kItemRows + 64 * g;
+    const long row0 = (long)s.live[it / items_per_tile] * a.tile_rows +
+                      (it % items_per_tile) * wg::kItemRows + 64 * g;
     const long ray0 = row0 / SB;   // first ray of the warpgroup
     if (tw < 64) row_t[tw] = a.t[(ray0 + tw / SB) * S + col0 + tw % SB];
     for (int i = tw; i < nr * 2 * n_ph; i += 128) {
@@ -455,18 +460,18 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
 
 extern "C" {
 
-// Marches sample block `blk` of NB with the 8×256-wide fine net. R must be
-// a multiple of the tile (2048/SB rays) and at most 1024 tiles; SB is 16,
-// 32 or 64; wp holds the net's march slices (kernels/wgpack.py). Returns a
-// cudaError_t.
+// Marches sample block `blk` of NB with the 8×256-wide fine net. The
+// predication tile is tile_rows (2048 or 1024) rows, tile_rows/SB rays; R
+// must be a multiple of it and at most 1024 tiles; SB is 16, 32 or 64; wp
+// holds the net's march slices (kernels/wgpack.py). Returns a cudaError_t.
 int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
                    const void* dX, const void* oF, const void* dF,
                    const void* dirpart, const void* t, const void* d,
                    const void* w, const void* wp, const void* b, void* rgb,
                    void* w_out, const void* logT_in, void* logT_out, int R,
                    int NB, int SB, int blk, int L, int depth, int width,
-                   int k0, int skip, int softplus, float log_eps,
-                   void* stream) {
+                   int k0, int skip, int softplus, int tile_rows,
+                   float log_eps, void* stream) {
   using namespace fnt;
   SlimArgs a;
   a.hit = static_cast<const float*>(hit);
@@ -491,13 +496,15 @@ int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
   a.blk = blk;
   a.L = L;
   a.softplus = softplus;
+  a.tile_rows = tile_rows;
   a.log_eps = log_eps;
   a.lay = make_layout(depth, width, k0, skip, 1);
   a.n_b = a.lay.b_rgb + 3;
   const int smem = (int)sizeof(SlimSmem) + a.n_b * 4;
   if (layout_error(a.lay) || width != kW || smem > 227 * 1024 || !(SB == 16 || SB == 32 ||
-      SB == 64) || 6 * L > k0 || R < 0 || R % (kTileRows / SB) ||
-      R / (kTileRows / SB) > kMaxTilesK2 || blk < 0 || blk >= NB ||
+      SB == 64) || 6 * L > k0 || !(tile_rows == kTileRows ||
+      tile_rows == kTileRows / 2) || R < 0 || R % (tile_rows / SB) ||
+      R / (tile_rows / SB) > kMaxTilesK2 || blk < 0 || blk >= NB ||
       (reinterpret_cast<uintptr_t>(wp) & 15))
     return (int)cudaErrorInvalidValue;
   // the slices in the order the consumers take them (kernels/wgpack.py)

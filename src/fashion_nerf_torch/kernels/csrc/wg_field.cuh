@@ -137,6 +137,14 @@ inline int field_slice_bytes(const Layout& lay, bool transposed,
   return n > kMaxSlices ? -1 : n;
 }
 
+// Layers that take the posenc operand, and so the cond window of a
+// conditioned net: trunk_0 and the skip layer.
+inline int cond_layers(const Layout& L) {
+  int n = 0;
+  for (int i = 0; i < L.depth; ++i) n += L.w_a0[i] >= 0;
+  return n;
+}
+
 // Checks a layout the wgmma field kernels take; 0 if fine.
 inline int field_layout_error(const Layout& L) {
   if (layout_error(L) || !(L.width == 128 || L.width == 256)) return 1;
@@ -217,6 +225,11 @@ struct Rows {
   float (*row_rgb)[3];      // (64) post-sigmoid rgb
   uint32_t* mask;           // K4: relu bits, (depth, W/64, 128) words
   int tw, ww, lane, bar, rA, cA;
+  // the cond window (forward<W, true>): the condpart row of row rA's ray
+  // and of row rA + 8's, n_cond·W bf16 in device memory, W-wide slice ci
+  // feeding the ci-th layer that takes the posenc operand
+  const bf16* cond_lo = nullptr;
+  const bf16* cond_hi = nullptr;
 };
 
 // The forward of the packed field on the warpgroup's rows: trunk, heads.
@@ -225,8 +238,10 @@ struct Rows {
 // trunk layer, as the thread's accumulator elements), stored(kind, i),
 // called once each tile is final (kind 0 the trunk layer i, 1 the feature
 // layer, 2 the view layer), and guard(), called before each epilogue
-// overwrites H.
-template <int W, int S, class Stored, class Guard>
+// overwrites H. kCond adds the cond window: the first and skip layers'
+// accumulators take float(condpart) before the bias, as the reference's
+// mlp_rows adds it (acc + c + b); without it the epilogue is unchanged.
+template <int W, bool kCond = false, int S, class Stored, class Guard>
 __device__ __forceinline__ void forward(const Layout& lay, Rows& t,
                                         Ring<S>& ring, RingPos& rp,
                                         float (&acc)[W / 2], Stored stored,
@@ -235,6 +250,7 @@ __device__ __forceinline__ void forward(const Layout& lay, Rows& t,
   const uint32_t h_addr = wg::smem_addr(t.H), a0_addr = wg::smem_addr(t.A0);
   const int k0 = lay.k0, rA = t.rA, cA = t.cA, lane = t.lane;
   float(&acc_v)[kHalf / 2] = *reinterpret_cast<float(*)[kHalf / 2]>(acc);
+  int ci = 0;   // cond layers so far
   for (int i = 0; i < lay.depth; ++i) {
     const bool last = i == lay.depth - 1;
     bool zero = true;
@@ -253,16 +269,32 @@ __device__ __forceinline__ void forward(const Layout& lay, Rows& t,
     uint32_t bits[W / 64];
 #pragma unroll
     for (int w = 0; w < W / 64; ++w) bits[w] = 0u;
+    const bool cond_layer = kCond && lay.w_a0[i] >= 0;
+    const bf16* c_lo = cond_layer ? t.cond_lo + ci * W : nullptr;
+    const bf16* c_hi = cond_layer ? t.cond_hi + ci * W : nullptr;
+    if (cond_layer) ++ci;
 #pragma unroll
     for (int j = 0; j < W / 8; ++j) {
       const int c = 8 * j + cA;
       const float b0 = bl[c], b1 = bl[c + 1];
+      float a4[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                     acc[4 * j + 3]};
+      if (kCond && cond_layer) {
+        const float2 cl = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(c_lo + c));
+        const float2 ch = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(c_hi + c));
+        a4[0] = __fadd_rn(a4[0], cl.x);
+        a4[1] = __fadd_rn(a4[1], cl.y);
+        a4[2] = __fadd_rn(a4[2], ch.x);
+        a4[3] = __fadd_rn(a4[3], ch.y);
+      }
       const __nv_bfloat162 lo = __floats2bfloat162_rn(
-          fmaxf(__fadd_rn(acc[4 * j], b0), 0.0f),
-          fmaxf(__fadd_rn(acc[4 * j + 1], b1), 0.0f));
+          fmaxf(__fadd_rn(a4[0], b0), 0.0f),
+          fmaxf(__fadd_rn(a4[1], b1), 0.0f));
       const __nv_bfloat162 hi = __floats2bfloat162_rn(
-          fmaxf(__fadd_rn(acc[4 * j + 2], b0), 0.0f),
-          fmaxf(__fadd_rn(acc[4 * j + 3], b1), 0.0f));
+          fmaxf(__fadd_rn(a4[2], b0), 0.0f),
+          fmaxf(__fadd_rn(a4[3], b1), 0.0f));
       st_pair(t.H, rA, c, W, lo);
       st_pair(t.H, rA + 8, c, W, hi);
       const float v[4] = {__low2float(lo), __high2float(lo), __low2float(hi),

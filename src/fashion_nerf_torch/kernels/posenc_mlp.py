@@ -14,6 +14,17 @@ The layers' posenc operand ("a0") is [x | sin | cos] for the field and
 [sin | cos] for the marches, whose x-paths are linear in t and hoisted
 per ray; its width is padded with zero rows to a multiple of 16.
 
+Conditioning. A conditioned net's trunk_0 and skip layer carry Cc rows
+that act on the per-ray cond vector; `pack_params` lifts them into
+`cond_kernel` (Cc, n_cond·W), as the reference's `pack_params` does, and
+`hoist_cond` computes the per-ray condpart bf16(cond @ cond_kernel) once
+per chunk. K3 and K6 add float(condpart) slice i to the accumulator of
+the i-th conditioned layer before its bias; K2 takes it folded into its
+hoisted x-intercepts (slimmarch.hoist_rays). A conditioned net's marches
+predicate per half tile (`tile_rows`), as the reference's conditioned plans
+do. Gradients of a conditioned field (K4's dcond) are not ported: the
+fused field raises under grad with a cond (ROADMAP Queue 1 #11).
+
 Shapes. K3, K4 and K6 take widths 128 and 256, depths 2-8 and a posenc
 operand of 48 or 64 columns (`check_field_shape`). The wrappers run any
 narrower net zero-padded to the nearest such shape (`pad_packed`,
@@ -157,9 +168,23 @@ class PackedNet:
     padded: Optional["PackedNet"] = None  # this net padded for K3/K4/K6
     unpad: Optional[tuple] = None        # of a padded net: (pos_w, pos_b),
     #                                      where the unpadded entries lie
+    cond_kernel: Optional[torch.Tensor] = None   # (Cc, n_cond·W) f32
 
     def wview(self, off: int, rows: int, cols: int):
         return self.wf[off:off + rows * cols].view(rows, cols)
+
+    @property
+    def n_cond(self) -> int:
+        """Layers that take the cond input (trunk_0 and the skip layer of a
+        conditioned net, else none)."""
+        return 0 if self.cond_kernel is None else \
+            self.cond_kernel.shape[1] // self.width
+
+    @property
+    def tile_rows(self) -> int:
+        """Rows of a march's predication tile: halved for a conditioned
+        net, as the reference's conditioned plans halve theirs."""
+        return K.TILE_ROWS // 2 if self.n_cond else K.TILE_ROWS
 
 
 def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
@@ -171,12 +196,13 @@ def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
     lead back to the model's parameters (see FusedField)."""
     L, W, D = model.posenc_xyz, model.width, model.depth
     cx = 3 * (2 * L + 1)
+    Cc = model.cond_dim
     skips = [s + 1 for s in model.skips if s + 1 < D]
     if len(skips) > 1:
         raise NotImplementedError("more than one skip layer")
     skip = skips[0] if skips else -1
     k0 = _round16(6 * L if hoist_x else 3 + 6 * L)
-    ws, bs, x_kernels = [], [], []
+    ws, bs, x_kernels, cond_blocks = [], [], [], []
 
     def a0_rows(kern):
         Wx, Wsc = _split_posenc_kernel(kern, L)
@@ -189,7 +215,9 @@ def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
             kern, bias = layer.weight.t(), layer.bias
             if i == 0 or i == skip:
                 if i == skip:
-                    ws.append(kern[cx:])
+                    ws.append(kern[cx + Cc:])
+                if Cc:
+                    cond_blocks.append(kern[cx:cx + Cc].detach().float())
                 rows, Wx = a0_rows(kern[:cx])
                 ws.append(rows)
                 if hoist_x:
@@ -219,7 +247,9 @@ def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
                      skip=skip, has_vd=model.use_viewdirs, L=L,
                      L_dir=model.posenc_dir, x_rows=not hoist_x, lay=lay,
                      dir_kernel=dir_kernel, x_kernels=tuple(x_kernels),
-                     w32=w32 if grad else None)
+                     w32=w32 if grad else None,
+                     cond_kernel=(torch.cat(cond_blocks, dim=1).contiguous()
+                                  if cond_blocks else None))
 
 
 def dir_term(net: PackedNet, viewdirs):
@@ -240,15 +270,26 @@ def hoist_dirs(net: PackedNet, viewdirs):
     return dir_term(net, viewdirs).to(_BF)
 
 
+def hoist_cond(net: PackedNet, cond):
+    """The per-ray condpart bf16(cond @ cond_kernel) (R, n_cond·W), the f32
+    product rounded once; None without a cond."""
+    if cond is None:
+        return None
+    if net.cond_kernel is None:
+        raise ValueError("a cond was given but the net has no cond rows")
+    return (cond.float() @ net.cond_kernel).to(_BF).contiguous()
+
+
 # --------------------------------------------------------------------------
 # plain PyTorch row math (the kernels' numerics)
 # --------------------------------------------------------------------------
 
-def mlp_rows(net: PackedNet, a0, xterm=None, dir_rows=None):
+def mlp_rows(net: PackedNet, a0, xterm=None, dir_rows=None, cond_rows=None):
     """The packed MLP on rows. a0 (rows, k0) bf16-valued f32 posenc operand;
     xterm(l) → (rows, W) f32 hoisted term of the l-th x-layer (marches);
-    dir_rows (rows, W/2) f32 per-row view term. → (rgb (rows,3) post-sigmoid,
-    σ (rows,) raw)."""
+    dir_rows (rows, W/2) f32 per-row view term; cond_rows (rows, n_cond·W)
+    f32 per-row condpart, slice l added to the l-th x-layer before its bias.
+    → (rgb (rows,3) post-sigmoid, σ (rows,) raw)."""
     lay, W, b = net.lay, net.width, net.b
     h, xi = None, 0
     for i in range(net.depth):
@@ -258,6 +299,8 @@ def mlp_rows(net: PackedNet, a0, xterm=None, dir_rows=None):
         if lay["w_a0"][i] is not None:
             p = a0 @ net.wview(lay["w_a0"][i], net.k0, W)
             acc = p if acc is None else acc + p
+            if cond_rows is not None:
+                acc = acc + cond_rows[:, xi * W:(xi + 1) * W]
         acc = acc + b[lay["b"][i]:lay["b"][i] + W]
         if lay["w_a0"][i] is not None:
             if xterm is not None:
@@ -288,13 +331,18 @@ def field_operand(x, L: int, k0: int):
     return F.pad(a0, (0, k0 - a0.shape[1]))
 
 
-def field_rows_plain(net: PackedNet, pts, dirpart, spr: int):
-    """Plain version of K3: pts (n,3) f32, dirpart (n/spr, W/2) bf16."""
+def per_row(part, spr: int):
+    """A per-ray bf16 operand (R, C) expanded to f32 rows (R·spr, C)."""
+    return None if part is None else part.float().repeat_interleave(spr, 0)
+
+
+def field_rows_plain(net: PackedNet, pts, dirpart, spr: int, condpart=None):
+    """Plain version of K3: pts (n,3) f32, dirpart (n/spr, W/2) bf16,
+    condpart (n/spr, n_cond·W) bf16 or None."""
     a0 = field_operand(pts, net.L, net.k0)
-    dir_rows = (dirpart.float().repeat_interleave(spr, dim=0)
-                if net.has_vd else None)
-    rgb, sigma = mlp_rows(net, a0, dir_rows=dir_rows)
-    return rgb, sigma
+    dir_rows = per_row(dirpart, spr) if net.has_vd else None
+    return mlp_rows(net, a0, dir_rows=dir_rows,
+                    cond_rows=per_row(condpart, spr))
 
 
 def check_field_shape(n: int, spr: int, width: int, depth: int,
@@ -404,10 +452,13 @@ def pad_packed(net: PackedNet) -> PackedNet:
     dk = net.dir_kernel
     if dk is not None:
         dk = F.pad(dk.detach(), (0, Wp // 2 - dk.shape[1]))
+    ck = net.cond_kernel
+    if ck is not None:
+        ck = pad_condpart(net, Wp, ck)
     return PackedNet(w=w, wf=w.float(), b=b, depth=net.depth, width=Wp,
                      k0=k0p, skip=net.skip, has_vd=net.has_vd, L=net.L,
                      L_dir=net.L_dir, x_rows=True, lay=lay, dir_kernel=dk,
-                     x_kernels=(), unpad=(pos_w, pos_b))
+                     x_kernels=(), unpad=(pos_w, pos_b), cond_kernel=ck)
 
 
 def kernel_net(net: PackedNet) -> PackedNet:
@@ -423,6 +474,24 @@ def kernel_net(net: PackedNet) -> PackedNet:
     return net.padded
 
 
+def pad_condpart(net: PackedNet, Wp: int, condpart):
+    """(rows, n_cond·W) → (rows, n_cond·Wp): each W-wide slice widened with
+    zero columns (a padded column's accumulator stays 0)."""
+    if condpart is None or Wp == net.width:
+        return condpart
+    rows = condpart.shape[0]
+    return F.pad(condpart.reshape(rows, -1, net.width),
+                 (0, Wp - net.width)).reshape(rows, -1).contiguous()
+
+
+def check_condpart(net: PackedNet, condpart, rays: int):
+    """Raise unless condpart is a (rays, n_cond·W) bf16 condpart of net."""
+    if (condpart is None) != (net.n_cond == 0):
+        raise ValueError("a conditioned net takes a condpart, and only it")
+    if condpart is not None:
+        K.check(condpart, "condpart", _BF, (rays, net.n_cond * net.width))
+
+
 def pad_dirpart(net: PackedNet, knet: PackedNet, dirpart):
     """The per-ray view term widened with zero columns to the padded net's
     view layer."""
@@ -433,15 +502,16 @@ def pad_dirpart(net: PackedNet, knet: PackedNet, dirpart):
     return F.pad(dirpart, (0, knet.width // 2 - dirpart.shape[1]))
 
 
-def field_rows(net: PackedNet, pts, dirpart, spr: int):
+def field_rows(net: PackedNet, pts, dirpart, spr: int, condpart=None):
     """Fused field on rows → (rgb (n,3), σ (n,)). n must be a multiple of
-    64 and of spr. CPU tensors: plain version; CUDA tensors: kernel K3. A
-    net narrower than the kernel's widths, or with a narrower posenc
-    operand, runs padded with zeros (`pad_packed`): the same function at
-    the padded net's cost in tensor-core time."""
+    64 and of spr; a conditioned net takes its per-ray condpart (n/spr,
+    n_cond·W) bf16 (`hoist_cond`). CPU tensors: plain version; CUDA
+    tensors: kernel K3. A net narrower than the kernel's widths, or with a
+    narrower posenc operand, runs padded with zeros (`pad_packed`): the
+    same function at the padded net's cost in tensor-core time."""
     n = pts.shape[0]
-    if not K.on_cuda(pts, dirpart, net.w):
-        return field_rows_plain(net, pts, dirpart, spr)
+    if not K.on_cuda(pts, dirpart, net.w, condpart):
+        return field_rows_plain(net, pts, dirpart, spr, condpart)
     if not net.x_rows:
         raise ValueError("field_rows needs a net packed with hoist_x=False")
     unpadded = net
@@ -449,7 +519,9 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int):
     check_field_shape(n, spr, net.width, net.depth, net.k0)
     K.check(pts, "pts", torch.float32, (n, 3))
     K.check(dirpart, "dirpart", _BF, (n // spr, dirpart.shape[1]))
+    check_condpart(unpadded, condpart, n // spr)
     dirpart = pad_dirpart(unpadded, net, dirpart)
+    condpart = pad_condpart(unpadded, net.width, condpart)
     if net.has_vd and dirpart.shape[1] != net.width // 2:
         raise ValueError(f"dirpart width {dirpart.shape[1]}")
     rgb = torch.empty((n, 3), dtype=torch.float32, device=pts.device)
@@ -457,11 +529,12 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int):
     wp = wgpack.field_buffer(net)
     ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, wp, net.b, rgb,
                                    sigma)]
+    cw = 0 if condpart is None else condpart.shape[1]
     code = K.library().fnt_field_forward(
-        *ptrs, n, spr, net.L, net.depth, net.width, net.k0, net.skip,
-        int(net.has_vd), K.stream())
+        *ptrs, condpart.data_ptr() if cw else None, cw, n, spr, net.L,
+        net.depth, net.width, net.k0, net.skip, int(net.has_vd), K.stream())
     K.raise_on_error(code, "fnt_field_forward")
-    K.LAUNCHES["field"] += 1
+    K.LAUNCHES["field_cond" if cw else "field"] += 1
     return rgb, sigma
 
 
@@ -569,12 +642,15 @@ def bwd_workspace_cols(net: PackedNet) -> int:
 
 
 def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
-                        spr: int):
+                        spr: int, condpart=None):
     """VJP of `field_rows` → (d_pts (n,3), d_dirpart (n/spr, W/2), d_w,
     d_b), all f32. CPU tensors: plain version; CUDA tensors: kernel K4,
     which is deterministic (fixed-order reductions, no float atomics). A
     net outside the kernel's widths runs padded (`pad_packed`), and d_w,
-    d_b and d_dirpart come back in the unpadded net's layout."""
+    d_b and d_dirpart come back in the unpadded net's layout. A condpart
+    raises: K4's dcond output is not ported."""
+    if condpart is not None or net.n_cond:
+        raise NotImplementedError(_NO_COND_GRAD)
     n = pts.shape[0]
     if not K.on_cuda(pts, dirpart, net.w, g_rgb, g_sigma):
         return field_rows_backward_plain(net, pts, dirpart, g_rgb, g_sigma,
@@ -627,6 +703,11 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     return d_pts, d_dir, d_w, d_b
 
 
+_NO_COND_GRAD = ("gradients of a conditioned field (K4's dcond output) are "
+                 "not ported: conditioned training is the next try-on "
+                 "slice (ROADMAP Queue 1 #11)")
+
+
 class FusedField(torch.autograd.Function):
     """K3 forward and K4 backward under autograd (the reference's
     `field_core` custom VJP).
@@ -660,17 +741,20 @@ class FusedField(torch.autograd.Function):
 
 def make_fused_field(cfg, plain: bool = False):
     """Field fn with the reference convention:
-    field(params, pts (R,S,3), viewdirs (R,3), cond=None) → (rgb (R,S,3),
-    σ (R,S)), where params is a NeRFMLP. Runs K3 on CUDA tensors (the
-    plain version on CPU tensors, or everywhere with plain=True). With grad
-    enabled it runs through FusedField, whose backward is K4 (or its plain
-    version), and gradients reach the NeRFMLP's parameters."""
+    field(params, pts (R,S,3), viewdirs (R,3), cond (R,Cc)=None) →
+    (rgb (R,S,3), σ (R,S)), where params is a NeRFMLP. Runs K3 on CUDA
+    tensors (the plain version on CPU tensors, or everywhere with
+    plain=True); a cond enters as its per-ray condpart. With grad enabled
+    it runs through FusedField, whose backward is K4 (or its plain
+    version), and gradients reach the NeRFMLP's parameters; a cond under
+    grad raises (K4's dcond is not ported)."""
     del cfg   # the architecture is read off the module
 
     def field(params: NeRFMLP, pts, viewdirs, cond=None):
-        if cond is not None:
-            raise NotImplementedError(
-                "conditioned fields are not ported (ROADMAP Queue 1 #11)")
+        if cond is not None and torch.is_grad_enabled() and (
+                cond.requires_grad or pts.requires_grad
+                or any(p.requires_grad for p in params.parameters())):
+            raise NotImplementedError(_NO_COND_GRAD)
         net = pack_params(params, hoist_x=False)
         R, S = pts.shape[0], pts.shape[1]
         step = K.SLAB_ROWS // math.gcd(S, K.SLAB_ROWS)
@@ -678,7 +762,12 @@ def make_fused_field(cfg, plain: bool = False):
         flat = F.pad(pts.reshape(R, S, 3), (0, 0, 0, 0, 0, R_pad - R))
         flat = flat.reshape(-1, 3).contiguous()
         dterm = F.pad(dir_term(net, viewdirs), (0, 0, 0, R_pad - R))
-        if net.w32 is not None:
+        if cond is not None:
+            cp = F.pad(hoist_cond(net, cond), (0, 0, 0, R_pad - R))
+            fn = field_rows_plain if plain else field_rows
+            rgb, sigma = fn(net, flat, dterm.to(_BF).contiguous(), S,
+                            cp.contiguous())
+        elif net.w32 is not None:
             rgb, sigma = FusedField.apply(flat, dterm.contiguous(), net.w32,
                                           net.b, net, S, plain)
         else:

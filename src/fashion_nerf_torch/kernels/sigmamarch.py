@@ -87,16 +87,18 @@ def sigma_march_plain(net: PackedNet, hoists, alive, t, d,
     return w, acc, logT
 
 
-def check_march_shape(R: int, SB: int, width: int, kernel_width: int):
+def check_march_shape(R: int, SB: int, width: int, kernel_width: int,
+                      tile_rows: int = K.TILE_ROWS):
     """Raise unless K1/K2 take R rays of SB samples a block and a net of
-    this width (kernels.MARCH_SB, whole tiles, at most MARCH_MAX_TILES)."""
+    this width (kernels.MARCH_SB, whole tiles of tile_rows rows, at most
+    MARCH_MAX_TILES)."""
     if width != kernel_width:
         raise ValueError(f"net width {width}: this march kernel is built "
                          f"for width {kernel_width}")
     if SB not in K.MARCH_SB:
         raise ValueError(f"SB={SB}: the march kernels take SB in "
                          f"{K.MARCH_SB}")
-    rpt = K.TILE_ROWS // SB
+    rpt = tile_rows // SB
     if R % rpt or R // rpt > K.MARCH_MAX_TILES:
         raise ValueError(f"R={R} must be a multiple of {rpt} and at most "
                          f"{K.MARCH_MAX_TILES * rpt} rays")

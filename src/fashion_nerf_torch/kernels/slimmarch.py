@@ -6,11 +6,15 @@ samples per ray with a log-transmittance carry and an rgb accumulator. The
 posenc phases and the first and skip layers' x-paths are linear in t and
 hoisted per ray; the view term γ(d̂)·W_dir is per ray.
 
-Predication is per (tile, block), tile = TILE_ROWS // SB rays (64 at
-SB=32): the pair runs iff some ray of the tile has hit ∧ block_hit[b] ∧
-logT > log ε, and then every ray of the tile is marched. A dead pair writes
-w = 0 and leaves rgb and logT as they are. White background is added by
-the caller.
+A conditioned net's cond enters folded into the x-intercepts oX (its rows
+attach to exactly the x-layers and act on per-ray data), so the kernel has
+no cond window.
+
+Predication is per (tile, block), tile = net.tile_rows // SB rays (64 at
+SB=32, 32 for a conditioned net): the pair runs iff some ray of the tile
+has hit ∧ block_hit[b] ∧ logT > log ε, and then every ray of the tile is
+marched. A dead pair writes w = 0 and leaves rgb and logT as they are.
+White background is added by the caller.
 """
 
 from __future__ import annotations
@@ -37,13 +41,21 @@ def split_hoist(model: NeRFMLP) -> PackedNet:
     return net
 
 
-def hoist_rays(net: PackedNet, rays_o, rays_d):
+def hoist_rays(net: PackedNet, rays_o, rays_d, condpart=None):
     """→ oF, dF (R, 6L) phase intercept / slope; oX, dX (R, n_x·W) x-layer
-    intercepts (bias folded) / slopes, x-layer i in columns [i·W, (i+1)·W)."""
+    intercepts (bias folded, then the f32 of condpart's slice i for a
+    conditioned net) / slopes, x-layer i in columns [i·W, (i+1)·W)."""
     fmat, off = phase_consts(net.L, rays_o.device)
     oF = rays_o.repeat(1, 2 * net.L) * fmat + off
     dF = rays_d.repeat(1, 2 * net.L) * fmat
-    oX = torch.cat([rays_o @ Wx + b for Wx, b in net.x_kernels], dim=1)
+    W, oXs = net.width, []
+    for i, (Wx, b) in enumerate(net.x_kernels):
+        o = rays_o @ Wx + b
+        if condpart is not None:
+            # the cond rows attach to exactly the x-layers, per ray
+            o = o + condpart[:, i * W:(i + 1) * W].float()
+        oXs.append(o)
+    oX = torch.cat(oXs, dim=1)
     dX = torch.cat([rays_d @ Wx for Wx, _ in net.x_kernels], dim=1)
     return oF, dF, oX, dX
 
@@ -76,7 +88,7 @@ def slim_march_plain(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     R, S = t.shape
     NB = block_hit.shape[1]
     SB = S // NB
-    rpt = K.TILE_ROWS // SB
+    rpt = net.tile_rows // SB
     W = net.width
     rgb = torch.zeros((R, 3), dtype=torch.float32, device=t.device)
     w = torch.zeros_like(t)
@@ -118,7 +130,7 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     nx = len(net.x_kernels)
     if S != NB * SB:
         raise ValueError(f"S={S} is not NB={NB} blocks")
-    check_march_shape(R, SB, W, K.SLIM_WIDTH)
+    check_march_shape(R, SB, W, K.SLIM_WIDTH, net.tile_rows)
     for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
                                                 (R, NB)),
                            ("oX", oX, (R, nx * W)), ("dX", dX, (R, nx * W)),
@@ -140,7 +152,8 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
             rgb, w, carry[b % 2], carry[(b + 1) % 2])]
         code = lib.fnt_slim_march(
             *ptrs, R, NB, SB, b, net.L, net.depth, net.width, net.k0,
-            net.skip, int(softplus), float(log_eps), K.stream())
+            net.skip, int(softplus), net.tile_rows, float(log_eps),
+            K.stream())
         K.raise_on_error(code, "fnt_slim_march")
-        K.LAUNCHES["slim_march"] += 1
+        K.LAUNCHES["slim_march_cond" if net.n_cond else "slim_march"] += 1
     return rgb, w, carry[NB % 2]

@@ -10,7 +10,11 @@ across the whole scan box so that σ outside stays pinned at the teacher's.
 `distill_proposal` runs the student as a plain module under autograd, as
 the reference does outside its kernels, unless it is handed another field;
 `attach_proposal` hands it the fused field (K3, with K4 as its backward)
-for the teacher and the student where the config trains through it.
+for the teacher and the student where the config trains through it. A
+conditioned fine field teaches with the scene's cond vector; the student
+stays unconditioned, and the asset's match, as the reference's, carries no
+cond fingerprint: an asset signed for these fine weights is attached
+whatever the cond.
 """
 
 from __future__ import annotations
@@ -29,8 +33,8 @@ from fashion_nerf_torch.assets import (ASSETS_DIR, _flatten, load_params,
                                        save_params)
 from fashion_nerf_torch.config import Config, ModelConfig
 from fashion_nerf_torch.kernels.sigmamarch import _density
-from fashion_nerf_torch.models.nerf_mlp import (NeRFMLP, init_field,
-                                                load_flax_params)
+from fashion_nerf_torch.models.nerf_mlp import (NeRFMLP, cond_width,
+                                                init_field, load_flax_params)
 
 PROPOSAL_ASSET = os.path.join(ASSETS_DIR, "proposal_synthetic.npz")
 DISTILL_SEED = 7              # the seed `attach_proposal` distils from
@@ -58,8 +62,8 @@ def log_density(sigma_raw, sigma_activation: str = "relu"):
     return torch.log1p(_density(sigma_raw, sigma_activation == "softplus"))
 
 
-def _module_field(net: NeRFMLP, pts, viewdirs):
-    return net.field(pts, viewdirs)
+def _module_field(net: NeRFMLP, pts, viewdirs, cond=None):
+    return net.field(pts, viewdirs, cond)
 
 
 def distill_loss(student: NeRFMLP, pts, targets,
@@ -199,14 +203,12 @@ def attach_proposal(cfg: Config, params: dict, occ=None, cond=None,
          coarse march.
 
     occ: an OccupancyState whose box tightens the distillation's points.
-    generator: the distillation's draws (default: seed DISTILL_SEED).
-    cond: refused; conditioned teachers are not ported."""
+    cond: the per-scene cond vector (Cc,) a conditioned teacher is run
+    with (the proposal is distilled for it; the asset match ignores it).
+    generator: the distillation's draws (default: seed DISTILL_SEED)."""
     if not (cfg.proposal.enabled and cfg.sampling.n_fine > 0
             and "fine" in params):
         return params
-    if cond is not None:
-        raise NotImplementedError("conditioned teachers are not ported "
-                                  "(ROADMAP Queue 1 #11)")
     fine = params["fine"]
     if device is None and isinstance(fine, NeRFMLP):
         device = next(fine.parameters()).device
@@ -222,12 +224,21 @@ def attach_proposal(cfg: Config, params: dict, occ=None, cond=None,
         return params
     if not isinstance(fine, NeRFMLP):
         fine = load_flax_params(fine, compute_dtype=cfg.model.compute_dtype,
-                                device=device)
+                                device=device, cond_dim=cond_width(cfg.model))
     if generator is None:
         generator = torch.Generator().manual_seed(DISTILL_SEED)
     teacher_field, student_field = _distill_fields(cfg)
+    if cond is not None:
+        cvec = torch.as_tensor(cond, dtype=torch.float32, device=device)
+
+        def teacher(pts, dirs):
+            return teacher_field(fine, pts, dirs,
+                                 cvec.expand(pts.shape[0], cvec.shape[-1]))
+    else:
+        def teacher(pts, dirs):
+            return teacher_field(fine, pts, dirs)
     prop = distill_proposal(
-        cfg, lambda pts, dirs: teacher_field(fine, pts, dirs), generator,
+        cfg, teacher, generator,
         box_min=None if occ is None else occ.box_min,
         box_max=None if occ is None else occ.box_max, device=device,
         field=student_field)

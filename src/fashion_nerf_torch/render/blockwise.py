@@ -10,9 +10,14 @@ K2, or the generic carry march K6 under `kernels.carry_hoist=false`).
 Without a proposal net the coarse pass is the full coarse march of the
 coarse net through the same fine-march kernel, and the fine samples come
 from its mid-bin PDF joined with the coarse samples. Predication is per
-tile of TILE_ROWS // SB rays, as in the reference; `render_image_blockwise`
-orders rays in 8×8 pixel blocks so a tile is a pixel block, and skips
-chunks whose rays all miss the occupancy box.
+tile of TILE_ROWS // SB rays, as in the reference (half that for the
+marches of a conditioned field); `render_image_blockwise` orders rays in
+8×8 pixel blocks so a tile is a pixel block, and skips chunks whose rays
+all miss the occupancy box. A conditioned field takes a per-scene cond
+vector (garment code ⊕ latent); its per-ray condpart is hoisted once per
+march (`posenc_mlp.hoist_cond`) and enters K2 folded into its
+x-intercepts, K6 through its cond window. The proposal stays
+unconditioned.
 
 `plain=True` routes every march through its plain PyTorch version on any
 device: the reference frame that chip_smoke.py holds the kernels against.
@@ -36,7 +41,8 @@ from fashion_nerf_torch.core.occupancy import (OccupancyState,
                                                ray_multi_aabb)
 from fashion_nerf_torch.core.sampling import sample_pdf, stratified_sample
 from fashion_nerf_torch.kernels import carrymarch, sigmamarch, slimmarch
-from fashion_nerf_torch.kernels.posenc_mlp import hoist_dirs, pack_params
+from fashion_nerf_torch.kernels.posenc_mlp import (hoist_cond, hoist_dirs,
+                                                   pack_params)
 
 _INF_DIST = 1e10
 _BRANCHES = "ROADMAP Queue 1 #15"
@@ -119,12 +125,14 @@ def _march_inputs(cfg: Config, t_vals, dnorm, t_end, seg):
             log_eps)
 
 
-def march_liveness(w, hit, block_hit, cfg: Config) -> dict:
+def march_liveness(w, hit, block_hit, cfg: Config,
+                   tile_rows: int = K.TILE_ROWS) -> dict:
     """The executed-(tile, block) diagnostic, reconstructed from the
     weights as the reference reconstructs it: T at a block's start is
-    1 − Σ earlier weights, and the pair ran iff some ray of the tile had
-    hit ∧ block_hit ∧ T > ε. → tile_alive (n_tiles, NB) bool, alive_frac
-    (its mean), ideal_frac (the per-ray mean)."""
+    1 − Σ earlier weights, and the pair ran iff some ray of the tile
+    (tile_rows // SB rays; the march's net.tile_rows) had hit ∧ block_hit
+    ∧ T > ε. → tile_alive (n_tiles, NB) bool, alive_frac (its mean),
+    ideal_frac (the per-ray mean)."""
     R, S_pad = w.shape
     NB = block_hit.shape[1]
     SB = S_pad // NB
@@ -134,7 +142,7 @@ def march_liveness(w, hit, block_hit, cfg: Config) -> dict:
                                cum_w[:, :-1]], dim=1)
     ray_alive = ((hit > 0)[:, None] & (block_hit > 0)
                  & (t_start[:, ::SB] > (eps if eps > 0 else 0.0)))
-    tile_alive = ray_alive.view(R // (K.TILE_ROWS // SB), -1, NB).any(dim=1)
+    tile_alive = ray_alive.view(R // (tile_rows // SB), -1, NB).any(dim=1)
     return {"tile_alive": tile_alive,
             "alive_frac": tile_alive.float().mean(),
             "ideal_frac": ray_alive.float().mean()}
@@ -162,10 +170,12 @@ def marched_pass_slim(net, dirpart, hoists, t_vals, dnorm, alive0,
 
 
 def marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm, alive0,
-                       cfg: Config, t_end, seg=None, plain: bool = False):
+                       cfg: Config, t_end, seg=None, plain: bool = False,
+                       condpart=None):
     """The same march through the generic carry kernel K6 (the reference's
     `_marched_pass_carry`, `kernels.carry_hoist=false`): positions built
-    per sample, depth and acc composited per block → the same dict."""
+    per sample, depth and acc composited per block, a conditioned net's
+    condpart through K6's cond window → the same dict."""
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
                                                      t_end, seg)
     hit = alive0.float().contiguous()
@@ -173,22 +183,26 @@ def marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm, alive0,
     rgb, depth, acc, w, _ = fn(net, dirpart, rays_o.contiguous(),
                                rays_d.contiguous(), hit, block_hit, t_pad,
                                d_pad, log_eps,
-                               cfg.model.sigma_activation == "softplus")
+                               cfg.model.sigma_activation == "softplus",
+                               condpart=condpart)
     return _march_out(cfg, rgb, depth, acc, w, t_vals.shape[1])
 
 
 def _march(cfg: Config, net, rays_o, rays_d, viewdirs, t_vals, dnorm,
-           alive0, t_end, seg, plain: bool):
+           alive0, t_end, seg, plain: bool, cond=None):
     """A full-field march through K2 or K6, as `kernels.carry_hoist`
-    picks."""
+    picks; cond (R, Cc) per ray for a conditioned net."""
     dirpart = hoist_dirs(net, viewdirs)
+    condpart = hoist_cond(net, cond)
     if cfg.kernels.carry_hoist:
         return marched_pass_slim(net, dirpart,
-                                 slimmarch.hoist_rays(net, rays_o, rays_d),
+                                 slimmarch.hoist_rays(net, rays_o, rays_d,
+                                                      condpart),
                                  t_vals, dnorm, alive0, cfg, t_end, seg=seg,
                                  plain=plain)
     return marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm,
-                              alive0, cfg, t_end, seg=seg, plain=plain)
+                              alive0, cfg, t_end, seg=seg, plain=plain,
+                              condpart=condpart)
 
 
 def use_proposal(cfg: Config, params: dict) -> bool:
@@ -209,8 +223,6 @@ def _check_supported(cfg: Config, params: dict):
         off.append("kernels.fused_carry=false")
     if cfg.occupancy.sample_warp:
         off.append("occupancy.sample_warp")
-    if cfg.model.conditioned or cfg.model.n_latents > 0:
-        off.append("conditioned field")
     if cfg.render.ndc:
         off.append("render.ndc")
     if prop and (p.union or p.cov_n > 0):
@@ -242,10 +254,12 @@ def _budgets(cfg: Config, occ, prop: bool = True):
 
 
 def rays_per_chunk_unit(cfg: Config) -> int:
-    """Chunks must divide both march tiles (fine and proposal)."""
+    """Chunks are whole tiles of both marches: the fine march's (halved
+    for a conditioned field) and the proposal's."""
     p_sb = cfg.proposal.block_samples or cfg.kernels.block_samples
-    return max(K.TILE_ROWS // cfg.kernels.block_samples,
-               K.TILE_ROWS // p_sb)
+    fine = K.TILE_ROWS // (2 if (cfg.model.conditioned
+                                 or cfg.model.n_latents > 0) else 1)
+    return max(fine // cfg.kernels.block_samples, K.TILE_ROWS // p_sb)
 
 
 def _pack_march(model, cfg: Config):
@@ -310,15 +324,17 @@ def fine_samples(cfg: Config, t_c, weights, n_fine: int,
 
 def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
                           viewdirs, occ: OccupancyState = None,
-                          packed: dict = None, plain: bool = False):
+                          packed: dict = None, plain: bool = False,
+                          cond=None):
     """Coarse + fine render of (R,) rays, eval mode → {"coarse": dict,
     "fine": dict or None}. R must be a multiple of
     `rays_per_chunk_unit(cfg)`. params: {"fine", "proposal"} or, without
     a proposal, {"fine", "coarse"} NeRFMLPs; packed: its
-    `pack_render_params` (packed here when None). The coarse pass is the
-    σ-only proposal march (K1) or the full coarse march; the fine march
-    and the full coarse march run through K2 or, under
-    `kernels.carry_hoist=false`, K6."""
+    `pack_render_params` (packed here when None); cond (R, Cc): the
+    per-ray cond input of conditioned nets. The coarse pass is the σ-only
+    proposal march (K1) or the full coarse march; the fine march and the
+    full coarse march run through K2 or, under `kernels.carry_hoist=false`,
+    K6."""
     _check_supported(cfg, params)
     prop = use_proposal(cfg, params)
     n_c, sb_c, n_fine = _budgets(cfg, occ, prop)
@@ -343,12 +359,12 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
             alive_f = alive0 & (out_c["acc"] > cfg.proposal.cull_acc)
     else:
         out_c = _march(cfg, packed["coarse"], rays_o, rays_d, viewdirs, t_c,
-                       dnorm, alive0, t_end, seg, plain)
+                       dnorm, alive0, t_end, seg, plain, cond)
         if n_fine <= 0:
             return {"coarse": out_c, "fine": None}
     t_all = fine_samples(cfg, t_c, out_c["weights"], n_fine, proposal=prop)
     out_f = _march(cfg, packed["fine"], rays_o, rays_d, viewdirs, t_all,
-                   dnorm, alive_f, t_end, seg, plain)
+                   dnorm, alive_f, t_end, seg, plain, cond)
     return {"coarse": out_c, "fine": out_f}
 
 
@@ -365,10 +381,11 @@ def _tile_order(H: int, W: int, th: int = 8, tw: int = 8):
 
 def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
                            focal: float, c2w, occ: OccupancyState = None,
-                           plain: bool = False, device=None):
+                           plain: bool = False, device=None, cond=None):
     """Whole-image blockwise render → dict of (H, W[, 3]) rgb, depth, acc,
     disp, plus chunk_live (H, W) bool: whether the pixel's chunk was
-    marched (False: the whole chunk missed the box and is background)."""
+    marched (False: the whole chunk missed the box and is background).
+    cond: the per-scene (Cc,) cond vector of a conditioned field."""
     if cfg.render.ndc:
         raise NotImplementedError(f"render.ndc ({_BRANCHES})")
     if device is None:
@@ -410,8 +427,9 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
                                            cfg.render.near, cfg.render.far)
             live = bool(hit.any())
         if live:
+            c = None if cond is None else cond.expand(chunk, cond.shape[-1])
             f = render_rays_blockwise(params, cfg, o, d, v, occ=occ,
-                                      packed=packed, plain=plain)
+                                      packed=packed, plain=plain, cond=c)
             head = f["fine"] if f["fine"] is not None else f["coarse"]
             out = {k: head[k] for k in ("rgb", "depth", "acc", "disp")}
         else:

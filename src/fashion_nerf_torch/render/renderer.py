@@ -30,11 +30,12 @@ from fashion_nerf_torch.kernels.render import fused_render_rays
 def render_rays(field_coarse: Callable, field_fine: Optional[Callable],
                 rays_o, rays_d, cfg: Config, train: bool, generator=None,
                 use_fused_render: bool = False, occ=None,
-                plain: bool = False):
+                plain: bool = False, cond=None):
     """Render a batch of rays → {"coarse": {...}, "fine": {...} or None},
     each a volume-render dict.
 
-    field_*: bound fields (pts (R,S,3), rays_d) → (rgb, σ); field_fine None
+    field_*: bound fields (pts (R,S,3), rays_d) → (rgb, σ), called as
+    field(pts, rays_d, cond) with a per-ray cond (R, Cc); field_fine None
     renders coarse only. train: stratified jitter and random PDF
     quantiles (sampling.perturb) and σ noise, drawn from `generator`;
     eval is deterministic. occ: an OccupancyState whose global box bounds
@@ -65,11 +66,12 @@ def render_rays(field_coarse: Callable, field_fine: Optional[Callable],
         return out if hit is None else cull_background(out, hit,
                                                        rcfg.white_bkgd)
 
+    extra = () if cond is None else (cond,)
     t_c = stratified_sample(near, far, R, scfg.n_coarse, scfg.lindisp,
                             device=rays_o.device, perturb=perturb,
                             generator=generator)
     pts_c = rays_o[:, None, :] + rays_d[:, None, :] * t_c[..., None]
-    rgb_c, sigma_c = field_coarse(pts_c, rays_d)
+    rgb_c, sigma_c = field_coarse(pts_c, rays_d, *extra)
     out_c = vr(rgb_c, sigma_c, t_c)
     if scfg.n_fine <= 0 or field_fine is None:
         return {"coarse": out_c, "fine": None}
@@ -80,7 +82,7 @@ def render_rays(field_coarse: Callable, field_fine: Optional[Callable],
                      generator=generator)
     t_all = torch.sort(torch.cat([t_c, t_f], dim=-1), dim=-1).values
     pts_f = rays_o[:, None, :] + rays_d[:, None, :] * t_all[..., None]
-    rgb_f, sigma_f = field_fine(pts_f, rays_d)
+    rgb_f, sigma_f = field_fine(pts_f, rays_d, *extra)
     return {"coarse": out_c, "fine": vr(rgb_f, sigma_f, t_all)}
 
 
@@ -98,11 +100,12 @@ def _rays_for_pose(H: int, W: int, focal, c2w, cfg: Config, device=None):
 def render_image(field_coarse: Callable, field_fine: Optional[Callable],
                  H: int, W: int, focal, c2w, cfg: Config,
                  use_fused_render: bool = False, occ=None,
-                 plain: bool = False, device=None):
+                 plain: bool = False, device=None, cond=None):
     """Render an H×W image in chunks of cfg.render.chunk rays (the last one
     padded; pad directions are unit vectors) → dict rgb (H,W,3), depth,
     acc, disp (H,W). field_*: fields (pts (R,S,3), viewdirs (R,3)) →
-    (rgb, σ)."""
+    (rgb, σ); with a per-scene cond vector (Cc,) they are called as
+    field(pts, viewdirs, cond (R, Cc)), the vector broadcast per chunk."""
     rays_o, rays_d, viewdirs = _rays_for_pose(H, W, focal, c2w, cfg, device)
     n = rays_o.shape[0]
     chunk = min(cfg.render.chunk, n)
@@ -113,16 +116,17 @@ def render_image(field_coarse: Callable, field_fine: Optional[Callable],
     ro = F.pad(rays_o, (0, 0, 0, pad))
     rd = torch.cat([rays_d, unit])
     vd = torch.cat([viewdirs, unit])
+    cond_rays = None if cond is None else cond.expand(chunk, cond.shape[-1])
     outs = []
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
         v = vd[sl]
-        fc = (lambda pts, _rd, v=v: field_coarse(pts, v))
+        fc = (lambda pts, _rd, *c, v=v: field_coarse(pts, v, *c))
         ff = (None if field_fine is None
-              else (lambda pts, _rd, v=v: field_fine(pts, v)))
+              else (lambda pts, _rd, *c, v=v: field_fine(pts, v, *c)))
         out = render_rays(fc, ff, ro[sl], rd[sl], cfg, train=False,
                           use_fused_render=use_fused_render, occ=occ,
-                          plain=plain)
+                          plain=plain, cond=cond_rays)
         head = out["fine"] if out["fine"] is not None else out["coarse"]
         outs.append({k: head[k] for k in ("rgb", "depth", "acc", "disp")})
     return {k: torch.cat([o[k] for o in outs])[:n].reshape(
@@ -132,10 +136,10 @@ def render_image(field_coarse: Callable, field_fine: Optional[Callable],
 def render_path(field_coarse: Callable, field_fine: Optional[Callable],
                 poses, H: int, W: int, focal, cfg: Config,
                 use_fused_render: bool = False, occ=None,
-                plain: bool = False, device=None):
+                plain: bool = False, device=None, cond=None):
     """Render a camera path (test poses, a spiral, a rotation) with
     `render_image`, one pose after the other → rgb frames (N, H, W, 3)."""
     return torch.stack([
         render_image(field_coarse, field_fine, H, W, focal, c2w, cfg,
                      use_fused_render=use_fused_render, occ=occ, plain=plain,
-                     device=device)["rgb"] for c2w in poses])
+                     device=device, cond=cond)["rgb"] for c2w in poses])

@@ -10,10 +10,12 @@ field runs under autograd. The occupancy-accelerated step renders a
 reduced budget inside each ray's box interval; every `occ_dense_every`-th
 step stays dense. Evaluation renders the held-out view through K3 and K5.
 
-Not ported here, each raising NotImplementedError: the device mesh and
-data-parallel step and `data.stream` prefetch (ROADMAP Queue 1 #14),
-conditioned and latent fields (#11), and the real blender/llff/viton
-loaders (#12).
+Conditioned and latent fields render and evaluate with the per-scene cond
+vector (`resolve_garment`, `_eval_cond`); training them is not ported
+yet. Not ported here, each raising NotImplementedError: the device mesh
+and data-parallel step and `data.stream` prefetch (ROADMAP Queue 1 #14),
+conditioned training (K4's dcond and the encoder's and latents' gradients,
+#11), and the real blender/llff loaders (#12).
 """
 
 from __future__ import annotations
@@ -39,13 +41,14 @@ from fashion_nerf_torch.train.state import (TrainState, create_train_state,
                                             learning_rate)
 
 
-def _xla_field(net, pts, viewdirs):
-    return net.field(pts, viewdirs)
+def _xla_field(net, pts, viewdirs, cond=None):
+    return net.field(pts, viewdirs, cond)
 
 
 def make_fields(cfg: Config, training: bool = False, plain: bool = False):
     """(field_coarse, field_fine), each field(net, pts (R,S,3), viewdirs
-    (R,3)) → (rgb, σ): the fused field when the config selects it, else
+    (R,3), cond (R,Cc)=None) → (rgb, σ): the fused field when the config
+    selects it, else
     the NeRFMLP's plain-torch field. plain=True makes the fused field take
     its plain versions on any device."""
     k = cfg.kernels
@@ -174,24 +177,59 @@ def refresh_occupancy(cfg: Config, state: TrainState, plain: bool = False):
 
 
 def evaluate(cfg: Config, state: TrainState, dataset: RayDataset,
-             plain: bool = False):
+             plain: bool = False, garment=None, frame_id: int = 0):
     """Render the held-out view (fused field; K5 compositing when
-    kernels.fused_render) → (outputs, val PSNR)."""
+    kernels.fused_render) → (outputs, val PSNR). A conditioned or dynamic
+    run renders with the cond vector of `garment` and frame `frame_id`'s
+    latent (the held-out view has none of its own: frame 0 stands in)."""
     field_c, field_f = make_fields(cfg, plain=plain)
-    fc = (lambda pts, vd: field_c(state.coarse, pts, vd))
+    fc = (lambda pts, vd, *c: field_c(state.coarse, pts, vd, *c))
     ff = None
     if cfg.sampling.n_fine > 0 and state.fine is not None:
-        ff = (lambda pts, vd: field_f(state.fine, pts, vd))
+        ff = (lambda pts, vd, *c: field_f(state.fine, pts, vd, *c))
     dev = dataset.rays_o.device
     with torch.no_grad():
+        cond = _eval_cond(cfg, state.nets(), garment, frame_id)
         out = render_image(fc, ff, dataset.H, dataset.W, dataset.focal,
                            dataset.val_pose, cfg,
                            use_fused_render=(cfg.kernels.use_pallas
                                              and cfg.kernels.fused_render),
-                           plain=plain, device=dev)
+                           plain=plain, device=dev, cond=cond)
         val = torch.as_tensor(dataset.val_image, dtype=torch.float32,
                               device=dev)
         return out, float(psnr(out["rgb"], val))
+
+
+def resolve_garment(cfg: Config, dataset_dict: dict, H: int, W: int,
+                    device=None):
+    """The garment conditioning stack (H, W, 7) of a run on `device`: the
+    dataset's own, or, for a conditioned config on a dataset without one
+    (the hermetic dynamic_tryon), the procedural pair's. None for an
+    unconditioned config. Training, render and eval must agree on it."""
+    if not cfg.model.conditioned:
+        return None
+    if "garment" in dataset_dict:
+        return torch.as_tensor(dataset_dict["garment"], dtype=torch.float32,
+                               device=device)
+    from fashion_nerf_torch.data.viton import synth_viton_pair
+    from fashion_nerf_torch.tryon.pipeline import build_conditioning
+    return build_conditioning(synth_viton_pair(H, W), H, W, cfg=cfg,
+                              device=device)
+
+
+def _eval_cond(cfg: Config, nets: dict, garment, frame_id: int = 0):
+    """The per-scene cond vector (Cc,) for whole-image renders: the garment
+    code ⊕ frame `frame_id`'s latent, those the config has; None when it
+    has neither."""
+    from fashion_nerf_torch.models.conditioned import encode_garment
+    parts = []
+    if cfg.model.conditioned and "encoder" in nets and garment is not None:
+        parts.append(encode_garment(nets["encoder"], garment))
+    if cfg.model.n_latents > 0 and "latents" in nets:
+        table = nets["latents"]
+        ids = torch.tensor([frame_id], device=table.codes.weight.device)
+        parts.append(table(ids)[0])
+    return torch.cat(parts, dim=-1) if parts else None
 
 
 def _check_supported(cfg: Config) -> None:
@@ -202,8 +240,10 @@ def _check_supported(cfg: Config) -> None:
         raise NotImplementedError("the device mesh and data-parallel step "
                                   "are not ported (ROADMAP Queue 1 #14)")
     if cfg.model.conditioned or cfg.model.n_latents > 0:
-        raise NotImplementedError("conditioned and latent fields are not "
-                                  "ported (ROADMAP Queue 1 #11)")
+        raise NotImplementedError(
+            "training conditioned and latent fields is not ported: it is "
+            "the next try-on slice (K4's dcond output, the encoder's and "
+            "latents' gradients; ROADMAP Queue 1 #11)")
 
 
 def train(cfg: Config, dataset_dict: Optional[dict] = None,
@@ -283,15 +323,20 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
     return state, history
 
 
-def load_dataset(cfg: Config) -> dict:
+def load_dataset(cfg: Config, device=None) -> dict:
     """The dataset of cfg.data: the hermetic procedural scenes when no
     data.root is given (the blender one at the framing the committed
-    flagship weights were trained on), the tiny npz layout otherwise."""
+    flagship weights were trained on), the tiny npz layout otherwise; for
+    viton, the scene with its garment conditioning stack built on
+    `device`."""
     from fashion_nerf_torch.data import synthetic
     from fashion_nerf_torch.data.tiny import load_tiny
     d = cfg.data
     if d.dataset == "tiny":
         return load_tiny(d.root)
+    if d.dataset == "viton":
+        from fashion_nerf_torch.data.viton import load_viton_scene
+        return load_viton_scene(d.root, cfg=cfg, device=device)
     if d.dataset == "blender" and not d.root:
         scene = synthetic.make_synthetic_scene(
             n_views=16, H=160, W=160, scale=0.5, sharp=80.0, texture=0.6)
@@ -299,7 +344,7 @@ def load_dataset(cfg: Config) -> dict:
         return scene
     if d.dataset == "llff" and not d.root:
         return synthetic.make_forward_scene(n_views=12, H=96, W=128)
-    if d.dataset in ("blender", "llff", "viton"):
+    if d.dataset in ("blender", "llff"):
         raise NotImplementedError(
             f"the {d.dataset} loader is not ported (ROADMAP Queue 1 #12)")
     raise ValueError(f"unknown dataset {d.dataset!r}")

@@ -132,8 +132,7 @@ def test_tile_order_matches_reference():
 @pytest.mark.parametrize("ovr", [
     "proposal.sigma_march=false", "kernels.fused_carry=false",
     "proposal.eval_n=96", "occupancy.sample_warp=true",
-    "render.ndc=true", "proposal.union=true", "proposal.cov_n=16",
-    "model.conditioned=true"])
+    "render.ndc=true", "proposal.union=true", "proposal.cov_n=16"])
 def test_off_path_branches_raise(scene, ovr):
     """Config branches not ported name their ROADMAP item."""
     _, _, params_t, _ = scene

@@ -3,7 +3,7 @@ fashion_nerf_torch.kernels.carrymarch) against the reference's
 `_marched_pass_carry` → `_carry_eval` in interpret mode, and against the
 port's slim march (K2's plain version) on the same inputs, as
 tests/kernels/test_slimmarch.py holds the reference's two marches (its
-conditioned case aside: the port has no conditioned field).
+conditioned case is in tests/test_torch_conditioned.py).
 
 One pass of 256 rays × 64 samples (two blocks of 32) over [2, 6]. Random
 8×256 nets are held to 2e-3, the trained flagship net to 5e-2 (the

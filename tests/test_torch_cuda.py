@@ -832,3 +832,163 @@ def test_train_step_kernel_vs_plain(dev, monkeypatch):
     assert abs(lk - lp) <= 1e-3 * abs(lp)
     for a, b in zip(gk, gp):
         assert _rel_rms(a, b) <= 1e-2
+
+
+# --- the cond window: conditioned nets (try-on) ------------------------------
+
+def cond_net(rng, W=256, L=10, C=64, depth=8, skip=5, vd=True):
+    """A conditioned random field: trunk_0 and the skip layer take C cond
+    rows after the posenc rows, as the reference's conditioned NeRFMLP."""
+    cx = 3 * (2 * L + 1)
+    shapes = {f"trunk_{i}": ((cx + C + W) if i == skip else
+                             (cx + C if i == 0 else W), W)
+              for i in range(depth)}
+    if vd:
+        shapes.update(sigma_head=(W, 1), feature=(W, W),
+                      view_0=(W + 27, W // 2), rgb_head=(W // 2, 3))
+    else:
+        shapes["out_head"] = (W, 4)
+    return load_flax_params({"params": {
+        name: {"kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(
+            np.float32),
+            "bias": (0.1 * rng.normal(size=o)).astype(np.float32)}
+        for name, (i, o) in shapes.items()}}, compute_dtype="bfloat16",
+        cond_dim=C)
+
+
+COND_NETS = {"fine": lambda rng: cond_net(rng),
+             "w32": lambda rng: cond_net(rng, W=32, L=4, C=16, depth=3,
+                                         skip=None),
+             "w64skip": lambda rng: cond_net(rng, W=64, L=6, C=24, depth=4,
+                                             skip=2, vd=False)}
+
+
+@pytest.mark.parametrize("which,n,spr", [
+    ("fine", 4096, 64), ("fine", 4160, 64), ("fine", 3072, 192),
+    ("fine", 1088, 1), ("w32", 4160, 64), ("w64skip", 3072, 96)])
+def test_field_kernel_cond_window(dev, which, n, spr):
+    """K3 with a condpart (n / spr rays, n_cond·W bf16) against its plain
+    version, on the full-width conditioned net and on zero-padded 3×32 and
+    4×64 nets (each W-wide slice padded): rgb 5e-3, σ 2e-2·(1+|σ|), every
+    row; a condpart of zeros gives the unconditioned net's output."""
+    rng = np.random.default_rng(11)
+    net = posenc_mlp.pack_params(COND_NETS[which](rng).to(dev),
+                                 hoist_x=False)
+    R = n // spr
+    pts = _f32(rng, n, 3, lo=-1.2, hi=1.2, dev=dev)
+    dp = posenc_mlp.hoist_dirs(net, _f32(rng, R, 3, dev=dev)).contiguous()
+    cond = torch.tensor(rng.normal(size=(R, net.cond_kernel.shape[0])),
+                        dtype=torch.float32, device=dev)
+    cp = posenc_mlp.hoist_cond(net, cond)
+    n0 = dict(K.LAUNCHES)
+    rgb_k, sig_k = posenc_mlp.field_rows(net, pts, dp, spr, cp)
+    rgb_p, sig_p = posenc_mlp.field_rows_plain(net, pts, dp, spr, cp)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["field_cond"] == n0["field_cond"] + 1
+    assert K.LAUNCHES["field"] == n0["field"]
+    _close(rgb_k, rgb_p, 5e-3)
+    assert bool(((sig_k - sig_p).abs() <= 2e-2 * (1 + sig_p.abs())).all())
+    rgb_0, _ = posenc_mlp.field_rows(net, pts, dp, spr,
+                                     torch.zeros_like(cp))
+    assert float((rgb_0 - rgb_k).abs().max()) > 1e-3      # cond is live
+    with pytest.raises(ValueError):
+        posenc_mlp.field_rows(net, pts, dp, spr)           # no condpart
+    with pytest.raises(NotImplementedError, match="dcond"):
+        posenc_mlp.field_rows_backward(net, pts, dp, rgb_k, sig_k, spr, cp)
+
+
+def _cond_march_case(rng, dev, R=192, NB=3, SB=32):
+    """Rays whose predication differs between the 64-ray and the 32-ray
+    tile: rays [32, 64) dead (half of the first 64-ray tile), one culled
+    ray in a live tile, a dead (tile, block) pair of the halved tile."""
+    model = cond_net(rng).to(dev)
+    ro, rd = _rays(R, dev)
+    t = torch.linspace(2.0, 6.0, NB * SB, device=dev).expand(
+        R, NB * SB).contiguous()
+    d = torch.full((R, NB * SB), 4.0 / (NB * SB), device=dev)
+    hit = torch.ones(R, device=dev)
+    hit[32:64] = 0.0
+    hit[100] = 0.0
+    bhit = torch.ones((R, NB), device=dev)
+    bhit[160:, 1] = 0.0
+    cond = torch.tensor(rng.normal(size=(R, 64)), dtype=torch.float32,
+                        device=dev)
+    return model, ro, rd, t, d, hit, bhit, cond
+
+
+@pytest.mark.parametrize("eps", [0.0, 1e-3])
+def test_cond_marches_halved_tile(dev, eps):
+    """K2 with the cond folded into oX and K6 with its cond window, the
+    conditioned fine net at the halved tile (32 rays at SB = 32): each
+    kernel against its plain version (rgb/w 5e-3), identical executed
+    (tile, block) pairs, and K6 against K2 within 5e-3."""
+    from fashion_nerf_torch.render.blockwise import march_liveness
+    rng = np.random.default_rng(12)
+    model, ro, rd, t, d, hit, bhit, cond = _cond_march_case(rng, dev)
+    log_eps = math.log(eps) if eps > 0 else -1e30
+    cfg = SimpleNamespace(kernels=SimpleNamespace(early_term_eps=eps))
+    snet = slimmarch.split_hoist(model)
+    cnet = posenc_mlp.pack_params(model, hoist_x=False)
+    assert snet.tile_rows == cnet.tile_rows == K.TILE_ROWS // 2
+    dp = posenc_mlp.hoist_dirs(snet, rd).contiguous()
+    cp = posenc_mlp.hoist_cond(snet, cond)
+    hf = slimmarch.hoist_rays(snet, ro, rd, cp)
+    n0 = dict(K.LAUNCHES)
+    s_k = slimmarch.slim_march(snet, hf, dp, hit, bhit, t, d, log_eps)
+    s_p = slimmarch.slim_march_plain(snet, hf, dp, hit, bhit, t, d, log_eps)
+    args = (cnet, dp, ro, rd, hit, bhit, t, d, log_eps)
+    c_k = carrymarch.carry_march(*args, condpart=cp)
+    c_p = carrymarch.carry_march_plain(*args, condpart=cp)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["slim_march_cond"] == n0["slim_march_cond"] + 3
+    assert K.LAUNCHES["carry_march_cond"] == n0["carry_march_cond"] + 3
+    for a, b in ((s_k[0], s_p[0]), (s_k[1], s_p[1]), (c_k[0], c_p[0]),
+                 (c_k[3], c_p[3]), (c_k[0], s_k[0]), (c_k[3], s_k[1])):
+        _close(a, b, 5e-3)
+    ex = [march_liveness(w, hit, bhit, cfg, tile_rows=K.TILE_ROWS // 2)[
+        "tile_alive"] for w in (s_k[1], s_p[1], c_k[3], c_p[3])]
+    for e in ex[1:]:
+        assert torch.equal(ex[0], e)
+    assert not bool(ex[0][1].any())               # rays [32, 64): dead tile
+    assert bool((s_k[1][32:64] == 0).all()) and bool((c_k[3][32:64] == 0)
+                                                     .all())
+    assert bool((s_k[1][160:, 32:64] == 0).all())
+    assert float(c_k[2][100]) > 0.0               # culled ray, live tile
+    with pytest.raises(ValueError):
+        carrymarch.carry_march(*args)              # a conditioned net, no cp
+
+
+@pytest.mark.parametrize("which,SB", [("w32", 32), ("w64skip", 16)])
+def test_carry_march_cond_padded_nets(dev, which, SB):
+    """K6's cond window on zero-padded conditioned nets (3×32 with one
+    conditioned layer, 4×64 with a skip layer and no view branch): each
+    W-wide condpart slice padded to 128, against the plain version on the
+    unpadded net (rgb/w/acc 5e-3) at the conditioned tile, executed pairs
+    equal."""
+    from fashion_nerf_torch.render.blockwise import march_liveness
+    rng = np.random.default_rng(13)
+    net = posenc_mlp.pack_params(COND_NETS[which](rng).to(dev),
+                                 hoist_x=False)
+    R, NB = 2 * (K.TILE_ROWS // 2 // SB), 2
+    ro, rd = _rays(R, dev)
+    t = torch.linspace(2.0, 6.0, NB * SB, device=dev).expand(
+        R, NB * SB).contiguous()
+    d = torch.full((R, NB * SB), 4.0 / (NB * SB), device=dev)
+    hit = torch.ones(R, device=dev)
+    hit[R // 2:] = 0.0                        # the second tile dead
+    bhit = torch.ones((R, NB), device=dev)
+    dp = posenc_mlp.hoist_dirs(net, rd).contiguous()
+    cp = posenc_mlp.hoist_cond(net, torch.tensor(
+        rng.normal(size=(R, net.cond_kernel.shape[0])), dtype=torch.float32,
+        device=dev))
+    args = (net, dp, ro, rd, hit, bhit, t, d, -1e30)
+    out_k = carrymarch.carry_march(*args, condpart=cp)
+    out_p = carrymarch.carry_march_plain(*args, condpart=cp)
+    torch.cuda.synchronize()
+    assert net.padded is not None and net.padded.width == 128
+    for i in (0, 2, 3):
+        _close(out_k[i], out_p[i], 5e-3)
+    cfg = SimpleNamespace(kernels=SimpleNamespace(early_term_eps=0.0))
+    ex = [march_liveness(o[3], hit, bhit, cfg, tile_rows=net.tile_rows)[
+        "tile_alive"] for o in (out_k, out_p)]
+    assert torch.equal(ex[0], ex[1]) and not bool(ex[0][1].any())

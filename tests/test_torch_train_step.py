@@ -218,8 +218,8 @@ def test_learning_rate_schedule():
 
 def test_cli_train_on_cpu(tmp_path, capsys):
     """`python -m fashion_nerf_torch.cli train` trains, logs JSON lines,
-    checkpoints under --out and ends with a JSON summary;
-    `preprocess` is not ported and names its ROADMAP item."""
+    checkpoints under --out and ends with a JSON summary; training a
+    conditioned preset is not ported and names its ROADMAP item."""
     import json
 
     from fashion_nerf_torch import cli
@@ -238,7 +238,8 @@ def test_cli_train_on_cpu(tmp_path, capsys):
                for line in out) == 2
     assert (tmp_path / "tiny_lego" / "ckpt" / "step_00000004.pt").exists()
     with pytest.raises(NotImplementedError, match="#11"):
-        cli.main(["preprocess", "--config", "viton_tryon"])
+        cli.main(["train", "--config", "viton_tryon", "--device", "cpu",
+                  "--out", str(tmp_path)])
 
 
 @pytest.mark.parametrize("ovr,item", [
