@@ -64,16 +64,33 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
     the plain versions after a cond-aware sweep through K3 and a
     conditioned-teacher distillation, two garments' frames, `eval` and
     `render` of the checkpoint, `render` of a `dynamic_tryon` checkpoint
-    over 4 poses (latents 0-3), and the refusal of `train`.
+    over 4 poses (latents 0-3);
+16. tryon-train: conditioned training at the try-on presets' full width:
+    `train --config viton_tryon --resume` (cli.main) from a checkpoint of
+    the [tryon] fixture on the hermetic viton scene through a cond-aware
+    occupancy refresh, culled and dense steps, an eval and a checkpoint;
+    the same from init, its checkpoint evaluated blockwise through the
+    kernels and through their plain versions and densely through K3 and
+    plain; one conditioned step through the kernels
+    (K3 with its cond window, K4 with its dcond output) against the plain
+    step, every gradient of coarse, fine, encoder and latents compared, and
+    the steps' rays/s; `eval` of the trained checkpoint through the kernels
+    and the plain dense renderer; a few `dynamic_tryon` steps (the trained
+    frames' latents move); and `train_matcher` at the reference's unit-test
+    recipe, its held-out IoU against the keypoint-grid baseline.
 
 In [kernels], K3, K2 and K6 also run a conditioned net: K3 and K6 through
 their cond window (a per-ray condpart), K2 with the cond folded into its
-x-intercepts, the marches at the conditioned (halved) tile.
+x-intercepts, the marches at the conditioned (halved) tile; and K4 runs
+its conditioned plan (the recompute's cond window and the dcond output,
+d_condpart summed per ray) at the try-on step's fine shape, at the sparsity
+prior's one sample a ray, and on a zero-padded conditioned net.
 
 The launch counters are reset just before each path (phases 4, 6, 11, 12
-and 13, each subcommand of 14, each path of 15) and read right after it,
-so they count that path only; a conditioned net's launches of K2, K3 and
-K6 count under "slim_march_cond", "field_cond" and "carry_march_cond".
+and 13, each subcommand of 14, each path of 15 and 16) and read right
+after it, so they count that path only; a conditioned net's launches of
+K2, K3, K4 and K6 count under "slim_march_cond", "field_cond",
+"field_bwd_cond" and "carry_march_cond".
 Any failure raises (non-zero exit). Imports nothing of JAX. The last line
 is the device JSON object.
 """
@@ -138,6 +155,13 @@ PREPROCESS_ATOL = 1e-4        # the card's cond stack against the CPU's
 TRYON_DISTILL_STEPS = 500     # proposal.distill_steps in [tryon] (the preset's
                               # 2000 take ~16 s a subcommand; 500 keep the
                               # phase short)
+# [tryon-train]: steps of `train --config viton_tryon` (depth of run cut;
+# widths, batch and samples are the preset's) and of dynamic_tryon; the
+# matcher's recipe and bar (tests/unit/test_matcher.py:37-46)
+TRYON_TRAIN_STEPS, DYNAMIC_TRAIN_STEPS = 24, 6
+MATCHER_RECIPE = dict(steps=60, batch=6, H=48, W=48)
+MATCHER_HELD_OUT = range(3_000_001, 3_000_011)
+MATCHER_MARGIN = 0.05         # learned IoU > baseline + this
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, dense): bf16
 # tensor cores, float32 outside them, device memory
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
@@ -169,6 +193,9 @@ SOURCES = {
                         "src/fashion_nerf/kernels/slimmarch_pallas.py:113"),
     "carry_march_cond": ("src/fashion_nerf_torch/kernels/csrc/carrymarch.cu",
                          "src/fashion_nerf/kernels/blockmarch_pallas.py:53"),
+    # K4's conditioned plan: the recompute's cond window and the dcond output
+    "field_bwd_cond": ("src/fashion_nerf_torch/kernels/csrc/field_bwd.cu",
+                       "src/fashion_nerf/kernels/posenc_mlp_pallas.py:635"),
 }
 
 
@@ -492,6 +519,7 @@ def phase_kernels(cfg, device):
                                (o, d, alive_f, bhit, tf_pad, df_pad),
                                results, device))
     results["field_bwd"] = kernel_k4(net, rng, device)
+    results["field_bwd_cond"] = kernel_k4_cond(trained, results, device)
     results["volrend"] = kernel_k5(cfg, rng, device)
     results.update(kernel_probe(device))
     return results, occ_ref
@@ -932,6 +960,94 @@ def kernel_k4(net, rng, device):
     if not (max(rel.values()) <= K4_REL_RMS and same and finite):
         raise AssertionError("K4 disagrees with its plain version or is "
                              "not deterministic")
+    return dict(max_abs_err=e_abs, ms=ms, plain_ms=pms, **b4)
+
+
+def kernel_k4_cond(trained, results, device):
+    """K4's conditioned plan on viton_tryon's fixture fine net (the
+    committed fine net with TRYON_CC cond rows, cond_tree) at the try-on
+    step's fine shape: 2048 rays × 192 samples = 393,216 rows, a condpart
+    of 2048 × 512 bf16 (a cond per ray), cotangents of a loss's scale;
+    twice (bitwise) and against its plain version, each of the five
+    outputs (d_condpart included) to K4_REL_RMS; timed beside its plain
+    version, with its parts. Then the sparsity prior's shape (1024 rays ×
+    1 sample) and a zero-padded conditioned 3×32 net (L = 4, a 16-wide
+    cond into trunk_0 and the skip layer; 1024 rays × 64), each against its
+    plain version."""
+    from fashion_nerf_torch.kernels import posenc_mlp
+    from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+    rng = np.random.default_rng(31)
+    names = ("d_pts", "d_dir", "d_w", "d_b", "d_cond")
+
+    def inputs(net, R, S):
+        n = R * S
+        cc = net.cond_kernel.shape[0]
+
+        def t(a):
+            return torch.from_numpy(a.astype(np.float32)).to(device)
+        pts = t(rng.uniform(-1.2, 1.2, (n, 3)))
+        dp = posenc_mlp.hoist_dirs(net, t(rng.normal(size=(R, 3))))
+        cp = posenc_mlp.hoist_cond(net, t(rng.normal(size=(R, cc))))
+        return (net, pts, dp.contiguous(), t(1e-4 * rng.normal(size=(n, 3))),
+                t(1e-4 * rng.normal(size=n)), S, cp)
+
+    def check(args, label):
+        out_k = posenc_mlp.field_rows_backward(*args)
+        out_k2 = posenc_mlp.field_rows_backward(*args)
+        out_p = posenc_mlp.field_rows_backward_plain(*args)
+        torch.cuda.synchronize()
+        rel = {k: rel_rms(a, b) for k, a, b in zip(names, out_k, out_p)}
+        same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+        e_abs = max(maxerr(a, b) for a, b in zip(out_k, out_p))
+        ok = (len(out_k) == 5 and max(rel.values()) <= K4_REL_RMS and same
+              and all(a.shape == b.shape for a, b in zip(out_k, out_p))
+              and all(bool(torch.isfinite(a).all()) for a in out_k))
+        say("kernels", f"K4 with the cond, {label}: relative RMS against "
+            f"plain {json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})}"
+            f" (tol {K4_REL_RMS} each); bitwise equal over two runs: {same}")
+        if not ok:
+            raise AssertionError(f"K4 with the cond ({label}) disagrees with "
+                                 "its plain version or is not deterministic")
+        return out_k, e_abs
+
+    fine = load_flax_params(cond_tree(trained["fine"], TRYON_CC, rng),
+                            compute_dtype="bfloat16", device=device,
+                            cond_dim=TRYON_CC)
+    net = posenc_mlp.pack_params(fine, hoist_x=False)
+    R, S = 2048, 192
+    n = R * S
+    args = inputs(net, R, S)
+    out_k, e_abs = check(args, f"{n} rows ({R} rays × {S}, condpart "
+                         f"{tuple(args[6].shape)} bf16)")
+    b4 = bound(3 * 2 * n * mlp_macs(net),
+               nbytes(*args[1:5], args[6], net.w, net.b, *out_k))
+    del out_k
+    ms = cuda_ms(lambda: posenc_mlp.field_rows_backward(*args))
+    pms = cuda_ms(lambda: posenc_mlp.field_rows_backward_plain(*args))
+    torch.cuda.empty_cache()
+    parts = k4_parts(args)
+    ms_u = results["field_bwd"]["ms"]
+    say("kernels", f"K4 with the cond {n} rows: kernel {ms:.3f} ms (the "
+        f"unconditioned K4 {ms_u:.3f} ms at 786,432 rows, {ms_u / 2:.3f} per "
+        f"{n}), plain {pms:.3f} ms; {bound_line(b4, ms)}; parts (device ms, "
+        f"torch.profiler, one call): rows kernel {parts['rows']:.3f}, wgrad "
+        f"{parts['wgrad']:.3f}, sums {parts['sums']:.3f}, other "
+        f"{parts['other']:.3f}")
+    check(inputs(net, 1024, 1), "the sparsity prior's 1024 rows (1 sample a "
+          "ray)")
+    cx, W = 27, 32
+    shapes = {"trunk_0": (cx + 16, W), "trunk_1": (W, W),
+              "trunk_2": (cx + 16 + W, W), "sigma_head": (W, 1),
+              "feature": (W, W), "view_0": (W + 27, W // 2),
+              "rgb_head": (W // 2, 3)}
+    small = load_flax_params(random_tree({"params": {
+        k: {"kernel": np.empty(v), "bias": np.empty(v[1])}
+        for k, v in shapes.items()}}, rng), compute_dtype="bfloat16",
+        device=device, cond_dim=16)
+    snet = posenc_mlp.pack_params(small, hoist_x=False)
+    big = posenc_mlp.kernel_net(snet)
+    check(inputs(snet, 1024, 64), f"a 3×{W} net (L = 4, cond 16) padded to "
+          f"{big.depth}×{big.width}, 65536 rows")
     return dict(max_abs_err=e_abs, ms=ms, plain_ms=pms, **b4)
 
 
@@ -1642,7 +1758,7 @@ def phase_tryon(device, gpu, smi):
     - `eval` (through the kernels and with kernels.use_pallas=false) and
       `render` of the checkpoint; `render` of a dynamic_tryon checkpoint
       over 4 poses (latents 0-3), each kernel frame against its plain
-      frame; `train` refuses a conditioned config."""
+      frame."""
     import contextlib
     import io
     import shutil
@@ -1865,13 +1981,6 @@ def phase_tryon(device, gpu, smi):
     checks["dynamic"] = (rc == 0 and row_d["frames"] == 4 and len(seen) == 4
                          and min(p_d) >= FRAME_PSNR_MIN and distinct == 4
                          and launches_d["slim_march_cond"] > 0)
-    try:
-        call(["train", "--config", "viton_tryon"])
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    say("tryon", f"train --config viton_tryon refuses: {refused!r}")
-    checks["refusal"] = "next try-on slice" in refused
     say("tryon", f"checks {checks}; phase {time.perf_counter() - t_phase:.1f}"
         f" s; {gpu} | {smi}")
     failed = [k for k, v in checks.items() if not v]
@@ -1880,6 +1989,335 @@ def phase_tryon(device, gpu, smi):
     return {**setup_launches, **{
         k: launches["K1 + K2"][k] + launches["K1 + K6"][k]
         for k in ("slim_march_cond", "carry_march_cond")}}
+
+
+def phase_tryon_train(device, gpu, smi):
+    """Conditioned training at the try-on presets' full width (8×256 coarse
+    and fine fields, L = 10, a 64-wide garment code, and for dynamic_tryon
+    a 32-wide latent of a 64-code table, into trunk_0 and the skip layer;
+    2048-ray batches of 64 + 128 samples, the sparsity prior on):
+
+    - `train --config viton_tryon --resume` (cli.main) from a checkpoint of
+      the [tryon] fixture (the committed flagship nets with cond rows, a
+      seeded encoder) on the hermetic viton scene, TRYON_TRAIN_STEPS steps
+      through a cond-aware occupancy refresh, culled and dense steps, an
+      eval and a checkpoint: the loss falls, K3's cond window and K4's
+      conditioned plan launch;
+    - the same from init, and `eval` of its checkpoint four ways: blockwise
+      through the kernels and through their plain versions (the same grid
+      and distilled proposal), densely through K3 and densely plain.
+      The kernels must agree with their plain versions on each path; the
+      blockwise and the dense readings may differ (on a field 24 steps
+      from init the culling and the proposal decide what is sampled), and
+      that gap is printed;
+    - one dynamic_tryon step from the [tryon] fixture through the kernels
+      against the plain step (as [step]: the plain step with its own fine
+      samples and with the kernel step's), every gradient of coarse, fine,
+      encoder and latents; then full steps of both timed (rays/s);
+    - `eval` of the trained viton checkpoint through the kernels and with
+      kernels.use_pallas=false (the plain dense renderer);
+    - DYNAMIC_TRAIN_STEPS steps of `train --config dynamic_tryon`: the
+      trained frames' latents move, each its own way;
+    - `train_matcher` at the reference's unit-test recipe (MATCHER_RECIPE)
+      on the card: held-out IoU learned > baseline + MATCHER_MARGIN."""
+    import contextlib
+    import io
+    import shutil
+    from fashion_nerf_torch import ckpt as ckpt_lib
+    from fashion_nerf_torch import cli
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.data.pipeline import RayDataset
+    from fashion_nerf_torch.metrics import psnr
+    from fashion_nerf_torch.prng import GeneratorChain
+    from fashion_nerf_torch.render import blockwise, renderer
+    from fashion_nerf_torch.train.loop import (TrainStep, load_dataset,
+                                               resolve_garment,
+                                               sparsity_points)
+    from fashion_nerf_torch.train.state import (create_train_state,
+                                                state_from_params)
+    from fashion_nerf_torch.tryon.matcher import eval_iou, train_matcher
+    t_phase = time.perf_counter()
+    run = RUN_DIR + "_tryon_train"
+    shutil.rmtree(run, ignore_errors=True)
+    checks = {}
+
+    def call(cmd, preset, dataset, *overrides, flags=(), out_dir=run):
+        """cli.main → (exit code, stdout lines, seconds, launches)."""
+        argv = [cmd, "--config", preset, "--out", out_dir, *flags]
+        argv += [x for kv in overrides for x in ("--set", kv)]
+        out, err = io.StringIO(), io.StringIO()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv, dataset=dataset)
+        torch.cuda.synchronize()
+        for line in err.getvalue().splitlines():
+            say("tryon-train", f"{cmd} stderr: {line}")
+        return (rc, out.getvalue().strip().splitlines(),
+                time.perf_counter() - t0, dict(K.LAUNCHES))
+
+    def logged(lines, key):
+        """The logger's JSON entries that carry `key`."""
+        pre = "[fashion-nerf-torch] "
+        entries = [json.loads(x[len(pre):]) for x in lines
+                   if x.startswith(pre)]
+        return [e for e in entries if key in e]
+
+    # train --config viton_tryon --resume from the fixture's checkpoint,
+    # through a refresh, an eval and a checkpoint
+    cfg = load_config("viton_tryon", [f"out_dir={run}"])
+    scene = load_dataset(cfg, device)
+    ckpt_dir = os.path.join(run, cfg.name, "ckpt")
+    ckpt_lib.save(ckpt_dir, state_from_params(
+        cfg, tryon_params(cfg, np.random.default_rng(8)),
+        torch.Generator(device=device).manual_seed(0), device))
+    steps = TRYON_TRAIN_STEPS
+    train_ovr = [f"train.iters={steps}", "train.log_every=4",
+                 "train.occ_train=true", "train.occ_warmup=4",
+                 "train.occ_refresh_every=1000", "train.occ_dense_every=8",
+                 f"train.eval_every={steps}", f"train.ckpt_every={steps}",
+                 f"proposal.distill_steps={TRYON_DISTILL_STEPS}"]
+    rc, out, secs, launches = call("train", "viton_tryon", scene, *train_ovr,
+                                   flags=["--resume"])
+    logs = logged(out, "loss")
+    evals = [e["val_psnr"] for e in logged(out, "val_psnr")]
+    distill = f"proposal.distill_steps={TRYON_DISTILL_STEPS}"
+    rate = statistics.median(e["rays_per_sec"] for e in logs[1:])
+    last = logs[-1]
+    say("tryon-train", f"train --config viton_tryon --resume from the "
+        f"fixture's checkpoint: {steps} steps in "
+        f"{secs:.2f} s; loss {logs[0]['loss']:.5f} at step {logs[0]['step']}"
+        f" → {last['loss']:.5f} at step {last['step']} (both dense); "
+        f"sparsity {last['sparsity']:.4g}; refreshes {last['refreshes']}, "
+        f"culled steps {last['culled_steps']}, dense steps "
+        f"{last['dense_steps']}; eval {evals}; checkpoints "
+        f"{ckpt_lib.steps(ckpt_dir)}; {rate:.1f} rays/s (median of the log "
+        f"windows after the first); launches {launches}; {gpu} | {smi}")
+    checks["train"] = (
+        rc == 0 and all(math.isfinite(e["loss"]) for e in logs)
+        and last["loss"] < logs[0]["loss"] and last["refreshes"] >= 1
+        and last["culled_steps"] >= 1 and last["dense_steps"] >= 1
+        and len(evals) == 1 and math.isfinite(evals[0])
+        and ckpt_lib.steps(ckpt_dir) == [0, steps]
+        and all(launches[k] > 0 for k in ("field_cond", "field_bwd_cond",
+                                          "volrend"))
+        and launches["field_bwd"] == 0)
+
+    # the same from init; its checkpoint's eval blockwise through the
+    # kernels and their plain versions, and densely through K3 and plain
+    init_run = run + "_init"
+    rc_i, out, secs_i, launches_i = call("train", "viton_tryon", scene,
+                                         *train_ovr, out_dir=init_run)
+    logs_i = logged(out, "loss")
+    render_fn = blockwise.render_image_blockwise
+    seen = []
+
+    def recording(*a, **kw):
+        out_k = render_fn(*a, **kw)
+        seen.append((out_k["rgb"], render_fn(*a, **{**kw, "plain": True})[
+            "rgb"]))
+        return out_k
+
+    readings, rcs = {}, [rc_i]
+    for label, ovr in (("blockwise", ()),
+                       ("dense K3", ("kernels.blockwise=false",)),
+                       ("dense plain", ("kernels.use_pallas=false",))):
+        blockwise.render_image_blockwise = recording
+        try:
+            rc, out, _, lau = call("eval", "viton_tryon", scene, distill,
+                                   *ovr, out_dir=init_run)
+        finally:
+            blockwise.render_image_blockwise = render_fn
+        rcs.append(rc)
+        readings[label] = (json.loads(out[-1])["psnr"], lau)
+    val = torch.as_tensor(np.asarray(scene["val_image"]),
+                          dtype=torch.float32, device=device)
+    (rgb_k, rgb_p), = seen
+    readings["blockwise plain"] = (float(psnr(rgb_p, val)), {})
+    p_kp = float(psnr(rgb_k, rgb_p))
+    bw, bw_p = readings["blockwise"][0], readings["blockwise plain"][0]
+    dk, dp = readings["dense K3"][0], readings["dense plain"][0]
+    say("tryon-train", f"train --config viton_tryon from init: {steps} "
+        f"steps in {secs_i:.2f} s, loss {logs_i[0]['loss']:.5f} → "
+        f"{logs_i[-1]['loss']:.5f}, launches {launches_i}; eval of its "
+        f"checkpoint (val PSNR, dB): blockwise through the kernels {bw:.4f},"
+        f" blockwise plain {bw_p:.4f} (the two frames {p_kp:.2f} dB apart, "
+        f"min {FRAME_PSNR_MIN}), dense through K3 {dk:.4f}, dense plain "
+        f"{dp:.4f}; blockwise − dense {bw - dp:+.4f} (tol kernel vs plain "
+        f"{CLI_PSNR_TOL}); launches "
+        f"{ {k: v[1] for k, v in readings.items() if v[1]} }")
+    checks["from init"] = (
+        all(r == 0 for r in rcs) and launches_i["field_bwd_cond"] > 0
+        and abs(bw - bw_p) <= CLI_PSNR_TOL and abs(dk - dp) <= CLI_PSNR_TOL
+        and p_kp >= FRAME_PSNR_MIN
+        and readings["blockwise"][1]["slim_march_cond"] > 0
+        and readings["dense K3"][1]["field_cond"] > 0
+        and not any(readings["dense plain"][1].values()))
+    shutil.rmtree(init_run, ignore_errors=True)
+
+    # one dynamic_tryon step from the fixture: kernels against plain
+    cfg_d = load_config("dynamic_tryon", ["sampling.perturb=false"])
+    scene_d = load_dataset(cfg_d, device)
+    ds = RayDataset(scene_d["images"], scene_d["poses"], scene_d["focal"],
+                    device=device)
+    garment = resolve_garment(cfg_d, scene_d, ds.H, ds.W, device)
+    params_d = tryon_params(cfg_d, np.random.default_rng(9))
+    idx = torch.from_numpy(np.random.default_rng(1).choice(
+        ds.n_rays, cfg_d.train.batch_rays, replace=False)).to(device)
+    batch = {k: v[idx] for k, v in ds.batch_arrays().items()}
+    pts = sparsity_points(cfg_d, torch.Generator(device=device).manual_seed(
+        2), device)
+    sample_pdf = renderer.sample_pdf
+    fine_t = []
+
+    def fixture():
+        return state_from_params(cfg_d, params_d, torch.Generator(
+            device=device).manual_seed(0), device)
+
+    def loss_and_grads(plain, replay):
+        def sampler(*a, **kw):
+            if replay:
+                return fine_t[0]
+            fine_t.append(sample_pdf(*a, **kw))
+            return fine_t[-1]
+
+        state = fixture()
+        step = TrainStep(cfg_d, ds, streamed=True, plain=plain,
+                         garment=garment)
+        renderer.sample_pdf = sampler
+        K.reset_launches()
+        try:
+            with torch.enable_grad():
+                loss, _ = step.loss(state, batch, sparsity_pts=pts)
+                loss.backward()
+        finally:
+            renderer.sample_pdf = sample_pdf
+        torch.cuda.synchronize()
+        grads = {f"{k}.{n}": p.grad for k, net in state.nets().items()
+                 for n, p in net.named_parameters()}
+        return float(loss), grads, dict(K.LAUNCHES)
+
+    loss_k, grads_k, step_launches = loss_and_grads(False, False)
+    report = []
+    for label, replay, tol in (("own fine samples", False,
+                                STEP_GRAD_SAMPLES_REL),
+                               ("the kernel step's fine samples", True,
+                                STEP_GRAD_REL)):
+        loss_p, grads_p, _ = loss_and_grads(True, replay)
+        e_loss = abs(loss_k - loss_p) / abs(loss_p)
+        rel = {k: rel_rms(grads_k[k], grads_p[k]) for k in grads_p}
+        worst = max(rel, key=rel.get)
+        nets = sorted({k.split(".")[0] for k in rel})
+        enc = max(v for k, v in rel.items() if k.startswith("encoder"))
+        report.append(f"plain step with {label}: loss {loss_p:.7g} (rel "
+                      f"{e_loss:.3g}, tol {STEP_LOSS_REL}), worst gradient "
+                      f"relative RMS {rel[worst]:.3g} ({worst}, tol {tol}) "
+                      f"over {len(rel)} parameters of {nets}; encoder's "
+                      f"worst {enc:.3g}, latents "
+                      f"{rel['latents.codes.weight']:.3g}")
+        checks[f"step, {label}"] = (e_loss <= STEP_LOSS_REL
+                                    and rel[worst] <= tol
+                                    and nets == ["coarse", "encoder", "fine",
+                                                 "latents"])
+    step_secs = {}
+    for plain in (False, True):
+        state = fixture()
+        step = TrainStep(cfg_d, ds, streamed=True, plain=plain,
+                         garment=garment)
+        with torch.enable_grad():
+            step(state, batch, sparsity_pts=pts)          # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(state, batch, sparsity_pts=pts)
+            torch.cuda.synchronize()
+        step_secs[plain] = (time.perf_counter() - t0) / 3
+    rays = cfg_d.train.batch_rays
+    say("tryon-train", f"dynamic_tryon step from the fixture, loss through "
+        f"the kernels {loss_k:.7g}, launches {step_launches}; "
+        + "; ".join(report))
+    say("tryon-train", f"conditioned training step ({rays} rays × "
+        f"{cfg_d.sampling.n_coarse} + {cfg_d.sampling.n_fine} samples, the "
+        f"prior's {cfg_d.train.sparsity_points} points): "
+        f"{step_secs[False] * 1e3:.1f} ms through the kernels "
+        f"({rays / step_secs[False]:.1f} rays/s), {step_secs[True] * 1e3:.1f}"
+        f" ms plain ({rays / step_secs[True]:.1f} rays/s), mean of 3; {gpu} "
+        f"| {smi}")
+    checks["step launches"] = (step_launches["field_bwd_cond"] == 4
+                               and step_launches["field_cond"] == 4
+                               and step_launches["field_bwd"] == 0)
+    del grads_k, state, step
+    fine_t.clear()
+    torch.cuda.empty_cache()
+
+    # eval of the trained viton checkpoint: kernels against plain dense
+    rc, out, secs_k, launches_e = call("eval", "viton_tryon", scene, distill)
+    row_k = json.loads(out[-1])
+    rc_p, out, secs_p, launches_p = call("eval", "viton_tryon", scene,
+                                         distill, "kernels.use_pallas=false")
+    row_p = json.loads(out[-1])
+    say("tryon-train", f"eval of the trained checkpoint: {json.dumps(row_k)}"
+        f" in {secs_k:.3f} s through the kernels, launches {launches_e}; "
+        f"{json.dumps(row_p)} in {secs_p:.3f} s with kernels.use_pallas="
+        f"false (dense, plain) (tol {CLI_PSNR_TOL} dB)")
+    checks["eval"] = (rc == 0 and rc_p == 0
+                      and abs(row_k["psnr"] - row_p["psnr"]) <= CLI_PSNR_TOL
+                      and launches_e["field_cond"] > 0
+                      and not any(launches_p.values()))
+
+    # a few dynamic_tryon steps: the trained frames' latents move
+    dsteps = DYNAMIC_TRAIN_STEPS
+    rc, out, secs_d, launches_d = call(
+        "train", "dynamic_tryon", scene_d, f"train.iters={dsteps}",
+        "train.log_every=2", f"train.ckpt_every={dsteps}",
+        "train.eval_every=1000")
+    cfg_dt = load_config("dynamic_tryon", [f"out_dir={run}"])
+    chain = GeneratorChain(cfg_dt.train.seed)
+    init = create_train_state(cfg_dt, chain.once("init"),
+                              chain.once("run", device), device)
+    codes0 = init.latents.codes.weight.detach()
+    payload = torch.load(os.path.join(run, cfg_dt.name, "ckpt",
+                                      f"step_{dsteps:08d}.pt"),
+                         map_location=device, weights_only=True)
+    moves = payload["nets"]["latents"]["codes.weight"][:4] - codes0[:4]
+    moved = [float(m.abs().max()) for m in moves]
+    apart = min(float((moves[i] - moves[j]).abs().max())
+                for i in range(4) for j in range(i + 1, 4))
+    d_logs = logged(out, "loss")
+    say("tryon-train", f"train --config dynamic_tryon: {dsteps} steps in "
+        f"{secs_d:.2f} s, loss {[round(e['loss'], 5) for e in d_logs]}; "
+        f"latents 0-3 moved by {[f'{m:.3g}' for m in moved]} (max abs), "
+        f"their moves at least {apart:.3g} apart; launches {launches_d}")
+    checks["dynamic"] = (rc == 0 and min(moved) > 0 and apart > 0
+                         and all(math.isfinite(e["loss"]) for e in d_logs)
+                         and launches_d["field_bwd_cond"] > 0)
+
+    # train_matcher at the reference's unit-test recipe
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        matcher, hist = train_matcher(
+            generator=torch.Generator().manual_seed(0), device=device,
+            **MATCHER_RECIPE)
+    torch.cuda.synchronize()
+    secs_m = time.perf_counter() - t0
+    learned, base = eval_iou(matcher, list(MATCHER_HELD_OUT),
+                             H=MATCHER_RECIPE["H"], W=MATCHER_RECIPE["W"],
+                             device=device)
+    say("tryon-train", f"train_matcher {MATCHER_RECIPE}: {secs_m:.2f} s "
+        f"({secs_m / MATCHER_RECIPE['steps'] * 1e3:.1f} ms a step), loss "
+        f"{hist[0]['loss']:.4f} → {hist[-1]['loss']:.4f}; held-out IoU "
+        f"(seeds {MATCHER_HELD_OUT.start}-{MATCHER_HELD_OUT.stop - 1}) "
+        f"learned {learned:.4f}, baseline {base:.4f} (bar: baseline + "
+        f"{MATCHER_MARGIN})")
+    checks["matcher"] = (learned > base + MATCHER_MARGIN
+                         and all(math.isfinite(h["loss"]) for h in hist))
+    say("tryon-train", f"checks {checks}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {gpu} | {smi}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"tryon-train checks failed: {failed}")
+    return launches
 
 
 def main() -> int:
@@ -1914,12 +2352,15 @@ def main() -> int:
     del scene, ds
     torch.cuda.empty_cache()
     tryon_launches = phase_tryon(device, gpu, smi)
+    torch.cuda.empty_cache()
+    tryon_train_launches = phase_tryon_train(device, gpu, smi)
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included; {gpu} | {smi}")
     # K1 and K2 run on the render path, K6 on the carry_hoist=false render
     # path, K3, K4 and K5 on the training path, P1 and P2 on the probe; the
     # conditioned K3 on the try-on setup's sweep and teacher, the
-    # conditioned K2 and K6 on the try-on frames
+    # conditioned K2 and K6 on the try-on frames, K4's conditioned plan on
+    # the try-on trainer
     launches = {**{k: render_launches[k] for k in ("sigma_march",
                                                    "slim_march")},
                 "carry_march": generic_launches["carry_march"],
@@ -1928,7 +2369,8 @@ def main() -> int:
                 **{k: probe_launches[k] for k in ("probe_p1", "probe_p2")},
                 **{k: tryon_launches[k] for k in ("field_cond",
                                                   "slim_march_cond",
-                                                  "carry_march_cond")}}
+                                                  "carry_march_cond")},
+                "field_bwd_cond": tryon_train_launches["field_bwd_cond"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -1937,7 +2379,8 @@ def main() -> int:
                                        "carry_march", "probe_p1",
                                        "probe_p2", "field_cond",
                                        "slim_march_cond",
-                                       "carry_march_cond")]}))
+                                       "carry_march_cond",
+                                       "field_bwd_cond")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Times the port's field kernels (K3, K4) and volume render (K5) on the card.
+
+    python scripts/torch_kernel_timing.py [--src DIR] [--only field|k5]
+
+`field`: on the committed flagship fine net with 64 cond rows of N(0,
+0.01²) (chip_smoke.cond_tree, the `[tryon]` fixture's net) and on the same
+net without them, K3 at the occupancy sweep's 65,536 rows (1024 rays × 64),
+unconditioned and with its cond window, and K4 at the try-on step's fine
+shape, 393,216 rows (2048 rays × 192), unconditioned and, where the package
+has it, with its conditioned plan: median of 5 calls of the wrapper (CUDA
+events).
+
+`k5`: for the two shapes an evaluation gives K5 (8192 rays × 64 and × 192
+samples), the kernel against its plain version, its own device time
+(torch.profiler; inputs warm, and cold after an L2 flush), the event time of
+a call of the wrapper, and the bytes bound (every input read once, every
+output written once, at 3.35 TB/s).
+
+`--src DIR` takes the package from DIR (the `src` directory of another
+checkout of this repo, e.g. a `git archive` of an earlier commit unpacked
+under `build/`), so that two versions can be timed in turns in one run on
+one card: parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from chip_smoke import (HBM_BPS, TRYON_CC, cond_tree, cuda_ms,  # noqa: E402
+                        device_ms, maxerr, nbytes)
+
+
+def time_field(dev, rng) -> None:
+    from fashion_nerf_torch.assets import load_flagship
+    from fashion_nerf_torch.kernels import posenc_mlp
+    from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+    trained, _ = load_flagship()
+    nets = {"unconditioned": load_flax_params(
+        trained["fine"], compute_dtype="bfloat16", device=dev)}
+    nets["conditioned"] = load_flax_params(
+        cond_tree(trained["fine"], TRYON_CC, rng), compute_dtype="bfloat16",
+        device=dev, cond_dim=TRYON_CC)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    for label, model in nets.items():
+        net = posenc_mlp.pack_params(model, hoist_x=False)
+        for kernel, R, S in (("K3", 1024, 64), ("K4", 2048, 192)):
+            n = R * S
+            pts = t(rng.uniform(-1.2, 1.2, (n, 3)))
+            dp = posenc_mlp.hoist_dirs(net, t(rng.normal(size=(R, 3))))
+            dp = dp.contiguous()
+            cp = (posenc_mlp.hoist_cond(net, t(rng.normal(size=(
+                R, TRYON_CC)))) if label == "conditioned" else None)
+            extra = () if cp is None else (cp,)
+            if kernel == "K3":
+                def call():
+                    return posenc_mlp.field_rows(net, pts, dp, S, *extra)
+            else:
+                g_rgb = t(1e-4 * rng.normal(size=(n, 3)))
+                g_sig = t(1e-4 * rng.normal(size=n))
+
+                def call():
+                    return posenc_mlp.field_rows_backward(
+                        net, pts, dp, g_rgb, g_sig, S, *extra)
+            try:
+                ms = cuda_ms(call)
+            except NotImplementedError as e:
+                print(f"{kernel} {label} {n} rows: not in this package "
+                      f"({e})", flush=True)
+                continue
+            print(f"{kernel} {label} {n} rows ({R} rays × {S}): {ms:.4f} ms "
+                  "(median of 5)", flush=True)
+            torch.cuda.empty_cache()
+
+
+def time_k5(dev, rng, K) -> None:
+    from fashion_nerf_torch.kernels import render
+    log = K.build_info.get("log", "").splitlines()
+    for i, line in enumerate(log):          # ptxas on K5's kernel
+        if "volrend_kernel" in line and "Compiling" in line:
+            print("ptxas: " + " | ".join(x.strip() for x in log[i:i + 3]),
+                  flush=True)
+    for R, S in ((8192, 64), (8192, 192)):
+        t = torch.from_numpy(np.sort(rng.uniform(2.0, 6.0, (R, S)), axis=1)
+                             .astype(np.float32)).to(dev)
+        sigma = torch.from_numpy(rng.normal(0.0, 20.0, (R, S)).astype(
+            np.float32)).to(dev)
+        rgb = torch.from_numpy(rng.uniform(0, 1, (R, S, 3)).astype(
+            np.float32)).to(dev)
+        dnorm = torch.from_numpy(rng.uniform(0.9, 1.2, R).astype(
+            np.float32)).to(dev)
+        a = (rgb, sigma, t, dnorm, True)
+        out_k, out_p = render.volrend(*a), render.volrend_plain(*a)
+        torch.cuda.synchronize()
+        err = max(maxerr(x, y) for x, y in zip(out_k, out_p))
+        bound = nbytes(rgb, sigma, t, dnorm, *out_k) / HBM_BPS * 1e3
+        call = cuda_ms(lambda: render.volrend(*a))
+        d = device_ms(lambda: render.volrend(*a), "volrend_kernel")
+        print(f"K5 {R} rays × {S}: max abs err {err:.3g}; device "
+              f"{d['cold']:.4f} ms cold, {d['warm']:.4f} ms warm; a call of "
+              f"the wrapper {call:.4f} ms; bound {bound:.4f} ms (bytes), "
+              f"{bound / d['cold']:.1%} of it reached cold", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=None,
+                    help="the src directory to take fashion_nerf_torch from")
+    ap.add_argument("--only", choices=("field", "k5"), default=None,
+                    help="time only the field kernels or only K5")
+    args = ap.parse_args()
+    if args.src:
+        sys.path.insert(0, os.path.abspath(args.src))
+    from fashion_nerf_torch import kernels as K
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the kernels are timed on the "
+                           "card")
+    torch.set_grad_enabled(False)
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"package {os.path.dirname(K.__file__)}; {smi}", flush=True)
+    K.library()
+    rng = np.random.default_rng(0)
+    if args.only in (None, "field"):
+        time_field(dev, rng)
+    if args.only in (None, "k5"):
+        time_k5(dev, rng, K)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

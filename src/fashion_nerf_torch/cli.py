@@ -27,10 +27,10 @@ try-on presets) renders with the scene's cond vector: the garment code of
 its conditioning stack ⊕, for `dynamic_tryon`, a per-frame latent; the
 sweep and the proposal take frame 0's cond, which every frame of a
 dynamic render shares (latent i % n_latents for frame i), as the
-reference does. Training a conditioned config is not ported (ROADMAP
-Queue 1 #11). Everything runs on the CUDA device and raises when there is
-none, unless `--device cpu` asks for the CPU, where every kernel takes its
-plain version. The resolved config is written to DIR/NAME/config.json.
+reference does. `train` of a conditioned config trains the garment encoder
+and the latent table with the fields. Everything runs on the CUDA device
+and raises when there is none, unless `--device cpu` asks for the CPU,
+where every kernel takes its plain version. The resolved config is written to DIR/NAME/config.json.
 """
 
 from __future__ import annotations

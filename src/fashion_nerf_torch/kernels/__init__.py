@@ -32,7 +32,8 @@ first use into one shared library under `build/fashion_nerf_torch/` at
 the repo root, named by a hash of the sources and flags, and loaded with
 ctypes: one nvcc per source, all started together, then one link. Each
 wrapper adds one to its entry of `LAUNCHES` at every kernel launch (a
-conditioned net's launches of K2, K3 and K6 to their "_cond" entries).
+conditioned net's launches of K2, K3, K4 and K6 to their "_cond"
+entries).
 """
 
 from __future__ import annotations
@@ -80,8 +81,10 @@ BWD_CHUNK_ROWS = 131072
 LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
             "volrend": 0, "carry_march": 0, "probe_p1": 0, "probe_p2": 0,
             # the conditioned instantiations (K3's and K6's cond window, K2
-            # at the halved tile), counted apart from the unconditioned ones
-            "field_cond": 0, "slim_march_cond": 0, "carry_march_cond": 0}
+            # at the halved tile, K4 with its dcond output), counted apart
+            # from the unconditioned ones
+            "field_cond": 0, "slim_march_cond": 0, "carry_march_cond": 0,
+            "field_bwd_cond": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -89,7 +92,7 @@ _SIGNATURES = {
     "fnt_field_forward": [_P] * 8 + [_I] * 9 + [_P],
     "fnt_sigma_march": [_P] * 13 + [_I] * 8 + [_P],
     "fnt_slim_march": [_P] * 16 + [_I] * 11 + [ctypes.c_float, _P],
-    "fnt_field_backward": [_P] * 17 + [ctypes.c_long] + [_I] * 11 + [_P],
+    "fnt_field_backward": [_P] * 20 + [ctypes.c_long] + [_I] * 12 + [_P],
     "fnt_volrend": [_P] * 8 + [_I] * 4 + [_P],
     "fnt_carry_march": [_P] * 17 + [_I] * 13 + [ctypes.c_float, _P],
     "fnt_tc_probe": [_P] * 3 + [_I] * 6 + [_P],

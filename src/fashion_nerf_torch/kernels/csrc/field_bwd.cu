@@ -51,6 +51,22 @@
 // No float atomics anywhere: the same inputs give bitwise the same
 // gradients, so a resumed run retraces its trajectory.
 //
+// The conditioned plan (the reference's `dcond` output): with a non-null
+// condpart (n / spr, cw) bf16, the per-ray cond @ cond_kernel, the rows
+// kernel is instantiated with K3's cond window (wgf::forward<W, true>), so
+// the recompute adds each ray's slice to trunk_0's and the skip layer's
+// accumulators before the bias. The cond enters additively, so its
+// cotangent is those layers' unrounded f32 pre-activation cotangent: where
+// the epilogue that makes it runs (the heads' for the last trunk layer, the
+// next layer's dgrad otherwise), the f32 values go through the warpgroup's
+// free activation tile H, half the columns at a time, and a thread per
+// column sums each ray's rows in row order into per-64-row-slab partials
+// (n / 64, M, cw), as the view term's. After the last pass, dir_sum_kernel
+// sums each ray's partials in slab order into d_cond (n / spr, cw). The
+// reference halves its backward tile for conditioned plans to fit VMEM;
+// here the condpart is read from device memory in the epilogue, as K3
+// reads it, and nothing else changes shape.
+//
 // Rounding points follow the reference (posenc_mlp_pallas.py:724-801):
 // cotangents of pre-activations are rounded to bf16 as the operands of both
 // products, accumulation is f32, bias gradients are f32 sums of the
@@ -121,6 +137,8 @@ struct RowsArgs {
   const float* g_sigma;  // (n,)
   float* d_pts;          // (n, 3)
   float* dpart;          // (n / 64, M, width / 2) per-slab ray sums
+  const bf16* condpart;  // (n / spr, cw) per-ray cond term, or null
+  float* cpart;          // (n / 64, M, cw) per-slab ray sums of its cotangent
   float* bpart;          // (chunk / 64, n_b) per-slab bias sums
   bf16* ws;              // workspace, regions of `rows` rows
   float* a0s;            // (chunk / 64, k0 / 2, 128) the skip layer's
@@ -131,6 +149,7 @@ struct RowsArgs {
   long rows;             // rows of the pass (region height)
   long r0;               // first row of the pass
   int spr, L, M, n_b;
+  int cw;                // condpart columns (n_cond·W), 0 without one
   int n_slices;
   int slice_bytes[wgf::kMaxSlices];
   Layout lay;
@@ -215,7 +234,7 @@ __device__ __forceinline__ void posenc_bwd(const float (&acc)[K0 / 2],
   }
 }
 
-template <int W>
+template <int W, bool kCond>
 __global__ void __launch_bounds__(wgf::kThreads, 1)
     bwd_rows_kernel(const __grid_constant__ RowsArgs a) {
   constexpr int kHalf = W / 2, kWords = W / 64;
@@ -314,6 +333,13 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
       t.dir_lo = staged ? dirs[q_lo - ray0] : a.dirpart + q_lo * kHalf;
       t.dir_hi = staged ? dirs[q_hi - ray0] : a.dirpart + q_hi * kHalf;
     }
+    if (kCond) {
+      // a warpgroup without rows reads ray 0's (its outputs are dropped)
+      const long q_lo = live ? (row0 + rA) / a.spr : 0;
+      const long q_hi = live ? (row0 + rA + 8) / a.spr : 0;
+      t.cond_lo = a.condpart + q_lo * a.cw;
+      t.cond_hi = a.condpart + q_hi * a.cw;
+    }
     guard();
     wg::wg_sync(bar);
     wgf::posenc_tile(t.A0, k0, a.L, pts, tw);
@@ -322,7 +348,7 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
     if (live) store(t.A0, k0, blk(reg.a0, k0));
 
     // ---- forward recompute; every output to the workspace
-    wgf::forward<W>(lay, t, s.ring, rp, acc, [&](int kind, int i) {
+    wgf::forward<W, kCond>(lay, t, s.ring, rp, acc, [&](int kind, int i) {
       if (!live) return;
       if (kind == 0) store(H, W, blk(reg.h[i], W));
       else if (kind == 1) store(H, W, blk(reg.feat, W));
@@ -373,6 +399,53 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
     };
     auto on = [&](int j, int q) {
       return (mw[j / 8] >> (4 * (j % 8) + q)) & 1u;
+    };
+    // The per-ray sums of a cond layer's unrounded pre-activation cotangent
+    // over the slab, as its partials: vals(j, v) gives the thread's four
+    // values of epilogue step j (rows rA, rA + 8; columns c, c + 1). H must
+    // be free; it holds the values as f32 (64 × W/2), half the columns at
+    // a time, and a thread per column sums each ray's rows in row order.
+    // Leaves H free.
+    auto cond_partials = [&](int layer, auto vals) {
+      if (!kCond || lay.w_a0[layer] < 0) return;
+      float* S = reinterpret_cast<float*>(H);
+      float* dst = a.cpart + (row0 / 64) * a.M * a.cw + (layer ? W : 0);
+      const long q0 = row0 / a.spr;
+#pragma unroll
+      for (int hc = 0; hc < 2; ++hc) {
+#pragma unroll
+        for (int jj = 0; jj < W / 16; ++jj) {
+          const int j = hc * (W / 16) + jj;
+          const int c = 8 * jj + cA;
+          float v[4];
+          vals(j, v);
+          *reinterpret_cast<float2*>(S + rA * kHalf + c) =
+              make_float2(v[0], v[1]);
+          *reinterpret_cast<float2*>(S + (rA + 8) * kHalf + c) =
+              make_float2(v[2], v[3]);
+        }
+        wg::wg_sync(bar);
+        for (int c = tw; c < kHalf; c += 128) {
+          float* col = dst + hc * kHalf + c;
+          float ray = 0.0f;
+          long q = q0;
+          int in_ray = (int)(row0 - q0 * a.spr);   // row's place in its ray
+          for (int r = 0; r < 64; ++r, ++in_ray) {
+            if (in_ray == a.spr) {
+              if (live) col[(q - q0) * a.cw] = ray;
+              ray = 0.0f;
+              ++q;
+              in_ray = 0;
+            }
+            ray += S[r * kHalf + c];
+          }
+          if (live) {
+            col[(q - q0) * a.cw] = ray;
+            for (long m = q - q0 + 1; m < a.M; ++m) col[m * a.cw] = 0.0f;
+          }
+        }
+        wg::wg_sync(bar);
+      }
     };
 
     if (lay.has_vd) {
@@ -445,16 +518,22 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
       wg::wg_sync(bar);
       load_mask(D - 1);
       const float g_lo = draw[rA][3], g_hi = draw[rA + 8][3];
+      auto last_vals = [&](int j, float (&v)[4]) {
+        const int c = 8 * j + cA;
+        const float s0 = s.heads[c], s1 = s.heads[c + 1];
+        v[0] = __fadd_rn(acc[4 * j], __fmul_rn(g_lo, s0));
+        v[1] = __fadd_rn(acc[4 * j + 1], __fmul_rn(g_lo, s1));
+        v[2] = __fadd_rn(acc[4 * j + 2], __fmul_rn(g_hi, s0));
+        v[3] = __fadd_rn(acc[4 * j + 3], __fmul_rn(g_hi, s1));
+#pragma unroll
+        for (int q = 0; q < 4; ++q) if (!on(j, q)) v[q] = 0.0f;
+      };
+      cond_partials(D - 1, last_vals);
 #pragma unroll
       for (int j = 0; j < W / 8; ++j) {
         const int c = 8 * j + cA;
-        const float s0 = s.heads[c], s1 = s.heads[c + 1];
-        float v[4] = {__fadd_rn(acc[4 * j], __fmul_rn(g_lo, s0)),
-                      __fadd_rn(acc[4 * j + 1], __fmul_rn(g_lo, s1)),
-                      __fadd_rn(acc[4 * j + 2], __fmul_rn(g_hi, s0)),
-                      __fadd_rn(acc[4 * j + 3], __fmul_rn(g_hi, s1))};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) if (!on(j, q)) v[q] = 0.0f;
+        float v[4];
+        last_vals(j, v);
         wgf::st_pair(H, rA, c, W, __floats2bfloat162_rn(v[0], v[1]));
         wgf::st_pair(H, rA + 8, c, W, __floats2bfloat162_rn(v[2], v[3]));
         colsum_pair(cs, W, ww, lane, cA, j, csp, v[0] + v[2],
@@ -463,10 +542,8 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
     } else {
       // ---- 4-wide head: d_h = d_raw·W_outᵀ (K = 4, by hand), masked
       load_mask(D - 1);
-#pragma unroll
-      for (int j = 0; j < W / 8; ++j) {
+      auto head_vals = [&](int j, float (&v)[4]) {
         const int c = 8 * j + cA;
-        float v[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float* wo = s.heads + (c + (q & 1)) * 4;
@@ -475,6 +552,13 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
                                         fmaf(d[1], wo[1], d[0] * wo[0])));
           if (!on(j, q)) v[q] = 0.0f;
         }
+      };
+      cond_partials(D - 1, head_vals);
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const int c = 8 * j + cA;
+        float v[4];
+        head_vals(j, v);
         wgf::st_pair(H, rA, c, W, __floats2bfloat162_rn(v[0], v[1]));
         wgf::st_pair(H, rA + 8, c, W, __floats2bfloat162_rn(v[2], v[3]));
         colsum_pair(cs, W, ww, lane, cA, j, csp, v[0] + v[2],
@@ -535,13 +619,16 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
         guard();
         wg::wg_sync(bar);   // the warpgroup is done reading H
         load_mask(i - 1);
-  #pragma unroll
+        auto pre_vals = [&](int j, float (&v)[4]) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[q] = on(j, q) ? acc[4 * j + q] : 0.0f;
+        };
+        cond_partials(i - 1, pre_vals);
+#pragma unroll
         for (int j = 0; j < W / 8; ++j) {
           const int c = 8 * j + cA;
-          float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
-                        acc[4 * j + 3]};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) if (!on(j, q)) v[q] = 0.0f;
+          float v[4];
+          pre_vals(j, v);
           wgf::st_pair(H, rA, c, W, __floats2bfloat162_rn(v[0], v[1]));
           wgf::st_pair(H, rA + 8, c, W, __floats2bfloat162_rn(v[2], v[3]));
           colsum_pair(cs, W, ww, lane, cA, j, csp, v[0] + v[2],
@@ -701,7 +788,8 @@ __global__ void sum_rows_kernel(const float* part, int n_part, long m,
 }
 
 // d_dir[q][c] = Σ over the 64-row slabs that hold ray q of their partial,
-// in slab order.
+// in slab order; the view term's (half = W / 2 columns) and the cond's
+// (half = cw columns).
 __global__ void dir_sum_kernel(const float* dpart, float* d_dir, long n_rays,
                                int spr, int M, int half) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -717,18 +805,26 @@ __global__ void dir_sum_kernel(const float* dpart, float* d_dir, long n_rays,
   d_dir[i] = t;
 }
 
-template <int W>
+template <int W, bool kCond>
 int launch_rows(RowsArgs& ra, int n_sm, cudaStream_t st, bool launch) {
   const int smem = (int)sizeof(BwdSmem<W>) + ra.n_b * 4;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (!launch)
     return (int)cudaFuncSetAttribute(
-        bwd_rows_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        bwd_rows_kernel<W, kCond>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int items = (int)((ra.rows + wg::kItemRows - 1) / wg::kItemRows);
-  bwd_rows_kernel<W><<<items < n_sm ? items : n_sm, wgf::kThreads, smem,
-                       st>>>(ra);
+  bwd_rows_kernel<W, kCond><<<items < n_sm ? items : n_sm, wgf::kThreads,
+                              smem, st>>>(ra);
   return (int)cudaGetLastError();
+}
+
+int launch_rows_any(RowsArgs& ra, int n_sm, cudaStream_t st, bool launch) {
+  if (ra.cw > 0)
+    return ra.lay.width == 256 ? launch_rows<256, true>(ra, n_sm, st, launch)
+                               : launch_rows<128, true>(ra, n_sm, st, launch);
+  return ra.lay.width == 256 ? launch_rows<256, false>(ra, n_sm, st, launch)
+                             : launch_rows<128, false>(ra, n_sm, st, launch);
 }
 
 }  // namespace
@@ -738,17 +834,20 @@ extern "C" {
 
 // n must be a multiple of 64 and of spr, chunk a multiple of 64; width 128
 // or 256, depth 2-8, k0 48 or 64; wp holds the net's field slices and
-// their transposes (kernels/wgpack.py::field_buffer(net, True)).
+// their transposes (kernels/wgpack.py::field_buffer(net, True)). condpart:
+// null, or (n / spr, cw) bf16 with cw = W times the layers that take the
+// posenc operand; then d_cond (n / spr, cw) and cpart (n / 64, M, cw) f32.
 // Returns a cudaError_t.
 int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
                        const void* wp, const void* b, const void* g_rgb,
                        const void* g_sigma, void* d_pts, void* d_dir,
                        void* d_w, void* d_b, void* ws, void* a0s,
                        void* masks, void* wpart, void* bpart, void* dpart,
+                       const void* condpart, void* d_cond, void* cpart,
                        long ws_numel, int n,
                        int spr, int L, int depth, int width, int k0,
                        int skip, int has_vd, int chunk, int n_split, int M,
-                       void* stream) {
+                       int cw, void* stream) {
   using namespace fnt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Layout lay = make_layout(depth, width, k0, skip, has_vd);
@@ -759,7 +858,10 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
       n % kRows || chunk % kRows || chunk < kRows || spr < 1 || n % spr ||
       3 + 6 * L > k0 || n_split < 1 || M < 1 ||
       (long)chunk * reg.cols > ws_numel ||
-      (reinterpret_cast<uintptr_t>(wp) & 15))
+      (reinterpret_cast<uintptr_t>(wp) & 15) ||
+      (condpart != nullptr) != (cw > 0) ||
+      (cw > 0 && (cw != wgf::cond_layers(lay) * width || !d_cond || !cpart ||
+                  (reinterpret_cast<uintptr_t>(condpart) & 3))))
     return (int)cudaErrorInvalidValue;
   const int half = width / 2;
   const int n_w = has_vd ? lay.w_rgb + half * 3 : lay.w_out + width * 4;
@@ -808,12 +910,14 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
   ra.ws = static_cast<bf16*>(ws);
   ra.a0s = static_cast<float*>(a0s);
   ra.masks = static_cast<uint32_t*>(masks);
+  ra.condpart = static_cast<const bf16*>(condpart);
+  ra.cpart = static_cast<float*>(cpart);
+  ra.cw = cw;
   ra.spr = spr; ra.L = L; ra.M = M; ra.n_b = n_b;
   ra.lay = lay;
   ra.reg = reg;
 
-  int err = width == 256 ? launch_rows<256>(ra, 0, st, false)
-                         : launch_rows<128>(ra, 0, st, false);
+  int err = launch_rows_any(ra, 0, st, false);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
       wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -829,8 +933,7 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
     const int slabs = (int)(rows / kRows);
     ra.rows = rows;
     ra.r0 = r0;
-    err = width == 256 ? launch_rows<256>(ra, n_sm, st, true)
-                       : launch_rows<128>(ra, n_sm, st, true);
+    err = launch_rows_any(ra, n_sm, st, true);
     if (err) return err;
     wa.rows = rows;
     wa.rows_per_split = ((rows + n_split - 1) / n_split + 63) / 64 * 64;
@@ -847,11 +950,17 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
         static_cast<float*>(d_b), acc);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
+  const long n_rays = n / spr;
   if (has_vd) {
-    const long n_rays = n / spr;
     dir_sum_kernel<<<(int)((n_rays * half + 255) / 256), 256, 0, st>>>(
         static_cast<const float*>(dpart), static_cast<float*>(d_dir), n_rays,
         spr, M, half);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if (cw > 0) {
+    dir_sum_kernel<<<(int)((n_rays * cw + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(cpart), static_cast<float*>(d_cond),
+        n_rays, spr, M, cw);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   return 0;

@@ -22,8 +22,10 @@ per chunk. K3 and K6 add float(condpart) slice i to the accumulator of
 the i-th conditioned layer before its bias; K2 takes it folded into its
 hoisted x-intercepts (slimmarch.hoist_rays). A conditioned net's marches
 predicate per half tile (`tile_rows`), as the reference's conditioned plans
-do. Gradients of a conditioned field (K4's dcond) are not ported: the
-fused field raises under grad with a cond (ROADMAP Queue 1 #11).
+do. Under grad the hoist stays plain torch: K4 returns the condpart's
+cotangent (the f32 pre-activation cotangents of those layers, summed per
+ray), and autograd carries it through cond @ cond_kernel to the cond and
+to the cond rows, as the reference's XLA `cond_vjp` does.
 
 Shapes. K3, K4 and K6 take widths 128 and 256, depths 2-8 and a posenc
 operand of 48 or 64 columns (`check_field_shape`). The wrappers run any
@@ -45,7 +47,7 @@ rounds first: the rgb head and the feature layer); sin/cos stay f32.
 `pack_params` packs differentiably into an f32 flat buffer, so autograd of
 the packing (cat, transpose, pad) carries the flat gradients back onto the
 NeRFMLP parameters; the bf16 casts of the weights and of the per-ray view
-term happen inside `FusedField`, so their gradients stay f32.
+and cond terms happen inside `FusedField`, so their gradients stay f32.
 """
 
 from __future__ import annotations
@@ -192,8 +194,9 @@ def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
     posenc operand) or for the marches (hoist_x=True: the first and skip
     layers' x rows and biases leave the kernel as `x_kernels`; their bias
     slots in the buffer are zero). A field packed with grad enabled keeps
-    the autograd graph: `w32` (the f32 flat weights), `b` and `dir_kernel`
-    lead back to the model's parameters (see FusedField)."""
+    the autograd graph: `w32` (the f32 flat weights), `b`, `dir_kernel`
+    and `cond_kernel` lead back to the model's parameters (see
+    FusedField); the kernels read detached copies."""
     L, W, D = model.posenc_xyz, model.width, model.depth
     cx = 3 * (2 * L + 1)
     Cc = model.cond_dim
@@ -217,7 +220,7 @@ def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
                 if i == skip:
                     ws.append(kern[cx + Cc:])
                 if Cc:
-                    cond_blocks.append(kern[cx:cx + Cc].detach().float())
+                    cond_blocks.append(kern[cx:cx + Cc].float())
                 rows, Wx = a0_rows(kern[:cx])
                 ws.append(rows)
                 if hoist_x:
@@ -270,14 +273,21 @@ def hoist_dirs(net: PackedNet, viewdirs):
     return dir_term(net, viewdirs).to(_BF)
 
 
-def hoist_cond(net: PackedNet, cond):
-    """The per-ray condpart bf16(cond @ cond_kernel) (R, n_cond·W), the f32
-    product rounded once; None without a cond."""
-    if cond is None:
-        return None
+def cond_term(net: PackedNet, cond):
+    """The per-ray condpart cond @ cond_kernel (R, n_cond·W) f32. Plain
+    torch, so autograd carries its gradient to the cond and the cond rows
+    (the reference's `cond_vjp`)."""
     if net.cond_kernel is None:
         raise ValueError("a cond was given but the net has no cond rows")
-    return (cond.float() @ net.cond_kernel).to(_BF).contiguous()
+    return cond.float() @ net.cond_kernel
+
+
+def hoist_cond(net: PackedNet, cond):
+    """`cond_term` rounded to bf16, as the kernels take it; None without a
+    cond."""
+    if cond is None:
+        return None
+    return cond_term(net, cond).to(_BF).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -454,7 +464,7 @@ def pad_packed(net: PackedNet) -> PackedNet:
         dk = F.pad(dk.detach(), (0, Wp // 2 - dk.shape[1]))
     ck = net.cond_kernel
     if ck is not None:
-        ck = pad_condpart(net, Wp, ck)
+        ck = pad_condpart(net, Wp, ck.detach())
     return PackedNet(w=w, wf=w.float(), b=b, depth=net.depth, width=Wp,
                      k0=k0p, skip=net.skip, has_vd=net.has_vd, L=net.L,
                      L_dir=net.L_dir, x_rows=True, lay=lay, dir_kernel=dk,
@@ -581,12 +591,16 @@ def _rows_bwd_heads(net: PackedNet, h, dir_rows, g_rgb, g_sigma, gw, gb):
 
 
 def field_rows_backward_plain(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
-                              spr: int):
+                              spr: int, condpart=None):
     """Plain version of K4, the VJP of K3 with the reference's rounding
     points (explicit, not autograd): pts (n,3) f32, dirpart (n/spr, W/2)
     bf16, cotangents g_rgb (n,3) and g_sigma (n,) f32 → (d_pts (n,3),
     d_dirpart (n/spr, W/2) summed per ray, d_w (n_w,), d_b (n_b,)), all
-    f32, d_w and d_b in the flat layout of net.w and net.b."""
+    f32, d_w and d_b in the flat layout of net.w and net.b. A conditioned
+    net takes its condpart (n/spr, n_cond·W) bf16, added to the cond
+    layers' accumulators before the bias as the reference's recompute adds
+    it, and a fifth output d_condpart (n/spr, n_cond·W) f32: each cond
+    layer's unrounded pre-activation cotangent, summed per ray."""
     lay, W, L, k0 = net.lay, net.width, net.L, net.k0
     n = pts.shape[0]
     fmat, off = phase_consts(L, pts.device)
@@ -594,13 +608,17 @@ def field_rows_backward_plain(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     a0 = field_operand(pts, L, k0)
     dir_rows = (dirpart.float().repeat_interleave(spr, dim=0)
                 if net.has_vd else None)
-    hs, h = [], None
+    cond_rows = per_row(condpart, spr)
+    hs, h, ci = [], None, 0
     for i in range(net.depth):                     # forward recompute
         acc = 0.0
         if lay["w_h"][i] is not None:
             acc = h @ net.wview(lay["w_h"][i], W, W)
         if lay["w_a0"][i] is not None:
             acc = acc + a0 @ net.wview(lay["w_a0"][i], k0, W)
+            if cond_rows is not None:
+                acc = acc + cond_rows[:, ci * W:(ci + 1) * W]
+            ci += 1
         h = _bf(torch.relu(acc + net.b[lay["b"][i]:lay["b"][i] + W]))
         hs.append(h)
     gw = torch.zeros(lay["n_w"], device=pts.device)
@@ -608,11 +626,15 @@ def field_rows_backward_plain(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     d_h, d_rows = _rows_bwd_heads(net, h, dir_rows, g_rgb.float(),
                                   g_sigma.float(), gw, gb)
     d_a0 = torch.zeros((n, k0), device=pts.device)
+    d_cond = ([None] * ci) if cond_rows is not None else None
     for i in reversed(range(net.depth)):           # trunk backward
         d_pre = torch.where(hs[i] > 0, d_h, 0.0)
         d_pre_bf = _bf(d_pre)
         gb[lay["b"][i]:lay["b"][i] + W] = d_pre.sum(0)
         if lay["w_a0"][i] is not None:
+            ci -= 1
+            if d_cond is not None:
+                d_cond[ci] = d_pre
             w_a0 = net.wview(lay["w_a0"][i], k0, W)
             gw[lay["w_a0"][i]:lay["w_a0"][i] + k0 * W] = (
                 a0.t() @ d_pre_bf).reshape(-1)
@@ -630,7 +652,10 @@ def field_rows_backward_plain(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
         d_dir = torch.zeros((R, dirpart.shape[1]), device=pts.device)
     else:
         d_dir = d_rows.reshape(R, spr, -1).sum(1)
-    return d_pts, d_dir, gw, gb
+    if d_cond is None:
+        return d_pts, d_dir, gw, gb
+    d_cp = torch.cat(d_cond, dim=1).reshape(R, spr, -1).sum(1)
+    return d_pts, d_dir, gw, gb, d_cp
 
 
 def bwd_workspace_cols(net: PackedNet) -> int:
@@ -644,17 +669,17 @@ def bwd_workspace_cols(net: PackedNet) -> int:
 def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
                         spr: int, condpart=None):
     """VJP of `field_rows` → (d_pts (n,3), d_dirpart (n/spr, W/2), d_w,
-    d_b), all f32. CPU tensors: plain version; CUDA tensors: kernel K4,
-    which is deterministic (fixed-order reductions, no float atomics). A
-    net outside the kernel's widths runs padded (`pad_packed`), and d_w,
-    d_b and d_dirpart come back in the unpadded net's layout. A condpart
-    raises: K4's dcond output is not ported."""
-    if condpart is not None or net.n_cond:
-        raise NotImplementedError(_NO_COND_GRAD)
+    d_b), all f32, and with a conditioned net's condpart (n/spr, n_cond·W)
+    bf16 a fifth output d_condpart (n/spr, n_cond·W) f32, as
+    `field_rows_backward_plain`. CPU tensors: plain version; CUDA tensors:
+    kernel K4, which is deterministic (fixed-order reductions, no float
+    atomics). A net outside the kernel's widths runs padded (`pad_packed`),
+    and d_w, d_b, d_dirpart and d_condpart come back in the unpadded net's
+    layout."""
     n = pts.shape[0]
-    if not K.on_cuda(pts, dirpart, net.w, g_rgb, g_sigma):
+    if not K.on_cuda(pts, dirpart, net.w, g_rgb, g_sigma, condpart):
         return field_rows_backward_plain(net, pts, dirpart, g_rgb, g_sigma,
-                                         spr)
+                                         spr, condpart)
     if not net.x_rows:
         raise ValueError("field_rows_backward needs a net packed with "
                          "hoist_x=False")
@@ -665,7 +690,9 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     K.check(dirpart, "dirpart", _BF, (n // spr, cols))
     K.check(g_rgb, "g_rgb", torch.float32, (n, 3))
     K.check(g_sigma, "g_sigma", torch.float32, (n,))
+    check_condpart(unpadded, condpart, n // spr)
     dirpart = pad_dirpart(unpadded, net, dirpart)
+    condpart = pad_condpart(unpadded, net.width, condpart)
     half = dirpart.shape[1]
     if net.has_vd and half != net.width // 2:
         raise ValueError(f"dirpart width {half}")
@@ -673,14 +700,17 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     chunk = min(n, K.BWD_CHUNK_ROWS)
     n_split = max(1, min(16, chunk // 8192))
     M = min(K.SLAB_ROWS, (K.SLAB_ROWS - 1) // spr + 2)
+    cw = 0 if condpart is None else condpart.shape[1]
     ws = torch.empty(chunk * bwd_workspace_cols(net), dtype=_BF, device=dev)
     wpart = torch.empty((n_split, net.lay["n_w"]), dtype=f32, device=dev)
     bpart = torch.empty((chunk // K.SLAB_ROWS, net.lay["n_b"]), dtype=f32,
                         device=dev)
     dpart = torch.empty((n // K.SLAB_ROWS, M, half), dtype=f32, device=dev)
+    cpart = torch.empty((n // K.SLAB_ROWS, M, cw), dtype=f32, device=dev)
     d_pts = torch.empty((n, 3), dtype=f32, device=dev)
     d_dir = (torch.empty if net.has_vd else torch.zeros)(
         (n // spr, half), dtype=f32, device=dev)
+    d_cond = torch.empty((n // spr, cw), dtype=f32, device=dev)
     d_w = torch.empty(net.lay["n_w"], dtype=f32, device=dev)
     d_b = torch.empty(net.lay["n_b"], dtype=f32, device=dev)
     wp = wgpack.field_buffer(net, transposed=True)
@@ -690,53 +720,58 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, wp, net.b, g_rgb,
                                    g_sigma, d_pts, d_dir, d_w, d_b, ws, a0s,
                                    masks, wpart, bpart, dpart)]
+    ptrs += [x.data_ptr() if cw else None for x in (condpart, d_cond, cpart)]
     code = K.library().fnt_field_backward(
         *ptrs, ws.numel(), n, spr, net.L, net.depth, net.width, net.k0,
-        net.skip, int(net.has_vd), chunk, n_split, M, K.stream())
+        net.skip, int(net.has_vd), chunk, n_split, M, cw, K.stream())
     K.raise_on_error(code, "fnt_field_backward")
-    K.LAUNCHES["field_bwd"] += 1
-    if net.unpad is not None:
-        # the original entries' gradients; those of the padding are zeros
-        pos_w, pos_b = net.unpad
-        return (d_pts, d_dir[:, :cols].contiguous(),
-                d_w.index_select(0, pos_w), d_b.index_select(0, pos_b))
-    return d_pts, d_dir, d_w, d_b
-
-
-_NO_COND_GRAD = ("gradients of a conditioned field (K4's dcond output) are "
-                 "not ported: conditioned training is the next try-on "
-                 "slice (ROADMAP Queue 1 #11)")
+    K.LAUNCHES["field_bwd_cond" if cw else "field_bwd"] += 1
+    out = (d_pts, d_dir, d_w, d_b) + ((d_cond,) if cw else ())
+    if net.unpad is None:
+        return out
+    # the original entries' gradients; those of the padding are zeros
+    pos_w, pos_b = net.unpad
+    out = (d_pts, d_dir[:, :cols].contiguous(), d_w.index_select(0, pos_w),
+           d_b.index_select(0, pos_b))
+    if cw:
+        W = unpadded.width
+        out += (d_cond.reshape(n // spr, -1, net.width)[:, :, :W]
+                .reshape(n // spr, -1).contiguous(),)
+    return out
 
 
 class FusedField(torch.autograd.Function):
     """K3 forward and K4 backward under autograd (the reference's
     `field_core` custom VJP).
 
-    apply(pts (n,3) f32, dirpart (n/spr, W/2) f32, w32 (n_w,) f32, b (n_b,)
-    f32, net, spr, plain) → (rgb (n,3), σ (n,)). `net` is the PackedNet that
-    w32 and b were packed into; its bf16 `w` is what the kernels read.
-    dirpart and w32 are rounded to bf16 here, and their gradients are
-    returned unrounded (straight through the casts, as the reference's
-    VJP returns f32 cotangents for its f32 params and hoist). plain=True
-    takes the plain versions on any device."""
+    apply(pts (n,3) f32, dirpart (n/spr, W/2) f32, condpart (n/spr,
+    n_cond·W) f32 or None, w32 (n_w,) f32, b (n_b,) f32, net, spr, plain)
+    → (rgb (n,3), σ (n,)). `net` is the PackedNet that w32 and b were
+    packed into; its bf16 `w` is what the kernels read. dirpart, condpart
+    and w32 are rounded to bf16 here, and their gradients are returned
+    unrounded (straight through the casts, as the reference's VJP returns
+    f32 cotangents for its f32 params and hoists). plain=True takes the
+    plain versions on any device."""
 
     @staticmethod
-    def forward(ctx, pts, dirpart, w32, b, net, spr, plain):
+    def forward(ctx, pts, dirpart, condpart, w32, b, net, spr, plain):
         dp = dirpart.to(_BF).contiguous()
+        cp = None if condpart is None else condpart.to(_BF).contiguous()
         fn = field_rows_plain if plain else field_rows
-        rgb, sigma = fn(net, pts, dp, spr)
-        ctx.save_for_backward(pts, dp)
+        rgb, sigma = fn(net, pts, dp, spr, cp)
+        ctx.save_for_backward(pts, dp, cp)
         ctx.net, ctx.spr, ctx.plain = net, spr, plain
         return rgb, sigma
 
     @staticmethod
     def backward(ctx, g_rgb, g_sigma):
-        pts, dp = ctx.saved_tensors
+        pts, dp, cp = ctx.saved_tensors
         fn = field_rows_backward_plain if ctx.plain else field_rows_backward
-        d_pts, d_dir, d_w, d_b = fn(ctx.net, pts, dp,
-                                    g_rgb.float().contiguous(),
-                                    g_sigma.float().contiguous(), ctx.spr)
-        return d_pts, d_dir, d_w, d_b, None, None, None
+        d_pts, d_dir, d_w, d_b, *d_cp = fn(
+            ctx.net, pts, dp, g_rgb.float().contiguous(),
+            g_sigma.float().contiguous(), ctx.spr, cp)
+        return (d_pts, d_dir, d_cp[0] if d_cp else None, d_w, d_b, None,
+                None, None)
 
 
 def make_fused_field(cfg, plain: bool = False):
@@ -744,17 +779,13 @@ def make_fused_field(cfg, plain: bool = False):
     field(params, pts (R,S,3), viewdirs (R,3), cond (R,Cc)=None) →
     (rgb (R,S,3), σ (R,S)), where params is a NeRFMLP. Runs K3 on CUDA
     tensors (the plain version on CPU tensors, or everywhere with
-    plain=True); a cond enters as its per-ray condpart. With grad enabled
-    it runs through FusedField, whose backward is K4 (or its plain
-    version), and gradients reach the NeRFMLP's parameters; a cond under
-    grad raises (K4's dcond is not ported)."""
+    plain=True); a cond enters as its per-ray condpart cond @ cond_kernel.
+    With grad enabled it runs through FusedField, whose backward is K4 (or
+    its plain version), and gradients reach the NeRFMLP's parameters and
+    the cond."""
     del cfg   # the architecture is read off the module
 
     def field(params: NeRFMLP, pts, viewdirs, cond=None):
-        if cond is not None and torch.is_grad_enabled() and (
-                cond.requires_grad or pts.requires_grad
-                or any(p.requires_grad for p in params.parameters())):
-            raise NotImplementedError(_NO_COND_GRAD)
         net = pack_params(params, hoist_x=False)
         R, S = pts.shape[0], pts.shape[1]
         step = K.SLAB_ROWS // math.gcd(S, K.SLAB_ROWS)
@@ -762,17 +793,17 @@ def make_fused_field(cfg, plain: bool = False):
         flat = F.pad(pts.reshape(R, S, 3), (0, 0, 0, 0, 0, R_pad - R))
         flat = flat.reshape(-1, 3).contiguous()
         dterm = F.pad(dir_term(net, viewdirs), (0, 0, 0, R_pad - R))
-        if cond is not None:
-            cp = F.pad(hoist_cond(net, cond), (0, 0, 0, R_pad - R))
-            fn = field_rows_plain if plain else field_rows
-            rgb, sigma = fn(net, flat, dterm.to(_BF).contiguous(), S,
-                            cp.contiguous())
-        elif net.w32 is not None:
-            rgb, sigma = FusedField.apply(flat, dterm.contiguous(), net.w32,
-                                          net.b, net, S, plain)
+        # the hoist in f32, rounded to bf16 where the kernel takes it
+        cterm = (None if cond is None else F.pad(
+            cond_term(net, cond), (0, 0, 0, R_pad - R)).contiguous())
+        if net.w32 is not None:
+            rgb, sigma = FusedField.apply(flat, dterm.contiguous(), cterm,
+                                          net.w32, net.b, net, S, plain)
         else:
             fn = field_rows_plain if plain else field_rows
-            rgb, sigma = fn(net, flat, dterm.to(_BF).contiguous(), S)
+            rgb, sigma = fn(net, flat, dterm.to(_BF).contiguous(), S,
+                            None if cterm is None
+                            else cterm.to(_BF).contiguous())
         return (rgb[:R * S].reshape(R, S, 3), sigma[:R * S].reshape(R, S))
 
     return field

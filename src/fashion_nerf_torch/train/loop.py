@@ -10,12 +10,15 @@ field runs under autograd. The occupancy-accelerated step renders a
 reduced budget inside each ray's box interval; every `occ_dense_every`-th
 step stays dense. Evaluation renders the held-out view through K3 and K5.
 
-Conditioned and latent fields render and evaluate with the per-scene cond
-vector (`resolve_garment`, `_eval_cond`); training them is not ported
-yet. Not ported here, each raising NotImplementedError: the device mesh
-and data-parallel step and `data.stream` prefetch (ROADMAP Queue 1 #14),
-conditioned training (K4's dcond and the encoder's and latents' gradients,
-#11), and the real blender/llff loaders (#12).
+Conditioned and latent fields (the try-on presets) train with a per-ray
+cond built inside the step (`make_cond`: the garment encoder's code of the
+run's garment stack, broadcast to every ray, then each ray's frame latent),
+so the encoder and the latent table are part of the step's graph; K4 (or
+its plain version) returns the condpart's cotangent. The occupancy refresh
+and the evaluation take the per-scene cond vector (`_eval_cond`). Not
+ported here, each raising NotImplementedError: the device mesh and
+data-parallel step and `data.stream` prefetch (ROADMAP Queue 1 #14), and
+the real blender/llff loaders (#12).
 """
 
 from __future__ import annotations
@@ -59,9 +62,9 @@ def make_fields(cfg: Config, training: bool = False, plain: bool = False):
 
 
 def _bind(field, net, viewdirs):
-    """A renderer field (pts, rays_d) → (rgb, σ) with net and view
+    """A renderer field (pts, rays_d[, cond]) → (rgb, σ) with net and view
     directions captured (NDC rays_d are not view directions)."""
-    return lambda pts, _rays_d: field(net, pts, viewdirs)
+    return lambda pts, _rays_d, *cond: field(net, pts, viewdirs, *cond)
 
 
 def sparsity_points(cfg: Config, generator, device):
@@ -72,20 +75,42 @@ def sparsity_points(cfg: Config, generator, device):
     return o.world_min + (o.world_max - o.world_min) * u
 
 
-def sparsity_loss(cfg: Config, nets: dict, field_c, field_f, pts):
+def sparsity_loss(cfg: Config, nets: dict, field_c, field_f, pts,
+                  cond=None):
     """Cauchy density prior mean(log(1 + σ²/2)) at pts, summed over the
-    coarse and the fine net."""
+    coarse and the fine net. A conditioned field takes the first ray's
+    cond (R, Cc) at every prior point, as the reference does (for a
+    dynamic run: one frame's latent a step)."""
     n = pts.shape[0]
     dirs = torch.tensor([0.0, 0.0, -1.0], device=pts.device).expand(n, 3)
+    extra = () if cond is None else (cond[:1].expand(n, cond.shape[-1]),)
     act = (torch.nn.functional.softplus
            if cfg.model.sigma_activation == "softplus" else torch.relu)
     total = 0.0
     for name, field in (("coarse", field_c), ("fine", field_f)):
         if nets.get(name) is None:
             continue
-        _, sigma = field(nets[name], pts, dirs)
+        _, sigma = field(nets[name], pts, dirs, *extra)
         total = total + torch.mean(torch.log1p(0.5 * act(sigma) ** 2))
     return total
+
+
+def make_cond(cfg: Config, nets: dict, batch: dict, garment=None):
+    """The per-ray cond (R, Cc) of a batch: the garment encoder's code of
+    `garment` broadcast to every ray, then each ray's frame latent (frame
+    ids clipped to the table), those the config has; None when it has
+    neither. Built inside the step, so gradients reach the encoder and the
+    latent table."""
+    from fashion_nerf_torch.models.conditioned import encode_garment
+    n_rays = batch["rays_o"].shape[0]
+    parts = []
+    if cfg.model.conditioned and "encoder" in nets and garment is not None:
+        code = encode_garment(nets["encoder"], garment)
+        parts.append(code.expand(n_rays, code.shape[-1]))
+    if cfg.model.n_latents > 0 and "latents" in nets:
+        ids = batch["frame_ids"].clamp(0, cfg.model.n_latents - 1)
+        parts.append(nets["latents"](ids))
+    return torch.cat(parts, dim=-1) if parts else None
 
 
 class TrainStep:
@@ -95,11 +120,12 @@ class TrainStep:
     streamed: all_rays is the batch itself (pre-gathered), as the
     reference's streamed step takes it. occ_culled: the reduced
     occ_coarse + occ_fine budget inside the box of `occ`. sparsity_pts:
-    explicit sparsity-prior points in place of the generator's draw."""
+    explicit sparsity-prior points in place of the generator's draw.
+    garment: the (H, W, 7) conditioning stack of a conditioned run."""
 
     def __init__(self, cfg: Config, dataset: RayDataset,
                  streamed: bool = False, occ_culled: bool = False,
-                 plain: bool = False):
+                 plain: bool = False, garment=None):
         if occ_culled:
             cfg = dataclasses.replace(cfg, sampling=dataclasses.replace(
                 cfg.sampling, n_coarse=cfg.train.occ_coarse,
@@ -113,17 +139,19 @@ class TrainStep:
         self.crop_idx = (dataset.crop_idx if cfg.train.precrop_iters > 0
                          else None)
         self.streamed = streamed
+        self.garment = garment
 
     def loss(self, state: TrainState, batch: dict, occ=None,
              sparsity_pts=None):
         """→ (loss, aux) with the autograd graph of the step."""
         cfg, g = self.cfg, state.generator
         vd = batch["viewdirs"]
+        cond = make_cond(cfg, state.nets(), batch, self.garment)
         fc = _bind(self.field_c, state.coarse, vd)
         ff = (_bind(self.field_f, state.fine, vd) if self.use_fine
               else None)
         out = render_rays(fc, ff, batch["rays_o"], batch["rays_d"], cfg,
-                          train=True, generator=g, occ=occ)
+                          train=True, generator=g, occ=occ, cond=cond)
         loss_c = torch.mean((out["coarse"]["rgb"] - batch["rgb"]) ** 2)
         loss, loss_f = loss_c, loss_c
         if self.use_fine:
@@ -134,7 +162,7 @@ class TrainStep:
             pts = (sparsity_points(cfg, g, batch["rays_o"].device)
                    if sparsity_pts is None else sparsity_pts)
             loss_sp = sparsity_loss(cfg, state.nets(), self.field_c,
-                                    self.field_f, pts)
+                                    self.field_f, pts, cond)
             loss = loss + cfg.train.sparsity_weight * loss_sp
             aux["sparsity"] = loss_sp
         return loss, aux
@@ -160,20 +188,24 @@ class TrainStep:
         return state, metrics
 
 
-def refresh_occupancy(cfg: Config, state: TrainState, plain: bool = False):
+def refresh_occupancy(cfg: Config, state: TrainState, plain: bool = False,
+                      cond_vec=None):
     """The training-time culling grid from the live nets: σ is the max of
-    the coarse and the fine field, so both nets' culled ranges are sound."""
+    the coarse and the fine field, so both nets' culled ranges are sound.
+    cond_vec: the per-scene cond vector (Cc,) of a conditioned run, whose
+    density the grid is swept with."""
     field_c, field_f = make_fields(cfg, plain=plain)
     dev = next(state.coarse.parameters()).device
 
-    def union(pts, dirs):
-        rgb, sigma = field_c(state.coarse, pts, dirs)
+    def union(pts, dirs, *cond):
+        rgb, sigma = field_c(state.coarse, pts, dirs, *cond)
         if state.fine is not None and cfg.sampling.n_fine > 0:
-            sigma = torch.maximum(sigma, field_f(state.fine, pts, dirs)[1])
+            sigma = torch.maximum(sigma,
+                                  field_f(state.fine, pts, dirs, *cond)[1])
         return rgb, sigma
 
     with torch.no_grad():
-        return build_from_config(cfg, union, device=dev)
+        return build_from_config(cfg, union, device=dev, cond=cond_vec)
 
 
 def evaluate(cfg: Config, state: TrainState, dataset: RayDataset,
@@ -218,18 +250,14 @@ def resolve_garment(cfg: Config, dataset_dict: dict, H: int, W: int,
 
 
 def _eval_cond(cfg: Config, nets: dict, garment, frame_id: int = 0):
-    """The per-scene cond vector (Cc,) for whole-image renders: the garment
-    code ⊕ frame `frame_id`'s latent, those the config has; None when it
-    has neither."""
-    from fashion_nerf_torch.models.conditioned import encode_garment
-    parts = []
-    if cfg.model.conditioned and "encoder" in nets and garment is not None:
-        parts.append(encode_garment(nets["encoder"], garment))
-    if cfg.model.n_latents > 0 and "latents" in nets:
-        table = nets["latents"]
-        ids = torch.tensor([frame_id], device=table.codes.weight.device)
-        parts.append(table(ids)[0])
-    return torch.cat(parts, dim=-1) if parts else None
+    """The per-scene cond vector (Cc,) for whole-image renders: `make_cond`
+    of one ray of frame `frame_id`; None when the config has neither a
+    garment code nor latents."""
+    ids = torch.tensor([frame_id], device=(
+        nets["latents"].codes.weight.device if "latents" in nets else None))
+    cond = make_cond(cfg, nets, {"rays_o": ids[:, None], "frame_ids": ids},
+                     garment)
+    return None if cond is None else cond[0]
 
 
 def _check_supported(cfg: Config) -> None:
@@ -239,11 +267,6 @@ def _check_supported(cfg: Config) -> None:
     if cfg.dist.multihost or cfg.dist.tp > 1 or cfg.dist.dp > 1:
         raise NotImplementedError("the device mesh and data-parallel step "
                                   "are not ported (ROADMAP Queue 1 #14)")
-    if cfg.model.conditioned or cfg.model.n_latents > 0:
-        raise NotImplementedError(
-            "training conditioned and latent fields is not ported: it is "
-            "the next try-on slice (K4's dcond output, the encoder's and "
-            "latents' gradients; ROADMAP Queue 1 #11)")
 
 
 def train(cfg: Config, dataset_dict: Optional[dict] = None,
@@ -261,7 +284,7 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
     _check_supported(cfg)
     device = resolve_device(device)
     if dataset_dict is None:
-        dataset_dict = load_dataset(cfg)
+        dataset_dict = load_dataset(cfg, device)
     dataset = RayDataset(dataset_dict["images"], dataset_dict["poses"],
                          dataset_dict["focal"], ndc=cfg.render.ndc,
                          precrop_frac=cfg.train.precrop_frac, device=device)
@@ -272,10 +295,12 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
     state = create_train_state(cfg, chain.once("init"),
                                chain.once("run", device), device)
     chain.freeze()     # every later draw comes from state.generator
-    step_fn = TrainStep(cfg, dataset)
+    garment = resolve_garment(cfg, dataset_dict, dataset.H, dataset.W,
+                              device)
+    step_fn = TrainStep(cfg, dataset, garment=garment)
     occ_train = cfg.train.occ_train
-    step_fast = (TrainStep(cfg, dataset, occ_culled=True) if occ_train
-                 else None)
+    step_fast = (TrainStep(cfg, dataset, occ_culled=True, garment=garment)
+                 if occ_train else None)
     all_rays = dataset.batch_arrays()
     logger = log_fn or MetricLogger(cfg)
     ckpt_dir = os.path.join(cfg.out_dir, cfg.name, "ckpt")
@@ -292,7 +317,9 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
             raise RuntimeError(f"injected fault at step {i}")
         if occ_train and i >= cfg.train.occ_warmup and (
                 occ_state is None or i % cfg.train.occ_refresh_every == 0):
-            occ_state = refresh_occupancy(cfg, state)
+            with torch.no_grad():
+                cond_vec = _eval_cond(cfg, state.nets(), garment)
+            occ_state = refresh_occupancy(cfg, state, cond_vec=cond_vec)
             counts["refreshes"] += 1
         if (occ_state is not None
                 and (i + 1) % cfg.train.occ_dense_every != 0):
@@ -311,7 +338,8 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
             history.append(entry)
             logger(entry)
         if (i + 1) % cfg.train.eval_every == 0:
-            _, last_val_psnr = evaluate(cfg, state, dataset)
+            _, last_val_psnr = evaluate(cfg, state, dataset,
+                                        garment=garment)
             logger({"step": i + 1, "val_psnr": last_val_psnr})
             history.append({"step": i + 1, "val_psnr": last_val_psnr})
             t0 = time.perf_counter()   # eval stays out of the rays/s window

@@ -410,8 +410,6 @@ def test_parser_equals_reference_plus_device():
 @pytest.mark.parametrize("argv,exc,match", [
     (["preprocess", "--config", "viton_tryon"], RuntimeError,
      "no CUDA device"),
-    (["train", "--config", "viton_tryon", "--device", "cpu"],
-     NotImplementedError, "#11"),
     (["render", "--config", "dynamic_tryon", "--device", "cpu"],
      FileNotFoundError, "no checkpoint"),
     (["eval", "--config", "tiny_lego"], RuntimeError, "no CUDA device"),

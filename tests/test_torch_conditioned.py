@@ -34,7 +34,7 @@ from fashion_nerf.train import loop as jloop
 from fashion_nerf.train.state import create_train_state as j_create_state
 from fashion_nerf_torch.assets import load_params
 from fashion_nerf_torch.core import occupancy as tocc
-from fashion_nerf_torch.kernels import posenc_mlp, slimmarch
+from fashion_nerf_torch.kernels import slimmarch
 from fashion_nerf_torch.kernels.posenc_mlp import (hoist_cond, hoist_dirs,
                                                    make_fused_field,
                                                    pack_params)
@@ -218,9 +218,12 @@ def test_k3_plain_conditioned_flagship(flagship):
 def test_pack_params_lifts_the_cond_rows(flagship):
     """cond_kernel is trunk_0's and the skip layer's cond rows side by side
     (the reference's pack_params); the rest packs as an unconditioned net's
-    with those rows cut; hoist_cond is one f32 product rounded to bf16."""
+    with those rows cut; hoist_cond is one f32 product rounded to bf16.
+    Packed without grad, as a render packs it (under grad cond_kernel
+    keeps its graph: tests/test_torch_train_cond_field.py)."""
     m = flagship["models"]["fine"]
-    net = pack_params(m, hoist_x=False)
+    with torch.no_grad():
+        net = pack_params(m, hoist_x=False)
     p = flagship["trees"]["fine"]["params"]
     want = np.concatenate([p["trunk_0"]["kernel"][63:127],
                            p["trunk_5"]["kernel"][63:127]], axis=1)
@@ -240,24 +243,6 @@ def test_pack_params_lifts_the_cond_rows(flagship):
         "blender_lego"))[2](packed, jnp.asarray(cond.numpy())), np.float32)
     np.testing.assert_allclose(got.float().numpy(), want_c, rtol=1e-2,
                                atol=1e-4)
-
-
-def test_fused_field_with_cond_refuses_grad(flagship):
-    """Conditioned gradients (K4's dcond) are the next slice: under grad
-    the fused field and field_rows_backward raise and name it."""
-    m = flagship["models"]["fine"]
-    field = make_fused_field(load_config("blender_lego"))
-    pts = torch.zeros((2, 32, 3))
-    dirs = torch.tensor([[0.0, 0.0, -1.0]] * 2)
-    cond = torch.zeros((2, CC))
-    with pytest.raises(NotImplementedError, match="#11"):
-        field(m, pts, dirs, cond)
-    net = pack_params(m, hoist_x=False)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="dcond"):
-        posenc_mlp.field_rows_backward(
-            net, pts.reshape(-1, 3), hoist_dirs(net, dirs),
-            torch.zeros((64, 3)), torch.zeros(64), 32,
-            condpart=hoist_cond(net, cond))
 
 
 # --------------------------------------------------------------------------

@@ -860,7 +860,12 @@ COND_NETS = {"fine": lambda rng: cond_net(rng),
              "w32": lambda rng: cond_net(rng, W=32, L=4, C=16, depth=3,
                                          skip=None),
              "w64skip": lambda rng: cond_net(rng, W=64, L=6, C=24, depth=4,
-                                             skip=2, vd=False)}
+                                             skip=2, vd=False),
+             # the skip layer last: its cotangent comes from the heads
+             "w32last": lambda rng: cond_net(rng, W=32, L=4, C=16, depth=3,
+                                             skip=2),
+             "w32lastnv": lambda rng: cond_net(rng, W=32, L=4, C=16, depth=3,
+                                               skip=2, vd=False)}
 
 
 @pytest.mark.parametrize("which,n,spr", [
@@ -893,8 +898,46 @@ def test_field_kernel_cond_window(dev, which, n, spr):
     assert float((rgb_0 - rgb_k).abs().max()) > 1e-3      # cond is live
     with pytest.raises(ValueError):
         posenc_mlp.field_rows(net, pts, dp, spr)           # no condpart
-    with pytest.raises(NotImplementedError, match="dcond"):
-        posenc_mlp.field_rows_backward(net, pts, dp, rgb_k, sig_k, spr, cp)
+
+
+@pytest.mark.parametrize("which,n,spr", [
+    ("fine", 4096, 64), ("fine", 4160, 64), ("fine", 3072, 192),
+    ("fine", 1088, 1), ("fine", 131136, 192), ("w32", 4160, 64),
+    ("w64skip", 3072, 96), ("w32last", 4160, 64), ("w32lastnv", 1088, 1)])
+def test_field_bwd_kernel_cond(dev, which, n, spr):
+    """K4 with a condpart (its dcond output) against its plain version, on
+    the full-width conditioned net (a pass boundary inside a ray at 131,136
+    rows) and on zero-padded 3×32 and 4×64 nets (the skip layer also the
+    last trunk layer, with and without the view branch): each of the five
+    outputs 1e-2 relative RMS, in the unpadded layout, bitwise the same
+    over two runs, counted under "field_bwd_cond"; a condpart of zeros
+    moves d_condpart and leaves its shape."""
+    rng = np.random.default_rng(12)
+    net = posenc_mlp.pack_params(COND_NETS[which](rng).to(dev),
+                                 hoist_x=False)
+    args = _bwd_inputs(rng, net, n, spr, dev)
+    R = n // spr
+    cond = torch.tensor(rng.normal(size=(R, net.cond_kernel.shape[0])),
+                        dtype=torch.float32, device=dev)
+    cp = posenc_mlp.hoist_cond(net, cond)
+    n0 = dict(K.LAUNCHES)
+    out_k = posenc_mlp.field_rows_backward(net, *args, spr, cp)
+    out_k2 = posenc_mlp.field_rows_backward(net, *args, spr, cp)
+    out_p = posenc_mlp.field_rows_backward_plain(net, *args, spr, cp)
+    out_0 = posenc_mlp.field_rows_backward(net, *args, spr,
+                                           torch.zeros_like(cp))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["field_bwd_cond"] == n0["field_bwd_cond"] + 3
+    assert K.LAUNCHES["field_bwd"] == n0["field_bwd"]
+    assert len(out_k) == 5 and out_k[4].shape == (R, net.n_cond * net.width)
+    for name, a, a2, b in zip(("d_pts", "d_dir", "d_w", "d_b", "d_cond"),
+                              out_k, out_k2, out_p):
+        assert a.shape == b.shape, name
+        assert torch.equal(a, a2), name
+        if name == "d_dir" and not net.has_vd:
+            continue
+        assert _rel_rms(a, b) <= 1e-2, (name, _rel_rms(a, b))
+    assert _rel_rms(out_0[4], out_k[4]) > 1e-3            # cond is live
 
 
 def _cond_march_case(rng, dev, R=192, NB=3, SB=32):

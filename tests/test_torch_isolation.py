@@ -40,7 +40,7 @@ def test_imports_with_jax_blocked():
               "train.loop", "train.state", "data.synthetic", "data.pipeline",
               "ckpt", "cli", "prng", "kernels.carrymarch", "quality",
               "probe", "config", "assets", "kernels.wgpack", "parity", "png",
-              "models.proposal", "__main__"):
+              "models.proposal", "tryon.matcher", "__main__"):
         assert f"fashion_nerf_torch.{m}" in mods, m
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['fashion_nerf'] = None; "
@@ -133,6 +133,20 @@ def test_wrappers_take_plain_on_cpu():
             posenc_mlp.field_rows_backward_plain(net, pts, dp, g_rgb, g_sig,
                                                  64)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+    cfine = load_flax_params(_tree(rng, {
+        "trunk_0": (21 + 8, 32), "trunk_1": (32, 32),
+        "trunk_2": (21 + 8 + 32, 32), "sigma_head": (32, 1),
+        "feature": (32, 32), "view_0": (32 + 27, 16), "rgb_head": (16, 3)}),
+        compute_dtype="bfloat16", cond_dim=8)
+    cnet = posenc_mlp.pack_params(cfine, hoist_x=False)
+    cdp = posenc_mlp.hoist_dirs(cnet, _randn(rng, 2, 3))
+    cp = posenc_mlp.hoist_cond(cnet, _randn(rng, 2, 8))
+    got = posenc_mlp.field_rows_backward(cnet, pts, cdp, g_rgb, g_sig, 64, cp)
+    want = posenc_mlp.field_rows_backward_plain(cnet, pts, cdp, g_rgb, g_sig,
+                                                64, cp)
+    assert len(got) == len(want) == 5
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
 
     R, S = 16, 24
     vr = (torch.rand(R, S, 3), _randn(rng, R, S),
@@ -160,7 +174,8 @@ def test_wrappers_take_plain_on_cpu():
     assert set(K.LAUNCHES) == {"field", "sigma_march", "slim_march",
                                "field_bwd", "volrend", "carry_march",
                                "probe_p1", "probe_p2", "field_cond",
-                               "slim_march_cond", "carry_march_cond"}
+                               "slim_march_cond", "carry_march_cond",
+                               "field_bwd_cond"}
     assert not any(K.LAUNCHES.values())
 
 

@@ -218,8 +218,7 @@ def test_learning_rate_schedule():
 
 def test_cli_train_on_cpu(tmp_path, capsys):
     """`python -m fashion_nerf_torch.cli train` trains, logs JSON lines,
-    checkpoints under --out and ends with a JSON summary; training a
-    conditioned preset is not ported and names its ROADMAP item."""
+    checkpoints under --out and ends with a JSON summary."""
     import json
 
     from fashion_nerf_torch import cli
@@ -237,16 +236,30 @@ def test_cli_train_on_cpu(tmp_path, capsys):
     assert sum(line.startswith("[fashion-nerf-torch] {\"loss\"")
                for line in out) == 2
     assert (tmp_path / "tiny_lego" / "ckpt" / "step_00000004.pt").exists()
-    with pytest.raises(NotImplementedError, match="#11"):
-        cli.main(["train", "--config", "viton_tryon", "--device", "cpu",
-                  "--out", str(tmp_path)])
 
 
 @pytest.mark.parametrize("ovr,item", [
     (["data.stream=true"], "#14"), (["dist.tp=2"], "#14"),
-    (["model.conditioned=true"], "#11"),
     (["data.dataset=blender", "data.root=/nonexistent"], "#12")])
 def test_train_refuses_paths_not_ported(ovr, item):
     with pytest.raises(NotImplementedError, match=item):
         loop.train(load_config("tiny_lego", ovr), log_fn=lambda e: None,
                    device="cpu")
+
+
+def test_train_conditioned_field_on_cpu():
+    """model.conditioned=true trains: a dataset without a garment takes
+    the procedural pair's stack, the garment encoder joins the state and
+    moves, and the loss stays finite."""
+    cfg = load_config("tiny_lego", [
+        "model.conditioned=true", "model.condition_dim=8",
+        "model.net_depth=2", "model.net_width=32", "model.posenc_xyz=2",
+        "sampling.n_coarse=8", "train.batch_rays=32", "train.iters=3",
+        "train.log_every=1", "train.eval_every=100", "train.ckpt_every=100",
+        "data.root="])
+    logs = []
+    with torch.enable_grad():
+        state, hist = loop.train(cfg, log_fn=logs.append, device="cpu")
+    assert state.encoder is not None and state.step == 3
+    assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
+    assert all(p.grad is not None for p in state.encoder.parameters())

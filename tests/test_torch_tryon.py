@@ -407,8 +407,3 @@ def test_cli_render_dynamic_shares_latent0_grid(tmp_path, capsys,
     frames = [png.read_png(os.path.join(res["out"], f"{i:03d}.png"))
               for i in range(5)]
     assert all(f.shape == (16, 16, 3) for f in frames)
-
-
-def test_cli_train_conditioned_refuses(tmp_path):
-    with pytest.raises(NotImplementedError, match="next try-on slice"):
-        cli.main(_argv("train", "viton_tryon", str(tmp_path), SMALL))
