@@ -5,19 +5,24 @@ Drives the port's paths once each, as a user would call them: the
 800×800 `blender_lego` frame (`python -m fashion_nerf_torch.bench`: the
 committed trained weights, the occupancy sweep and the committed proposal
 net), the same frame through the generic carry march
-(`kernels.carry_hoist=false`), the 7-pose quality gate through both
+(`kernels.carry_hoist=false`), through the two-stage march
+(`kernels.fused_carry=false`) and through the generic proposal march
+(`proposal.sigma_march=false`), the 7-pose quality gate through both
 marches (`python -m fashion_nerf_torch.quality --gate`), the `blender_lego`
 trainer at full width (`train()`, from random init), the same trainer on a
-width-32 net, which the field kernels run zero-padded, and the tensor-core
-probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
+width-32 net, which the field kernels run zero-padded, the tensor-core
+probe (`python -m fashion_nerf_torch.probe [--shapes]`), the command line,
+`llff_fern` end to end, and try-on serving and training. Phases, in order:
 
 1. device: name, power limit, TF32 off;
 2. build: nvcc builds the kernels from src/fashion_nerf_torch/kernels/csrc,
    one process per source, all started together;
 3. kernels: K3 (fused field, at the sweep's and the training step's
    shapes), K3 and K4 on nets of width 32 and 64, which run zero-padded,
-   K1 (proposal march), K2 (fine march), K6 (generic carry march,
-   also against K2), K4 (field backward, twice: bitwise deterministic;
+   K3 with its tile-skip flag at the two-stage march's block (1,048,576
+   rows, all tiles live and every other tile dead), K1 (proposal march),
+   K2 (fine march), K2 without a view branch on the proposal net (also
+   against K1), K6 (generic carry march, also against K2), K4 (field backward, twice: bitwise deterministic;
    its rows kernel and its wgrad + sums timed apart under torch.profiler,
    beside torch.matmul's time for the same wgrad products as a yardstick
    and the workspace's bytes as a floor), K5 (volume render) and the
@@ -33,6 +38,11 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
    the plain versions; PSNR between them and non-trivial-image checks;
 6. frame-generic: the same frame with `kernels.carry_hoist=false` (K1 +
    K6), against its plain frame and against the K2 frame of phase 5;
+   frame-twostage: with `kernels.fused_carry=false` (one K3 launch with
+   tile flags a sample block, for the proposal and the fine march; each
+   march's alive_frac), against its plain frame and the K2 frame;
+   frame-propmarch: with `proposal.sigma_march=false` (K2 without a view
+   branch in place of K1), against its plain frame and the K1 + K2 frame;
 7. gate: the 7-pose gate at 800×800 for the shipped preset and for
    `kernels.carry_hoist=false`, each pose's delta held to the reference's;
 8. scene: the hermetic 16-view 160×160 training scene (numpy, host);
@@ -54,7 +64,14 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
     PNGs read back), two `train --resume` steps at a vanishing learning
     rate and `eval` again, which distils a proposal for the moved weights,
     `bench`, and `parity` on a root without scenes;
-15. tryon: the garment-conditioned try-on serving path at `viton_tryon`'s
+15. llff: `llff_fern` at full width through `cli.main` on the hermetic
+    forward scene: `train` (K3 + K4 + K5; the loss falls), `eval`
+    through the two-stage kernels and with `kernels.use_pallas=false`,
+    `render` of an LLFF fixture's spiral (the loader), `bench` at
+    800×800 from random init (160 K3 launches a frame) with one live
+    chunk held against plain, a 378×504 frame (scanline order) against
+    plain, and `parity` over a root of two fixture scenes;
+16. tryon: the garment-conditioned try-on serving path at `viton_tryon`'s
     full width: `preprocess` on the procedural pair with the committed
     matcher (its cond stack against the same function on the CPU), the
     matcher's held-out IoUs on the card, a conditioned state built from
@@ -65,7 +82,7 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`). Phases, in order:
     conditioned-teacher distillation, two garments' frames, `eval` and
     `render` of the checkpoint, `render` of a `dynamic_tryon` checkpoint
     over 4 poses (latents 0-3);
-16. tryon-train: conditioned training at the try-on presets' full width:
+17. tryon-train: conditioned training at the try-on presets' full width:
     `train --config viton_tryon --resume` (cli.main) from a checkpoint of
     the [tryon] fixture on the hermetic viton scene through a cond-aware
     occupancy refresh, culled and dense steps, an eval and a checkpoint;
@@ -87,10 +104,12 @@ d_condpart summed per ray) at the try-on step's fine shape, at the sparsity
 prior's one sample a ray, and on a zero-padded conditioned net.
 
 The launch counters are reset just before each path (phases 4, 6, 11, 12
-and 13, each subcommand of 14, each path of 15 and 16) and read right
-after it, so they count that path only; a conditioned net's launches of
-K2, K3, K4 and K6 count under "slim_march_cond", "field_cond",
-"field_bwd_cond" and "carry_march_cond".
+and 13, each subcommand of 14 and 15, each path of 16 and 17) and read
+right after it, so they count that path only; a conditioned net's
+launches of K2, K3, K4 and K6 count under "slim_march_cond",
+"field_cond", "field_bwd_cond" and "carry_march_cond", K3's launches with
+the tile-skip flag under "field_alive" and K2's on a net without a view
+branch under "slim_march_novd".
 Any failure raises (non-zero exit). Imports nothing of JAX. The last line
 is the device JSON object.
 """
@@ -162,6 +181,8 @@ TRYON_TRAIN_STEPS, DYNAMIC_TRAIN_STEPS = 24, 6
 MATCHER_RECIPE = dict(steps=60, batch=6, H=48, W=48)
 MATCHER_HELD_OUT = range(3_000_001, 3_000_011)
 MATCHER_MARGIN = 0.05         # learned IoU > baseline + this
+LLFF_STEPS = 24               # [llff]: steps of `train --config llff_fern`
+                              # (depth of run cut; the preset runs 200,000)
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, dense): bf16
 # tensor cores, float32 outside them, device memory
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
@@ -185,6 +206,12 @@ SOURCES = {
                  "scripts/mfu_probe.py:30"),
     "probe_p2": ("src/fashion_nerf_torch/kernels/csrc/tcprobe.cu",
                  "scripts/mfu_probe.py:131"),
+    # K3 with the tile-skip flag (the two-stage march), K2 on a net without
+    # a view branch (the generic proposal march)
+    "field_alive": ("src/fashion_nerf_torch/kernels/csrc/field.cu",
+                    "src/fashion_nerf/kernels/posenc_mlp_pallas.py:279"),
+    "slim_march_novd": ("src/fashion_nerf_torch/kernels/csrc/slimmarch.cu",
+                        "src/fashion_nerf/kernels/slimmarch_pallas.py:113"),
     # the conditioned instantiations: K3's and K6's cond window, K2 at the
     # conditioned tile with the cond in its hoisted intercepts
     "field_cond": ("src/fashion_nerf_torch/kernels/csrc/field.cu",
@@ -422,6 +449,7 @@ def phase_kernels(cfg, device):
     if not (e_rnd <= K3_RGB_ATOL and e_rsig <= K3_SIGMA_REL):
         raise AssertionError("K3 disagrees with its plain version (random)")
     kernel_k3_step(rnet, net, device)
+    results["field_alive"] = kernel_field_alive(rnet, device)
     kernel_small_nets(device)
 
     # reference occupancy through the plain field, for realistic chunk
@@ -513,6 +541,8 @@ def phase_kernels(cfg, device):
             and bool(torch.isfinite(rgb_k).all())):
         raise AssertionError("K2 disagrees with its plain version")
     results["slim_march"] = dict(max_abs_err=e2, ms=ms, plain_ms=pms, **b2)
+    results["slim_march_novd"] = kernel_k2_novd(cfg, params["proposal"], o,
+                                                d, args1, w_k)
     results["carry_march"] = kernel_k6(cfg, fine, dp, o, d, alive_f, bhit,
                                        tf_pad, df_pad, (rgb_k, wf_k))
     results.update(kernel_cond(cfg, trained, pts, dirs,
@@ -568,6 +598,112 @@ def kernel_k3_step(net, trained, device):
     if not ok:
         raise AssertionError("K3 disagrees with its plain version at the "
                              "step shape")
+
+
+def kernel_field_alive(net, device):
+    """K3 with the tile-skip flag at the two-stage march's block shape:
+    32,768 rays × SB 32 = 1,048,576 rows (spr 32, 512 tiles of 2048 rows),
+    on the random net of the flagship's shape (the trained net's largest
+    bf16 flip grows with the row count, kernel_k3_step). All tiles live,
+    then every other tile dead: live rows bitwise equal to K3 without the
+    flag, dead rows exactly rgb 0 and σ −1e10, every row within
+    K3_RGB_ATOL (σ K3_SIGMA_REL) of the plain version with the same flags.
+    Timed both ways; the bound counts the live rows' operations."""
+    from fashion_nerf_torch.kernels import posenc_mlp
+    rng = np.random.default_rng(21)
+    R, SB = 32768, 32
+    n = R * SB
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (n, 3)).astype(
+        np.float32)).to(device)
+    dirs = torch.from_numpy(rng.normal(size=(R, 3)).astype(
+        np.float32)).to(device)
+    dp = posenc_mlp.hoist_dirs(net, dirs).contiguous()
+    tiles = n // net.tile_rows
+    all_live = torch.ones(tiles, device=device)
+    half = (torch.arange(tiles, device=device) % 2 == 0).float()
+    live = half.repeat_interleave(net.tile_rows) > 0
+
+    def run(alive=None):
+        return posenc_mlp.field_rows(net, pts, dp, SB, alive=alive)
+
+    rgb_f, sig_f = run()
+    rgb_a, sig_a = run(all_live)
+    rgb_h, sig_h = run(half)
+    rgb_p, sig_p = posenc_mlp.field_rows_plain(net, pts, dp, SB, alive=half)
+    torch.cuda.synchronize()
+    same_all = bool(torch.equal(rgb_a, rgb_f) and torch.equal(sig_a, sig_f))
+    same_live = bool(torch.equal(rgb_h[live], rgb_f[live])
+                     and torch.equal(sig_h[live], sig_f[live]))
+    sentinels = bool((rgb_h[~live] == 0).all()
+                     and (sig_h[~live] == posenc_mlp.DEAD_SIGMA).all())
+    e_rgb = maxerr(rgb_h, rgb_p)
+    e_sig = float(((sig_h - sig_p).abs() / (1 + sig_p.abs())).max())
+    del rgb_f, sig_f, rgb_a, sig_a, rgb_p, sig_p
+    ms_all = cuda_ms(lambda: run(all_live))
+    ms_half = cuda_ms(lambda: run(half))
+    ms_none = cuda_ms(lambda: run())
+    pms = cuda_ms(lambda: posenc_mlp.field_rows_plain(net, pts, dp, SB,
+                                                      alive=half))
+    io = (pts, dp, net.w, net.b, rgb_h, sig_h)
+    b_all = bound(2 * n * mlp_macs(net), nbytes(*io, all_live))
+    b_half = bound(2 * (n // 2) * mlp_macs(net), nbytes(*io, half))
+    torch.cuda.empty_cache()
+    say("kernels", f"K3 field with the tile-skip flag, {n} rows ({R} rays × "
+        f"{SB}, {tiles} tiles): all live {ms_all:.3f} ms (bitwise the run "
+        f"without the flag: {same_all}; {bound_line(b_all, ms_all)}), every "
+        f"other tile dead {ms_half:.3f} ms (live rows bitwise: {same_live}, "
+        f"dead rows exact sentinels: {sentinels}; "
+        f"{bound_line(b_half, ms_half)}), without the flag {ms_none:.3f} "
+        f"ms; against plain with the flags: rgb err {e_rgb:.3g} (tol "
+        f"{K3_RGB_ATOL} on every row), σ rel err {e_sig:.3g}; plain "
+        f"{pms:.3f} ms")
+    if not (same_all and same_live and sentinels and e_rgb <= K3_RGB_ATOL
+            and e_sig <= K3_SIGMA_REL):
+        raise AssertionError("K3 with the tile-skip flag disagrees")
+    return dict(max_abs_err=e_rgb, ms=ms_half, plain_ms=pms, **b_half,
+                ms_all_live=ms_all, bound_all_live_ms=b_all["bound_ms"],
+                ms_no_flag=ms_none)
+
+
+def kernel_k2_novd(cfg, model, o, d, args1, w1):
+    """K2 on a net without a view branch: the σ-only proposal net (2×128,
+    L = 6, no skip layer) at K1's chunk, 8192 rays × 64 samples, SB 64,
+    NB 1, the generic proposal march's shape. Held against its plain
+    version and against K1's weights on the same input (K1_ATOL), with
+    the executed (tile, block) pairs identical to plain; the bound is K1's
+    (the same operations on the executed tiles)."""
+    from fashion_nerf_torch.kernels import slimmarch
+    from fashion_nerf_torch.render.blockwise import march_liveness
+    _, _, alive, t_pad, d_pad = args1
+    net = slimmarch.split_hoist(model)
+    R, SB = t_pad.shape
+    hz = slimmarch.hoist_rays(net, o, d)
+    bhit = torch.ones((R, 1), device=t_pad.device)
+    args = (net, hz, None, alive, bhit, t_pad, d_pad,
+            math.log(cfg.kernels.early_term_eps))
+    rgb_k, w_k, lt_k = slimmarch.slim_march(*args)
+    rgb_p, w_p, _ = slimmarch.slim_march_plain(*args)
+    torch.cuda.synchronize()
+    e = max(maxerr(rgb_k, rgb_p), maxerr(w_k, w_p))
+    e1 = maxerr(w_k, w1)
+    ex_k = march_liveness(w_k, alive, bhit, cfg)["tile_alive"]
+    ex_p = march_liveness(w_p, alive, bhit, cfg)["tile_alive"]
+    same = bool(torch.equal(ex_k, ex_p))
+    n_ex = int(ex_p.sum())
+    ms = cuda_ms(lambda: slimmarch.slim_march(*args))
+    pms = cuda_ms(lambda: slimmarch.slim_march_plain(*args))
+    b = bound(2 * n_ex * 2048 * mlp_macs(net),
+              nbytes(alive, bhit, *hz, t_pad, d_pad, net.w, net.b, rgb_k,
+                     w_k, lt_k))
+    say("kernels", f"K2 without a view branch, the proposal net ({R} rays "
+        f"× {SB}, NB 1): rgb/w err {e:.3g} against plain, w err {e1:.3g} "
+        f"against K1 (tol {K1_ATOL}); executed (tile, block) {n_ex}/"
+        f"{ex_k.numel()}, identical to plain: {same}; kernel {ms:.3f} ms, "
+        f"plain {pms:.3f} ms; {bound_line(b, ms)}")
+    if not (e <= K1_ATOL and e1 <= K1_ATOL and same and 0 < n_ex
+            < ex_k.numel() and bool(torch.isfinite(rgb_k).all())):
+        raise AssertionError("K2 without a view branch disagrees")
+    return dict(max_abs_err=max(e, e1), ms=ms, plain_ms=pms, **b)
 
 
 def kernel_small_nets(device):
@@ -1221,6 +1357,135 @@ def phase_frame_generic(device, k2_rgb, gpu, smi):
     return launches
 
 
+def record_alive_fracs():
+    """Wrap the two-stage march so that each call's alive_frac (the share
+    of (tile, block) launches that ran, read from its flags) is kept: a
+    live chunk marches its coarse pass (the proposal net, or the coarse
+    net) and then its fine pass. → (list, undo)."""
+    from fashion_nerf_torch.render import blockwise
+    orig = blockwise.marched_pass
+    fracs = []
+
+    def recording(*a, **kw):
+        out = orig(*a, **kw)
+        fracs.append(out["alive_frac"])
+        return out
+
+    blockwise.marched_pass = recording
+    return fracs, lambda: setattr(blockwise, "marched_pass", orig)
+
+
+def mean_fracs(fracs) -> dict:
+    """The mean alive_frac of the coarse and of the fine marches."""
+    return {k: float(torch.stack(v).mean()) for k, v in
+            (("coarse", fracs[0::2]), ("fine", fracs[1::2])) if v}
+
+
+def frame_variant(device, overrides, phase):
+    """The bench frame of blender_lego under `overrides`: setup (committed
+    weights, occupancy through K3, proposal asset), 1 warm-up frame
+    (recording the two-stage marches' alive_frac) and 3 timed through the
+    kernels, then the frame through the plain versions → (rgb, plain rgb,
+    seconds a frame, plain seconds, launches of the timed frames, mean
+    alive_frac by march)."""
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.bench import bench_pose, setup
+    from fashion_nerf_torch.render.blockwise import render_image_blockwise
+    cfg = load_config("blender_lego", overrides)
+    H = W = FRAME
+    focal, c2w = bench_pose(W)
+    params, occ, _ = setup(cfg, device)
+
+    def render(plain=False):
+        with torch.no_grad():
+            return render_image_blockwise(params, cfg, H, W, focal, c2w,
+                                          occ=occ, plain=plain,
+                                          device=device)["rgb"]
+
+    fracs, undo = record_alive_fracs()
+    try:
+        render()
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        rgb = render()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 3
+    launches = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    ref = render(plain=True)
+    torch.cuda.synchronize()
+    dt_plain = time.perf_counter() - t0
+    mean = mean_fracs(fracs)
+    say(phase, f"alive_frac by march (mean over the live chunks of the "
+        f"warm-up frame): {json.dumps(mean)}")
+    return rgb, ref, dt, dt_plain, launches, mean
+
+
+def phase_frame_twostage(device, k2_rgb, gpu, smi):
+    """The bench frame with `kernels.fused_carry=false`: the two-stage
+    march, one K3 launch with tile-skip flags a sample block, for the
+    proposal net (a zero dirpart, K3 without a view branch) and the fine
+    net; against its plain frame and the K2 frame of phase 5."""
+    from fashion_nerf_torch.metrics import psnr
+    rgb, ref, dt, dt_plain, launches, fracs = frame_variant(
+        device, ["kernels.fused_carry=false"], "frame-twostage")
+    p_plain, p_k2 = float(psnr(rgb, ref)), float(psnr(rgb, k2_rgb))
+    say("frame-twostage", f"{FRAME}x{FRAME} with kernels.fused_carry=false: "
+        f"{dt:.4f} s/frame through K3 with tile flags "
+        f"({FRAME * FRAME / dt:.1f} rays/s), {launches['field_alive'] // 3} "
+        f"K3 launches a frame; plain versions {dt_plain:.4f} s; PSNR against "
+        f"the plain frame {p_plain:.2f} dB, against the K2 frame {p_k2:.2f} "
+        f"dB (min {FRAME_PSNR_MIN}); launches {launches}; {gpu} | {smi}")
+    checks = {
+        "launches": (launches["field_alive"] > 0
+                     and launches["sigma_march"] == 0
+                     and launches["slim_march"] == 0),
+        "fracs": set(fracs) == {"coarse", "fine"}
+        and 0.0 < fracs["fine"] < 1.0,
+        "psnr_plain": p_plain >= FRAME_PSNR_MIN,
+        "psnr_k2": p_k2 >= FRAME_PSNR_MIN,
+        "shape_finite": (tuple(rgb.shape) == (FRAME, FRAME, 3)
+                         and bool(torch.isfinite(rgb).all())),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"frame-twostage checks failed: {failed}")
+    return launches
+
+
+def phase_frame_propmarch(device, k2_rgb, gpu, smi):
+    """The bench frame with `proposal.sigma_march=false`: the generic
+    proposal march, K2 on the σ-only net (no view branch) in place of K1;
+    against its plain frame, and its PSNR against the K1 + K2 frame."""
+    from fashion_nerf_torch.metrics import psnr
+    rgb, ref, dt, dt_plain, launches, _ = frame_variant(
+        device, ["proposal.sigma_march=false"], "frame-propmarch")
+    p_plain, p_k1 = float(psnr(rgb, ref)), float(psnr(rgb, k2_rgb))
+    say("frame-propmarch", f"{FRAME}x{FRAME} with proposal.sigma_march="
+        f"false: {dt:.4f} s/frame through K2 without a view branch + K2 "
+        f"({FRAME * FRAME / dt:.1f} rays/s), plain versions {dt_plain:.4f} "
+        f"s; PSNR against the plain frame {p_plain:.2f} dB (min "
+        f"{FRAME_PSNR_MIN}), against the K1 + K2 frame {p_k1:.2f} dB; "
+        f"launches {launches}; {gpu} | {smi}")
+    checks = {
+        "launches": (launches["slim_march_novd"] > 0
+                     and launches["slim_march"] > 0
+                     and launches["sigma_march"] == 0),
+        "psnr_plain": p_plain >= FRAME_PSNR_MIN,
+        "shape_finite": (tuple(rgb.shape) == (FRAME, FRAME, 3)
+                         and bool(torch.isfinite(rgb).all())),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"frame-propmarch checks failed: {failed}")
+    return launches
+
+
 def phase_gate(device, gpu, smi):
     """`run_gate` at 800×800 over the 7 poses for the shipped preset (K1 +
     K2) and for `kernels.carry_hoist=false` (K1 + K6), scored against the
@@ -1554,6 +1819,39 @@ def phase_train_small(scene, device, gpu, smi):
     return launches
 
 
+def cli_call(argv, dataset=None, phase="cli"):
+    """cli.main(argv) with stdout and stderr captured (stderr echoed under
+    `phase`) → (exit code, stdout lines, stderr, seconds, launches, the
+    frames an eval rendered). The launch counters are reset first."""
+    import contextlib
+    import io
+    from fashion_nerf_torch import cli
+    from fashion_nerf_torch import kernels as K
+    out, err, frames = io.StringIO(), io.StringIO(), []
+    eval_views = cli.eval_views
+
+    def recording(*a, **kw):
+        scores, imgs = eval_views(*a, **kw)
+        frames.extend(imgs)
+        return scores, imgs
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    cli.eval_views = recording
+    try:
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(argv, dataset=dataset)
+    finally:
+        cli.eval_views = eval_views
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for line in err.getvalue().splitlines():
+        say(phase, f"{argv[0]} stderr: {line}")
+    return (rc, out.getvalue().strip().splitlines(), err.getvalue(), secs,
+            dict(K.LAUNCHES), frames)
+
+
 def phase_cli(scene, device, gpu, smi):
     """`python -m fashion_nerf_torch` at blender_lego's full width from a
     checkpoint of the committed flagship weights, every subcommand through
@@ -1570,13 +1868,10 @@ def phase_cli(scene, device, gpu, smi):
       distilled on the card (DISTILL_STEPS steps), and its frame is held
       against the asset's;
     - `bench`, and `parity` on a root without scenes (exit code 1)."""
-    import contextlib
-    import io
     import re
     import shutil
     from fashion_nerf_torch import ckpt as ckpt_lib
     from fashion_nerf_torch import cli, png
-    from fashion_nerf_torch import kernels as K
     from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch.metrics import psnr
     run = RUN_DIR + "_cli"
@@ -1589,33 +1884,9 @@ def phase_cli(scene, device, gpu, smi):
     del state
 
     def call(cmd, *overrides, flags=()):
-        """cli.main → (exit code, stdout lines, stderr, seconds, launches,
-        the frames an eval rendered)."""
-        argv = ([cmd] + base + list(flags)
-                + [x for kv in overrides for x in ("--set", kv)])
-        out, err, frames = io.StringIO(), io.StringIO(), []
-        eval_views = cli.eval_views
-
-        def recording(*a, **kw):
-            scores, imgs = eval_views(*a, **kw)
-            frames.extend(imgs)
-            return scores, imgs
-
-        K.reset_launches()
-        t0 = time.perf_counter()
-        cli.eval_views = recording
-        try:
-            with contextlib.redirect_stdout(out), \
-                    contextlib.redirect_stderr(err):
-                rc = cli.main(argv, dataset=scene)
-        finally:
-            cli.eval_views = eval_views
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        for line in err.getvalue().splitlines():
-            say("cli", f"{cmd} stderr: {line}")
-        return (rc, out.getvalue().strip().splitlines(), err.getvalue(),
-                secs, dict(K.LAUNCHES), frames)
+        return cli_call([cmd] + base + list(flags)
+                        + [x for kv in overrides for x in ("--set", kv)],
+                        scene)
 
     checks = {}
     # eval: the kernels, then the plain dense renderer
@@ -1708,6 +1979,236 @@ def phase_cli(scene, device, gpu, smi):
         raise AssertionError(f"cli checks failed: {failed}")
 
 
+def write_llff_scene(root, H, W, n, seed):
+    """A tiny LLFF scene in the poses_bounds.npy layout: n seeded random
+    images (PNGs through the port's writer) and cameras in [down, right,
+    back] spread along x and y, looking down −z."""
+    from fashion_nerf_torch.png import write_png
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    rows = []
+    for i in range(n):
+        write_png(os.path.join(root, "images", f"{i:03d}.png"),
+                  rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+        c2w = np.zeros((3, 5), np.float32)
+        c2w[:, 0], c2w[:, 1], c2w[:, 2] = [0, -1, 0], [1, 0, 0], [0, 0, 1]
+        c2w[:, 3] = [0.1 * i, 0.02 * i, 0.0]
+        c2w[:, 4] = [H, W, 1.2 * W]
+        rows.append(np.concatenate([c2w.reshape(-1), [2.0 + 0.1 * i, 10.0]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
+
+
+def phase_llff(device, gpu, smi):
+    """`llff_fern` at full width (8×256, L = 10, 64 + 128 samples, NDC,
+    σ noise 1.0 in training, no occupancy, no proposal, the two-stage
+    march) through `cli.main`, on the hermetic forward scene (12 views of
+    96×128, `load_dataset`'s fallback):
+
+    - `train` for LLFF_STEPS steps of 4096 rays (K3 + K4 + K5): the loss
+      falls;
+    - `eval` through the two-stage kernels (K3 with tile flags) and with
+      `kernels.use_pallas=false` (dense, plain): within CLI_PSNR_TOL;
+    - `render` of the 40-view spiral of a tiny LLFF fixture (data.root):
+      the PNGs read back;
+    - `bench` at 800×800 from random init, as the reference benches it:
+      20 chunks × (2 + 6) K3 launches of 1,048,576 rows; one live chunk of
+      its frame held against the plain version (≥ FRAME_PSNR_MIN dB);
+    - a frame at 378×504, fern's factor-8 size (scanline ray order),
+      through the kernels and plain (≥ FRAME_PSNR_MIN dB);
+    - `parity` over a root of two tiny LLFF scenes, each with a copy of
+      the trained checkpoint."""
+    import shutil
+    from fashion_nerf_torch import cli, png
+    from fashion_nerf_torch.bench import bench_params, bench_pose
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.core.cameras import generate_rays, ndc_rays
+    from fashion_nerf_torch.metrics import psnr
+    from fashion_nerf_torch.render.blockwise import (_tile_order,
+                                                     render_image_blockwise,
+                                                     render_rays_blockwise)
+    from fashion_nerf_torch.train.loop import load_dataset
+    run = RUN_DIR + "_llff"
+    shutil.rmtree(run, ignore_errors=True)
+    cfg = load_config("llff_fern", [f"out_dir={run}"])
+    t0 = time.perf_counter()
+    scene = load_dataset(cfg)
+    say("llff", f"hermetic forward scene: {len(scene['images'])} views of "
+        f"{scene['H']}x{scene['W']} in {time.perf_counter() - t0:.1f} s "
+        "(numpy, host)")
+    base = ["--config", "llff_fern", "--out", run]
+
+    def call(cmd, *overrides, dataset=scene, out=None):
+        argv = [cmd] + (base if out is None else ["--config", "llff_fern",
+                                                  "--out", out])
+        return cli_call(argv + [x for kv in overrides
+                                for x in ("--set", kv)], dataset)
+
+    checks = {}
+    rc, out, _, secs, launches, _ = call(
+        "train", f"train.iters={LLFF_STEPS}", "train.log_every=4",
+        f"train.eval_every={LLFF_STEPS}", f"train.ckpt_every={LLFF_STEPS}")
+    entries = [json.loads(x.split(" ", 1)[1]) for x in out
+               if x.startswith("[fashion-nerf-torch] {")]
+    logs = [h for h in entries if "loss" in h]
+    val = [h["val_psnr"] for h in entries if "val_psnr" in h]
+    rate = statistics.median(h["rays_per_sec"] for h in logs[1:])
+    say("llff", f"train: {LLFF_STEPS} steps of {cfg.train.batch_rays} rays "
+        f"in {secs:.2f} s; loss {[round(h['loss'], 5) for h in logs]}; "
+        f"{rate:.1f} rays/s (median of the log windows after the first); "
+        f"val PSNR {val} (the trainer's eval, K3 + K5); launches "
+        f"{launches}; {gpu} | {smi}")
+    checks["train"] = (rc == 0 and len(logs) == LLFF_STEPS // 4
+                       and len(val) == 1 and math.isfinite(val[0])
+                       and all(math.isfinite(h["loss"]) for h in logs)
+                       and logs[-1]["loss"] < logs[0]["loss"]
+                       and all(launches[k] > 0 for k in
+                               ("field", "field_bwd", "volrend")))
+
+    rc, out, _, secs_k, launches_k, (img_k,) = call("eval")
+    row_k = json.loads(out[-1])
+    rc_p, out, _, secs_p, launches_p, (img_p,) = call(
+        "eval", "kernels.use_pallas=false")
+    row_p = json.loads(out[-1])
+    p_kp = float(psnr(img_k, img_p))
+    say("llff", f"eval: {json.dumps(row_k)} in {secs_k:.3f} s through the "
+        f"two-stage kernels, launches {launches_k}; {json.dumps(row_p)} in "
+        f"{secs_p:.3f} s with kernels.use_pallas=false; frames {p_kp:.2f} "
+        "dB apart")
+    checks["eval"] = (rc == 0 and rc_p == 0
+                      and abs(row_k["psnr"] - row_p["psnr"]) <= CLI_PSNR_TOL
+                      and launches_k["field_alive"] > 0
+                      and not any(launches_p.values()))
+
+    root = os.path.join(run, "scenes")
+    for i, name in enumerate(("fern", "orchids")):
+        write_llff_scene(os.path.join(root, name), 24, 32, 6, i)
+    rc, out, err, secs, launches, _ = call(
+        "render", f"data.root={os.path.join(root, 'fern')}",
+        "data.llff_factor=1", dataset=None)
+    row = json.loads(out[-1])
+    files = sorted(f for f in os.listdir(row["out"]) if f.endswith(".png"))
+    imgs = [png.read_png(os.path.join(row["out"], f)) for f in files]
+    say("llff", f"render of the fixture's spiral: {row['frames']} frames in "
+        f"{secs:.3f} s, {len(files)} PNGs of {imgs[0].shape}, pixel std "
+        f"{float(np.std(imgs[0])):.2f}; launches {launches}")
+    checks["render"] = (rc == 0 and row["frames"] == 40 == len(files)
+                        and all(x.shape == (24, 32, 3) for x in imgs)
+                        and float(np.std(imgs[0])) > 0
+                        and launches["field_alive"] > 0)
+
+    rc, out, _, secs, launches, _ = call("bench", dataset=None)
+    bench = json.loads(out[-1])
+    per_frame = bench["launches_per_frame"]
+    say("llff", f"bench in {secs:.3f} s: {json.dumps(bench)}")
+    checks["bench"] = (rc == 0 and bench["value"] > 0
+                       and not bench["trained_ckpt"]
+                       and not bench["occupancy_cull"]
+                       and not bench["proposal"]
+                       and per_frame["field_alive"] == 20 * (2 + 6)
+                       and per_frame["field"] == 0)
+    llff_launches = {k: int(v * 3) for k, v in per_frame.items()}
+
+    # one live chunk of the bench frame, kernels against plain
+    H = W = FRAME
+    focal, c2w = bench_pose(W)
+    nets, _ = bench_params(cfg, device)
+    o, dd = generate_rays(H, W, focal, c2w, device=device)
+    o, dd = o.reshape(-1, 3), dd.reshape(-1, 3)
+    v = dd
+    o, dd = ndc_rays(H, W, focal, 1.0, o, dd)
+    order = torch.from_numpy(_tile_order(H, W)[0]).to(device)
+    c = H * W // cfg.render.chunk // 2          # a middle chunk: live
+    sl = slice(c * cfg.render.chunk, (c + 1) * cfg.render.chunk)
+    o, dd, v = (x[order][sl].contiguous() for x in (o, dd, v))
+
+    def chunk(plain):
+        with torch.no_grad():
+            return render_rays_blockwise(nets, cfg, o, dd, v,
+                                         plain=plain)["fine"]["rgb"]
+
+    rgb_c = chunk(False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_c = chunk(True)
+    torch.cuda.synchronize()
+    secs_c = time.perf_counter() - t0
+    p_chunk = float(psnr(rgb_c, ref_c))
+    say("llff", f"bench chunk {c} ({cfg.render.chunk} rays, NDC, random "
+        f"init): PSNR kernels against plain {p_chunk:.2f} dB (min "
+        f"{FRAME_PSNR_MIN}); the plain chunk {secs_c:.3f} s")
+    checks["chunk"] = p_chunk >= FRAME_PSNR_MIN
+
+    # where the bench frame's time goes: device time by kernel
+    # (torch.profiler, device events) against the frame's host clock
+    from torch.profiler import ProfilerActivity, profile
+
+    def frame():
+        with torch.no_grad():
+            render_image_blockwise(nets, cfg, H, W, focal, c2w,
+                                   device=device)
+        torch.cuda.synchronize()
+
+    frame()
+    t0 = time.perf_counter()
+    frame()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        frame()
+    per = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()}
+    busy = sum(per.values())
+    k3 = sum(v for k, v in per.items() if "field_kernel" in k)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+    say("llff", f"bench frame profile: {wall * 1e3:.1f} ms a frame, device "
+        f"{busy:.1f} ms (busy {busy / (wall * 1e3):.3f}), K3 {k3:.1f} ms; "
+        f"top {[(k[:40], round(v, 2)) for k, v in top]}")
+
+    # fern's factor-8 frame: H, W not multiples of 8 → scanline order
+    state = cli._restored_state(cfg, device)
+    Hf, Wf = 378, 504
+    ff = float(scene["focal"]) * Wf / scene["W"]
+
+    def fern(plain):
+        with torch.no_grad():
+            return render_image_blockwise(state.nets(), cfg, Hf, Wf, ff,
+                                          scene["val_pose"], plain=plain,
+                                          device=device)["rgb"]
+
+    rgb_f = fern(False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb_f = fern(False)
+    torch.cuda.synchronize()
+    secs_f = time.perf_counter() - t0
+    p_fern = float(psnr(rgb_f, fern(True)))
+    say("llff", f"{Hf}x{Wf} frame (scanline order) from the trained "
+        f"checkpoint: {secs_f:.4f} s through the kernels "
+        f"({Hf * Wf / secs_f:.1f} rays/s); PSNR against plain {p_fern:.2f} "
+        f"dB (min {FRAME_PSNR_MIN})")
+    checks["fern_frame"] = (p_fern >= FRAME_PSNR_MIN
+                            and tuple(rgb_f.shape) == (Hf, Wf, 3)
+                            and bool(torch.isfinite(rgb_f).all()))
+
+    out_p = os.path.join(run, "parity")
+    for name in ("fern", "orchids"):
+        shutil.copytree(os.path.join(run, cfg.name, "ckpt"),
+                        os.path.join(out_p, name, cfg.name, "ckpt"))
+    rc, out, _, secs, _, _ = call("parity", f"data.root={root}",
+                                  "data.llff_factor=1", dataset=None,
+                                  out=out_p)
+    rows = [json.loads(x) for x in out]
+    say("llff", f"parity over {root} in {secs:.3f} s: {rows}")
+    checks["parity"] = (rc == 0 and [r.get("scene") for r in rows[:2]]
+                        == ["fern", "orchids"]
+                        and rows[0]["anchor_psnr"] == 25.17
+                        and rows[2]["scenes"] == 2
+                        and all(math.isfinite(r["psnr"]) for r in rows[:2]))
+    say("llff", f"checks {checks}; {gpu} | {smi}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"llff checks failed: {failed}")
+    return llff_launches
+
+
 def tryon_params(cfg, rng) -> dict:
     """The [tryon] state as the reference's params trees (numpy), made with
     no JAX: the committed flagship coarse and fine trees with the config's
@@ -1759,11 +2260,9 @@ def phase_tryon(device, gpu, smi):
       `render` of the checkpoint; `render` of a dynamic_tryon checkpoint
       over 4 poses (latents 0-3), each kernel frame against its plain
       frame."""
-    import contextlib
-    import io
     import shutil
     from fashion_nerf_torch import ckpt as ckpt_lib
-    from fashion_nerf_torch import cli, png
+    from fashion_nerf_torch import png
     from fashion_nerf_torch import kernels as K
     from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch.core.occupancy import build_from_config
@@ -1792,16 +2291,7 @@ def phase_tryon(device, gpu, smi):
     def call(argv, dataset=None):
         """cli.main → (exit code, stdout lines, stderr, seconds,
         launches)."""
-        out, err = io.StringIO(), io.StringIO()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli.main(argv + ["--out", run], dataset=dataset)
-        torch.cuda.synchronize()
-        for line in err.getvalue().splitlines():
-            say("tryon", f"{argv[0]} stderr: {line}")
-        return (rc, out.getvalue().strip().splitlines(), err.getvalue(),
-                time.perf_counter() - t0, dict(K.LAUNCHES))
+        return cli_call(argv + ["--out", run], dataset, "tryon")[:5]
 
     # preprocess on the card, against the same function on the CPU
     rc, out, _, secs, _ = call(["preprocess", "--config", "viton_tryon"])
@@ -2020,11 +2510,8 @@ def phase_tryon_train(device, gpu, smi):
       trained frames' latents move, each its own way;
     - `train_matcher` at the reference's unit-test recipe (MATCHER_RECIPE)
       on the card: held-out IoU learned > baseline + MATCHER_MARGIN."""
-    import contextlib
-    import io
     import shutil
     from fashion_nerf_torch import ckpt as ckpt_lib
-    from fashion_nerf_torch import cli
     from fashion_nerf_torch import kernels as K
     from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch.data.pipeline import RayDataset
@@ -2046,16 +2533,9 @@ def phase_tryon_train(device, gpu, smi):
         """cli.main → (exit code, stdout lines, seconds, launches)."""
         argv = [cmd, "--config", preset, "--out", out_dir, *flags]
         argv += [x for kv in overrides for x in ("--set", kv)]
-        out, err = io.StringIO(), io.StringIO()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli.main(argv, dataset=dataset)
-        torch.cuda.synchronize()
-        for line in err.getvalue().splitlines():
-            say("tryon-train", f"{cmd} stderr: {line}")
-        return (rc, out.getvalue().strip().splitlines(),
-                time.perf_counter() - t0, dict(K.LAUNCHES))
+        rc, out, _, secs, launches, _ = cli_call(argv, dataset,
+                                                 "tryon-train")
+        return rc, out, secs, launches
 
     def logged(lines, key):
         """The logger's JSON entries that carry `key`."""
@@ -2340,6 +2820,9 @@ def main() -> int:
     render_launches, k2_rgb = phase_frame(cfg, device, params, occ, gpu, smi)
     del params, occ, occ_ref
     generic_launches = phase_frame_generic(device, k2_rgb, gpu, smi)
+    phase_frame_twostage(device, k2_rgb, gpu, smi)
+    propmarch_launches = phase_frame_propmarch(device, k2_rgb, gpu, smi)
+    del k2_rgb
     phase_gate(device, gpu, smi)
     torch.cuda.empty_cache()
     scene, ds = phase_scene(cfg, device)
@@ -2351,6 +2834,8 @@ def main() -> int:
     phase_cli(scene, device, gpu, smi)
     del scene, ds
     torch.cuda.empty_cache()
+    llff_launches = phase_llff(device, gpu, smi)
+    torch.cuda.empty_cache()
     tryon_launches = phase_tryon(device, gpu, smi)
     torch.cuda.empty_cache()
     tryon_train_launches = phase_tryon_train(device, gpu, smi)
@@ -2360,7 +2845,8 @@ def main() -> int:
     # path, K3, K4 and K5 on the training path, P1 and P2 on the probe; the
     # conditioned K3 on the try-on setup's sweep and teacher, the
     # conditioned K2 and K6 on the try-on frames, K4's conditioned plan on
-    # the try-on trainer
+    # the try-on trainer; K3 with the tile flag on llff_fern's bench
+    # frames, K2 without a view branch on the sigma_march=false frames
     launches = {**{k: render_launches[k] for k in ("sigma_march",
                                                    "slim_march")},
                 "carry_march": generic_launches["carry_march"],
@@ -2370,7 +2856,9 @@ def main() -> int:
                 **{k: tryon_launches[k] for k in ("field_cond",
                                                   "slim_march_cond",
                                                   "carry_march_cond")},
-                "field_bwd_cond": tryon_train_launches["field_bwd_cond"]}
+                "field_bwd_cond": tryon_train_launches["field_bwd_cond"],
+                "field_alive": llff_launches["field_alive"],
+                "slim_march_novd": propmarch_launches["slim_march_novd"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -2380,7 +2868,8 @@ def main() -> int:
                                        "probe_p2", "field_cond",
                                        "slim_march_cond",
                                        "carry_march_cond",
-                                       "field_bwd_cond")]}))
+                                       "field_bwd_cond", "field_alive",
+                                       "slim_march_novd")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))

@@ -1,29 +1,42 @@
-"""Render benchmark of the port: rays/s of one 800×800 `blender_lego` frame
-on one CUDA device. Counterpart of `fashion_nerf.bench.run_bench` for the
-blockwise path; it prints the same JSON keys.
+"""Render benchmark of the port: rays/s of one 800×800 frame of a preset on
+one CUDA device. Counterpart of `fashion_nerf.bench.run_bench`; it prints
+the same JSON keys.
 
-Setup (outside the timed loop): the committed trained flagship weights, the
-64³ occupancy sweep of the fine field through kernel K3, and the committed
-σ-only proposal net. Frame: `render_image_blockwise` through kernels K1 and
-K2. Run as `python -m fashion_nerf_torch.bench`.
+Setup (outside the timed loop), as the reference's `_bench_params` and
+`run_bench` choose it (`bench_setup`): the committed trained flagship
+weights when they were trained for this config (the asset's config name
+and the parameter tree match), else the seeded random init; the 64³
+occupancy sweep of the field through kernel K3 only when the config
+enables occupancy and the weights are trained; the committed σ-only
+proposal net only when the config enables it, the weights are trained and
+the render is blockwise. Frame: `render_image_blockwise` (K1 and K2 for
+`blender_lego`, the two-stage march through K3 for `llff_fern`), or the
+dense renderer when the config is not eligible for the blockwise path.
+Run as `python -m fashion_nerf_torch.bench [--config NAME]`.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
 import numpy as np
 import torch
 
-from fashion_nerf_torch.assets import load_flagship
+from fashion_nerf_torch.assets import _flatten, load_flagship
 from fashion_nerf_torch.config import Config, load_config
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.core.occupancy import build_from_config
 from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
-from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, load_flax_params
 from fashion_nerf_torch.models.proposal import attach_proposal
+from fashion_nerf_torch.prng import GeneratorChain
 from fashion_nerf_torch.render.blockwise import render_image_blockwise
+from fashion_nerf_torch.render.renderer import render_image
+from fashion_nerf_torch.train.loop import (_eval_cond, make_fields,
+                                           resolve_garment)
+from fashion_nerf_torch.train.state import create_train_state
 
 
 def bench_pose(W: int):
@@ -35,70 +48,143 @@ def bench_pose(W: int):
     return float(focal), c2w
 
 
-def setup(cfg: Config, device):
-    """→ (params {"fine", "coarse"} and, when the config takes one,
-    "proposal", occ, setup seconds). Raises unless the committed flagship
-    weights were trained for cfg."""
+def blockwise_eligible(cfg: Config) -> bool:
+    """Whether renders of cfg take the blockwise march."""
+    k = cfg.kernels
+    return bool(k.use_pallas and k.blockwise and k.fused_mlp
+                and cfg.sampling.n_fine > 0)
+
+
+def _shapes(nets: dict) -> dict:
+    """{net: {key path: shape}} of NeRFMLPs or of the reference's trees."""
+    return {k: {p: v.shape for p, v in _flatten(
+        n.to_flax_params() if isinstance(n, NeRFMLP) else n).items()}
+            for k, n in nets.items()}
+
+
+def bench_params(cfg: Config, device) -> tuple:
+    """→ (nets, trained): the committed flagship weights when the asset was
+    trained for cfg (its meta config is cfg.name, and its parameter tree
+    is the one cfg builds), else the random init of seed cfg.train.seed.
+    Weights matter: culling and early termination are invisible at random
+    init."""
+    chain = GeneratorChain(cfg.train.seed)
+    state = create_train_state(cfg, chain.once("init"),
+                               chain.once("run", device), device)
+    nets = {k: v for k, v in state.nets().items() if v is not None}
     loaded = load_flagship()
     if loaded is None:
-        raise FileNotFoundError("assets/flagship_synthetic.npz is missing")
+        return nets, False
     trained, meta = loaded
-    if str(meta.get("config", "")) != cfg.name:
-        raise ValueError(f"flagship asset is for {meta.get('config')!r}, "
-                         f"not {cfg.name!r}")
-    t0 = time.perf_counter()
-    nets = {k: load_flax_params(trained[k],
+    if (str(meta.get("config", "")) != cfg.name
+            or set(nets) != set(trained)
+            or _shapes(nets) != _shapes(trained)):
+        return nets, False
+    return {k: load_flax_params(trained[k],
                                 compute_dtype=cfg.model.compute_dtype,
-                                device=device)
-            for k in ("fine", "coarse")}
-    field = make_fused_field(cfg)
-    with torch.no_grad():
-        occ = build_from_config(cfg, lambda p, v: field(nets["fine"], p, v),
-                                device=device)
-    # the committed asset, signed for the committed weights; the bench
-    # measures that pair and does not distil a stand-in
-    params = attach_proposal(cfg, nets, allow_distill=False, device=device)
-    if (cfg.proposal.enabled and cfg.sampling.n_fine > 0
-            and "proposal" not in params):
-        raise FileNotFoundError(
-            "assets/proposal_synthetic.npz is missing or was not distilled "
-            "for the committed flagship weights and this config")
+                                device=device) for k in trained}, True
+
+
+def bench_setup(cfg: Config, device) -> dict:
+    """The bench's choice of what it renders, on any device → dict params
+    (the nets, with "proposal" when attached), trained, occ (or None),
+    cond (the per-scene cond vector, or None), blockwise. Raises when the
+    config is trained and takes a proposal but the committed asset does
+    not match: the bench measures that pair and does not distil a
+    stand-in."""
+    params, trained = bench_params(cfg, device)
+    garment = resolve_garment(cfg, {}, 64, 64, device)
+    cond = _eval_cond(cfg, params, garment)
+    blockwise = blockwise_eligible(cfg)
+    occ = None
+    if cfg.occupancy.enabled and trained:
+        name = "fine" if "fine" in params else "coarse"
+        field = (make_fused_field(cfg) if blockwise
+                 else make_fields(cfg)[1])
+        occ = build_from_config(
+            cfg, lambda p, v, *c: field(params[name], p, v, *c),
+            device=device, cond=cond)
+    if blockwise and cfg.proposal.enabled and trained:
+        params = attach_proposal(cfg, params, allow_distill=False,
+                                 device=device)
+        if cfg.sampling.n_fine > 0 and "proposal" not in params:
+            raise FileNotFoundError(
+                "assets/proposal_synthetic.npz is missing or was not "
+                "distilled for the committed flagship weights and this "
+                "config")
+    return {"params": params, "trained": trained, "occ": occ, "cond": cond,
+            "blockwise": blockwise}
+
+
+def setup(cfg: Config, device):
+    """→ (params, occ, setup seconds) of `bench_setup`."""
+    t0 = time.perf_counter()
+    s = bench_setup(cfg, device)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-    return params, occ, time.perf_counter() - t0
+    return s["params"], s["occ"], time.perf_counter() - t0
+
+
+def _budget(cfg: Config, s: dict) -> str:
+    """The per-ray evaluation budget of the frame, as the reference words
+    it."""
+    n_c, n_f = cfg.sampling.n_coarse, cfg.sampling.n_fine
+    if s["blockwise"] and s["occ"] is not None and (
+            cfg.render.eval_n_coarse or cfg.render.eval_n_fine):
+        n_c = cfg.render.eval_n_coarse or n_c
+        n_f = (cfg.render.eval_n_fine or n_f) if n_f > 0 else 0
+    if s["blockwise"] and "proposal" in s["params"]:
+        n_p = cfg.proposal.eval_n or n_c
+        samples = ((n_p + n_f) if cfg.proposal.union
+                   else n_f + cfg.proposal.cov_n)
+        return f"{samples} full-MLP + {n_p} proposal-MLP evals/ray"
+    return f"{n_c + (n_c + n_f if n_f > 0 else 0)} field evals/ray"
 
 
 def run_bench(cfg: Config, device="cuda", H: int = 800, W: int = 800,
               warmup: int = 1, iters: int = 3) -> dict:
-    """Render H×W with the blockwise path; report rays/sec on this card."""
+    """Render H×W as `bench_setup` chooses; report rays/sec on this card."""
     if not torch.cuda.is_available():
         raise RuntimeError("run_bench needs a CUDA device; none is available")
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"run_bench runs on a CUDA device, not {device}")
-    params, occ, setup_s = setup(cfg, device)
-    focal, c2w = bench_pose(W)
-
-    def render():
-        with torch.no_grad():
-            return render_image_blockwise(params, cfg, H, W, focal, c2w,
-                                          occ=occ, device=device)
-
-    for _ in range(warmup):
-        render()
-    K.reset_launches()
-    torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    for _ in range(iters):
-        render()
+    s = bench_setup(cfg, device)
     torch.cuda.synchronize(device)
-    dt = (time.perf_counter() - t0) / iters
+    setup_s = time.perf_counter() - t0
+    params, occ, cond = s["params"], s["occ"], s["cond"]
+    focal, c2w = bench_pose(W)
+    if s["blockwise"]:
+        def render():
+            return render_image_blockwise(params, cfg, H, W, focal, c2w,
+                                          occ=occ, device=device, cond=cond)
+    else:
+        field_c, field_f = make_fields(cfg)
+        fine = params.get("fine")
 
-    n_p = cfg.proposal.eval_n or cfg.sampling.n_coarse
-    n_f = cfg.render.eval_n_fine or cfg.sampling.n_fine
+        def render():
+            return render_image(
+                lambda p, v, *c: field_c(params["coarse"], p, v, *c),
+                None if fine is None else
+                (lambda p, v, *c: field_f(fine, p, v, *c)),
+                H, W, focal, c2w, cfg, occ=occ, device=device, cond=cond,
+                use_fused_render=cfg.kernels.use_pallas
+                and cfg.kernels.fused_render)
+
+    with torch.no_grad():
+        for _ in range(warmup):
+            render()
+        K.reset_launches()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            render()
+        torch.cuda.synchronize(device)
+    dt = (time.perf_counter() - t0) / iters
     return {
         "metric": ("rays/sec/chip at 800x800 render (coarse+fine, "
-                   f"{n_f} full-MLP + {n_p} proposal-MLP evals/ray)"),
+                   f"{_budget(cfg, s)})"),
         "value": round(H * W / dt, 1),
         "unit": "rays/sec",
         # the port has no baseline of its own yet (PERF.md holds its first
@@ -108,18 +194,21 @@ def run_bench(cfg: Config, device="cuda", H: int = 800, W: int = 800,
         "config": cfg.name,
         "pallas": False,
         "kernels": "cuda-sm90a",
-        "blockwise": True,
-        "trained_ckpt": True,
-        "proposal": "proposal" in params,
-        "occupancy_cull": True,
+        "blockwise": s["blockwise"],
+        "trained_ckpt": s["trained"],
+        "proposal": s["blockwise"] and "proposal" in params,
+        "occupancy_cull": occ is not None,
         "setup_seconds": round(setup_s, 3),
         "launches_per_frame": {k: v / iters for k, v in K.LAUNCHES.items()},
         "device": torch.cuda.get_device_name(device),
     }
 
 
-def main():
-    print(json.dumps(run_bench(load_config("blender_lego"))))
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="python -m fashion_nerf_torch.bench")
+    p.add_argument("--config", default="blender_lego")
+    args = p.parse_args(argv)
+    print(json.dumps(run_bench(load_config(args.config))))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """VITON-HD-style paired dataset; counterpart of `fashion_nerf.data.viton`.
 
 Layout: root/{image, cloth, cloth-mask, image-parse, openpose-json} with
-matching basenames. `load_viton_pair` reads one pair; PNGs through the
-port's own reader (`png.read_png`), JPEGs only where PIL or imageio
-imports. `load_viton_scene` builds the garment-conditioned NeRF dataset:
-multi-view images of the person and one conditioning stack shared by every
+matching basenames. `load_viton_pair` reads one pair through
+`data/images.py` (PNGs through the port's own reader, JPEGs only where PIL
+or imageio imports). `load_viton_scene` builds the garment-conditioned
+NeRF dataset: multi-view images of the person and one conditioning stack shared by every
 view; without a root, a procedural scene and the procedural pair.
 `synth_viton_pair` is the reference's numpy generator, bit for bit.
 """
@@ -16,24 +16,7 @@ import os
 
 import numpy as np
 
-
-def _imread(path: str) -> np.ndarray:
-    """An 8-bit image file → f32 in [0, 1], (H, W) or (H, W, C)."""
-    if path.lower().endswith(".png"):
-        from fashion_nerf_torch.png import read_png
-        return read_png(path).astype(np.float32) / 255.0
-    try:
-        from PIL import Image
-        with Image.open(path) as im:
-            arr = np.asarray(im)
-    except ImportError:
-        try:
-            import imageio.v2 as imageio
-        except ImportError:
-            raise RuntimeError(f"{path}: decoding a JPEG needs PIL or "
-                               "imageio, and neither imports here") from None
-        arr = np.asarray(imageio.imread(path))
-    return arr.astype(np.float32) / 255.0
+from fashion_nerf_torch.data.images import imread as _imread
 
 
 def _find(root: str, sub: str, stem: str, exts=(".jpg", ".png", ".jpeg")):

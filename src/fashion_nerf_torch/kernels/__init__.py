@@ -3,8 +3,11 @@
 Eight kernels, CUDA C++ for sm_90a under `csrc/`:
 
 - K1 `sigmamarch.cu`: the σ-only proposal march (kernels/sigmamarch.py);
-- K2 `slimmarch.cu`: the fine march of the 8×256 field (kernels/slimmarch.py);
-- K3 `field.cu`: the fused posenc + MLP field (kernels/posenc_mlp.py);
+- K2 `slimmarch.cu`: the multi-block march of the 8×256 field, and of a
+  net without a view branch (the σ-only proposal net of the generic
+  proposal march) (kernels/slimmarch.py);
+- K3 `field.cu`: the fused posenc + MLP field, with the tile-skip flag of
+  the two-stage march (kernels/posenc_mlp.py);
 - K4 `field_bwd.cu`: the field's backward (kernels/posenc_mlp.py);
 - K5 `volrend.cu`: the fused volume render (kernels/render.py);
 - K6 `carrymarch.cu`: the generic carry march (kernels/carrymarch.py);
@@ -17,7 +20,8 @@ asynchronous copies behind mbarriers: K1 and K2 on the loop of
 `csrc/wg_trunk.cuh`; K3, K4, K6 and the probe on that of
 `csrc/wg_field.cuh` (a producer warpgroup streaming weight slices through
 a ring to two consumer warpgroups). K5 has no matrix product and is plain
-CUDA. Shapes: K1 width 128 and K2 width 256, SB in MARCH_SB; K3, K4 and
+CUDA. Shapes: K1 width 128, K2 width 256 with a view branch and 128 or
+256 without one, SB in MARCH_SB; K3, K4 and
 K6 widths FIELD_WIDTHS, depths FIELD_DEPTHS and posenc operand widths
 FIELD_K0, and a narrower net runs zero-padded to the nearest of them
 (`posenc_mlp.pad_packed`: the same function, at the padded net's cost in
@@ -33,7 +37,8 @@ the repo root, named by a hash of the sources and flags, and loaded with
 ctypes: one nvcc per source, all started together, then one link. Each
 wrapper adds one to its entry of `LAUNCHES` at every kernel launch (a
 conditioned net's launches of K2, K3, K4 and K6 to their "_cond"
-entries).
+entries, K3's launches with the tile-skip flag to "field_alive" and K2's
+on a net without a view branch to "slim_march_novd").
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ SLAB_ROWS = 64
 # slimmarch.cu, carrymarch.cu; K6's wrapper launches per range of tiles)
 MARCH_SB = (16, 32, 64)
 SIGMA_WIDTH, SLIM_WIDTH = 128, 256
+SLIM_WIDTHS_NOVD = (128, 256)   # K2's widths for a net without a view branch
 MARCH_MAX_TILES = 1024
 # nets the field kernels K3, K4 and K6 take (csrc/wg_field.cuh): widths,
 # trunk depths and posenc operand widths (x rows included: L = 6 → 48,
@@ -84,14 +90,17 @@ LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
             # at the halved tile, K4 with its dcond output), counted apart
             # from the unconditioned ones
             "field_cond": 0, "slim_march_cond": 0, "carry_march_cond": 0,
-            "field_bwd_cond": 0}
+            "field_bwd_cond": 0,
+            # K3 with the tile-skip flag (the two-stage march), K2 on a net
+            # without a view branch (the generic proposal march)
+            "field_alive": 0, "slim_march_novd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "fnt_field_forward": [_P] * 8 + [_I] * 9 + [_P],
+    "fnt_field_forward": [_P] * 9 + [_I] * 10 + [_P],
     "fnt_sigma_march": [_P] * 13 + [_I] * 8 + [_P],
-    "fnt_slim_march": [_P] * 16 + [_I] * 11 + [ctypes.c_float, _P],
+    "fnt_slim_march": [_P] * 16 + [_I] * 12 + [ctypes.c_float, _P],
     "fnt_field_backward": [_P] * 20 + [ctypes.c_long] + [_I] * 12 + [_P],
     "fnt_volrend": [_P] * 8 + [_I] * 4 + [_P],
     "fnt_carry_march": [_P] * 17 + [_I] * 13 + [ctypes.c_float, _P],

@@ -39,12 +39,24 @@
 //   adds the f32 of its ray's slice i before the bias, read from device
 //   memory (L2-resident: one row serves spr rows). A null condpart runs
 //   the kernel instantiated without it.
+// - The tile-skip flag (the reference's per-tile `alive`, fed by the
+//   two-stage march of render/blockwise.py): with a non-null alive, one
+//   f32 flag per predication tile of tile_rows rows (2048, 1024 for a
+//   conditioned net; the whole launch when it is shorter), a tile whose
+//   flag is not > 0 does no matrix work and writes rgb = 0 and
+//   σ = kDeadSigma. A work item lies inside one tile, and every warpgroup
+//   reads the flag of its item's tile before the item: the producer issues
+//   no slices for a dead item and both consumers skip it, so the ring's
+//   phases stay in step. The reference keeps the flags in SMEM packed 128
+//   wide, a TPU layout; here they are a plain device array, one load per
+//   item and warpgroup.
 #include "wg_field.cuh"
 
 namespace fnt {
 namespace {
 
 constexpr int kStagesK3 = 3;
+constexpr float kDeadSigma = -1e10f;   // post-relu density 0: zero weight
 
 template <int W>
 struct __align__(128) FieldSmem {
@@ -63,6 +75,7 @@ struct FieldArgs {
   const float* pts;      // (n, 3)
   const bf16* dirpart;   // (n / spr, width / 2), read only with a view branch
   const bf16* condpart;  // (n / spr, cw) per-ray cond term, or null
+  const float* alive;    // (n / tile_rows,) tile flags, or null: all live
   const bf16* w;         // packed weights (Layout): the heads
   const bf16* wp;        // field slices (kernels/wgpack.py)
   const float* b;        // packed biases (Layout)
@@ -70,6 +83,7 @@ struct FieldArgs {
   float* sigma;          // (n,) raw
   int n, spr, L, n_b;
   int cw;                // condpart columns (n_cond·W), 0 without one
+  int tile_rows;         // rows of a predication tile (with alive)
   int n_slices;
   int slice_bytes[wgf::kMaxSlices];
   Layout lay;
@@ -102,7 +116,8 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   if (warp >= wgf::kConsumers / 32) {
     wg::setmaxnreg_dec<40>();
     if (warp == wgf::kConsumers / 32 && lane == 0)
-      wgf::produce(s.ring, a.wp, a.slice_bytes, a.n_slices, n_items);
+      wgf::produce(s.ring, a.wp, a.slice_bytes, a.n_slices, n_items, a.alive,
+                   a.tile_rows);
     return;
   }
 
@@ -121,6 +136,18 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
     const long row0 = (long)it * wg::kItemRows + 64 * g;
     const bool live = row0 < a.n;
+    if (!wgf::item_live(a.alive, it, a.tile_rows)) {
+      // a dead tile: the sentinel rows, no matrix work, no ring slices
+      if (live)
+        for (int i = tw; i < 64 * 4; i += 128) {
+          const long r = row0 + i / 4;
+          if (i % 4 == 3)
+            a.sigma[r] = kDeadSigma;
+          else
+            a.rgb[r * 3 + i % 4] = 0.0f;
+        }
+      continue;
+    }
     for (int i = tw; i < 64 * 3; i += 128)
       pts[i / 3][i % 3] = live ? a.pts[row0 * 3 + i] : 0.0f;
     const long ray0 = row0 / a.spr;
@@ -183,13 +210,14 @@ extern "C" {
 // The field on n rows (a multiple of 64 and of spr), width 128 or 256,
 // depth 2-8, k0 48 or 64. wp holds the net's field slices
 // (kernels/wgpack.py::field_buffer). condpart: null, or (n / spr, cw) bf16
-// with cw = W times the layers that take the posenc operand. Returns a
-// cudaError_t.
+// with cw = W times the layers that take the posenc operand. alive: null,
+// or n / tile_rows f32 tile flags, tile_rows a multiple of 128 or n itself.
+// Returns a cudaError_t.
 int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
                       const void* wp, const void* b, void* rgb, void* sigma,
-                      const void* condpart, int cw, int n, int spr, int L,
-                      int depth, int width, int k0, int skip, int has_vd,
-                      void* stream) {
+                      const void* condpart, const void* alive, int cw,
+                      int tile_rows, int n, int spr, int L, int depth,
+                      int width, int k0, int skip, int has_vd, void* stream) {
   using namespace fnt;
   FieldArgs a;
   a.pts = static_cast<const float*>(pts);
@@ -200,7 +228,9 @@ int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
   a.rgb = static_cast<float*>(rgb);
   a.sigma = static_cast<float*>(sigma);
   a.condpart = static_cast<const bf16*>(condpart);
+  a.alive = static_cast<const float*>(alive);
   a.cw = cw;
+  a.tile_rows = tile_rows;
   a.n = n;
   a.spr = spr;
   a.L = L;
@@ -212,7 +242,10 @@ int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
       (reinterpret_cast<uintptr_t>(wp) & 15) ||
       (condpart != nullptr) != (cw > 0) ||
       (cw > 0 && (cw != wgf::cond_layers(a.lay) * width ||
-                  (reinterpret_cast<uintptr_t>(condpart) & 3))))
+                  (reinterpret_cast<uintptr_t>(condpart) & 3))) ||
+      (alive != nullptr &&
+       (tile_rows < wg::kWgRows || n % tile_rows ||
+        (tile_rows % wg::kItemRows && tile_rows != n))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cw > 0)

@@ -1,5 +1,6 @@
-// Multi-block fine march of the 8x256 field (kernel K2), one sample block
-// per launch.
+// Multi-block march (kernel K2), one sample block per launch: the 8x256
+// fine field with its view branch, and nets without one (the σ-only
+// proposal net, 2x128, of the generic proposal march).
 //
 // Replaces: src/fashion_nerf/kernels/slimmarch_pallas.py::_slim_kernel (via
 // _slim_eval), the TPU kernel that marches the fine field over NB blocks of
@@ -35,6 +36,12 @@
 //   head (256→1) rides the last trunk epilogue and the rgb head (128→3) the
 //   view epilogue, as register dot products reduced over the 4 lanes of a
 //   row.
+// - A net without a view branch (the reference's has_vd=False plan,
+//   slimmarch_pallas.py:113-116, :245-246) takes the 4-wide out head in the
+//   last trunk epilogue (rgb = sigmoid of lanes 0-2, σ lane 3) and has no
+//   feature or view layer and no dirpart operand; instantiated for widths
+//   128 (the proposal net) and 256. The x-layers are those the net has:
+//   one without a skip layer.
 // - Compositing by warps: one warp per ray (SB = 32; a lane per sample) or
 //   per two rays (SB = 16), two samples a lane at SB = 64: the exclusive
 //   log(1−α) prefix is a shuffle scan with the carried logT.
@@ -47,8 +54,6 @@
 namespace fnt {
 namespace {
 
-constexpr int kW = 256;                      // trunk width of this kernel
-constexpr int kHalf = kW / 2;                // view-layer width
 constexpr int kStages = 3;                   // weight ring slices
 constexpr int kConsumers = 2 * 128;           // two warpgroups
 constexpr int kThreadsK2 = kConsumers + 128;  // and the producer warpgroup
@@ -56,17 +61,18 @@ constexpr int kMaxTilesK2 = 1024;
 constexpr int kMaxRaysWg = wg::kWgRows / 16;  // rays of a warpgroup, SB ≥ 16
 constexpr int kMaxSlices = 96;
 
+template <int W>
 struct __align__(128) SlimSmem {
-  bf16 h[2][wg::kWgRows * kW];           // activations per warpgroup
+  bf16 h[2][wg::kWgRows * W];            // activations per warpgroup
   bf16 a0[2][wg::kWgRows * kMaxK0];      // posenc operand per warpgroup
-  bf16 ring[kStages][wg::kSliceK * kW];  // weight slices
+  bf16 ring[kStages][wg::kSliceK * W];   // weight slices
   // per-ray inputs of a warpgroup's rays, staged once per item: the
   // phases (oF, dF), the current x-layer's (oX, dX) and the view term
   float ph[2][kMaxRaysWg][2][kMaxK0];
-  float xs[2][kMaxRaysWg][2][kW];
-  bf16 dirs[2][kMaxRaysWg][kHalf];
-  float wsig[kW];                        // σ head
-  float wrgb[kHalf * 3];                 // rgb head
+  float xs[2][kMaxRaysWg][2][W];
+  bf16 dirs[2][kMaxRaysWg][W / 2];
+  // the σ head (W) then the rgb head (W/2 × 3), or the out head (W × 4)
+  float heads[W * 4];
   float row_t[wg::kItemRows];
   float row_sigma[wg::kItemRows];
   float row_rgb[wg::kItemRows][3];
@@ -85,7 +91,7 @@ struct SlimArgs {
   const float* dX;         // (R, n_x·W) x-layer slopes
   const float* oF;         // (R, 6L) phase intercepts (π/2 folded)
   const float* dF;         // (R, 6L) phase slopes
-  const bf16* dirpart;     // (R, W/2) per-ray view term
+  const bf16* dirpart;     // (R, W/2) per-ray view term (view branch only)
   const float* t;          // (R, NB·SB) sample positions
   const float* d;          // (R, NB·SB) scaled interval widths
   const bf16* w;           // packed weights (Layout): the heads
@@ -112,15 +118,16 @@ struct RingPos {
   int pend;
 };
 
-__device__ __forceinline__ void release(SlimSmem& s, int stage) {
+template <class Smem>
+__device__ __forceinline__ void release(Smem& s, int stage) {
   if ((threadIdx.x & 31) == 0) wg::mbar_arrive(&s.empty[stage]);
 }
 
 // acc (+)= A·(the next weight slice of kk rows), A at column a_k of the
 // tile at a_addr (a_K columns). Keeps one slice's wgmmas in flight.
-template <int N>
+template <int N, class Smem>
 __device__ __forceinline__ void consume(float (&acc)[N / 2], RingPos& rp,
-                                        SlimSmem& s, uint32_t a_addr,
+                                        Smem& s, uint32_t a_addr,
                                         int a_K, int a_k, int kk,
                                         bool zero) {
   wg::mbar_wait(&s.full[rp.stage], rp.phase);
@@ -139,9 +146,9 @@ __device__ __forceinline__ void consume(float (&acc)[N / 2], RingPos& rp,
   }
 }
 
-template <int R>
+template <int R, class Smem>
 __device__ __forceinline__ void drain(float (&acc)[R], RingPos& rp,
-                                      SlimSmem& s) {
+                                      Smem& s) {
   wg::mma_wait<0>();
   wg::fence_regs(acc);
   release(s, rp.pend);
@@ -155,11 +162,13 @@ __device__ __forceinline__ void st_pair(bf16* tile, int r, int c, int K,
       __floats2bfloat162_rn(v0, v1);
 }
 
+template <int W, bool kVd>
 __global__ void __launch_bounds__(kThreadsK2, 1)
     slim_march_kernel(const __grid_constant__ SlimArgs a) {
+  constexpr int kW = W, kHalf = W / 2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  SlimSmem& s = *reinterpret_cast<SlimSmem*>(smem_raw);
-  float* bias = reinterpret_cast<float*>(smem_raw + sizeof(SlimSmem));
+  SlimSmem<W>& s = *reinterpret_cast<SlimSmem<W>*>(smem_raw);
+  float* bias = reinterpret_cast<float*>(smem_raw + sizeof(SlimSmem<W>));
   const Layout& lay = a.lay;
   const int SB = a.SB, S = a.NB * a.SB;
   const int rpt = a.tile_rows / SB;
@@ -178,10 +187,15 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
   // shared memory leaves little L1: everything the epilogues read is
   // staged here, the net's biases and heads once per block
   for (int i = threadIdx.x; i < a.n_b; i += blockDim.x) bias[i] = a.b[i];
-  for (int i = threadIdx.x; i < kW; i += blockDim.x)
-    s.wsig[i] = bf(a.w[lay.w_sig + i]);
-  for (int i = threadIdx.x; i < kHalf * 3; i += blockDim.x)
-    s.wrgb[i] = bf(a.w[lay.w_rgb + i]);
+  if (kVd) {
+    for (int i = threadIdx.x; i < kW; i += blockDim.x)
+      s.heads[i] = bf(a.w[lay.w_sig + i]);
+    for (int i = threadIdx.x; i < kHalf * 3; i += blockDim.x)
+      s.heads[kW + i] = bf(a.w[lay.w_rgb + i]);
+  } else {
+    for (int i = threadIdx.x; i < kW * 4; i += blockDim.x)
+      s.heads[i] = bf(a.w[lay.w_out + i]);
+  }
   const int n_live = wg::live_tiles(
       a.R / rpt, rpt, s.tile_live, s.live, &s.n_live,
       [&](long ray) {
@@ -257,8 +271,9 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
       const int r = i / (2 * n_ph), which = (i / n_ph) & 1, c = i % n_ph;
       ph[r][which][c] = (which ? a.dF : a.oF)[(ray0 + r) * n_ph + c];
     }
-    for (int i = tw; i < nr * kHalf; i += 128)
-      dirs[i / kHalf][i % kHalf] = a.dirpart[ray0 * kHalf + i];
+    if (kVd)
+      for (int i = tw; i < nr * kHalf; i += 128)
+        dirs[i / kHalf][i % kHalf] = a.dirpart[ray0 * kHalf + i];
     wg::wg_sync(bar);
     // posenc operand: 32 lanes fill one core matrix per step
     for (int i = tw; i < 32 * k0; i += 128) {
@@ -298,7 +313,9 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
       const float* bl = bias + lay.b[i];
       const float* ox = xs[rl][0];
       const float* dx = xs[rl][1];
-      float sg_lo = 0.0f, sg_hi = 0.0f;
+      // the σ head (lane 3), or the out head's four lanes
+      float hd_lo[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float hd_hi[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int j = 0; j < kW / 8; ++j) {
         const int c = 8 * j + cA;
@@ -322,89 +339,117 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
         *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<char*>(H) +
                                            wg::cm_off(rA + 8, c, kW)) = hi;
         if (last) {
-          const float s0 = s.wsig[c], s1 = s.wsig[c + 1];
-          sg_lo = fmaf(__low2float(lo), s0, fmaf(__high2float(lo), s1, sg_lo));
-          sg_hi = fmaf(__low2float(hi), s0, fmaf(__high2float(hi), s1, sg_hi));
+          const float v0 = __low2float(lo), v1 = __high2float(lo);
+          const float v2 = __low2float(hi), v3 = __high2float(hi);
+          if (kVd) {
+            const float s0 = s.heads[c], s1 = s.heads[c + 1];
+            hd_lo[3] = fmaf(v0, s0, fmaf(v1, s1, hd_lo[3]));
+            hd_hi[3] = fmaf(v2, s0, fmaf(v3, s1, hd_hi[3]));
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float w0 = s.heads[c * 4 + q];
+              const float w1 = s.heads[(c + 1) * 4 + q];
+              hd_lo[q] = fmaf(v0, w0, fmaf(v1, w1, hd_lo[q]));
+              hd_hi[q] = fmaf(v2, w0, fmaf(v3, w1, hd_hi[q]));
+            }
+          }
         }
       }
       xl += xlayer;
       if (last) {
-        sg_lo += __shfl_xor_sync(0xffffffffu, sg_lo, 1);
-        sg_lo += __shfl_xor_sync(0xffffffffu, sg_lo, 2);
-        sg_hi += __shfl_xor_sync(0xffffffffu, sg_hi, 1);
-        sg_hi += __shfl_xor_sync(0xffffffffu, sg_hi, 2);
+#pragma unroll
+        for (int q = kVd ? 3 : 0; q < 4; ++q) {
+          hd_lo[q] += __shfl_xor_sync(0xffffffffu, hd_lo[q], 1);
+          hd_lo[q] += __shfl_xor_sync(0xffffffffu, hd_lo[q], 2);
+          hd_hi[q] += __shfl_xor_sync(0xffffffffu, hd_hi[q], 1);
+          hd_hi[q] += __shfl_xor_sync(0xffffffffu, hd_hi[q], 2);
+        }
         if ((lane & 3) == 0) {
-          row_sigma[rA] = sg_lo + bias[lay.b_sig];
-          row_sigma[rA + 8] = sg_hi + bias[lay.b_sig];
+          if (kVd) {
+            row_sigma[rA] = hd_lo[3] + bias[lay.b_sig];
+            row_sigma[rA + 8] = hd_hi[3] + bias[lay.b_sig];
+          } else {
+            for (int q = 0; q < 3; ++q) {
+              row_rgb[rA][q] = sigmoidf(hd_lo[q] + bias[lay.b_out + q]);
+              row_rgb[rA + 8][q] = sigmoidf(hd_hi[q] + bias[lay.b_out + q]);
+            }
+            row_sigma[rA] = hd_lo[3] + bias[lay.b_out + 3];
+            row_sigma[rA + 8] = hd_hi[3] + bias[lay.b_out + 3];
+          }
         }
       }
       wg::fence_async_smem();
       wg::wg_sync(bar);
     }
 
-    // feature layer: bf16(h·W_feat + b), no relu, in place
-    for (int k = 0; k < kW; k += wg::kSliceK)
-      consume<kW>(acc, rp, s, h_addr, kW, k, wg::kSliceK, k == 0);
-    drain(acc, rp, s);
-    wg::wg_sync(bar);
-    {
-      const float* bl = bias + lay.b_feat;
+    // with a view branch, the feature and view layers (without one, the
+    // out head rode the last trunk epilogue)
+    if constexpr (kVd) {
+      // feature layer: bf16(h·W_feat + b), no relu, in place
+      for (int k = 0; k < kW; k += wg::kSliceK)
+        consume<kW>(acc, rp, s, h_addr, kW, k, wg::kSliceK, k == 0);
+      drain(acc, rp, s);
+      wg::wg_sync(bar);
+      {
+        const float* bl = bias + lay.b_feat;
 #pragma unroll
-      for (int j = 0; j < kW / 8; ++j) {
-        const int c = 8 * j + cA;
-        const float b0 = bl[c], b1 = bl[c + 1];
-        st_pair(H, rA, c, kW, __fadd_rn(acc[4 * j], b0),
-                __fadd_rn(acc[4 * j + 1], b1));
-        st_pair(H, rA + 8, c, kW, __fadd_rn(acc[4 * j + 2], b0),
-                __fadd_rn(acc[4 * j + 3], b1));
+        for (int j = 0; j < kW / 8; ++j) {
+          const int c = 8 * j + cA;
+          const float b0 = bl[c], b1 = bl[c + 1];
+          st_pair(H, rA, c, kW, __fadd_rn(acc[4 * j], b0),
+                  __fadd_rn(acc[4 * j + 1], b1));
+          st_pair(H, rA + 8, c, kW, __fadd_rn(acc[4 * j + 2], b0),
+                  __fadd_rn(acc[4 * j + 3], b1));
+        }
       }
-    }
-    wg::fence_async_smem();
-    wg::wg_sync(bar);
+      wg::fence_async_smem();
+      wg::wg_sync(bar);
 
-    // view layer (N = W/2) with the per-ray view term, then the rgb head
-    for (int k = 0; k < kW; k += wg::kSliceK)
-      consume<kHalf>(acc_v, rp, s, h_addr, kW, k, wg::kSliceK, k == 0);
-    drain(acc_v, rp, s);
-    {
-      const float* bl = bias + lay.b_view;
-      const bf16* dirp = dirs[rl];
-      const float* wr = s.wrgb;
-      float c_lo[3] = {0.0f, 0.0f, 0.0f}, c_hi[3] = {0.0f, 0.0f, 0.0f};
+      // view layer (N = W/2) with the per-ray view term, then the rgb head
+      for (int k = 0; k < kW; k += wg::kSliceK)
+        consume<kHalf>(acc_v, rp, s, h_addr, kW, k, wg::kSliceK, k == 0);
+      drain(acc_v, rp, s);
+      {
+        const float* bl = bias + lay.b_view;
+        const bf16* dirp = dirs[rl];
+        const float* wr = s.heads + kW;
+        float c_lo[3] = {0.0f, 0.0f, 0.0f}, c_hi[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int j = 0; j < kHalf / 8; ++j) {
-        const int c = 8 * j + cA;
-        const float2 bb = make_float2(bl[c], bl[c + 1]);
-        const float2 dv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(dirp + c));
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(
-            fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j], dv.x), bb.x), 0.0f),
-            fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 1], dv.y), bb.y), 0.0f));
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(
-            fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 2], dv.x), bb.x), 0.0f),
-            fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 3], dv.y), bb.y), 0.0f));
+        for (int j = 0; j < kHalf / 8; ++j) {
+          const int c = 8 * j + cA;
+          const float2 bb = make_float2(bl[c], bl[c + 1]);
+          const float2 dv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(dirp + c));
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(
+              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j], dv.x), bb.x), 0.0f),
+              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 1], dv.y), bb.y), 0.0f));
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(
+              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 2], dv.x), bb.x), 0.0f),
+              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 3], dv.y), bb.y), 0.0f));
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const float w0 = wr[c * 3 + q], w1 = wr[(c + 1) * 3 + q];
+            c_lo[q] = fmaf(__low2float(lo), w0,
+                           fmaf(__high2float(lo), w1, c_lo[q]));
+            c_hi[q] = fmaf(__low2float(hi), w0,
+                           fmaf(__high2float(hi), w1, c_hi[q]));
+          }
+        }
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
-          const float w0 = wr[c * 3 + q], w1 = wr[(c + 1) * 3 + q];
-          c_lo[q] = fmaf(__low2float(lo), w0,
-                         fmaf(__high2float(lo), w1, c_lo[q]));
-          c_hi[q] = fmaf(__low2float(hi), w0,
-                         fmaf(__high2float(hi), w1, c_hi[q]));
+          c_lo[q] += __shfl_xor_sync(0xffffffffu, c_lo[q], 1);
+          c_lo[q] += __shfl_xor_sync(0xffffffffu, c_lo[q], 2);
+          c_hi[q] += __shfl_xor_sync(0xffffffffu, c_hi[q], 1);
+          c_hi[q] += __shfl_xor_sync(0xffffffffu, c_hi[q], 2);
+          if ((lane & 3) == 0) {
+            row_rgb[rA][q] = sigmoidf(c_lo[q] + bias[lay.b_rgb + q]);
+            row_rgb[rA + 8][q] = sigmoidf(c_hi[q] + bias[lay.b_rgb + q]);
+          }
         }
       }
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        c_lo[q] += __shfl_xor_sync(0xffffffffu, c_lo[q], 1);
-        c_lo[q] += __shfl_xor_sync(0xffffffffu, c_lo[q], 2);
-        c_hi[q] += __shfl_xor_sync(0xffffffffu, c_hi[q], 1);
-        c_hi[q] += __shfl_xor_sync(0xffffffffu, c_hi[q], 2);
-        if ((lane & 3) == 0) {
-          row_rgb[rA][q] = sigmoidf(c_lo[q] + bias[lay.b_rgb + q]);
-          row_rgb[rA + 8][q] = sigmoidf(c_hi[q] + bias[lay.b_rgb + q]);
-        }
-      }
+      wg::wg_sync(bar);
     }
-    wg::wg_sync(bar);
 
     // compositing: segments of `seg` lanes per ray, q samples a lane
     const int seg = SB < 32 ? SB : 32, q = SB / seg;
@@ -455,22 +500,40 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
   }
 }
 
+template <int W, bool kVd>
+int launch_slim(SlimArgs& a, cudaStream_t st) {
+  const int smem = (int)sizeof(SlimSmem<W>) + a.n_b * 4;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      slim_march_kernel<W, kVd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (a.R == 0) return 0;
+  slim_march_kernel<W, kVd><<<n_sm, kThreadsK2, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace fnt
 
 extern "C" {
 
-// Marches sample block `blk` of NB with the 8×256-wide fine net. The
-// predication tile is tile_rows (2048 or 1024) rows, tile_rows/SB rays; R
-// must be a multiple of it and at most 1024 tiles; SB is 16, 32 or 64; wp
-// holds the net's march slices (kernels/wgpack.py). Returns a cudaError_t.
+// Marches sample block `blk` of NB: the 8×256-wide fine net with its view
+// branch (has_vd 1), or a net without one (has_vd 0, width 128 or 256; the
+// σ-only proposal net; dirpart may be null). The predication tile is
+// tile_rows (2048 or 1024) rows, tile_rows/SB rays; R must be a multiple of
+// it and at most 1024 tiles; SB is 16, 32 or 64; wp holds the net's march
+// slices (kernels/wgpack.py). Returns a cudaError_t.
 int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
                    const void* dX, const void* oF, const void* dF,
                    const void* dirpart, const void* t, const void* d,
                    const void* w, const void* wp, const void* b, void* rgb,
                    void* w_out, const void* logT_in, void* logT_out, int R,
                    int NB, int SB, int blk, int L, int depth, int width,
-                   int k0, int skip, int softplus, int tile_rows,
+                   int k0, int skip, int has_vd, int softplus, int tile_rows,
                    float log_eps, void* stream) {
   using namespace fnt;
   SlimArgs a;
@@ -498,10 +561,11 @@ int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
   a.softplus = softplus;
   a.tile_rows = tile_rows;
   a.log_eps = log_eps;
-  a.lay = make_layout(depth, width, k0, skip, 1);
-  a.n_b = a.lay.b_rgb + 3;
-  const int smem = (int)sizeof(SlimSmem) + a.n_b * 4;
-  if (layout_error(a.lay) || width != kW || smem > 227 * 1024 || !(SB == 16 || SB == 32 ||
+  a.lay = make_layout(depth, width, k0, skip, has_vd);
+  a.n_b = has_vd ? a.lay.b_rgb + 3 : a.lay.b_out + 4;
+  const bool shape_ok = has_vd ? (width == 256 && dirpart != nullptr)
+                               : (width == 128 || width == 256);
+  if (layout_error(a.lay) || !shape_ok || !(SB == 16 || SB == 32 ||
       SB == 64) || 6 * L > k0 || !(tile_rows == kTileRows ||
       tile_rows == kTileRows / 2) || R < 0 || R % (tile_rows / SB) ||
       R / (tile_rows / SB) > kMaxTilesK2 || blk < 0 || blk >= NB ||
@@ -516,23 +580,19 @@ int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
                              * cols * 2;
   };
   for (int i = 0; i < depth; ++i) {
-    if (a.lay.w_h[i] >= 0) add(kW, kW);
-    if (a.lay.w_a0[i] >= 0) add(k0, kW);
+    if (a.lay.w_h[i] >= 0) add(width, width);
+    if (a.lay.w_a0[i] >= 0) add(k0, width);
   }
-  add(kW, kW);
-  add(kW, kHalf);
+  if (has_vd) {
+    add(width, width);
+    add(width, width / 2);
+  }
   a.n_slices = n;
   if (n >= kMaxSlices) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      slim_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int n_sm = 0;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (R == 0) return 0;
-  slim_march_kernel<<<n_sm, kThreadsK2, smem,
-                      static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (has_vd) return launch_slim<256, true>(a, st);
+  return width == 256 ? launch_slim<256, false>(a, st)
+                      : launch_slim<128, false>(a, st);
 }
 
 }  // extern "C"

@@ -86,14 +86,27 @@ __device__ __forceinline__ void drain(float (&acc)[R], RingPos& rp,
   rp.pend = -1;
 }
 
-// The producer lane: every item takes all n_slices slices of src in order.
+// Whether work item `it` lies in a live predication tile (K3's tile-skip
+// flag): alive null means every tile is; a tile of tile_rows rows holds
+// whole items (tile_rows a multiple of kItemRows, or the whole launch).
+__device__ __forceinline__ bool item_live(const float* alive, int it,
+                                          int tile_rows) {
+  return alive == nullptr ||
+         alive[(long)it * wg::kItemRows / tile_rows] > 0.0f;
+}
+
+// The producer lane: every live item takes all n_slices slices of src in
+// order; an item of a dead tile (item_live) takes none.
 template <int S>
 __device__ __forceinline__ void produce(Ring<S>& r, const bf16* src0,
                                         const int* slice_bytes, int n_slices,
-                                        int n_items) {
+                                        int n_items,
+                                        const float* alive = nullptr,
+                                        int tile_rows = 0) {
   int stage = 0;
   uint32_t phase = 0;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    if (!item_live(alive, it, tile_rows)) continue;
     const char* src = reinterpret_cast<const char*>(src0);
     for (int sl = 0; sl < n_slices; ++sl) {
       const int bytes = slice_bytes[sl];

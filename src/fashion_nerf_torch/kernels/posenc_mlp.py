@@ -346,13 +346,50 @@ def per_row(part, spr: int):
     return None if part is None else part.float().repeat_interleave(spr, 0)
 
 
-def field_rows_plain(net: PackedNet, pts, dirpart, spr: int, condpart=None):
-    """Plain version of K3: pts (n,3) f32, dirpart (n/spr, W/2) bf16,
-    condpart (n/spr, n_cond·W) bf16 or None."""
+DEAD_SIGMA = -1e10   # σ of a dead tile's rows: post-relu density 0, α = 0
+
+
+def alive_tile_rows(net: PackedNet, n: int) -> int:
+    """Rows of one tile-skip flag over n rows: the net's predication tile
+    (2048, 1024 for a conditioned net; the reference's tile_eff), or all n
+    rows when fewer. Raises unless n is whole tiles."""
+    tile = min(net.tile_rows, n)
+    if tile <= 0 or n % tile:
+        raise ValueError(f"rows {n} are not whole tiles of {tile}")
+    return tile
+
+
+def _field_rows_plain(net: PackedNet, pts, dirpart, spr: int, condpart):
     a0 = field_operand(pts, net.L, net.k0)
     dir_rows = per_row(dirpart, spr) if net.has_vd else None
     return mlp_rows(net, a0, dir_rows=dir_rows,
                     cond_rows=per_row(condpart, spr))
+
+
+def field_rows_plain(net: PackedNet, pts, dirpart, spr: int, condpart=None,
+                     alive=None):
+    """Plain version of K3: pts (n,3) f32, dirpart (n/spr, W/2) bf16,
+    condpart (n/spr, n_cond·W) bf16 or None; alive (n / tile,) f32 tile
+    flags (`alive_tile_rows`) or None: the rows of a tile whose flag is not
+    > 0 are rgb = 0, σ = DEAD_SIGMA, and only the live tiles' rows are
+    computed."""
+    if alive is None:
+        return _field_rows_plain(net, pts, dirpart, spr, condpart)
+    n = pts.shape[0]
+    tile = alive_tile_rows(net, n)
+    if tile % spr or tuple(alive.shape) != (n // tile,):
+        raise ValueError(f"alive {tuple(alive.shape)}: one flag per "
+                         f"{tile} rows of {n}, whole rays of {spr}")
+    rgb = torch.zeros((n, 3), dtype=torch.float32, device=pts.device)
+    sigma = torch.full((n,), DEAD_SIGMA, dtype=torch.float32,
+                       device=pts.device)
+    rows = (alive > 0).repeat_interleave(tile).nonzero().squeeze(1)
+    if rows.numel():
+        rays = rows[::spr] // spr
+        rgb[rows], sigma[rows] = _field_rows_plain(
+            net, pts[rows], dirpart[rays], spr,
+            None if condpart is None else condpart[rays])
+    return rgb, sigma
 
 
 def check_field_shape(n: int, spr: int, width: int, depth: int,
@@ -512,16 +549,21 @@ def pad_dirpart(net: PackedNet, knet: PackedNet, dirpart):
     return F.pad(dirpart, (0, knet.width // 2 - dirpart.shape[1]))
 
 
-def field_rows(net: PackedNet, pts, dirpart, spr: int, condpart=None):
+def field_rows(net: PackedNet, pts, dirpart, spr: int, condpart=None,
+               alive=None):
     """Fused field on rows → (rgb (n,3), σ (n,)). n must be a multiple of
     64 and of spr; a conditioned net takes its per-ray condpart (n/spr,
-    n_cond·W) bf16 (`hoist_cond`). CPU tensors: plain version; CUDA
-    tensors: kernel K3. A net narrower than the kernel's widths, or with a
-    narrower posenc operand, runs padded with zeros (`pad_packed`): the
-    same function at the padded net's cost in tensor-core time."""
+    n_cond·W) bf16 (`hoist_cond`). alive: None, or the tile-skip flags of
+    the two-stage march, (n / tile,) f32 on the device, one per tile of
+    `alive_tile_rows(net, n)` rows: a tile whose flag is not > 0 does no
+    matrix work and writes rgb = 0, σ = DEAD_SIGMA. The flags are never
+    read on the host. CPU tensors: plain version; CUDA tensors: kernel K3.
+    A net narrower than the kernel's widths, or with a narrower posenc
+    operand, runs padded with zeros (`pad_packed`): the same function at
+    the padded net's cost in tensor-core time."""
     n = pts.shape[0]
-    if not K.on_cuda(pts, dirpart, net.w, condpart):
-        return field_rows_plain(net, pts, dirpart, spr, condpart)
+    if not K.on_cuda(pts, dirpart, net.w, condpart, alive):
+        return field_rows_plain(net, pts, dirpart, spr, condpart, alive)
     if not net.x_rows:
         raise ValueError("field_rows needs a net packed with hoist_x=False")
     unpadded = net
@@ -530,6 +572,10 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int, condpart=None):
     K.check(pts, "pts", torch.float32, (n, 3))
     K.check(dirpart, "dirpart", _BF, (n // spr, dirpart.shape[1]))
     check_condpart(unpadded, condpart, n // spr)
+    tile = 0
+    if alive is not None:
+        tile = alive_tile_rows(unpadded, n)
+        K.check(alive, "alive", torch.float32, (n // tile,))
     dirpart = pad_dirpart(unpadded, net, dirpart)
     condpart = pad_condpart(unpadded, net.width, condpart)
     if net.has_vd and dirpart.shape[1] != net.width // 2:
@@ -541,10 +587,13 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int, condpart=None):
                                    sigma)]
     cw = 0 if condpart is None else condpart.shape[1]
     code = K.library().fnt_field_forward(
-        *ptrs, condpart.data_ptr() if cw else None, cw, n, spr, net.L,
-        net.depth, net.width, net.k0, net.skip, int(net.has_vd), K.stream())
+        *ptrs, condpart.data_ptr() if cw else None,
+        None if alive is None else alive.data_ptr(), cw, tile, n, spr,
+        net.L, net.depth, net.width, net.k0, net.skip, int(net.has_vd),
+        K.stream())
     K.raise_on_error(code, "fnt_field_forward")
-    K.LAUNCHES["field_cond" if cw else "field"] += 1
+    K.LAUNCHES["field_alive" if alive is not None else
+               "field_cond" if cw else "field"] += 1
     return rgb, sigma
 
 

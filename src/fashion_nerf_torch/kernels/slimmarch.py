@@ -1,10 +1,15 @@
-"""Multi-block fine march of the 8×256 field (kernel K2, csrc/slimmarch.cu).
+"""Multi-block march (kernel K2, csrc/slimmarch.cu): the 8×256 fine field,
+and nets without a view branch.
 
 Counterpart of `fashion_nerf.kernels.slimmarch_pallas` (`split_hoist`,
-`hoist_rays`, `_slim_kernel`). The fine field marches NB blocks of SB
-samples per ray with a log-transmittance carry and an rgb accumulator. The
-posenc phases and the first and skip layers' x-paths are linear in t and
-hoisted per ray; the view term γ(d̂)·W_dir is per ray.
+`hoist_rays`, `_slim_kernel`). The field marches NB blocks of SB samples
+per ray with a log-transmittance carry and an rgb accumulator. The posenc
+phases and the x-paths of the layers that take positions (the first, and
+the skip layer where the net has one) are linear in t and hoisted per ray;
+the view term γ(d̂)·W_dir is per ray. A net without a view branch (the
+reference's has_vd=False plans: the σ-only proposal net, 2×128 and no skip
+layer, of the generic proposal march) takes the 4-wide out head and no
+dirpart.
 
 A conditioned net's cond enters folded into the x-intercepts oX (its rows
 attach to exactly the x-layers and act on per-ray data), so the kernel has
@@ -34,11 +39,8 @@ _BF = torch.bfloat16
 
 
 def split_hoist(model: NeRFMLP) -> PackedNet:
-    """Pack the fine net with its x-layers hoisted (net.x_kernels)."""
-    net = pack_params(model, hoist_x=True)
-    if not net.has_vd:
-        raise NotImplementedError("the fine march takes a view-branch net")
-    return net
+    """Pack a net for K2 with its x-layers hoisted (net.x_kernels)."""
+    return pack_params(model, hoist_x=True)
 
 
 def hoist_rays(net: PackedNet, rays_o, rays_d, condpart=None):
@@ -83,7 +85,8 @@ def block_weights(sigma, d, lt, softplus: bool):
 def slim_march_plain(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
                      log_eps: float, softplus: bool = False):
     """Plain version of K2. hit (R,), block_hit (R, NB), t and d (R, NB·SB)
-    f32, dirpart (R, W/2) bf16. → rgb (R, 3), w (R, NB·SB), logT (R,)."""
+    f32, dirpart (R, W/2) bf16 (None for a net without a view branch).
+    → rgb (R, 3), w (R, NB·SB), logT (R,)."""
     oF, dF, oX, dX = hoists
     R, S = t.shape
     NB = block_hit.shape[1]
@@ -106,7 +109,8 @@ def slim_march_plain(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
             return (oX[idx, sl][:, None, :]
                     + dX[idx, sl][:, None, :] * tt[..., None]).reshape(-1, W)
 
-        dir_rows = dirpart[idx].float().repeat_interleave(SB, dim=0)
+        dir_rows = (dirpart[idx].float().repeat_interleave(SB, dim=0)
+                    if net.has_vd else None)
         rgb_s, sigma = mlp_rows(net, a0, xterm=xterm, dir_rows=dir_rows)
         wb, logT[idx] = block_weights(sigma.view(-1, SB), d[idx, cols],
                                       logT[idx], softplus)
@@ -117,9 +121,13 @@ def slim_march_plain(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
 
 def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
                log_eps: float, softplus: bool = False):
-    """Fine march: CPU tensors take the plain version, CUDA tensors K2
-    (one launch per sample block)."""
+    """Multi-block march: CPU tensors take the plain version, CUDA tensors
+    K2 (one launch per sample block). A net without a view branch takes
+    dirpart None."""
     oF, dF, oX, dX = hoists
+    if (dirpart is None) == net.has_vd:
+        raise ValueError("a net with a view branch takes a dirpart, and "
+                         "only it")
     if not K.on_cuda(dirpart, hit, block_hit, t, d, net.w, *hoists):
         return slim_march_plain(net, hoists, dirpart, hit, block_hit, t, d,
                                 log_eps, softplus)
@@ -130,14 +138,16 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     nx = len(net.x_kernels)
     if S != NB * SB:
         raise ValueError(f"S={S} is not NB={NB} blocks")
-    check_march_shape(R, SB, W, K.SLIM_WIDTH, net.tile_rows)
+    check_march_shape(R, SB, W, K.SLIM_WIDTH if net.has_vd or W not in
+                      K.SLIM_WIDTHS_NOVD else W, net.tile_rows)
     for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
                                                 (R, NB)),
                            ("oX", oX, (R, nx * W)), ("dX", dX, (R, nx * W)),
                            ("oF", oF, (R, nph)), ("dF", dF, (R, nph)),
                            ("t", t, (R, S)), ("d", d, (R, S))):
         K.check(x, name, torch.float32, shape)
-    K.check(dirpart, "dirpart", _BF, (R, W // 2))
+    if net.has_vd:
+        K.check(dirpart, "dirpart", _BF, (R, W // 2))
     wp = march_buffer(net)
     rgb = torch.empty((R, 3), dtype=torch.float32, device=t.device)
     w = torch.empty_like(t)
@@ -147,13 +157,14 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
         return rgb, w, carry[0]
     lib = K.library()
     for b in range(NB):
-        ptrs = [x.data_ptr() for x in (
+        ptrs = [None if x is None else x.data_ptr() for x in (
             hit, block_hit, oX, dX, oF, dF, dirpart, t, d, net.w, wp, net.b,
             rgb, w, carry[b % 2], carry[(b + 1) % 2])]
         code = lib.fnt_slim_march(
             *ptrs, R, NB, SB, b, net.L, net.depth, net.width, net.k0,
-            net.skip, int(softplus), net.tile_rows, float(log_eps),
-            K.stream())
+            net.skip, int(net.has_vd), int(softplus), net.tile_rows,
+            float(log_eps), K.stream())
         K.raise_on_error(code, "fnt_slim_march")
-        K.LAUNCHES["slim_march_cond" if net.n_cond else "slim_march"] += 1
+        K.LAUNCHES["slim_march_cond" if net.n_cond else
+                   "slim_march" if net.has_vd else "slim_march_novd"] += 1
     return rgb, w, carry[NB % 2]

@@ -1,8 +1,8 @@
 """8-bit PNG files with the standard library alone.
 
 The render and preprocess subcommands write their images with `write_png`
-(8-bit RGB, or greyscale from a 2-D array), so that they need no image
-package. `read_png` reads palette-free 8-bit PNGs without interlace:
+(8-bit RGB or RGBA, or greyscale from a 2-D array), so that they need no
+image package. `read_png` reads palette-free 8-bit PNGs without interlace:
 greyscale, greyscale + alpha, RGB and RGBA, with any of the five row
 filters, which is what `write_png` and the common image libraries write.
 """
@@ -24,22 +24,23 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, image) -> None:
-    """Write an (H, W, 3) uint8 array as an RGB PNG, or an (H, W) one as a
-    greyscale PNG."""
+    """Write an (H, W, 3) or (H, W, 4) uint8 array as an RGB or RGBA PNG,
+    or an (H, W) one as a greyscale PNG."""
     img = np.ascontiguousarray(image)
     grey = img.ndim == 2
     if img.dtype != np.uint8 or not (grey or (img.ndim == 3
-                                             and img.shape[2] == 3)):
-        raise ValueError(f"write_png takes (H, W, 3) or (H, W) uint8, got "
-                         f"{img.shape} {img.dtype}")
+                                             and img.shape[2] in (3, 4))):
+        raise ValueError(f"write_png takes (H, W, 3), (H, W, 4) or (H, W) "
+                         f"uint8, got {img.shape} {img.dtype}")
     h, w = img.shape[:2]
-    c = 1 if grey else 3
+    c = 1 if grey else img.shape[2]
     rows = np.concatenate([np.zeros((h, 1), np.uint8),      # filter 0
                            img.reshape(h, w * c)], axis=1)
     with open(path, "wb") as f:
         f.write(_SIGNATURE
                 + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                              0 if grey else 2, 0, 0, 0))
+                                              {1: 0, 3: 2, 4: 6}[c], 0, 0,
+                                              0))
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
                 + _chunk(b"IEND", b""))
 

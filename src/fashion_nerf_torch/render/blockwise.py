@@ -5,15 +5,27 @@ Per chunk of rays: macro-box culling ranges (`ray_multi_aabb`), a σ-only
 proposal march over one block of stratified samples (kernel K1), an
 edge-bin PDF dilated and mixed with a uniform floor, deterministic fine
 samples (`sample_pdf`), proposal-acc ray culling, and the fine march over
-NB blocks with early termination and per-block macro-box culling (kernel
-K2, or the generic carry march K6 under `kernels.carry_hoist=false`).
+NB blocks with early termination and per-block macro-box culling. The
+marches take one of three pipelines, as the reference's do:
+- `kernels.fused_carry=true` (the flagship's): the carry march K2, or the
+  generic carry march K6 under `kernels.carry_hoist=false`;
+- `kernels.fused_carry=false` (the default, `llff_fern`'s): the two-stage
+  march `marched_pass`, one launch of the field kernel K3 a sample block
+  with a per-tile skip flag built from the carried log-transmittance, and
+  the compositing in plain torch between the launches.
 Without a proposal net the coarse pass is the full coarse march of the
-coarse net through the same fine-march kernel, and the fine samples come
-from its mid-bin PDF joined with the coarse samples. Predication is per
-tile of TILE_ROWS // SB rays, as in the reference (half that for the
-marches of a conditioned field); `render_image_blockwise` orders rays in
-8×8 pixel blocks so a tile is a pixel block, and skips chunks whose rays
-all miss the occupancy box. A conditioned field takes a per-scene cond
+coarse net through the same pipeline, and the fine samples come from its
+mid-bin PDF joined with the coarse samples. The σ-only proposal march
+takes K1 when `proposal.sigma_march` is set, the pipeline is the carry
+march and its samples fit one block; otherwise it is the generic proposal
+march: the proposal net, which has no view branch, through the same
+pipeline as the fine march (K2 or K6, or K3 in the two-stage march).
+Predication is per tile of TILE_ROWS // SB rays, as in the reference
+(half that for the marches of a conditioned field); `render_image_blockwise`
+maps the rays to NDC under `render.ndc` (the view directions stay the
+world ones), orders rays in 8×8 pixel blocks so a tile is a pixel block
+(scanline order when H or W is not a multiple of 8), and skips chunks
+whose rays all miss the occupancy box. A conditioned field takes a per-scene cond
 vector (garment code ⊕ latent); its per-ray condpart is hoisted once per
 march (`posenc_mlp.hoist_cond`) and enters K2 folded into its
 x-intercepts, K6 through its cond window. The proposal stays
@@ -35,13 +47,15 @@ import torch.nn.functional as F
 
 from fashion_nerf_torch.config import Config
 from fashion_nerf_torch import kernels as K
-from fashion_nerf_torch.core.cameras import generate_rays
+from fashion_nerf_torch.core.cameras import generate_rays, ndc_rays
 from fashion_nerf_torch.core.occupancy import (OccupancyState,
                                                ray_aabb_intersect,
                                                ray_multi_aabb)
 from fashion_nerf_torch.core.sampling import sample_pdf, stratified_sample
 from fashion_nerf_torch.kernels import carrymarch, sigmamarch, slimmarch
-from fashion_nerf_torch.kernels.posenc_mlp import (hoist_cond, hoist_dirs,
+from fashion_nerf_torch.kernels.posenc_mlp import (field_rows,
+                                                   field_rows_plain,
+                                                   hoist_cond, hoist_dirs,
                                                    pack_params)
 
 _INF_DIST = 1e10
@@ -112,10 +126,11 @@ def sigma_march_pass(net, hoists, t_vals, dnorm, alive0, cfg: Config, t_end,
             "disp": _disp(depth, acc)}
 
 
-def _march_inputs(cfg: Config, t_vals, dnorm, t_end, seg):
-    """→ (t_pad, d_pad, block_hit, log ε) of a multi-block march."""
+def _march_inputs(cfg: Config, t_vals, dnorm, t_end, seg, sb=None):
+    """→ (t_pad, d_pad, block_hit, log ε) of a multi-block march of sb
+    samples a block (default kernels.block_samples)."""
     R = t_vals.shape[0]
-    SB = cfg.kernels.block_samples
+    SB = sb or cfg.kernels.block_samples
     eps = cfg.kernels.early_term_eps
     t_pad, d_pad = _pass_dists(t_vals, dnorm, t_end, SB)
     NB = t_pad.shape[1] // SB
@@ -156,28 +171,31 @@ def _march_out(cfg: Config, rgb, depth, acc, w, S):
 
 
 def marched_pass_slim(net, dirpart, hoists, t_vals, dnorm, alive0,
-                      cfg: Config, t_end, seg=None, plain: bool = False):
-    """Fine march over NB blocks of SB samples through K2 → dict rgb,
-    depth, acc, weights (R, S), disp."""
+                      cfg: Config, t_end, seg=None, plain: bool = False,
+                      sb=None):
+    """March over NB blocks of SB samples through K2 → dict rgb, depth,
+    acc, weights (R, S), disp. A net without a view branch (the proposal
+    net) takes no dirpart."""
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg)
+                                                     t_end, seg, sb)
     hit = alive0.float().contiguous()
     fn = slimmarch.slim_march_plain if plain else slimmarch.slim_march
-    rgb, w, _ = fn(net, hoists, dirpart, hit, block_hit, t_pad, d_pad,
-                   log_eps, cfg.model.sigma_activation == "softplus")
+    rgb, w, _ = fn(net, hoists, dirpart if net.has_vd else None, hit,
+                   block_hit, t_pad, d_pad, log_eps,
+                   cfg.model.sigma_activation == "softplus")
     return _march_out(cfg, rgb, (w * t_pad).sum(dim=1), w.sum(dim=1), w,
                       t_vals.shape[1])
 
 
 def marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm, alive0,
                        cfg: Config, t_end, seg=None, plain: bool = False,
-                       condpart=None):
+                       condpart=None, sb=None):
     """The same march through the generic carry kernel K6 (the reference's
     `_marched_pass_carry`, `kernels.carry_hoist=false`): positions built
     per sample, depth and acc composited per block, a conditioned net's
     condpart through K6's cond window → the same dict."""
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg)
+                                                     t_end, seg, sb)
     hit = alive0.float().contiguous()
     fn = carrymarch.carry_march_plain if plain else carrymarch.carry_march
     rgb, depth, acc, w, _ = fn(net, dirpart, rays_o.contiguous(),
@@ -188,21 +206,77 @@ def marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm, alive0,
     return _march_out(cfg, rgb, depth, acc, w, t_vals.shape[1])
 
 
+def marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals, dnorm,
+                 alive0, cfg: Config, t_end, seg=None, plain: bool = False,
+                 sb=None):
+    """The two-stage march (the reference's `_marched_pass`,
+    `kernels.fused_carry=false`): per block of SB samples, the rays still
+    worth marching (alive0 ∧ logT > log ε ∧ the block overlaps an occupied
+    macro box), one flag per predication tile (net.tile_rows // SB rays)
+    as the max over its rays, the field on the block's positions
+    o + d·t through K3 with those flags (a dead tile does no matrix work
+    and gives σ = DEAD_SIGMA, so zero weight), then the compositing in
+    plain torch: log(1 − α) floored at log(1e-10), the exclusive prefix,
+    the weights and the rgb, depth and acc sums, and the carry. The flags
+    stay on the device. → the march dict, with alive_frac: the share of
+    (tile, block) launches that ran, read from the flags."""
+    R, S = t_vals.shape
+    SB = sb or cfg.kernels.block_samples
+    t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
+                                                     t_end, seg, SB)
+    NB = t_pad.shape[1] // SB
+    rpt = net.tile_rows // SB
+    if R % rpt:
+        raise ValueError(f"R={R} is not a multiple of {rpt}")
+    softplus = cfg.model.sigma_activation == "softplus"
+    field = field_rows_plain if plain else field_rows
+    dev = t_vals.device
+    rgb = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    depth = torch.zeros((R,), dtype=torch.float32, device=dev)
+    acc = torch.zeros((R,), dtype=torch.float32, device=dev)
+    log_T = torch.zeros((R,), dtype=torch.float32, device=dev)
+    ws, fracs = [], []
+    for b in range(NB):
+        alive_ray = alive0 & (log_T > log_eps) & (block_hit[:, b] > 0)
+        alive = alive_ray.view(-1, rpt).any(dim=1).float()
+        t_b = t_pad[:, b * SB:(b + 1) * SB]
+        d_b = d_pad[:, b * SB:(b + 1) * SB]
+        pts = (rays_o[:, None, :] + rays_d[:, None, :] * t_b[..., None]
+               ).reshape(-1, 3)
+        rgb_b, sigma_b = field(net, pts, dirpart, SB, condpart, alive=alive)
+        w_b, log_T = slimmarch.block_weights(sigma_b.view(R, SB), d_b, log_T,
+                                             softplus)
+        rgb = rgb + (w_b[..., None] * rgb_b.view(R, SB, 3)).sum(dim=1)
+        depth = depth + (w_b * t_b).sum(dim=1)
+        acc = acc + w_b.sum(dim=1)
+        ws.append(w_b)
+        fracs.append(alive.mean())
+    out = _march_out(cfg, rgb, depth, acc, torch.cat(ws, dim=1), S)
+    out["alive_frac"] = torch.stack(fracs).mean()
+    return out
+
+
 def _march(cfg: Config, net, rays_o, rays_d, viewdirs, t_vals, dnorm,
-           alive0, t_end, seg, plain: bool, cond=None):
-    """A full-field march through K2 or K6, as `kernels.carry_hoist`
-    picks; cond (R, Cc) per ray for a conditioned net."""
+           alive0, t_end, seg, plain: bool, cond=None, sb=None):
+    """A full-field march through the pipeline the config picks: the
+    two-stage march (K3) under `kernels.fused_carry=false`, else K2 or K6
+    as `kernels.carry_hoist` picks; cond (R, Cc) per ray for a conditioned
+    net; sb: samples a block (the proposal's block_samples)."""
     dirpart = hoist_dirs(net, viewdirs)
     condpart = hoist_cond(net, cond)
+    if not cfg.kernels.fused_carry:
+        return marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals,
+                            dnorm, alive0, cfg, t_end, seg=seg, plain=plain,
+                            sb=sb)
     if cfg.kernels.carry_hoist:
         return marched_pass_slim(net, dirpart,
                                  slimmarch.hoist_rays(net, rays_o, rays_d,
                                                       condpart),
                                  t_vals, dnorm, alive0, cfg, t_end, seg=seg,
-                                 plain=plain)
+                                 plain=plain, sb=sb)
     return marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm,
                               alive0, cfg, t_end, seg=seg, plain=plain,
-                              condpart=condpart)
+                              condpart=condpart, sb=sb)
 
 
 def use_proposal(cfg: Config, params: dict) -> bool:
@@ -212,19 +286,23 @@ def use_proposal(cfg: Config, params: dict) -> bool:
             and "proposal" in params)
 
 
+def use_sigma_march(cfg: Config, occ=None) -> bool:
+    """Whether the proposal pass is the σ-only single-block march (K1):
+    `proposal.sigma_march`, the carry pipeline, and proposal samples (the
+    budget `_budgets` gives with or without occupancy) that fit one block.
+    Otherwise it is the generic proposal march."""
+    n_prop, p_sb, _ = _budgets(cfg, occ)
+    return (cfg.proposal.sigma_march and cfg.kernels.fused_carry
+            and n_prop <= p_sb)
+
+
 def _check_supported(cfg: Config, params: dict):
     """Raise NotImplementedError on config branches not ported."""
-    p, k = cfg.proposal, cfg.kernels
+    p = cfg.proposal
     prop = use_proposal(cfg, params)
     off = []
-    if prop and not p.sigma_march:
-        off.append("proposal.sigma_march=false")
-    if not k.fused_carry:
-        off.append("kernels.fused_carry=false")
     if cfg.occupancy.sample_warp:
         off.append("occupancy.sample_warp")
-    if cfg.render.ndc:
-        off.append("render.ndc")
     if prop and (p.union or p.cov_n > 0):
         off.append("proposal.union / cov_n")
     if off:
@@ -245,12 +323,7 @@ def _budgets(cfg: Config, occ, prop: bool = True):
     if not prop:
         return n_coarse, cfg.kernels.block_samples, n_fine
     p_sb = cfg.proposal.block_samples or cfg.kernels.block_samples
-    n_prop = cfg.proposal.eval_n or n_coarse
-    if n_prop > p_sb:
-        raise NotImplementedError(
-            f"proposal eval_n {n_prop} > its block {p_sb}: the multi-block "
-            f"proposal march is not ported ({_BRANCHES})")
-    return n_prop, p_sb, n_fine
+    return cfg.proposal.eval_n or n_coarse, p_sb, n_fine
 
 
 def rays_per_chunk_unit(cfg: Config) -> int:
@@ -263,20 +336,24 @@ def rays_per_chunk_unit(cfg: Config) -> int:
 
 
 def _pack_march(model, cfg: Config):
-    """A full field packed for K2 (x-layers hoisted) or for K6."""
-    if cfg.kernels.carry_hoist:
+    """A field packed for K2 (x-layers hoisted), or for K6 and the
+    two-stage march's K3 (x rows in the posenc operand)."""
+    if cfg.kernels.fused_carry and cfg.kernels.carry_hoist:
         return slimmarch.split_hoist(model)
     return pack_params(model, hoist_x=False)
 
 
-def pack_render_params(params: dict, cfg: Config) -> dict:
+def pack_render_params(params: dict, cfg: Config, occ=None) -> dict:
     """Pack the nets the render marches, once per image: the fine net, and
-    the proposal net or, without one, the coarse net."""
+    the proposal net (for K1, or for the generic proposal march's
+    pipeline) or, without one, the coarse net."""
     packed = {}
     if cfg.sampling.n_fine > 0:
         packed["fine"] = _pack_march(params["fine"], cfg)
     if use_proposal(cfg, params):
-        packed["proposal"] = sigmamarch.pack_sigma(params["proposal"])
+        packed["proposal"] = (sigmamarch.pack_sigma(params["proposal"])
+                              if use_sigma_march(cfg, occ) else
+                              _pack_march(params["proposal"], cfg))
     else:
         packed["coarse"] = _pack_march(params["coarse"], cfg)
     return packed
@@ -332,9 +409,9 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
     a proposal, {"fine", "coarse"} NeRFMLPs; packed: its
     `pack_render_params` (packed here when None); cond (R, Cc): the
     per-ray cond input of conditioned nets. The coarse pass is the σ-only
-    proposal march (K1) or the full coarse march; the fine march and the
-    full coarse march run through K2 or, under `kernels.carry_hoist=false`,
-    K6."""
+    proposal march (K1), the generic proposal march, or the full coarse
+    march; every march but K1's runs through the pipeline `_march`
+    picks."""
     _check_supported(cfg, params)
     prop = use_proposal(cfg, params)
     n_c, sb_c, n_fine = _budgets(cfg, occ, prop)
@@ -342,7 +419,7 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
     unit = rays_per_chunk_unit(cfg)
     if R % unit:
         raise ValueError(f"R={R} is not a multiple of {unit}")
-    packed = packed or pack_render_params(params, cfg)
+    packed = packed or pack_render_params(params, cfg, occ)
     near, far, alive0, seg, t_end = culling(cfg, rays_o, rays_d, occ)
     dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     t_c = stratified_sample(near, far, R, n_c, cfg.sampling.lindisp,
@@ -351,10 +428,14 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
     alive_f = alive0
     if prop:
         pnet = packed["proposal"]
-        out_c = sigma_march_pass(pnet, sigmamarch.hoist_rays(pnet, rays_o,
-                                                             rays_d),
-                                 t_c, dnorm, alive0, cfg, t_end, seg=seg,
-                                 sb=sb_c, plain=plain)
+        if use_sigma_march(cfg, occ):
+            out_c = sigma_march_pass(
+                pnet, sigmamarch.hoist_rays(pnet, rays_o, rays_d), t_c,
+                dnorm, alive0, cfg, t_end, seg=seg, sb=sb_c, plain=plain)
+        else:
+            # the σ-only net has no view branch: its dirpart is zeros
+            out_c = _march(cfg, pnet, rays_o, rays_d, viewdirs, t_c, dnorm,
+                           alive0, t_end, seg, plain, sb=sb_c)
         if cfg.proposal.cull_acc > 0.0:
             alive_f = alive0 & (out_c["acc"] > cfg.proposal.cull_acc)
     else:
@@ -385,13 +466,16 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
     """Whole-image blockwise render → dict of (H, W[, 3]) rgb, depth, acc,
     disp, plus chunk_live (H, W) bool: whether the pixel's chunk was
     marched (False: the whole chunk missed the box and is background).
-    cond: the per-scene (Cc,) cond vector of a conditioned field."""
-    if cfg.render.ndc:
-        raise NotImplementedError(f"render.ndc ({_BRANCHES})")
+    cond: the per-scene (Cc,) cond vector of a conditioned field. Under
+    `render.ndc` the rays are mapped to NDC and the field's view
+    directions stay the world directions."""
     if device is None:
         device = next(next(iter(params.values())).parameters()).device
     rays_o, rays_d = generate_rays(H, W, focal, c2w, device=device)
     rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+    viewdirs = rays_d
+    if cfg.render.ndc:
+        rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
     n = rays_o.shape[0]
     tiled = H % 8 == 0 and W % 8 == 0
     inv = None
@@ -399,7 +483,7 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
         order, inv = _tile_order(H, W)
         order_t = torch.from_numpy(order).to(device)
         rays_o, rays_d = rays_o[order_t], rays_d[order_t]
-    viewdirs = rays_d
+        viewdirs = viewdirs[order_t]
 
     unit = rays_per_chunk_unit(cfg)
     chunk = max(unit, (min(cfg.render.chunk, n) // unit) * unit)
@@ -415,7 +499,7 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
         rays_d = torch.cat([rays_d, fill_d])
         viewdirs = torch.cat([viewdirs, fill_d])
 
-    packed = pack_render_params(params, cfg)
+    packed = pack_render_params(params, cfg, occ)
     bg = 1.0 if cfg.render.white_bkgd else 0.0
     outs = []
     for c in range(n_chunks):

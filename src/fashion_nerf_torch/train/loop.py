@@ -17,8 +17,7 @@ so the encoder and the latent table are part of the step's graph; K4 (or
 its plain version) returns the condpart's cotangent. The occupancy refresh
 and the evaluation take the per-scene cond vector (`_eval_cond`). Not
 ported here, each raising NotImplementedError: the device mesh and
-data-parallel step and `data.stream` prefetch (ROADMAP Queue 1 #14), and
-the real blender/llff loaders (#12).
+data-parallel step and `data.stream` prefetch (ROADMAP Queue 1 #14).
 """
 
 from __future__ import annotations
@@ -354,7 +353,8 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
 def load_dataset(cfg: Config, device=None) -> dict:
     """The dataset of cfg.data: the hermetic procedural scenes when no
     data.root is given (the blender one at the framing the committed
-    flagship weights were trained on), the tiny npz layout otherwise; for
+    flagship weights were trained on), else the scene under data.root
+    (the tiny npz layout, a NeRF-synthetic scene, an LLFF scene); for
     viton, the scene with its garment conditioning stack built on
     `device`."""
     from fashion_nerf_torch.data import synthetic
@@ -372,7 +372,12 @@ def load_dataset(cfg: Config, device=None) -> dict:
         return scene
     if d.dataset == "llff" and not d.root:
         return synthetic.make_forward_scene(n_views=12, H=96, W=128)
-    if d.dataset in ("blender", "llff"):
-        raise NotImplementedError(
-            f"the {d.dataset} loader is not ported (ROADMAP Queue 1 #12)")
+    if d.dataset == "blender":
+        from fashion_nerf_torch.data.blender import load_blender
+        return load_blender(d.root, half_res=d.half_res,
+                            white_bkgd=cfg.render.white_bkgd)
+    if d.dataset == "llff":
+        from fashion_nerf_torch.data.llff import load_llff
+        return load_llff(d.root, factor=d.llff_factor,
+                         spherify=d.llff_spherify)
     raise ValueError(f"unknown dataset {d.dataset!r}")

@@ -1,0 +1,53 @@
+"""The bench's choice of what it renders (`bench.bench_setup`, the
+reference's `_bench_params` and `run_bench` setup), on the CPU: the
+committed weights only for the config they were trained for, with
+occupancy and the committed proposal; random init, no occupancy and no
+proposal otherwise (llff_fern, whose tree matches but which lives in NDC
+space; the presets whose trees differ). The trained flag agrees with the
+reference's for every preset."""
+
+import pytest
+import torch
+
+from fashion_nerf.bench import _bench_params as j_bench_params
+from fashion_nerf.config import load_config as j_load_config
+from fashion_nerf_torch import bench
+from fashion_nerf_torch.assets import load_flagship
+from fashion_nerf_torch.config import PRESETS, load_config
+
+torch.set_num_threads(2)
+
+
+def test_llff_fern_takes_random_init_without_occupancy():
+    s = bench.bench_setup(load_config("llff_fern"), "cpu")
+    assert s["trained"] is False and s["occ"] is None
+    assert sorted(s["params"]) == ["coarse", "fine"]     # no proposal
+    assert s["blockwise"] is True and s["cond"] is None
+    again = bench.bench_params(load_config("llff_fern"), "cpu")[0]
+    for k in ("coarse", "fine"):                         # seeded
+        for a, b in zip(s["params"][k].parameters(),
+                        again[k].parameters()):
+            assert torch.equal(a, b)
+    trained = load_flagship()[0]
+    w = s["params"]["fine"].to_flax_params()["params"]["trunk_0"]["kernel"]
+    assert w.shape == trained["fine"]["params"]["trunk_0"]["kernel"].shape
+    assert (w != trained["fine"]["params"]["trunk_0"]["kernel"]).any()
+
+
+def test_blender_lego_keeps_its_choice():
+    """The committed weights, the occupancy sweep and the committed
+    proposal (a 16³ sweep here, to keep the CPU run short)."""
+    if load_flagship() is None:
+        pytest.skip("trained flagship asset missing")
+    s = bench.bench_setup(load_config("blender_lego",
+                                      ["occupancy.resolution=16"]), "cpu")
+    assert s["trained"] is True and s["occ"] is not None
+    assert sorted(s["params"]) == ["coarse", "fine", "proposal"]
+    assert bool(s["occ"].boxes_occ.any())
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_trained_flag_matches_reference(name):
+    want = j_bench_params(j_load_config(name))[1]
+    got = bench.bench_params(load_config(name), "cpu")[1]
+    assert got is want

@@ -129,19 +129,40 @@ def test_tile_order_matches_reference():
             np.testing.assert_array_equal(a, b)
 
 
+def _axis_rays(n=64):
+    ro = torch.zeros((n, 3))
+    ro[:, 2] = 4.0
+    rd = torch.zeros((n, 3))
+    rd[:, 2] = -1.0
+    return ro, rd
+
+
 @pytest.mark.parametrize("ovr", [
-    "proposal.sigma_march=false", "kernels.fused_carry=false",
-    "proposal.eval_n=96", "occupancy.sample_warp=true",
-    "render.ndc=true", "proposal.union=true", "proposal.cov_n=16"])
+    "occupancy.sample_warp=true", "proposal.union=true", "proposal.cov_n=16"])
 def test_off_path_branches_raise(scene, ovr):
     """Config branches not ported name their ROADMAP item."""
     _, _, params_t, _ = scene
     cfg = _cfg(ovr)
-    ro = torch.zeros((64, 3))
-    rd = torch.zeros((64, 3))
-    rd[:, 2] = -1.0
+    ro, rd = _axis_rays()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #15"):
         tbw.render_rays_blockwise(params_t, cfg, ro, rd, rd)
+
+
+@pytest.mark.parametrize("ovr", [
+    "proposal.sigma_march=false", "kernels.fused_carry=false",
+    "proposal.eval_n=96", "render.ndc=true"])
+def test_ported_branches_run(scene, ovr):
+    """The branches ported since (the generic proposal march, the
+    two-stage march, NDC) render 64 rays down the axis through the object
+    with the trained nets: finite outputs, an opaque centre. Their parity
+    with the reference is in tests/test_torch_blockwise_twostage.py."""
+    _, _, params_t, occ_t = scene
+    ro, rd = _axis_rays()
+    with torch.no_grad():
+        out = tbw.render_rays_blockwise(params_t, _cfg(ovr), ro, rd, rd,
+                                        occ=occ_t)
+    assert torch.isfinite(out["fine"]["rgb"]).all()
+    assert float(out["fine"]["acc"].min()) > 0.9
 
 
 @pytest.mark.parametrize("t_end", [None, 6.0])

@@ -1035,3 +1035,107 @@ def test_carry_march_cond_padded_nets(dev, which, SB):
     ex = [march_liveness(o[3], hit, bhit, cfg, tile_rows=net.tile_rows)[
         "tile_alive"] for o in (out_k, out_p)]
     assert torch.equal(ex[0], ex[1]) and not bool(ex[0][1].any())
+
+
+ALIVE_NETS = {"fine": fine_net, "prop": prop_net, "cond": cond_net,
+              "w32": lambda rng: small_net(rng, 32, 3, 4, True)}
+
+
+@pytest.mark.parametrize("which,tiles,spr,case", [
+    ("fine", 4, 32, "live"), ("fine", 4, 32, "dead"),
+    ("fine", 4, 32, "alternate"), ("fine", 0, 32, "alternate"),
+    ("prop", 4, 64, "alternate"), ("cond", 4, 32, "alternate"),
+    ("cond", 4, 32, "live"), ("w32", 3, 32, "alternate")])
+def test_field_kernel_alive(dev, which, tiles, spr, case):
+    """K3 with the tile-skip flag (`alive`, one f32 per tile of
+    net.tile_rows rows: 2048, 1024 for the conditioned net; tiles 0 means
+    one tile of 1024 rows, shorter than a tile): live rows bitwise equal to
+    K3 without the flag, dead rows exactly rgb 0 and σ −1e10, all rows
+    against the plain version with the flag (rgb 5e-3, σ 2e-2·(1+|σ|));
+    all live is bitwise the run without the flag; counted under
+    "field_alive"."""
+    rng = np.random.default_rng(12)
+    model = ALIVE_NETS[which](rng).to(dev)
+    net = posenc_mlp.pack_params(model, hoist_x=False)
+    n = tiles * net.tile_rows if tiles else 1024
+    tile = min(net.tile_rows, n)
+    R = n // spr
+    pts = _f32(rng, n, 3, lo=-1.2, hi=1.2, dev=dev)
+    dp = posenc_mlp.hoist_dirs(net, _f32(rng, R, 3, dev=dev)).contiguous()
+    cp = None
+    if which == "cond":
+        cp = posenc_mlp.hoist_cond(net, torch.tensor(
+            rng.normal(size=(R, net.cond_kernel.shape[0])),
+            dtype=torch.float32, device=dev))
+    flags = {"live": [1.0] * (n // tile), "dead": [0.0] * (n // tile),
+             "alternate": [float(i % 2 == 0) for i in range(n // tile)]}
+    alive = torch.tensor(flags[case], device=dev)
+    n0 = dict(K.LAUNCHES)
+    rgb_f, sig_f = posenc_mlp.field_rows(net, pts, dp, spr, cp)
+    rgb_k, sig_k = posenc_mlp.field_rows(net, pts, dp, spr, cp, alive=alive)
+    rgb_p, sig_p = posenc_mlp.field_rows_plain(net, pts, dp, spr, cp,
+                                               alive=alive)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["field_alive"] == n0["field_alive"] + 1
+    live = (alive > 0).repeat_interleave(tile)
+    assert torch.equal(rgb_k[live], rgb_f[live])
+    assert torch.equal(sig_k[live], sig_f[live])
+    assert bool((rgb_k[~live] == 0).all())
+    assert bool((sig_k[~live] == posenc_mlp.DEAD_SIGMA).all())
+    _close(rgb_k, rgb_p, 5e-3)
+    assert bool(((sig_k - sig_p).abs() <= 2e-2 * (1 + sig_p.abs())).all())
+    with pytest.raises(ValueError):
+        posenc_mlp.field_rows(net, pts, dp, spr, cp, alive=alive[:-1]
+                              if alive.numel() > 1 else alive.repeat(2))
+
+
+@pytest.mark.parametrize("which,NB,SB,eps", [
+    ("prop", 1, 64, 0.0), ("prop", 1, 64, 1e-3), ("prop", 3, 32, 1e-3),
+    ("noview", 2, 32, 1e-3)])
+def test_slim_march_kernel_no_view_branch(dev, which, NB, SB, eps):
+    """K2 on a net without a view branch (the σ-only proposal net, 2×128
+    with no skip layer, and 4×256 with a skip layer) against its plain
+    version: rgb/w/transmittance atol 2e-3 and identical executed (tile,
+    block) pairs, with a dead tile, a culled ray in a live tile and a dead
+    (tile, block) pair; with one block of 64 against K1 on the same input
+    (w atol 2e-3, the reference's σ-march bound); counted under
+    "slim_march_novd"."""
+    rng = np.random.default_rng(13)
+    model = (prop_net if which == "prop" else noview_net)(rng).to(dev)
+    net = slimmarch.split_hoist(model)
+    assert not net.has_vd
+    R, S = 6 * (K.TILE_ROWS // SB), NB * SB
+    rpt = K.TILE_ROWS // SB
+    ro, rd = _rays(R, dev)
+    hz = slimmarch.hoist_rays(net, ro, rd)
+    t = torch.linspace(2.0, 6.0, S, device=dev).expand(R, S).contiguous()
+    d = torch.full((R, S), 0.2, device=dev)
+    hit = torch.ones(R, device=dev)
+    hit[:rpt] = 0.0                   # tile 0 dead
+    hit[rpt + 5] = 0.0                # culled ray in live tile 1
+    bhit = torch.ones((R, NB), device=dev)
+    bhit[2 * rpt:3 * rpt, -1] = 0.0   # tile 2's last block dead
+    log_eps = math.log(eps) if eps > 0 else -1e30
+    args = (net, hz, None, hit, bhit, t, d, log_eps)
+    n0 = dict(K.LAUNCHES)
+    out_k = slimmarch.slim_march(*args)
+    out_p = slimmarch.slim_march_plain(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["slim_march_novd"] == n0["slim_march_novd"] + NB
+    assert K.LAUNCHES["slim_march"] == n0["slim_march"]
+    _close(out_k[0], out_p[0], 2e-3)
+    _close(out_k[1], out_p[1], 2e-3)
+    _close(out_k[2].exp(), out_p[2].exp(), 2e-3)
+    assert torch.equal(_executed(out_k[1], hit, bhit, eps),
+                       _executed(out_p[1], hit, bhit, eps))
+    assert bool((out_k[1][:rpt] == 0).all())
+    assert float(out_k[1].sum()) > 0.0
+    if which == "prop" and NB == 1:
+        alive = (hit * bhit[:, 0]).contiguous()
+        w1, acc1, _ = sigmamarch.sigma_march(
+            sigmamarch.pack_sigma(model), sigmamarch.hoist_rays(
+                sigmamarch.pack_sigma(model), ro, rd), alive, t, d)
+        _close(out_k[1], w1, 2e-3)
+    with pytest.raises(ValueError):
+        slimmarch.slim_march(net, hz, posenc_mlp.hoist_dirs(net, rd), hit,
+                             bhit, t, d, log_eps)

@@ -103,6 +103,13 @@ def test_wrappers_take_plain_on_cpu():
     b = posenc_mlp.field_rows_plain(net, pts, dp, 64)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+    pts2 = torch.tensor(rng.uniform(-1, 1, (4096, 3)), dtype=torch.float32)
+    dp2 = posenc_mlp.hoist_dirs(net, _randn(rng, 64, 3))
+    alive = torch.tensor([1.0, 0.0])
+    for x, y in zip(posenc_mlp.field_rows(net, pts2, dp2, 64, alive=alive),
+                    posenc_mlp.field_rows_plain(net, pts2, dp2, 64,
+                                                alive=alive)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
 
     R, SB = 32, 64
     snet = sigmamarch.pack_sigma(prop)
@@ -123,6 +130,12 @@ def test_wrappers_take_plain_on_cpu():
     t = torch.linspace(0.1, 2.0, NB * SB).expand(R, NB * SB).contiguous()
     d = torch.full((R, NB * SB), 0.03)
     args = (fnet, hf, dpf, torch.ones(R), torch.ones(R, NB), t, d, -6.9)
+    for x, y in zip(slimmarch.slim_march(*args),
+                    slimmarch.slim_march_plain(*args)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    pnet = slimmarch.split_hoist(prop)
+    args = (pnet, slimmarch.hoist_rays(pnet, ro, rd), None, torch.ones(R),
+            torch.ones(R, NB), t, d, -6.9)
     for x, y in zip(slimmarch.slim_march(*args),
                     slimmarch.slim_march_plain(*args)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
@@ -175,7 +188,8 @@ def test_wrappers_take_plain_on_cpu():
                                "field_bwd", "volrend", "carry_march",
                                "probe_p1", "probe_p2", "field_cond",
                                "slim_march_cond", "carry_march_cond",
-                               "field_bwd_cond"}
+                               "field_bwd_cond", "field_alive",
+                               "slim_march_novd"}
     assert not any(K.LAUNCHES.values())
 
 
