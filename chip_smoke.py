@@ -8,7 +8,10 @@ net), the same frame through the generic carry march
 (`kernels.carry_hoist=false`), through the two-stage march
 (`kernels.fused_carry=false`) and through the generic proposal march
 (`proposal.sigma_march=false`), the 7-pose quality gate through both
-marches (`python -m fashion_nerf_torch.quality --gate`), the `blender_lego`
+marches (`python -m fashion_nerf_torch.quality --gate`), the same frame
+under the last blockwise branches (`proposal.cov_n`, `proposal.union`,
+`occupancy.sample_warp`) and with the spec sweep's wider proposals
+distilled on the card, the `blender_lego`
 trainer at full width (`train()`, from random init), the same trainer on a
 width-32 net, which the field kernels run zero-padded, the tensor-core
 probe (`python -m fashion_nerf_torch.probe [--shapes]`), the command line,
@@ -32,7 +35,14 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`), the command line,
    their executed tiles or (tile, block) pairs identical to the plain
    version's; K1 and K5, whose calls are short, with the kernel's own
    device time (torch.profiler, inputs warm and after an L2 flush) beside
-   the event time of a call of the wrapper;
+   the event time of a call of the wrapper; then the repaired shapes at
+   full width on random nets: an 8×256 L = 10 field with skips (2, 4)
+   (layers 3 and 5 take γ(x); its layout checked against the library's
+   fnt_layout) through K3 (also with a 64-wide cond, n_cond 3), K4
+   (786,432 rows; conditioned 393,216), K2 and K6 at the fine march's
+   chunk; K2 with a view branch on an 8×128 net; the σ march at the
+   sweep's 2×192 and 3×256 L = 8 proposals, which K2 without a view branch
+   serves zero-padded to 256 (counted under "sigma_march_k2");
 4. setup: flagship + proposal asset, occupancy sweep through K3;
 5. frame: the frame through the kernels (1 warm-up + 3 timed), then through
    the plain versions; PSNR between them and non-trivial-image checks;
@@ -45,6 +55,13 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`), the command line,
    branch in place of K1), against its plain frame and the K1 + K2 frame;
 7. gate: the 7-pose gate at 800×800 for the shipped preset and for
    `kernels.carry_hoist=false`, each pose's delta held to the reference's;
+   branches: the bench frame under `proposal.cov_n=16`,
+   `proposal.union=true`, `occupancy.sample_warp=true`, the 2×192 and
+   3×256 L = 8 proposals (distilled on the card, 1500 steps), and the warp
+   through K6 and the two-stage march: each 1 warm-up + 3 timed frames,
+   ≥ 40 dB against its plain frame (the last two also against the K1 + K2
+   warp frame), and its GT-minus-dense delta at the bench pose (the
+   gate's references) beside the shipped preset's;
 8. scene: the hermetic 16-view 160×160 training scene (numpy, host);
 9. step: one training step from the committed weights through the kernels
    and through the plain versions: loss and every gradient compared;
@@ -103,13 +120,15 @@ its conditioned plan (the recompute's cond window and the dcond output,
 d_condpart summed per ray) at the try-on step's fine shape, at the sparsity
 prior's one sample a ray, and on a zero-padded conditioned net.
 
-The launch counters are reset just before each path (phases 4, 6, 11, 12
-and 13, each subcommand of 14 and 15, each path of 16 and 17) and read
+The launch counters are reset just before each path (phases 4, 6, each
+frame set of 7's branches, 11, 12 and 13, each subcommand of 14 and 15,
+each path of 16 and 17) and read
 right after it, so they count that path only; a conditioned net's
 launches of K2, K3, K4 and K6 count under "slim_march_cond",
 "field_cond", "field_bwd_cond" and "carry_march_cond", K3's launches with
-the tile-skip flag under "field_alive" and K2's on a net without a view
-branch under "slim_march_novd".
+the tile-skip flag under "field_alive", K2's on a net without a view
+branch under "slim_march_novd", and K2's serving the σ march of a proposal
+K1 is not built for under "sigma_march_k2".
 Any failure raises (non-zero exit). Imports nothing of JAX. The last line
 is the device JSON object.
 """
@@ -212,6 +231,10 @@ SOURCES = {
                     "src/fashion_nerf/kernels/posenc_mlp_pallas.py:279"),
     "slim_march_novd": ("src/fashion_nerf_torch/kernels/csrc/slimmarch.cu",
                         "src/fashion_nerf/kernels/slimmarch_pallas.py:113"),
+    # K2 without a view branch serving the σ march of a proposal that K1
+    # (width 128) is not built for
+    "sigma_march_k2": ("src/fashion_nerf_torch/kernels/csrc/slimmarch.cu",
+                       "src/fashion_nerf/kernels/sigmamarch_pallas.py:91"),
     # the conditioned instantiations: K3's and K6's cond window, K2 at the
     # conditioned tile with the cond in its hoisted intercepts
     "field_cond": ("src/fashion_nerf_torch/kernels/csrc/field.cu",
@@ -550,6 +573,8 @@ def phase_kernels(cfg, device):
                                results, device))
     results["field_bwd"] = kernel_k4(net, rng, device)
     results["field_bwd_cond"] = kernel_k4_cond(trained, results, device)
+    results["sigma_march_k2"] = kernel_skips(
+        cfg, pts, dirs, (o, d, alive_f, bhit, tf_pad, df_pad), args1, device)
     results["volrend"] = kernel_k5(cfg, rng, device)
     results.update(kernel_probe(device))
     return results, occ_ref
@@ -1187,6 +1212,277 @@ def kernel_k4_cond(trained, results, device):
     return dict(max_abs_err=e_abs, ms=ms, plain_ms=pms, **b4)
 
 
+def skip_tree(rng, W=256, L=10, depth=8, skips=(2, 4), cc=0, vd=True):
+    """A random field tree (random_tree's draws) whose layers after
+    `skips` take γ(x) beside the activations, and trunk_0's and theirs cc
+    cond rows: the reference's NeRFMLP layout with several skip layers."""
+    cx = 3 * (2 * L + 1) + cc
+    shapes = {f"trunk_{i}": ((cx + W) if (i - 1) in skips else
+                             (cx if i == 0 else W), W) for i in range(depth)}
+    if vd:
+        shapes.update(sigma_head=(W, 1), feature=(W, W),
+                      view_0=(W + 27, W // 2), rgb_head=(W // 2, 3))
+    else:
+        shapes["out_head"] = (W, 4)
+    return random_tree({"params": {
+        k: {"kernel": np.empty(v), "bias": np.empty(v[1])}
+        for k, v in shapes.items()}}, rng)
+
+
+def check_layout(net):
+    """fnt::make_layout (the library's fnt_layout) equals the packed net's
+    `_layout` offset for offset."""
+    import ctypes
+    from fashion_nerf_torch import kernels as K
+    lay = net.lay
+    out = (ctypes.c_int * (3 * net.depth + 10))()
+    err = K.library().fnt_layout(net.depth, net.width, net.k0,
+                                 net.skip_mask, int(net.has_vd), out)
+    want = [(-1 if v is None else v) for v in
+            lay["w_h"] + lay["w_a0"] + lay["b"]]
+    want += [lay.get(k, -1) for k in ("w_sig", "w_feat", "w_view", "w_rgb",
+                                      "w_out", "b_sig", "b_feat", "b_view",
+                                      "b_rgb", "b_out")]
+    if err or list(out) != want:
+        raise AssertionError(f"fnt_layout {list(out)} (error {err}) is not "
+                             f"_layout {want}")
+
+
+def kernel_k3_rows(net, pts, dirs, spr, cp, label):
+    """K3 against its plain version on a random net: rgb ≤ K3_RGB_ATOL on
+    every row, σ ≤ K3_SIGMA_REL; time, plain time and bound."""
+    from fashion_nerf_torch.kernels import posenc_mlp
+    dp = posenc_mlp.hoist_dirs(net, dirs).contiguous()
+    (rgb_k, sig_k), (rgb_p, sig_p) = (
+        posenc_mlp.field_rows(net, pts, dp, spr, cp),
+        posenc_mlp.field_rows_plain(net, pts, dp, spr, cp))
+    torch.cuda.synchronize()
+    e_rgb = maxerr(rgb_k, rgb_p)
+    e_sig = float(((sig_k - sig_p).abs() / (1 + sig_p.abs())).max())
+    ms = cuda_ms(lambda: posenc_mlp.field_rows(net, pts, dp, spr, cp))
+    pms = cuda_ms(lambda: posenc_mlp.field_rows_plain(net, pts, dp, spr, cp))
+    b = bound(2 * pts.shape[0] * mlp_macs(net),
+              nbytes(pts, dp, *(() if cp is None else (cp,)), net.w, net.b,
+                     rgb_k, sig_k))
+    say("kernels", f"K3 field, {label}, {pts.shape[0]} rows: rgb err "
+        f"{e_rgb:.3g} (tol {K3_RGB_ATOL} on every row), σ rel err "
+        f"{e_sig:.3g} (tol {K3_SIGMA_REL}); kernel {ms:.3f} ms, plain "
+        f"{pms:.3f} ms; {bound_line(b, ms)}")
+    if not (e_rgb <= K3_RGB_ATOL and e_sig <= K3_SIGMA_REL
+            and bool(torch.isfinite(rgb_k).all())):
+        raise AssertionError(f"K3 ({label}) disagrees with its plain version")
+    return dict(max_abs_err=e_rgb, ms=ms, plain_ms=pms, **b)
+
+
+def kernel_k4_rows(net, R, S, rng, device, label, cc=0):
+    """K4 against its plain version at R rays × S samples, cotangents of a
+    loss's scale (and a cond per ray with cc > 0): every output within
+    K4_REL_RMS relative RMS, bitwise the same over two runs; time, plain
+    time and bound."""
+    from fashion_nerf_torch.kernels import posenc_mlp
+    n = R * S
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+    pts = t(rng.uniform(-1.2, 1.2, (n, 3)))
+    dp = posenc_mlp.hoist_dirs(net, t(rng.normal(size=(R, 3)))).contiguous()
+    cp = (posenc_mlp.hoist_cond(net, t(rng.normal(size=(R, cc))))
+          if cc else None)
+    args = (net, pts, dp, t(1e-4 * rng.normal(size=(n, 3))),
+            t(1e-4 * rng.normal(size=n)), S, cp)
+    out_k = posenc_mlp.field_rows_backward(*args)
+    out_k2 = posenc_mlp.field_rows_backward(*args)
+    out_p = posenc_mlp.field_rows_backward_plain(*args)
+    torch.cuda.synchronize()
+    names = ("d_pts", "d_dir", "d_w", "d_b", "d_cond")
+    rel = {k: rel_rms(a, b) for k, a, b in zip(names, out_k, out_p)}
+    same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+    e_abs = max(maxerr(a, b) for a, b in zip(out_k, out_p))
+    finite = all(bool(torch.isfinite(a).all()) for a in out_k)
+    b4 = bound(3 * 2 * n * mlp_macs(net),
+               nbytes(*args[1:5], *(() if cp is None else (cp,)), net.w,
+                      net.b, *out_k))
+    del out_k, out_k2, out_p
+    ms = cuda_ms(lambda: posenc_mlp.field_rows_backward(*args))
+    pms = cuda_ms(lambda: posenc_mlp.field_rows_backward_plain(*args))
+    torch.cuda.empty_cache()
+    say("kernels", f"K4 field backward, {label}, {n} rows ({R} rays × {S})"
+        f": relative RMS against plain "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})} (tol"
+        f" {K4_REL_RMS} each); bitwise equal over two runs: {same}; kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms; {bound_line(b4, ms)}")
+    if not (max(rel.values()) <= K4_REL_RMS and same and finite
+            and len(rel) == (5 if cc else 4)):
+        raise AssertionError(f"K4 ({label}) disagrees with its plain version "
+                             "or is not deterministic")
+    return dict(max_abs_err=e_abs, ms=ms, plain_ms=pms, **b4)
+
+
+def kernel_march_rows(cfg, model, chunk, label, k6=True):
+    """K2 (and K6) on `model` at the fine march's chunk (K2's check, 8192
+    rays × 3×32): each against its plain version (K2_ATOL; K6 also
+    against K2) with identical executed (tile, block) pairs; times, plain
+    times and bounds."""
+    from fashion_nerf_torch.kernels import carrymarch, posenc_mlp, slimmarch
+    from fashion_nerf_torch.render.blockwise import march_liveness
+    o, d, alive_f, bhit, tf_pad, df_pad = chunk
+    R, S = tf_pad.shape
+    NB = bhit.shape[1]
+    hit = alive_f.float().contiguous()
+    log_eps = math.log(cfg.kernels.early_term_eps)
+    snet = slimmarch.split_hoist(model)
+    hf = slimmarch.hoist_rays(snet, o, d)
+    dp = posenc_mlp.hoist_dirs(snet, d).contiguous()
+    args2 = (snet, hf, dp, hit, bhit, tf_pad.contiguous(),
+             df_pad.contiguous(), log_eps)
+    s_k, s_p = slimmarch.slim_march(*args2), slimmarch.slim_march_plain(*args2)
+    torch.cuda.synchronize()
+    ex = [march_liveness(w, hit, bhit, cfg)["tile_alive"]
+          for w in (s_k[1], s_p[1])]
+    n_ex = int(ex[1].sum())
+    e2 = max(maxerr(s_k[0], s_p[0]), maxerr(s_k[1], s_p[1]))
+    ms2 = cuda_ms(lambda: slimmarch.slim_march(*args2))
+    pms2 = cuda_ms(lambda: slimmarch.slim_march_plain(*args2))
+    b2 = bound(2 * n_ex * 2048 * mlp_macs(snet),
+               nbytes(hit, bhit, *hf, dp, tf_pad, df_pad, snet.w, snet.b,
+                      *s_k))
+    same = bool(torch.equal(ex[0], ex[1]))
+    out = {"K2": dict(max_abs_err=e2, ms=ms2, plain_ms=pms2, **b2)}
+    line = (f"K2 {ms2:.3f} ms, plain {pms2:.3f} ms, {bound_line(b2, ms2)}")
+    ok = (e2 <= K2_ATOL and same and 0 < n_ex < ex[0].numel()
+          and bool(torch.isfinite(s_k[0]).all()))
+    if k6:
+        cnet = posenc_mlp.pack_params(model, hoist_x=False)
+        args6 = (cnet, dp, o, d, hit, bhit, tf_pad.contiguous(),
+                 df_pad.contiguous(), log_eps)
+        c_k = carrymarch.carry_march(*args6)
+        c_p = carrymarch.carry_march_plain(*args6)
+        torch.cuda.synchronize()
+        ex6 = march_liveness(c_k[3], hit, bhit, cfg)["tile_alive"]
+        e6 = max(maxerr(c_k[0], c_p[0]), maxerr(c_k[2], c_p[2]),
+                 maxerr(c_k[3], c_p[3]))
+        e62 = max(maxerr(c_k[0], s_k[0]), maxerr(c_k[3], s_k[1]))
+        ms6 = cuda_ms(lambda: carrymarch.carry_march(*args6))
+        pms6 = cuda_ms(lambda: carrymarch.carry_march_plain(*args6))
+        b6 = bound(2 * n_ex * 2048 * mlp_macs(cnet),
+                   nbytes(dp, o, d, hit, bhit, tf_pad, df_pad, cnet.w,
+                          cnet.b, *c_k[:4]))
+        same = same and bool(torch.equal(ex6, ex[1]))
+        out["K6"] = dict(max_abs_err=e6, ms=ms6, plain_ms=pms6, **b6)
+        line += (f"; K6 rgb/acc/w err {e6:.3g}, against K2 {e62:.3g}, "
+                 f"{ms6:.3f} ms, plain {pms6:.3f} ms, {bound_line(b6, ms6)}")
+        ok = (ok and e6 <= K6_ATOL and e62 <= K6_ATOL and same
+              and bool(torch.isfinite(c_k[0]).all()))
+    say("kernels", f"{label}, the chunk ({R} rays × {NB}×{S // NB}): K2 "
+        f"rgb/w err {e2:.3g} (tol {K2_ATOL}); executed (tile, block) "
+        f"{n_ex}/{ex[0].numel()}, identical to plain: {same}; {line}")
+    if not ok:
+        raise AssertionError(f"{label}: a march disagrees with its plain "
+                             "version")
+    return out
+
+
+def kernel_sigma_widths(args1, o, d, device):
+    """The σ march at the spec sweep's wider proposals (2×192 and 3×256 at
+    L = 8, random), K1's chunk (8192 rays × 64): the kernel `sigma_kernel`
+    names (K2 without a view branch, zero-padded to 256) against the plain
+    version on the unpadded net (K1_ATOL), with identical executed tiles
+    and launches counted under "sigma_march_k2" only."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.kernels import sigmamarch
+    from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+    _, _, alive, t_pad, d_pad = args1
+    R, SB = t_pad.shape
+    rpt = K.TILE_ROWS // SB
+    rng = np.random.default_rng(41)
+    out = {}
+    for W, depth in ((192, 2), (256, 3)):
+        cx = 3 * (2 * 8 + 1)
+        shapes = {"trunk_0": (cx, W), "out_head": (W, 4)}
+        shapes.update({f"trunk_{i}": (W, W) for i in range(1, depth)})
+        model = load_flax_params(random_tree({"params": {
+            k: {"kernel": np.empty(v), "bias": np.empty(v[1])}
+            for k, v in shapes.items()}}, rng), compute_dtype="bfloat16",
+            device=device)
+        net = sigmamarch.pack_sigma(model)
+        served = sigmamarch.sigma_kernel(net)
+        hz = sigmamarch.hoist_rays(net, o, d)
+        args = (net, hz, alive, t_pad, d_pad)
+        n0 = dict(K.LAUNCHES)
+        w_k, acc_k, lt_k = sigmamarch.sigma_march(*args)
+        moved = {k for k in K.LAUNCHES if K.LAUNCHES[k] != n0[k]}
+        w_p, acc_p, _ = sigmamarch.sigma_march_plain(*args)
+        torch.cuda.synchronize()
+        e = max(maxerr(w_k, w_p), maxerr(acc_k, acc_p))
+        live = (alive.view(-1, rpt) > 0).any(dim=1)
+        tiles_k = (w_k.view(-1, rpt * SB) != 0).any(dim=1)
+        tiles_p = (w_p.view(-1, rpt * SB) != 0).any(dim=1)
+        same = bool(torch.equal(tiles_k, tiles_p))
+        n_live = int(live.sum())
+        ms = cuda_ms(lambda: sigmamarch.sigma_march(*args))
+        pms = cuda_ms(lambda: sigmamarch.sigma_march_plain(*args))
+        b = bound(2 * n_live * K.TILE_ROWS * mlp_macs(net),
+                  nbytes(alive, *hz, t_pad, d_pad, net.w, net.b, w_k, acc_k,
+                         lt_k))
+        say("kernels", f"σ march, proposal {depth}×{W} L = 8 (random), K1's "
+            f"chunk ({R} rays × {SB}): served by {served} (launches moved "
+            f"{sorted(moved)}); w/acc err {e:.3g} (tol {K1_ATOL}) against "
+            f"plain on the unpadded net; tiles with a nonzero weight "
+            f"{int(tiles_k.sum())}, identical to plain: {same}; live tiles "
+            f"{n_live}/{live.numel()}; kernel {ms:.3f} ms (a wrapper call), "
+            f"plain {pms:.3f} ms; {bound_line(b, ms)} (the unpadded net's "
+            f"operations)")
+        if not (served == "K2" and moved == {"sigma_march_k2"}
+                and e <= K1_ATOL and same and 0 < n_live < live.numel()
+                and bool(torch.isfinite(w_k).all())):
+            raise AssertionError(f"the σ march at {depth}×{W} disagrees with "
+                                 "its plain version")
+        out[(W, depth)] = dict(max_abs_err=e, ms=ms, plain_ms=pms, **b)
+    return out
+
+
+def kernel_skips(cfg, pts, dirs, chunk, args1, device):
+    """The repaired shapes at full width, random nets: an 8×256 L = 10
+    field with skips (2, 4), so that layers 3 and 5 take γ(x) (and, with a
+    64-wide cond, n_cond = 3), through K3 (65,536 rows, the cond window
+    too), K4 (786,432 rows; conditioned 393,216), K2 and K6 (the fine
+    march's chunk); K2 with a view branch on an 8×128 net; the σ march at
+    the sweep's wider proposals. → the σ march's 2×192 row (the JSON's
+    sigma_march_k2)."""
+    from fashion_nerf_torch.kernels import posenc_mlp
+    from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+    rng = np.random.default_rng(40)
+    model = load_flax_params(skip_tree(rng), compute_dtype="bfloat16",
+                             device=device)
+    net = posenc_mlp.pack_params(model, hoist_x=False)
+    check_layout(net)
+    if net.skips != (3, 5) or len(posenc_mlp.pack_params(
+            model, hoist_x=True).x_kernels) != 3:
+        raise AssertionError(f"skips {net.skips}: expected layers 3 and 5")
+    kernel_k3_rows(net, pts, dirs, 64, None, "8×256 with skips (2, 4)")
+    cmodel = load_flax_params(skip_tree(rng, cc=TRYON_CC),
+                              compute_dtype="bfloat16", device=device,
+                              cond_dim=TRYON_CC)
+    cnet = posenc_mlp.pack_params(cmodel, hoist_x=False)
+    check_layout(cnet)
+    cp = posenc_mlp.hoist_cond(cnet, torch.from_numpy(rng.normal(size=(
+        dirs.shape[0], TRYON_CC)).astype(np.float32)).to(device))
+    if cnet.n_cond != 3:
+        raise AssertionError(f"n_cond {cnet.n_cond}: expected 3")
+    kernel_k3_rows(cnet, pts, dirs, 64, cp, "8×256 with skips (2, 4) and the "
+                   f"cond window (Cc {TRYON_CC}, n_cond 3)")
+    kernel_k4_rows(net, 4096, 192, rng, device, "8×256 with skips (2, 4)")
+    kernel_k4_rows(cnet, 2048, 192, rng, device, "8×256 with skips (2, 4), "
+                   f"conditioned (Cc {TRYON_CC}, n_cond 3)", cc=TRYON_CC)
+    kernel_march_rows(cfg, model, chunk, "K2 and K6, 8×256 with skips "
+                      "(2, 4)")
+    narrow = load_flax_params(skip_tree(rng, W=128, skips=(4,)),
+                              compute_dtype="bfloat16", device=device)
+    kernel_march_rows(cfg, narrow, chunk, "K2 with a view branch at width "
+                      "128 (8×128 L = 10, skip (4,))", k6=False)
+    return kernel_sigma_widths(args1, *chunk[:2], device)[(192, 2)]
+
+
 def kernel_k5(cfg, rng, device):
     """K5 at the eval shape: 8192 rays × 192 samples over [near, far]."""
     from fashion_nerf_torch.kernels import render
@@ -1529,7 +1825,189 @@ def phase_gate(device, gpu, smi):
         f"{peak:.2f} GiB; {gpu} | {smi}")
     if bad:
         raise AssertionError(f"gate checks failed: {bad}")
-    return res
+    return res, cache
+
+
+# [branches]: the last blockwise branches on the bench frame, and the
+# spec sweep's wider proposals distilled on the card (as its rows do)
+BRANCH_DISTILL_STEPS = 1500
+BRANCHES = (
+    ("cov_n", ["proposal.cov_n=16"]),
+    ("union", ["proposal.union=true"]),
+    ("sample_warp", ["occupancy.sample_warp=true"]),
+    ("prop 2×192 L8", ["proposal.net_width=192", "proposal.posenc_xyz=8",
+                       f"proposal.distill_steps={BRANCH_DISTILL_STEPS}"]),
+    ("prop 3×256 L8", ["proposal.net_width=256", "proposal.net_depth=3",
+                       "proposal.posenc_xyz=8",
+                       f"proposal.distill_steps={BRANCH_DISTILL_STEPS}"]),
+    # the warp (samples and width caps) through the other two pipelines
+    ("sample_warp K6", ["occupancy.sample_warp=true",
+                        "kernels.carry_hoist=false"]),
+    ("sample_warp two-stage", ["occupancy.sample_warp=true",
+                               "kernels.fused_carry=false"]),
+)
+
+
+def branch_setup(cfg, device):
+    """bench.setup's state for cfg (committed weights, occupancy through
+    K3), with the committed proposal where it was distilled for cfg, else
+    one distilled here on the card (proposal.distill_steps; the bench
+    itself refuses to distil) → (params, occ, distillation seconds)."""
+    from fashion_nerf_torch.bench import bench_params
+    from fashion_nerf_torch.core.occupancy import build_from_config
+    from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
+    from fashion_nerf_torch.models.proposal import attach_proposal
+    params, trained = bench_params(cfg, device)
+    if not trained:
+        raise AssertionError("the committed weights do not fit " + cfg.name)
+    field = make_fused_field(cfg)
+    occ = build_from_config(cfg, lambda p, v: field(params["fine"], p, v),
+                            device=device)
+    params = attach_proposal(cfg, params, allow_distill=False, device=device)
+    secs = 0.0
+    if "proposal" not in params:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            params = attach_proposal(cfg, params, occ=occ, device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        distill_check(cfg, params, occ, field, device)
+    return params, occ, secs
+
+
+def distill_check(cfg, params, occ, field, device):
+    """The distilled proposal on one batch of distillation points (8192,
+    drawn as `distill_proposal` draws them, from seed 0): its log-density
+    MSE against the teacher beside the teacher's own mean square (a student
+    with σ ≤ 0 everywhere scores exactly that), the share of points with
+    σ > 0, and the loss gradient through K3 + K4 against the same through
+    the plain field (K4_REL_RMS on every parameter)."""
+    from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
+    from fashion_nerf_torch.models import proposal as prop_mod
+    student = params["proposal"]
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def vec(v):
+        return torch.as_tensor(v, dtype=torch.float32,
+                               device=device).expand(3)
+    pts = prop_mod.distill_points(gen, 8192, occ.box_min, occ.box_max,
+                                  vec(cfg.occupancy.world_min),
+                                  vec(cfg.occupancy.world_max))
+    dirs = torch.tensor([0.0, 0.0, -1.0], device=device).expand(8192, 3)
+    act = cfg.model.sigma_activation
+    y = prop_mod.log_density(field(params["fine"], pts, dirs)[1][:, 0], act)
+    sigma = field(student, pts, dirs)[1][:, 0]
+    mse = float(((prop_mod.log_density(sigma, act) - y) ** 2).mean())
+    grads = []
+    for f in (field, make_fused_field(cfg, plain=True)):
+        student.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            prop_mod.distill_loss(student, pts, y, act, f).backward()
+        grads.append([p.grad.detach().clone() for p in student.parameters()])
+    student.zero_grad(set_to_none=True)
+    rel = max(rel_rms(a, b) for a, b in zip(*grads))
+    say("branches", f"distilled {cfg.proposal.net_depth}×"
+        f"{cfg.proposal.net_width} proposal on 8192 distillation points: "
+        f"log-density MSE {mse:.4f} (the teacher's mean square "
+        f"{float((y ** 2).mean()):.4f}), σ > 0 on "
+        f"{float((sigma > 0).float().mean()):.3f} of them; the loss "
+        f"gradient through K3 + K4 against the plain field: relative RMS "
+        f"{rel:.3g} at most (tol {K4_REL_RMS})")
+    if not rel <= K4_REL_RMS:
+        raise AssertionError("the distillation's gradient through K3 + K4 "
+                             "disagrees with the plain field's")
+
+
+def phase_branches(device, gate, gate_cache, gpu, smi):
+    """The blender_lego bench frame under each of BRANCHES: 1 warm-up and
+    3 timed frames through the kernels (launches of the timed frames),
+    then the frame through the plain versions (≥ FRAME_PSNR_MIN dB); the
+    frame's PSNR against the analytic GT minus the dense 64+128 frame's
+    (the gate's references at the bench pose) beside the shipped preset's;
+    the warp through K6 and the two-stage march also against the K1 + K2
+    warp frame (≥ FRAME_PSNR_MIN dB). → launches summed over the frames."""
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.bench import bench_pose
+    from fashion_nerf_torch.kernels.sigmamarch import sigma_kernel
+    from fashion_nerf_torch.kernels.posenc_mlp import pack_params
+    from fashion_nerf_torch.metrics import psnr
+    from fashion_nerf_torch.render.blockwise import (fine_march_samples,
+                                                     render_image_blockwise)
+    t_phase = time.perf_counter()
+    H = W = FRAME
+    focal, c2w = bench_pose(W)
+    gt, dense = gate_cache[(0, H, W)]
+    d_gt = float(psnr(dense, gt))
+    base = gate["K2"]["rows"][0]
+    total = {k: 0 for k in K.LAUNCHES}
+    frames, checks = {}, {}
+    for label, ovr in BRANCHES:
+        cfg = load_config("blender_lego", ovr)
+        params, occ, distill_s = branch_setup(cfg, device)
+
+        def render(plain=False):
+            with torch.no_grad():
+                return render_image_blockwise(params, cfg, H, W, focal, c2w,
+                                              occ=occ, plain=plain,
+                                              device=device)["rgb"]
+
+        render()
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rgb = render()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 3
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        for k, v in K.LAUNCHES.items():
+            total[k] += v
+        ref = render(plain=True)
+        torch.cuda.synchronize()
+        p_plain = float(psnr(rgb, ref))
+        delta = float(psnr(rgb, gt)) - d_gt
+        frames[label] = rgb
+        prop = cfg.proposal
+        served = sigma_kernel(pack_params(params["proposal"], hoist_x=True))
+        n_f = fine_march_samples(cfg, occ)
+        SB = cfg.kernels.block_samples
+        extra = ""
+        if label in ("sample_warp K6", "sample_warp two-stage"):
+            p_k2 = float(psnr(rgb, frames["sample_warp"]))
+            extra = f", against the K1 + K2 warp frame {p_k2:.2f} dB"
+            checks[f"{label} vs K2"] = p_k2 >= FRAME_PSNR_MIN
+        say("branches", f"{label} ({' '.join(ovr)}): {dt:.4f} s/frame "
+            f"({H * W / dt:.1f} rays/s), mean of 3 after 1 warm-up; proposal "
+            f"{prop.net_depth}×{prop.net_width} L = {prop.posenc_xyz}"
+            f"{f' distilled in {distill_s:.1f} s' if distill_s else ''}, its "
+            f"σ march on {served if cfg.kernels.fused_carry else 'K3'}; fine "
+            f"march {n_f} samples a ray, {-(-n_f // SB)} blocks of {SB}; "
+            f"PSNR against the plain frame {p_plain:.2f} dB (min "
+            f"{FRAME_PSNR_MIN}){extra}; against the analytic GT minus the "
+            f"dense 64+128 frame's: {delta:+.3f} dB (the shipped preset's "
+            f"{base['delta']:+.3f}); launches of the 3 frames {launches}; "
+            f"{gpu} | {smi}")
+        want = {"cov_n": ("sigma_march", "slim_march"),
+                "union": ("sigma_march", "slim_march"),
+                "sample_warp": ("sigma_march", "slim_march"),
+                "prop 2×192 L8": ("sigma_march_k2", "slim_march"),
+                "prop 3×256 L8": ("sigma_march_k2", "slim_march"),
+                "sample_warp K6": ("sigma_march", "carry_march"),
+                "sample_warp two-stage": ("field_alive",)}[label]
+        checks[label] = (p_plain >= FRAME_PSNR_MIN
+                         and set(launches) == set(want)
+                         and bool(torch.isfinite(rgb).all())
+                         and tuple(rgb.shape) == (H, W, 3))
+        del params, occ, ref
+        torch.cuda.empty_cache()
+    say("branches", f"checks {checks}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {gpu} | {smi}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"branches checks failed: {failed}")
+    return total
 
 
 def phase_probe(device, gpu, smi):
@@ -2823,7 +3301,9 @@ def main() -> int:
     phase_frame_twostage(device, k2_rgb, gpu, smi)
     propmarch_launches = phase_frame_propmarch(device, k2_rgb, gpu, smi)
     del k2_rgb
-    phase_gate(device, gpu, smi)
+    gate, gate_cache = phase_gate(device, gpu, smi)
+    branch_launches = phase_branches(device, gate, gate_cache, gpu, smi)
+    del gate, gate_cache
     torch.cuda.empty_cache()
     scene, ds = phase_scene(cfg, device)
     phase_step(device, ds, gpu, smi)
@@ -2858,7 +3338,8 @@ def main() -> int:
                                                   "carry_march_cond")},
                 "field_bwd_cond": tryon_train_launches["field_bwd_cond"],
                 "field_alive": llff_launches["field_alive"],
-                "slim_march_novd": propmarch_launches["slim_march_novd"]}
+                "slim_march_novd": propmarch_launches["slim_march_novd"],
+                "sigma_march_k2": branch_launches["sigma_march_k2"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -2869,7 +3350,8 @@ def main() -> int:
                                        "slim_march_cond",
                                        "carry_march_cond",
                                        "field_bwd_cond", "field_alive",
-                                       "slim_march_novd")]}))
+                                       "slim_march_novd",
+                                       "sigma_march_k2")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))

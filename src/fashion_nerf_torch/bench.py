@@ -32,7 +32,9 @@ from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, load_flax_params
 from fashion_nerf_torch.models.proposal import attach_proposal
 from fashion_nerf_torch.prng import GeneratorChain
-from fashion_nerf_torch.render.blockwise import render_image_blockwise
+from fashion_nerf_torch.render.blockwise import (_budgets,
+                                                 fine_march_samples,
+                                                 render_image_blockwise)
 from fashion_nerf_torch.render.renderer import render_image
 from fashion_nerf_torch.train.loop import (_eval_cond, make_fields,
                                            resolve_garment)
@@ -128,16 +130,15 @@ def setup(cfg: Config, device):
 def _budget(cfg: Config, s: dict) -> str:
     """The per-ray evaluation budget of the frame, as the reference words
     it."""
+    if s["blockwise"] and "proposal" in s["params"]:
+        n_p = _budgets(cfg, s["occ"])[0]
+        return (f"{fine_march_samples(cfg, s['occ'])} full-MLP + {n_p} "
+                "proposal-MLP evals/ray")
     n_c, n_f = cfg.sampling.n_coarse, cfg.sampling.n_fine
     if s["blockwise"] and s["occ"] is not None and (
             cfg.render.eval_n_coarse or cfg.render.eval_n_fine):
         n_c = cfg.render.eval_n_coarse or n_c
         n_f = (cfg.render.eval_n_fine or n_f) if n_f > 0 else 0
-    if s["blockwise"] and "proposal" in s["params"]:
-        n_p = cfg.proposal.eval_n or n_c
-        samples = ((n_p + n_f) if cfg.proposal.union
-                   else n_f + cfg.proposal.cov_n)
-        return f"{samples} full-MLP + {n_p} proposal-MLP evals/ray"
     return f"{n_c + (n_c + n_f if n_f > 0 else 0)} field evals/ray"
 
 

@@ -71,3 +71,66 @@ def sample_pdf(bins, weights, n_samples: int, eps: float = 1e-5, *,
     denom = torch.where(denom < eps, torch.ones_like(denom), denom)
     frac = (u - cdf_below) / denom
     return bin_below + frac * (bin_above - bin_below)
+
+
+def occupancy_bins(seg, t_lo, t_hi, nbins: int):
+    """Per-ray occupancy on a grid of nbins equal t-bins over [t_lo, t_hi]
+    (the occupancy-warped sampling's substrate, `occupancy.sample_warp`).
+
+    seg: (seg_lo, seg_hi, seg_hit) (R, K) per-ray macro-box segments
+    (`core.occupancy.ray_multi_aabb`); t_lo, t_hi: scalars or (R,).
+    → occ (R, nbins) f32, 1 where the bin overlaps an occupied segment;
+    gap_idx (R, nbins) f32, the index of the first unoccupied bin at or
+    after each bin (the end edge of the occupied run holding it; itself
+    for an unoccupied bin, nbins when the run reaches t_hi)."""
+    seg_lo, seg_hi, seg_hit = seg
+    R = seg_lo.shape[0]
+    dev = seg_lo.device
+    t_lo = torch.as_tensor(t_lo, dtype=torch.float32, device=dev).expand(R)
+    t_hi = torch.as_tensor(t_hi, dtype=torch.float32, device=dev).expand(R)
+    step = (t_hi - t_lo)[:, None] / nbins
+    i = torch.arange(nbins, dtype=torch.float32, device=dev)
+    e0 = t_lo[:, None] + step * i
+    e1 = e0 + step
+    occ = ((seg_lo[:, None, :] < e1[..., None])
+           & (seg_hi[:, None, :] > e0[..., None])
+           & seg_hit[:, None, :]).any(dim=-1)
+    # first unoccupied bin at or after i: a running min from the far end
+    own = torch.where(occ, torch.full_like(e0, float(nbins)), i.expand(R, -1))
+    gap_idx = torch.cummin(own.flip(1), dim=1).values.flip(1)
+    return occ.float(), gap_idx
+
+
+def warp_stratified(occ, t_lo, t_hi, n_samples: int):
+    """Deterministic samples warped onto the occupied bins: the midpoint
+    quantiles (k + 0.5)/n of the bins' occupancy mass, so that equal
+    occupied length lies between neighbours and no sample sits on a run's
+    end edge. With every bin occupied, (midpoint-offset) uniform samples
+    over [t_lo, t_hi]. → (R, n_samples) increasing t."""
+    R, nbins = occ.shape
+    dev = occ.device
+    t_lo = torch.as_tensor(t_lo, dtype=torch.float32, device=dev).expand(R)
+    t_hi = torch.as_tensor(t_hi, dtype=torch.float32, device=dev).expand(R)
+    step = (t_hi - t_lo)[:, None] / nbins
+    edges = t_lo[:, None] + step * torch.arange(nbins + 1,
+                                                dtype=torch.float32,
+                                                device=dev)
+    u = (torch.arange(n_samples, dtype=torch.float32, device=dev) + 0.5) \
+        / n_samples
+    return sample_pdf(edges, occ, n_samples, quantiles=u.expand(R, -1))
+
+
+def delta_caps(gap_idx, t_lo, t_hi, t_vals):
+    """Per-sample cap on the integration width: the t of the end edge of
+    the occupied run that holds each sample (a sample in an unoccupied bin
+    gets its bin's end), so that no interval spans a culled gap; the march
+    takes δ = min(t_next, max(cap, t)) − t. → (R, S) t."""
+    R, nbins = gap_idx.shape
+    dev = gap_idx.device
+    t_lo = torch.as_tensor(t_lo, dtype=torch.float32, device=dev).expand(R)
+    t_hi = torch.as_tensor(t_hi, dtype=torch.float32, device=dev).expand(R)
+    step = ((t_hi - t_lo) / nbins)[:, None]
+    denom = torch.where(step > 0, step, torch.ones_like(step))
+    bi = torch.clamp(torch.floor((t_vals - t_lo[:, None]) / denom), 0,
+                     nbins - 1).long()
+    return t_lo[:, None] + torch.gather(gap_idx, 1, bi) * step

@@ -3,9 +3,10 @@
 Eight kernels, CUDA C++ for sm_90a under `csrc/`:
 
 - K1 `sigmamarch.cu`: the σ-only proposal march (kernels/sigmamarch.py);
-- K2 `slimmarch.cu`: the multi-block march of the 8×256 field, and of a
-  net without a view branch (the σ-only proposal net of the generic
-  proposal march) (kernels/slimmarch.py);
+- K2 `slimmarch.cu`: the multi-block march of the 8×256 field (or a
+  128-wide one), and of a net without a view branch: the σ-only proposal
+  net of the generic proposal march, and of the σ march at a proposal
+  width K1 does not take (kernels/slimmarch.py);
 - K3 `field.cu`: the fused posenc + MLP field, with the tile-skip flag of
   the two-stage march (kernels/posenc_mlp.py);
 - K4 `field_bwd.cu`: the field's backward (kernels/posenc_mlp.py);
@@ -20,14 +21,15 @@ asynchronous copies behind mbarriers: K1 and K2 on the loop of
 `csrc/wg_trunk.cuh`; K3, K4, K6 and the probe on that of
 `csrc/wg_field.cuh` (a producer warpgroup streaming weight slices through
 a ring to two consumer warpgroups). K5 has no matrix product and is plain
-CUDA. Shapes: K1 width 128, K2 width 256 with a view branch and 128 or
-256 without one, SB in MARCH_SB; K3, K4 and
+CUDA. Shapes: K1 width 128 (the σ march of any other proposal width runs
+on K2 without a view branch, zero-padded to its nearest width); K2 widths
+SLIM_WIDTHS with or without a view branch, SB in MARCH_SB; K3, K4 and
 K6 widths FIELD_WIDTHS, depths FIELD_DEPTHS and posenc operand widths
-FIELD_K0, and a narrower net runs zero-padded to the nearest of them
+FIELD_K0. A narrower net runs zero-padded to the nearest shape
 (`posenc_mlp.pad_packed`: the same function, at the padded net's cost in
 tensor-core time); the probe widths that are multiples of 256 up to 1024,
-others zero-padded. What cannot be padded into the range raises
-ValueError.
+others zero-padded. Every packed net may have any number of skip layers.
+What cannot be padded into the range raises ValueError.
 
 Path rule, the same in every wrapper: tensors on the CPU take the plain
 PyTorch version; tensors on a CUDA device take the kernel, or the call
@@ -37,8 +39,9 @@ the repo root, named by a hash of the sources and flags, and loaded with
 ctypes: one nvcc per source, all started together, then one link. Each
 wrapper adds one to its entry of `LAUNCHES` at every kernel launch (a
 conditioned net's launches of K2, K3, K4 and K6 to their "_cond"
-entries, K3's launches with the tile-skip flag to "field_alive" and K2's
-on a net without a view branch to "slim_march_novd").
+entries, K3's launches with the tile-skip flag to "field_alive", K2's
+on a net without a view branch to "slim_march_novd", and K2's for the σ
+march of a proposal K1 does not take to "sigma_march_k2").
 """
 
 from __future__ import annotations
@@ -71,7 +74,10 @@ SLAB_ROWS = 64
 # slimmarch.cu, carrymarch.cu; K6's wrapper launches per range of tiles)
 MARCH_SB = (16, 32, 64)
 SIGMA_WIDTH, SLIM_WIDTH = 128, 256
-SLIM_WIDTHS_NOVD = (128, 256)   # K2's widths for a net without a view branch
+# K2's widths, with and without a view branch; narrower nets run zero-padded
+# to the nearest (slimmarch.march_net), as does the σ march of a proposal
+# wider or narrower than K1's SIGMA_WIDTH
+SLIM_WIDTHS = (128, 256)
 MARCH_MAX_TILES = 1024
 # nets the field kernels K3, K4 and K6 take (csrc/wg_field.cuh): widths,
 # trunk depths and posenc operand widths (x rows included: L = 6 → 48,
@@ -93,7 +99,9 @@ LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
             "field_bwd_cond": 0,
             # K3 with the tile-skip flag (the two-stage march), K2 on a net
             # without a view branch (the generic proposal march)
-            "field_alive": 0, "slim_march_novd": 0}
+            "field_alive": 0, "slim_march_novd": 0,
+            # K2 serving the σ march of a proposal not K1's width
+            "sigma_march_k2": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -105,6 +113,7 @@ _SIGNATURES = {
     "fnt_volrend": [_P] * 8 + [_I] * 4 + [_P],
     "fnt_carry_march": [_P] * 17 + [_I] * 13 + [ctypes.c_float, _P],
     "fnt_tc_probe": [_P] * 3 + [_I] * 6 + [_P],
+    "fnt_layout": [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -139,7 +139,7 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
             code = lib.fnt_carry_march(
                 *ptrs, condpart[rays].data_ptr() if cw else None, cw,
                 rays.stop - r0, NB, SB, b, knet.L, knet.depth, knet.width,
-                knet.k0, knet.skip, int(knet.has_vd), int(softplus),
+                knet.k0, knet.skip_mask, int(knet.has_vd), int(softplus),
                 tile_rows, float(log_eps), K.stream())
             K.raise_on_error(code, "fnt_carry_march")
             K.LAUNCHES["carry_march_cond" if cw else "carry_march"] += 1

@@ -288,7 +288,7 @@ int fnt_carry_march(const void* hit, const void* block_hit,
                     void* depth, void* acc, void* w_out, const void* logT_in,
                     void* logT_out, const void* condpart, int cw, int R,
                     int NB, int SB, int blk, int L, int depth_layers,
-                    int width, int k0, int skip, int has_vd, int softplus,
+                    int width, int k0, int skip_mask, int has_vd, int softplus,
                     int tile_rows, float log_eps, void* stream) {
   using namespace fnt;
   CarryArgs a;
@@ -318,7 +318,7 @@ int fnt_carry_march(const void* hit, const void* block_hit,
   a.L = L;
   a.softplus = softplus;
   a.log_eps = log_eps;
-  a.lay = make_layout(depth_layers, width, k0, skip, has_vd);
+  a.lay = make_layout(depth_layers, width, k0, skip_mask, has_vd);
   a.n_b = has_vd ? a.lay.b_rgb + 3 : a.lay.b_out + 4;
   a.n_slices = wgf::field_slice_bytes(a.lay, false, a.slice_bytes);
   if (wgf::field_layout_error(a.lay) || a.n_slices < 0 ||

@@ -35,7 +35,7 @@
 // - The cond window (the reference's condpart window of conditioned
 //   plans): with a non-null condpart (n / spr, cw) bf16, the hoisted
 //   per-ray cond @ cond_kernel, each row's accumulator in the epilogue of
-//   the i-th layer that takes the posenc operand (trunk_0, the skip layer)
+//   the i-th layer that takes the posenc operand (trunk_0, each skip layer)
 //   adds the f32 of its ray's slice i before the bias, read from device
 //   memory (L2-resident: one row serves spr rows). A null condpart runs
 //   the kernel instantiated without it.
@@ -209,7 +209,8 @@ extern "C" {
 
 // The field on n rows (a multiple of 64 and of spr), width 128 or 256,
 // depth 2-8, k0 48 or 64. wp holds the net's field slices
-// (kernels/wgpack.py::field_buffer). condpart: null, or (n / spr, cw) bf16
+// (kernels/wgpack.py::field_buffer); skip_mask: the skip layers (Layout).
+// condpart: null, or (n / spr, cw) bf16
 // with cw = W times the layers that take the posenc operand. alive: null,
 // or n / tile_rows f32 tile flags, tile_rows a multiple of 128 or n itself.
 // Returns a cudaError_t.
@@ -217,7 +218,8 @@ int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
                       const void* wp, const void* b, void* rgb, void* sigma,
                       const void* condpart, const void* alive, int cw,
                       int tile_rows, int n, int spr, int L, int depth,
-                      int width, int k0, int skip, int has_vd, void* stream) {
+                      int width, int k0, int skip_mask, int has_vd,
+                      void* stream) {
   using namespace fnt;
   FieldArgs a;
   a.pts = static_cast<const float*>(pts);
@@ -234,7 +236,7 @@ int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
   a.n = n;
   a.spr = spr;
   a.L = L;
-  a.lay = make_layout(depth, width, k0, skip, has_vd);
+  a.lay = make_layout(depth, width, k0, skip_mask, has_vd);
   a.n_b = has_vd ? a.lay.b_rgb + 3 : a.lay.b_out + 4;
   a.n_slices = wgf::field_slice_bytes(a.lay, false, a.slice_bytes);
   if (wgf::field_layout_error(a.lay) || a.n_slices < 0 || n < 0 ||
@@ -253,6 +255,26 @@ int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
                         : launch_field<128, true>(a, st);
   return width == 256 ? launch_field<256, false>(a, st)
                       : launch_field<128, false>(a, st);
+}
+
+// The layout every kernel builds from these arguments, for checking it
+// against kernels/posenc_mlp.py::_layout: out takes depth entries each of
+// w_h, w_a0 and b, then w_sig, w_feat, w_view, w_rgb, w_out, b_sig,
+// b_feat, b_view, b_rgb, b_out (-1 where a tensor is absent). Returns
+// layout_error's verdict.
+int fnt_layout(int depth, int width, int k0, int skip_mask, int has_vd,
+               int* out) {
+  using namespace fnt;
+  if (depth < 1 || depth > kMaxDepth) return 1;
+  const Layout L = make_layout(depth, width, k0, skip_mask, has_vd);
+  int n = 0;
+  for (int i = 0; i < depth; ++i) out[n++] = L.w_h[i];
+  for (int i = 0; i < depth; ++i) out[n++] = L.w_a0[i];
+  for (int i = 0; i < depth; ++i) out[n++] = L.b[i];
+  const int heads[] = {L.w_sig, L.w_feat, L.w_view, L.w_rgb, L.w_out,
+                       L.b_sig, L.b_feat, L.b_view, L.b_rgb, L.b_out};
+  for (int v : heads) out[n++] = v;
+  return layout_error(L);
 }
 
 const char* fnt_error_string(int code) {

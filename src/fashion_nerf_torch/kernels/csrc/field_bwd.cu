@@ -31,9 +31,11 @@
 //     bf16-rounded pre-activation cotangent is the next A operand in
 //     shared memory and goes to the workspace for wgrad. The heads are
 //     register dot products; the posenc backward takes the f32 sum of the
-//     skip and first layers' posenc cotangents (the skip layer's waits in
-//     device memory) through the phases' f32 cosines once, one thread per
-//     (row, coordinate) over a shared-memory copy of it. Bias-gradient
+//     posenc cotangents of every layer that takes the operand (the skip
+//     layers' sum waits in device memory, added to in the backward's layer
+//     order, last layer first, as the plain version sums them) through the
+//     phases' f32 cosines once, one thread per (row, coordinate) over a
+//     shared-memory copy of it. Bias-gradient
 //     column sums and per-ray view-term sums are written as per-64-row-slab
 //     partials.
 //  2. wgrad_kernel: every weight gradient Aᵀ·D over the pass's rows, with
@@ -54,8 +56,8 @@
 // The conditioned plan (the reference's `dcond` output): with a non-null
 // condpart (n / spr, cw) bf16, the per-ray cond @ cond_kernel, the rows
 // kernel is instantiated with K3's cond window (wgf::forward<W, true>), so
-// the recompute adds each ray's slice to trunk_0's and the skip layer's
-// accumulators before the bias. The cond enters additively, so its
+// the recompute adds each ray's slices to the accumulators of trunk_0 and
+// of every skip layer before the bias. The cond enters additively, so its
 // cotangent is those layers' unrounded f32 pre-activation cotangent: where
 // the epilogue that makes it runs (the heads' for the last trunk layer, the
 // next layer's dgrad otherwise), the f32 values go through the warpgroup's
@@ -141,8 +143,9 @@ struct RowsArgs {
   float* cpart;          // (n / 64, M, cw) per-slab ray sums of its cotangent
   float* bpart;          // (chunk / 64, n_b) per-slab bias sums
   bf16* ws;              // workspace, regions of `rows` rows
-  float* a0s;            // (chunk / 64, k0 / 2, 128) the skip layer's
-                         // posenc cotangent, per thread of a warpgroup
+  float* a0s;            // (chunk / 64, k0 / 2, 128) the skip layers'
+                         // posenc cotangents summed, per thread of a
+                         // warpgroup
   uint32_t* masks;       // (chunk / 64 + 1, depth, W / 64, 128) relu bits of
                          // the trunk layers, per thread (the last slab is
                          // a warpgroup without rows)
@@ -150,6 +153,8 @@ struct RowsArgs {
   long r0;               // first row of the pass
   int spr, L, M, n_b;
   int cw;                // condpart columns (n_cond·W), 0 without one
+  int last_skip;         // the highest skip layer, 0 without one: the
+                         // first whose posenc cotangent the backward meets
   int n_slices;
   int slice_bytes[wgf::kMaxSlices];
   Layout lay;
@@ -408,8 +413,10 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
     // Leaves H free.
     auto cond_partials = [&](int layer, auto vals) {
       if (!kCond || lay.w_a0[layer] < 0) return;
+      int ci = 0;   // the layer's cond slice: x-layers below it
+      for (int i = 0; i < layer; ++i) ci += lay.w_a0[i] >= 0;
       float* S = reinterpret_cast<float*>(H);
-      float* dst = a.cpart + (row0 / 64) * a.M * a.cw + (layer ? W : 0);
+      float* dst = a.cpart + (row0 / 64) * a.M * a.cw + ci * W;
       const long q0 = row0 / a.spr;
 #pragma unroll
       for (int hc = 0; hc < 2; ++hc) {
@@ -570,20 +577,24 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
     colsum_out(cs, W, tw, bsum + lay.b[D - 1], live);
 
     // ---- trunk backward. H holds bf16(d_pre) of layer i. The skip
-    // layer's posenc cotangent waits in device memory (per thread) for
-    // layer 0's, and their f32 sum, as the plain version sums them, goes
-    // through the phases' cosines once.
+    // layers' posenc cotangents wait in device memory (per thread) for
+    // layer 0's, summed in f32 in the order the plain version sums them
+    // (the last skip layer's first, then each lower one's added), and the
+    // sum with layer 0's goes through the phases' cosines once.
     float* stash = a.a0s + ls * (k0 / 2) * 128 + tw;
     auto posenc_part = [&](auto& acc_a, int i) {
       constexpr int n = sizeof(acc_a) / sizeof(float);
       if (i > 0) {
         if (live) {
 #pragma unroll
-          for (int j = 0; j < n; ++j) stash[j * 128] = acc_a[j];
+          for (int j = 0; j < n; ++j)
+            stash[j * 128] = i == a.last_skip
+                                 ? acc_a[j]
+                                 : __fadd_rn(stash[j * 128], acc_a[j]);
         }
         return;
       }
-      if (lay.skip > 0 && live) {
+      if (a.last_skip > 0 && live) {
 #pragma unroll
         for (int j = 0; j < n; ++j)
           acc_a[j] = __fadd_rn(stash[j * 128], acc_a[j]);
@@ -846,11 +857,12 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
                        const void* condpart, void* d_cond, void* cpart,
                        long ws_numel, int n,
                        int spr, int L, int depth, int width, int k0,
-                       int skip, int has_vd, int chunk, int n_split, int M,
+                       int skip_mask, int has_vd, int chunk, int n_split,
+                       int M,
                        int cw, void* stream) {
   using namespace fnt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Layout lay = make_layout(depth, width, k0, skip, has_vd);
+  const Layout lay = make_layout(depth, width, k0, skip_mask, has_vd);
   const Regions reg = make_regions(lay);
   RowsArgs ra;
   ra.n_slices = wgf::field_slice_bytes(lay, true, ra.slice_bytes);
@@ -913,6 +925,9 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
   ra.condpart = static_cast<const bf16*>(condpart);
   ra.cpart = static_cast<float*>(cpart);
   ra.cw = cw;
+  ra.last_skip = 0;
+  for (int i = 1; i < depth; ++i)
+    if (lay.w_a0[i] >= 0) ra.last_skip = i;
   ra.spr = spr; ra.L = L; ra.M = M; ra.n_b = n_b;
   ra.lay = lay;
   ra.reg = reg;

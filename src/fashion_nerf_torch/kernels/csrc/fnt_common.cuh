@@ -31,8 +31,11 @@ constexpr float kHalfPi = 1.57079632679489661923f;  // == float32(pi / 2)
 
 // Offsets (in elements) of every tensor in the flat bf16 weight buffer and
 // the flat f32 bias buffer. Must equal kernels/posenc_mlp.py::_layout.
+// skip_mask: bit i set for each layer i > 0 that takes the posenc operand
+// beside the activations (a skip layer; the reference's plan has a "skip"
+// entry for each), packed as its h-kernel and then its posenc kernel.
 struct Layout {
-  int depth, width, k0, skip, has_vd;
+  int depth, width, k0, skip_mask, has_vd;
   int w_h[kMaxDepth];    // h-kernel of layer i (width x width), -1 if none
   int w_a0[kMaxDepth];   // posenc-operand kernel of layer i (k0 x width), -1
   int b[kMaxDepth];      // bias of layer i (width)
@@ -40,17 +43,17 @@ struct Layout {
   int b_sig, b_feat, b_view, b_rgb, b_out;
 };
 
-inline Layout make_layout(int depth, int width, int k0, int skip,
+inline Layout make_layout(int depth, int width, int k0, int skip_mask,
                           int has_vd) {
   Layout L{};
-  L.depth = depth; L.width = width; L.k0 = k0; L.skip = skip;
+  L.depth = depth; L.width = width; L.k0 = k0; L.skip_mask = skip_mask;
   L.has_vd = has_vd;
   int wo = 0, bo = 0;
   for (int i = 0; i < depth; ++i) {
     L.w_h[i] = -1; L.w_a0[i] = -1;
     if (i == 0) {
       L.w_a0[i] = wo; wo += k0 * width;
-    } else if (i == skip) {
+    } else if ((skip_mask >> i) & 1) {
       L.w_h[i] = wo; wo += width * width;
       L.w_a0[i] = wo; wo += k0 * width;
     } else {
@@ -79,6 +82,7 @@ inline Layout make_layout(int depth, int width, int k0, int skip,
 // Checks a layout the kernels can index; 0 if fine.
 inline int layout_error(const Layout& L) {
   if (L.depth < 1 || L.depth > kMaxDepth) return 1;
+  if ((L.skip_mask & 1) || (L.skip_mask >> L.depth)) return 1;
   if (L.width < 16 || L.width > kMaxWidth || L.width % 32) return 1;
   if (L.k0 < 16 || L.k0 > kMaxK0 || L.k0 % 16) return 1;
   return 0;

@@ -296,7 +296,7 @@ int fnt_sigma_march(const void* alive, const void* oWx, const void* dWx,
   a.SB = SB;
   a.L = L;
   a.softplus = softplus;
-  a.lay = make_layout(depth, width, k0, -1, 0);
+  a.lay = make_layout(depth, width, k0, 0, 0);
   a.wp_bytes = wp_elems * 2;
   a.n_b = a.lay.b_out + 4;
   const int expect = k0 * kW1 + (depth - 1) * kW1 * kW1;

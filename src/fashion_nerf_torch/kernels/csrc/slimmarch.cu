@@ -1,6 +1,7 @@
 // Multi-block march (kernel K2), one sample block per launch: the 8x256
-// fine field with its view branch, and nets without one (the σ-only
-// proposal net, 2x128, of the generic proposal march).
+// fine field with its view branch (and the 128-wide fine field), and nets
+// without one (the σ-only proposal nets of the generic proposal march and
+// of the σ march above width 128).
 //
 // Replaces: src/fashion_nerf/kernels/slimmarch_pallas.py::_slim_kernel (via
 // _slim_eval), the TPU kernel that marches the fine field over NB blocks of
@@ -31,8 +32,10 @@
 //   per fetched slice, half the L2 traffic of a 64-row slab.
 // - The epilogue of each layer runs in registers and writes the layer's
 //   output in place over the warpgroup's own activation tile: bias, the
-//   hoisted x-term oX + dX·t of the first and skip layers
-//   (__fmul_rn/__fadd_rn, as the plain version rounds), relu, bf16. The σ
+//   hoisted x-term oX + dX·t of each layer that takes positions (the first
+//   and every skip layer, as the reference hoists them; their (oX, dX)
+//   columns are W apart, in layer order), with __fmul_rn/__fadd_rn as the
+//   plain version rounds, relu, bf16. The σ
 //   head (256→1) rides the last trunk epilogue and the rgb head (128→3) the
 //   view epilogue, as register dot products reduced over the 4 lanes of a
 //   row.
@@ -42,6 +45,9 @@
 //   feature or view layer and no dirpart operand; instantiated for widths
 //   128 (the proposal net) and 256. The x-layers are those the net has:
 //   one without a skip layer.
+// - Four instantiations: width 256 and 128, each with and without the view
+//   branch. The 128-wide field with a view branch takes the view layer at
+//   N = 64 (m64n64k16).
 // - Compositing by warps: one warp per ray (SB = 32; a lane per sample) or
 //   per two rays (SB = 16), two samples a lane at SB = 64: the exclusive
 //   log(1−α) prefix is a shuffle scan with the carried logT.
@@ -255,7 +261,9 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
   float* row_sigma = s.row_sigma + 64 * g;
   float(*row_rgb)[3] = s.row_rgb + 64 * g;
   const int k0 = lay.k0, n_ph = 6 * a.L;
-  const int xw = (lay.skip >= 0 ? 2 : 1) * kW;   // row stride of oX / dX
+  int n_x = 0;   // layers that take positions: oX / dX hold n_x·W columns
+  for (int i = 0; i < lay.depth; ++i) n_x += lay.w_a0[i] >= 0;
+  const int xw = n_x * kW;   // row stride of oX / dX
   // this thread's accumulator rows rA, rA + 8 and first column pair
   const int rA = 16 * ww + (lane >> 2), cA = 2 * (lane & 3);
   RingPos rp{0, 0u, -1};
@@ -521,19 +529,20 @@ int launch_slim(SlimArgs& a, cudaStream_t st) {
 
 extern "C" {
 
-// Marches sample block `blk` of NB: the 8×256-wide fine net with its view
-// branch (has_vd 1), or a net without one (has_vd 0, width 128 or 256; the
-// σ-only proposal net; dirpart may be null). The predication tile is
-// tile_rows (2048 or 1024) rows, tile_rows/SB rays; R must be a multiple of
-// it and at most 1024 tiles; SB is 16, 32 or 64; wp holds the net's march
-// slices (kernels/wgpack.py). Returns a cudaError_t.
+// Marches sample block `blk` of NB: a net of width 128 or 256, with its
+// view branch (has_vd 1) or without one (has_vd 0: the σ-only proposal
+// nets; dirpart may be null); skip_mask: its skip layers (Layout). The
+// predication tile is tile_rows (2048 or 1024) rows, tile_rows/SB rays; R
+// must be a multiple of it and at most 1024 tiles; SB is 16, 32 or 64; wp
+// holds the net's march slices (kernels/wgpack.py). Returns a cudaError_t.
 int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
                    const void* dX, const void* oF, const void* dF,
                    const void* dirpart, const void* t, const void* d,
                    const void* w, const void* wp, const void* b, void* rgb,
                    void* w_out, const void* logT_in, void* logT_out, int R,
                    int NB, int SB, int blk, int L, int depth, int width,
-                   int k0, int skip, int has_vd, int softplus, int tile_rows,
+                   int k0, int skip_mask, int has_vd, int softplus,
+                   int tile_rows,
                    float log_eps, void* stream) {
   using namespace fnt;
   SlimArgs a;
@@ -561,10 +570,10 @@ int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
   a.softplus = softplus;
   a.tile_rows = tile_rows;
   a.log_eps = log_eps;
-  a.lay = make_layout(depth, width, k0, skip, has_vd);
+  a.lay = make_layout(depth, width, k0, skip_mask, has_vd);
   a.n_b = has_vd ? a.lay.b_rgb + 3 : a.lay.b_out + 4;
-  const bool shape_ok = has_vd ? (width == 256 && dirpart != nullptr)
-                               : (width == 128 || width == 256);
+  const bool shape_ok = (width == 128 || width == 256) &&
+                        (!has_vd || dirpart != nullptr);
   if (layout_error(a.lay) || !shape_ok || !(SB == 16 || SB == 32 ||
       SB == 64) || 6 * L > k0 || !(tile_rows == kTileRows ||
       tile_rows == kTileRows / 2) || R < 0 || R % (tile_rows / SB) ||
@@ -590,7 +599,9 @@ int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
   a.n_slices = n;
   if (n >= kMaxSlices) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (has_vd) return launch_slim<256, true>(a, st);
+  if (has_vd)
+    return width == 256 ? launch_slim<256, true>(a, st)
+                        : launch_slim<128, true>(a, st);
   return width == 256 ? launch_slim<256, false>(a, st)
                       : launch_slim<128, false>(a, st);
 }

@@ -151,7 +151,7 @@ inline int field_slice_bytes(const Layout& lay, bool transposed,
 }
 
 // Layers that take the posenc operand, and so the cond window of a
-// conditioned net: trunk_0 and the skip layer.
+// conditioned net: trunk_0 and every skip layer.
 inline int cond_layers(const Layout& L) {
   int n = 0;
   for (int i = 0; i < L.depth; ++i) n += L.w_a0[i] >= 0;
@@ -251,8 +251,9 @@ struct Rows {
 // trunk layer, as the thread's accumulator elements), stored(kind, i),
 // called once each tile is final (kind 0 the trunk layer i, 1 the feature
 // layer, 2 the view layer), and guard(), called before each epilogue
-// overwrites H. kCond adds the cond window: the first and skip layers'
-// accumulators take float(condpart) before the bias, as the reference's
+// overwrites H. kCond adds the cond window: the accumulator of the ci-th
+// layer that takes the posenc operand (the first, then each skip layer)
+// takes float(condpart slice ci) before the bias, as the reference's
 // mlp_rows adds it (acc + c + b); without it the epilogue is unchanged.
 template <int W, bool kCond = false, int S, class Stored, class Guard>
 __device__ __forceinline__ void forward(const Layout& lay, Rows& t,

@@ -6,15 +6,17 @@ Counterpart of `fashion_nerf.kernels.posenc_mlp_pallas` (`pack_params`,
 
 Packing. A NeRFMLP is packed once into a flat bf16 weight buffer and a
 flat f32 bias buffer in the order `_layout` gives (the same arithmetic as
-`fnt::make_layout` in csrc/fnt_common.cuh). The trained posenc rows of the
-first and skip layers are split as the reference's `_split_posenc_kernel`
-does: the x rows, then the sin rows of every band, then the cos rows, so
-that one sin pass over phases [x·2^f | x·2^f + π/2] covers both halves.
+`fnt::make_layout` in csrc/fnt_common.cuh). A net may have any number of
+skip layers, as the reference's plan has a skip entry for each. The
+trained posenc rows of the first layer and of every skip layer are split
+as the reference's `_split_posenc_kernel` does: the x rows, then the sin
+rows of every band, then the cos rows, so that one sin pass over phases
+[x·2^f | x·2^f + π/2] covers both halves.
 The layers' posenc operand ("a0") is [x | sin | cos] for the field and
 [sin | cos] for the marches, whose x-paths are linear in t and hoisted
 per ray; its width is padded with zero rows to a multiple of 16.
 
-Conditioning. A conditioned net's trunk_0 and skip layer carry Cc rows
+Conditioning. A conditioned net's trunk_0 and skip layers carry Cc rows
 that act on the per-ray cond vector; `pack_params` lifts them into
 `cond_kernel` (Cc, n_cond·W), as the reference's `pack_params` does, and
 `hoist_cond` computes the per-ray condpart bf16(cond @ cond_kernel) once
@@ -108,8 +110,10 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _layout(depth: int, width: int, k0: int, skip: int, has_vd: bool):
-    """Element offsets into the flat buffers; see fnt::make_layout."""
+def _layout(depth: int, width: int, k0: int, skips, has_vd: bool):
+    """Element offsets into the flat buffers; see fnt::make_layout. skips:
+    the layers after the first that take the posenc operand (γ(x)), each
+    packed as its h-kernel and then its posenc kernel."""
     wo = bo = 0
     w_h, w_a0, b = [], [], []
     for i in range(depth):
@@ -117,7 +121,7 @@ def _layout(depth: int, width: int, k0: int, skip: int, has_vd: bool):
         if i == 0:
             a = wo
             wo += k0 * width
-        elif i == skip:
+        elif i in skips:
             h = wo
             wo += width * width
             a = wo
@@ -156,7 +160,7 @@ class PackedNet:
     depth: int
     width: int
     k0: int                    # padded width of the posenc operand
-    skip: int                  # index of the layer that takes the skip, -1
+    skips: tuple               # layers after the first that take γ(x)
     has_vd: bool
     L: int                     # posenc frequencies of positions
     L_dir: int
@@ -172,13 +176,18 @@ class PackedNet:
     #                                      where the unpadded entries lie
     cond_kernel: Optional[torch.Tensor] = None   # (Cc, n_cond·W) f32
 
+    @property
+    def skip_mask(self) -> int:
+        """The kernels' layout argument: bit i set for each skip layer i."""
+        return sum(1 << i for i in self.skips)
+
     def wview(self, off: int, rows: int, cols: int):
         return self.wf[off:off + rows * cols].view(rows, cols)
 
     @property
     def n_cond(self) -> int:
-        """Layers that take the cond input (trunk_0 and the skip layer of a
-        conditioned net, else none)."""
+        """Layers that take the cond input (trunk_0 and every skip layer of
+        a conditioned net, else none)."""
         return 0 if self.cond_kernel is None else \
             self.cond_kernel.shape[1] // self.width
 
@@ -191,19 +200,18 @@ class PackedNet:
 
 def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
     """Pack `model` for the field (hoist_x=False: the x rows stay in the
-    posenc operand) or for the marches (hoist_x=True: the first and skip
-    layers' x rows and biases leave the kernel as `x_kernels`; their bias
-    slots in the buffer are zero). A field packed with grad enabled keeps
-    the autograd graph: `w32` (the f32 flat weights), `b`, `dir_kernel`
-    and `cond_kernel` lead back to the model's parameters (see
-    FusedField); the kernels read detached copies."""
+    posenc operand) or for the marches (hoist_x=True: the x rows and biases
+    of the first layer and of every skip layer leave the kernel as
+    `x_kernels`, one pair a layer in order; their bias slots in the buffer
+    are zero). A conditioned net's cond rows of those layers become
+    `cond_kernel`, a W-wide block a layer in the same order. A field
+    packed with grad enabled keeps the autograd graph: `w32` (the f32 flat
+    weights), `b`, `dir_kernel` and `cond_kernel` lead back to the model's
+    parameters (see FusedField); the kernels read detached copies."""
     L, W, D = model.posenc_xyz, model.width, model.depth
     cx = 3 * (2 * L + 1)
     Cc = model.cond_dim
-    skips = [s + 1 for s in model.skips if s + 1 < D]
-    if len(skips) > 1:
-        raise NotImplementedError("more than one skip layer")
-    skip = skips[0] if skips else -1
+    skips = tuple(sorted({s + 1 for s in model.skips if s + 1 < D}))
     k0 = _round16(6 * L if hoist_x else 3 + 6 * L)
     ws, bs, x_kernels, cond_blocks = [], [], [], []
 
@@ -216,8 +224,8 @@ def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
     with torch.set_grad_enabled(grad):
         for i, layer in enumerate(model.trunk):
             kern, bias = layer.weight.t(), layer.bias
-            if i == 0 or i == skip:
-                if i == skip:
+            if i == 0 or i in skips:
+                if i in skips:
                     ws.append(kern[cx + Cc:])
                 if Cc:
                     cond_blocks.append(kern[cx:cx + Cc].float())
@@ -244,10 +252,10 @@ def pack_params(model: NeRFMLP, hoist_x: bool) -> PackedNet:
         w32 = torch.cat([x.reshape(-1) for x in ws]).float().contiguous()
         b = torch.cat([x.reshape(-1) for x in bs]).float().contiguous()
     w = w32.detach().to(_BF).contiguous()
-    lay = _layout(D, W, k0, skip, model.use_viewdirs)
+    lay = _layout(D, W, k0, skips, model.use_viewdirs)
     assert (w.numel(), b.numel()) == (lay["n_w"], lay["n_b"])
     return PackedNet(w=w, wf=w.float(), b=b, depth=D, width=W, k0=k0,
-                     skip=skip, has_vd=model.use_viewdirs, L=L,
+                     skips=skips, has_vd=model.use_viewdirs, L=L,
                      L_dir=model.posenc_dir, x_rows=not hoist_x, lay=lay,
                      dir_kernel=dir_kernel, x_kernels=tuple(x_kernels),
                      w32=w32 if grad else None,
@@ -443,11 +451,11 @@ def _pad_positions(net: PackedNet, Wp: int, k0p: int, device):
     and bias buffers lies in the flat buffers of the same net at width Wp
     and posenc operand width k0p (every tensor keeps its rows and columns
     from 0; the view layer is Wp/2 wide). Built once per shape and device."""
-    key = (net.depth, net.width, net.k0, net.skip, net.has_vd, Wp, k0p,
+    key = (net.depth, net.width, net.k0, net.skips, net.has_vd, Wp, k0p,
            str(device))
     if key not in _PAD_POS:
         W, k0, lay = net.width, net.k0, net.lay
-        big = _layout(net.depth, Wp, k0p, net.skip, net.has_vd)
+        big = _layout(net.depth, Wp, k0p, net.skips, net.has_vd)
         pos_w = torch.empty(lay["n_w"], dtype=torch.int64)
         pos_b = torch.empty(lay["n_b"], dtype=torch.int64)
 
@@ -477,20 +485,27 @@ def _pad_positions(net: PackedNet, Wp: int, k0p: int, device):
     return _PAD_POS[key]
 
 
-def pad_packed(net: PackedNet) -> PackedNet:
-    """The field-packed `net` (hoist_x=False) padded to the nearest shape
-    K3, K4 and K6 take (`pad_target`): zero weight rows and columns and
-    zero biases in the `_layout` order, the view layer at half the padded
-    width, `dir_kernel` with zero columns. A padded column is relu(0 + 0) =
-    0 (0 + 0 in the feature layer), bf16(0) = 0, and a padded row multiplies
-    an exact zero, so the padded net computes the same function: every f32
-    sum gains only +0.0 terms. The padded net's `unpad` holds where the
-    original entries lie, for cutting gradients back. The kernels then
-    spend the padded net's multiply-adds on every row; that is the price
-    of one kernel for every width."""
-    if not net.x_rows:
-        raise ValueError("pad_packed takes a net packed with hoist_x=False")
-    Wp, k0p = pad_target(net.width, net.depth, net.k0)
+def pad_packed(net: PackedNet, width: Optional[int] = None) -> PackedNet:
+    """`net` padded with zeros: a field-packed net (hoist_x=False) to the
+    nearest shape K3, K4 and K6 take (`pad_target`), a march-packed net
+    (hoist_x=True) to `width` with its posenc operand as it is (the σ
+    march's wider proposals, which K2 runs at width 256). Zero weight rows
+    and columns and zero biases in the `_layout` order, the view layer at
+    half the padded width, `dir_kernel` and the hoisted x-layers with zero
+    columns. A padded column is relu(0 + 0) = 0 (0 + 0 in the feature
+    layer), bf16(0) = 0, and a padded row multiplies an exact zero, so the
+    padded net computes the same function: every f32 sum gains only +0.0
+    terms. The padded net's `unpad` holds where the original entries lie,
+    for cutting gradients back. The kernels then spend the padded net's
+    multiply-adds on every row; that is the price of one kernel for every
+    width."""
+    if net.x_rows:
+        Wp, k0p = pad_target(net.width, net.depth, net.k0)
+    elif width is None or width < net.width:
+        raise ValueError("a net packed with hoist_x=True pads to a width "
+                         "at least its own, given")
+    else:
+        Wp, k0p = width, net.k0
     pos_w, pos_b, lay = _pad_positions(net, Wp, k0p, net.w.device)
     w = torch.zeros(lay["n_w"], dtype=_BF, device=net.w.device)
     w[pos_w] = net.w
@@ -502,10 +517,13 @@ def pad_packed(net: PackedNet) -> PackedNet:
     ck = net.cond_kernel
     if ck is not None:
         ck = pad_condpart(net, Wp, ck.detach())
+    cols = (0, Wp - net.width)
+    xk = tuple((F.pad(Wx, cols), F.pad(bx, cols)) for Wx, bx in net.x_kernels)
     return PackedNet(w=w, wf=w.float(), b=b, depth=net.depth, width=Wp,
-                     k0=k0p, skip=net.skip, has_vd=net.has_vd, L=net.L,
-                     L_dir=net.L_dir, x_rows=True, lay=lay, dir_kernel=dk,
-                     x_kernels=(), unpad=(pos_w, pos_b), cond_kernel=ck)
+                     k0=k0p, skips=net.skips, has_vd=net.has_vd, L=net.L,
+                     L_dir=net.L_dir, x_rows=net.x_rows, lay=lay,
+                     dir_kernel=dk, x_kernels=xk, unpad=(pos_w, pos_b),
+                     cond_kernel=ck)
 
 
 def kernel_net(net: PackedNet) -> PackedNet:
@@ -589,8 +607,8 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int, condpart=None,
     code = K.library().fnt_field_forward(
         *ptrs, condpart.data_ptr() if cw else None,
         None if alive is None else alive.data_ptr(), cw, tile, n, spr,
-        net.L, net.depth, net.width, net.k0, net.skip, int(net.has_vd),
-        K.stream())
+        net.L, net.depth, net.width, net.k0, net.skip_mask,
+        int(net.has_vd), K.stream())
     K.raise_on_error(code, "fnt_field_forward")
     K.LAUNCHES["field_alive" if alive is not None else
                "field_cond" if cw else "field"] += 1
@@ -772,7 +790,7 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     ptrs += [x.data_ptr() if cw else None for x in (condpart, d_cond, cpart)]
     code = K.library().fnt_field_backward(
         *ptrs, ws.numel(), n, spr, net.L, net.depth, net.width, net.k0,
-        net.skip, int(net.has_vd), chunk, n_split, M, cw, K.stream())
+        net.skip_mask, int(net.has_vd), chunk, n_split, M, cw, K.stream())
     K.raise_on_error(code, "fnt_field_backward")
     K.LAUNCHES["field_bwd_cond" if cw else "field_bwd"] += 1
     out = (d_pts, d_dir, d_w, d_b) + ((d_cond,) if cw else ())

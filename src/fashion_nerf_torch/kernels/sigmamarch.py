@@ -2,8 +2,9 @@
 
 Counterpart of `fashion_nerf.kernels.sigmamarch_pallas` (`pack_sigma`,
 `hoist_rays`, `_sigma_kernel`). The proposal net (2×128, L=6, out_head σ
-lane 3) marches ONE block of SB samples per ray. The posenc phases and the
-first layer's x-path are linear in t, so their per-ray parts are hoisted:
+lane 3, as shipped; the reference takes any width and depth) marches ONE
+block of SB samples per ray. The posenc phases and the first layer's
+x-path are linear in t, so their per-ray parts are hoisted:
 
     P(row)    = [tile(o)·fmat + phase] + [tile(d)·fmat]·t        (f32)
     accx(row) = [o@Wx + b0]            + [d@Wx]·t                (f32)
@@ -11,9 +12,19 @@ first layer's x-path are linear in t, so their per-ray parts are hoisted:
 Predication is per tile of TILE_ROWS // SB rays (32 at SB=64), as in the
 reference: a tile with any alive ray is marched whole; a dead tile writes
 w = 0, acc = 0, logT = 0.
+
+On the card the march takes one of two kernels (`sigma_kernel`): K1, which
+keeps the whole net resident in shared memory, at its width 128; any other
+width goes to K2 without a view branch (csrc/slimmarch.cu) as one block
+of SB samples, zero-padded to K2's nearest width (a 2×256 net's slices and
+activations would not fit K1's shared memory beside each other; K2
+streams its layers through a ring and computes K1's weights bit for bit
+on the same net). The plain version runs the unpadded net either way.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +42,7 @@ _LOG_FLOOR = -23.025851   # log(1e-10) floor on log(1 - α)
 def pack_sigma(model: NeRFMLP) -> PackedNet:
     """Pack a σ-only proposal net (no skip, no view branch)."""
     net = pack_params(model, hoist_x=True)
-    if net.skip >= 0 or net.has_vd:
+    if net.skips or net.has_vd:
         raise ValueError("the σ march takes an unconditioned no-skip "
                          "σ-only net")
     return net
@@ -104,19 +115,37 @@ def check_march_shape(R: int, SB: int, width: int, kernel_width: int,
                          f"{K.MARCH_MAX_TILES * rpt} rays")
 
 
+def sigma_kernel(net: PackedNet) -> str:
+    """The kernel the σ march of `net` takes on the card: "K1" at K1's
+    width, else "K2" (without a view branch, zero-padded to its nearest
+    width)."""
+    return "K1" if net.width == K.SIGMA_WIDTH else "K2"
+
+
 def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
-    """σ-only march: CPU tensors take the plain version, CUDA tensors K1."""
+    """σ-only march: CPU tensors take the plain version, CUDA tensors K1,
+    or K2 at a width K1 does not take (`sigma_kernel`; its launches count
+    under "sigma_march_k2")."""
     oF, dF, oWx, dWx = hoists
     if not K.on_cuda(alive, t, d, net.w, *hoists):
         return sigma_march_plain(net, hoists, alive, t, d, softplus)
     R, SB = d.shape
     W, nph = net.width, 6 * net.L
-    check_march_shape(R, SB, W, K.SIGMA_WIDTH)
     for name, x, shape in (("alive", alive, (R,)), ("oWx", oWx, (R, W)),
                            ("dWx", dWx, (R, W)), ("oF", oF, (R, nph)),
                            ("dF", dF, (R, nph)), ("t", t, (R, SB)),
                            ("d", d, (R, SB))):
         K.check(x, name, torch.float32, shape)
+    if sigma_kernel(net) == "K2":
+        from fashion_nerf_torch.kernels import slimmarch
+        # one block: the tile of rays lives iff one of its rays is alive
+        # (logT starts at 0 > log ε); a dead tile gives w = 0, logT = 0
+        ones = torch.ones((R, 1), dtype=torch.float32, device=d.device)
+        _, w, logT = slimmarch.slim_march(
+            net, hoists, None, alive, ones, t, d, -math.inf, softplus,
+            count="sigma_march_k2")
+        return w, w.sum(dim=1), logT
+    check_march_shape(R, SB, W, K.SIGMA_WIDTH)
     wp = march_buffer(net)
     w = torch.empty_like(d)
     acc = torch.empty((R,), dtype=torch.float32, device=d.device)

@@ -5,11 +5,14 @@ Counterpart of `fashion_nerf.kernels.slimmarch_pallas` (`split_hoist`,
 `hoist_rays`, `_slim_kernel`). The field marches NB blocks of SB samples
 per ray with a log-transmittance carry and an rgb accumulator. The posenc
 phases and the x-paths of the layers that take positions (the first, and
-the skip layer where the net has one) are linear in t and hoisted per ray;
-the view term γ(d̂)·W_dir is per ray. A net without a view branch (the
-reference's has_vd=False plans: the σ-only proposal net, 2×128 and no skip
-layer, of the generic proposal march) takes the 4-wide out head and no
-dirpart.
+every skip layer) are linear in t and hoisted per ray, as the reference
+hoists every x-consuming layer; the view term γ(d̂)·W_dir is per ray. A
+net without a view branch (the reference's has_vd=False plans: the σ-only
+proposal nets, no skip layer, of the generic proposal march and of the σ
+march at a width K1 does not take) takes the 4-wide out head and no
+dirpart. The kernel takes widths 128 and 256 with and without a view
+branch (kernels.SLIM_WIDTHS); a narrower net, or one between them, runs
+zero-padded to the nearest (`march_net`).
 
 A conditioned net's cond enters folded into the x-intercepts oX (its rows
 attach to exactly the x-layers and act on per-ray data), so the kernel has
@@ -25,10 +28,12 @@ White background is added by the caller.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, mlp_rows,
-                                                   pack_params, phase_consts)
+                                                   pack_params, pad_dirpart,
+                                                   pad_packed, phase_consts)
 from fashion_nerf_torch.kernels.sigmamarch import (_LOG_FLOOR, _density,
                                                    _march_operand,
                                                    check_march_shape)
@@ -119,11 +124,47 @@ def slim_march_plain(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     return rgb, w, logT
 
 
+def kernel_width(width: int) -> int:
+    """The width of K2's instantiation a net of this width runs at: the
+    nearest of kernels.SLIM_WIDTHS at or above it. Raises above 256."""
+    wide = [w for w in K.SLIM_WIDTHS if w >= width]
+    if width < 1 or not wide:
+        raise ValueError(f"net width {width}: K2 takes widths "
+                         f"{K.SLIM_WIDTHS}, narrower nets padded")
+    return wide[0]
+
+
+def march_net(net: PackedNet) -> PackedNet:
+    """`net` itself at a width K2 is built for, else its zero-padded
+    version (`posenc_mlp.pad_packed`), built on first use and kept on the
+    net."""
+    width = kernel_width(net.width)
+    if width == net.width:
+        return net
+    if net.padded is None:
+        net.padded = pad_packed(net, width)
+    return net.padded
+
+
+def pad_hoists(net: PackedNet, knet: PackedNet, hoists):
+    """The per-ray hoists of `net` widened to its padded net `knet`: each
+    x-layer's W columns of oX and dX get zero columns."""
+    oF, dF, oX, dX = hoists
+    if knet is net:
+        return hoists
+    R, pad = oX.shape[0], (0, knet.width - net.width)
+    return (oF, dF) + tuple(
+        F.pad(x.reshape(R, -1, net.width), pad).reshape(R, -1).contiguous()
+        for x in (oX, dX))
+
+
 def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
-               log_eps: float, softplus: bool = False):
+               log_eps: float, softplus: bool = False, count: str = None):
     """Multi-block march: CPU tensors take the plain version, CUDA tensors
     K2 (one launch per sample block). A net without a view branch takes
-    dirpart None."""
+    dirpart None. A net of a width K2 is not built for runs zero-padded
+    (`march_net`). count: the LAUNCHES entry the launches go to (default:
+    by the net's kind)."""
     oF, dF, oX, dX = hoists
     if (dirpart is None) == net.has_vd:
         raise ValueError("a net with a view branch takes a dirpart, and "
@@ -138,8 +179,8 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     nx = len(net.x_kernels)
     if S != NB * SB:
         raise ValueError(f"S={S} is not NB={NB} blocks")
-    check_march_shape(R, SB, W, K.SLIM_WIDTH if net.has_vd or W not in
-                      K.SLIM_WIDTHS_NOVD else W, net.tile_rows)
+    knet = march_net(net)
+    check_march_shape(R, SB, knet.width, knet.width, net.tile_rows)
     for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
                                                 (R, NB)),
                            ("oX", oX, (R, nx * W)), ("dX", dX, (R, nx * W)),
@@ -148,7 +189,9 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
         K.check(x, name, torch.float32, shape)
     if net.has_vd:
         K.check(dirpart, "dirpart", _BF, (R, W // 2))
-    wp = march_buffer(net)
+        dirpart = pad_dirpart(net, knet, dirpart)
+    oF, dF, oX, dX = pad_hoists(net, knet, hoists)
+    wp = march_buffer(knet)
     rgb = torch.empty((R, 3), dtype=torch.float32, device=t.device)
     w = torch.empty_like(t)
     carry = [torch.empty((R,), dtype=torch.float32, device=t.device)
@@ -156,15 +199,16 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     if R == 0:
         return rgb, w, carry[0]
     lib = K.library()
+    count = count or ("slim_march_cond" if net.n_cond else
+                      "slim_march" if net.has_vd else "slim_march_novd")
     for b in range(NB):
         ptrs = [None if x is None else x.data_ptr() for x in (
-            hit, block_hit, oX, dX, oF, dF, dirpart, t, d, net.w, wp, net.b,
-            rgb, w, carry[b % 2], carry[(b + 1) % 2])]
+            hit, block_hit, oX, dX, oF, dF, dirpart, t, d, knet.w, wp,
+            knet.b, rgb, w, carry[b % 2], carry[(b + 1) % 2])]
         code = lib.fnt_slim_march(
-            *ptrs, R, NB, SB, b, net.L, net.depth, net.width, net.k0,
-            net.skip, int(net.has_vd), int(softplus), net.tile_rows,
+            *ptrs, R, NB, SB, b, knet.L, knet.depth, knet.width, knet.k0,
+            knet.skip_mask, int(knet.has_vd), int(softplus), net.tile_rows,
             float(log_eps), K.stream())
         K.raise_on_error(code, "fnt_slim_march")
-        K.LAUNCHES["slim_march_cond" if net.n_cond else
-                   "slim_march" if net.has_vd else "slim_march_novd"] += 1
+        K.LAUNCHES[count] += 1
     return rgb, w, carry[NB % 2]

@@ -108,8 +108,8 @@ def pack_slices(net, transposed: bool = False) -> torch.Tensor:
 def gather_index(net, transposed: bool, device) -> torch.Tensor:
     """Positions in net.w of `pack_slices(net, transposed)`'s elements:
     the same slicing and tiling applied to an arange, once per layout
-    (depth, width, k0, skip, view branch) and device."""
-    key = (net.depth, net.width, net.k0, net.skip, net.has_vd, transposed,
+    (depth, width, k0, skip layers, view branch) and device."""
+    key = (net.depth, net.width, net.k0, net.skips, net.has_vd, transposed,
            str(device))
     if key not in _INDEX:
         src = torch.arange(net.lay["n_w"], dtype=torch.int64)

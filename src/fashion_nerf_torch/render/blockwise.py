@@ -4,8 +4,15 @@
 Per chunk of rays: macro-box culling ranges (`ray_multi_aabb`), a σ-only
 proposal march over one block of stratified samples (kernel K1), an
 edge-bin PDF dilated and mixed with a uniform floor, deterministic fine
-samples (`sample_pdf`), proposal-acc ray culling, and the fine march over
-NB blocks with early termination and per-block macro-box culling. The
+samples (`sample_pdf`), joined with stratified coverage samples under
+`proposal.cov_n` or with the proposal samples under `proposal.union`,
+proposal-acc ray culling, and the fine march over NB blocks with early
+termination and per-block macro-box culling. Under
+`occupancy.sample_warp` (with macro boxes, not `sampling.lindisp`) every
+stratified set is placed on the occupied bins of each ray's union range
+(`core.sampling.warp_stratified`), and every march caps each sample's
+integration width at the end of the occupied run that holds it
+(`delta_caps`). The
 marches take one of three pipelines, as the reference's do:
 - `kernels.fused_carry=true` (the flagship's): the carry march K2, or the
   generic carry march K6 under `kernels.carry_hoist=false`;
@@ -33,8 +40,6 @@ unconditioned.
 
 `plain=True` routes every march through its plain PyTorch version on any
 device: the reference frame that chip_smoke.py holds the kernels against.
-Config branches not ported raise NotImplementedError naming the ROADMAP
-item that ports them.
 """
 
 from __future__ import annotations
@@ -51,7 +56,9 @@ from fashion_nerf_torch.core.cameras import generate_rays, ndc_rays
 from fashion_nerf_torch.core.occupancy import (OccupancyState,
                                                ray_aabb_intersect,
                                                ray_multi_aabb)
-from fashion_nerf_torch.core.sampling import sample_pdf, stratified_sample
+from fashion_nerf_torch.core.sampling import (delta_caps, occupancy_bins,
+                                              sample_pdf, stratified_sample,
+                                              warp_stratified)
 from fashion_nerf_torch.kernels import carrymarch, sigmamarch, slimmarch
 from fashion_nerf_torch.kernels.posenc_mlp import (field_rows,
                                                    field_rows_plain,
@@ -59,18 +66,22 @@ from fashion_nerf_torch.kernels.posenc_mlp import (field_rows,
                                                    pack_params)
 
 _INF_DIST = 1e10
-_BRANCHES = "ROADMAP Queue 1 #15"
 
 
-def _pass_dists(t_vals, dnorm, t_end, SB):
+def _pass_dists(t_vals, dnorm, t_end, SB, cap=None):
     """Per-sample integration widths (∞ or t_end on the last), scaled by
-    ‖d‖, and t, both padded to a multiple of SB with zero-width sentinels."""
+    ‖d‖, and t, both padded to a multiple of SB with zero-width sentinels.
+    cap: None, or (R, S) the end of the occupied run that holds each sample
+    (`delta_caps`): a width then ends at max(cap, t) at the latest, so that
+    no interval spans a culled gap between occupied runs."""
     R, S = t_vals.shape
     if t_end is None:
         upper_last = t_vals[:, -1:] + _INF_DIST
     else:
         upper_last = torch.clamp(t_vals[:, -1:], min=float(t_end))
     upper = torch.cat([t_vals[:, 1:], upper_last], dim=1)
+    if cap is not None:
+        upper = torch.minimum(upper, torch.maximum(cap, t_vals))
     dists = (upper - t_vals) * dnorm
     pad = (-S) % SB
     return F.pad(t_vals, (0, pad)), F.pad(dists, (0, pad))
@@ -105,12 +116,12 @@ def _disp(depth, acc):
 
 
 def sigma_march_pass(net, hoists, t_vals, dnorm, alive0, cfg: Config, t_end,
-                     seg=None, sb=None, plain: bool = False):
+                     seg=None, sb=None, plain: bool = False, cap=None):
     """σ-only single-block proposal march → dict rgb (background), depth
-    (0), acc, weights (R, S), disp."""
+    (0), acc, weights (R, S), disp. cap: the widths' caps (`_pass_dists`)."""
     R, S = t_vals.shape
     SB = sb or cfg.kernels.block_samples
-    t_pad, d_pad = _pass_dists(t_vals, dnorm, t_end, SB)
+    t_pad, d_pad = _pass_dists(t_vals, dnorm, t_end, SB, cap)
     if t_pad.shape[1] != SB:
         raise ValueError(f"single-block march: {S} samples, SB={SB}")
     alive = alive0.float() * _block_hit_flags(t_pad, SB, seg, R, 1)[:, 0]
@@ -126,13 +137,15 @@ def sigma_march_pass(net, hoists, t_vals, dnorm, alive0, cfg: Config, t_end,
             "disp": _disp(depth, acc)}
 
 
-def _march_inputs(cfg: Config, t_vals, dnorm, t_end, seg, sb=None):
+def _march_inputs(cfg: Config, t_vals, dnorm, t_end, seg, sb=None,
+                  cap=None):
     """→ (t_pad, d_pad, block_hit, log ε) of a multi-block march of sb
-    samples a block (default kernels.block_samples)."""
+    samples a block (default kernels.block_samples); cap: the widths' caps
+    (`_pass_dists`)."""
     R = t_vals.shape[0]
     SB = sb or cfg.kernels.block_samples
     eps = cfg.kernels.early_term_eps
-    t_pad, d_pad = _pass_dists(t_vals, dnorm, t_end, SB)
+    t_pad, d_pad = _pass_dists(t_vals, dnorm, t_end, SB, cap)
     NB = t_pad.shape[1] // SB
     block_hit = _block_hit_flags(t_pad, SB, seg, R, NB)
     log_eps = math.log(eps) if eps > 0 else -1e30
@@ -172,12 +185,12 @@ def _march_out(cfg: Config, rgb, depth, acc, w, S):
 
 def marched_pass_slim(net, dirpart, hoists, t_vals, dnorm, alive0,
                       cfg: Config, t_end, seg=None, plain: bool = False,
-                      sb=None):
+                      sb=None, cap=None):
     """March over NB blocks of SB samples through K2 → dict rgb, depth,
     acc, weights (R, S), disp. A net without a view branch (the proposal
-    net) takes no dirpart."""
+    net) takes no dirpart. cap: the widths' caps (`_pass_dists`)."""
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg, sb)
+                                                     t_end, seg, sb, cap)
     hit = alive0.float().contiguous()
     fn = slimmarch.slim_march_plain if plain else slimmarch.slim_march
     rgb, w, _ = fn(net, hoists, dirpart if net.has_vd else None, hit,
@@ -189,13 +202,13 @@ def marched_pass_slim(net, dirpart, hoists, t_vals, dnorm, alive0,
 
 def marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm, alive0,
                        cfg: Config, t_end, seg=None, plain: bool = False,
-                       condpart=None, sb=None):
+                       condpart=None, sb=None, cap=None):
     """The same march through the generic carry kernel K6 (the reference's
     `_marched_pass_carry`, `kernels.carry_hoist=false`): positions built
     per sample, depth and acc composited per block, a conditioned net's
     condpart through K6's cond window → the same dict."""
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg, sb)
+                                                     t_end, seg, sb, cap)
     hit = alive0.float().contiguous()
     fn = carrymarch.carry_march_plain if plain else carrymarch.carry_march
     rgb, depth, acc, w, _ = fn(net, dirpart, rays_o.contiguous(),
@@ -208,7 +221,7 @@ def marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm, alive0,
 
 def marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals, dnorm,
                  alive0, cfg: Config, t_end, seg=None, plain: bool = False,
-                 sb=None):
+                 sb=None, cap=None):
     """The two-stage march (the reference's `_marched_pass`,
     `kernels.fused_carry=false`): per block of SB samples, the rays still
     worth marching (alive0 ∧ logT > log ε ∧ the block overlaps an occupied
@@ -223,7 +236,7 @@ def marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals, dnorm,
     R, S = t_vals.shape
     SB = sb or cfg.kernels.block_samples
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg, SB)
+                                                     t_end, seg, SB, cap)
     NB = t_pad.shape[1] // SB
     rpt = net.tile_rows // SB
     if R % rpt:
@@ -257,26 +270,27 @@ def marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals, dnorm,
 
 
 def _march(cfg: Config, net, rays_o, rays_d, viewdirs, t_vals, dnorm,
-           alive0, t_end, seg, plain: bool, cond=None, sb=None):
+           alive0, t_end, seg, plain: bool, cond=None, sb=None, cap=None):
     """A full-field march through the pipeline the config picks: the
     two-stage march (K3) under `kernels.fused_carry=false`, else K2 or K6
     as `kernels.carry_hoist` picks; cond (R, Cc) per ray for a conditioned
-    net; sb: samples a block (the proposal's block_samples)."""
+    net; sb: samples a block (the proposal's block_samples); cap: the
+    widths' caps (`_pass_dists`)."""
     dirpart = hoist_dirs(net, viewdirs)
     condpart = hoist_cond(net, cond)
     if not cfg.kernels.fused_carry:
         return marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals,
                             dnorm, alive0, cfg, t_end, seg=seg, plain=plain,
-                            sb=sb)
+                            sb=sb, cap=cap)
     if cfg.kernels.carry_hoist:
         return marched_pass_slim(net, dirpart,
                                  slimmarch.hoist_rays(net, rays_o, rays_d,
                                                       condpart),
                                  t_vals, dnorm, alive0, cfg, t_end, seg=seg,
-                                 plain=plain, sb=sb)
+                                 plain=plain, sb=sb, cap=cap)
     return marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm,
                               alive0, cfg, t_end, seg=seg, plain=plain,
-                              condpart=condpart, sb=sb)
+                              condpart=condpart, sb=sb, cap=cap)
 
 
 def use_proposal(cfg: Config, params: dict) -> bool:
@@ -294,20 +308,6 @@ def use_sigma_march(cfg: Config, occ=None) -> bool:
     n_prop, p_sb, _ = _budgets(cfg, occ)
     return (cfg.proposal.sigma_march and cfg.kernels.fused_carry
             and n_prop <= p_sb)
-
-
-def _check_supported(cfg: Config, params: dict):
-    """Raise NotImplementedError on config branches not ported."""
-    p = cfg.proposal
-    prop = use_proposal(cfg, params)
-    off = []
-    if cfg.occupancy.sample_warp:
-        off.append("occupancy.sample_warp")
-    if prop and (p.union or p.cov_n > 0):
-        off.append("proposal.union / cov_n")
-    if off:
-        raise NotImplementedError(
-            f"blockwise branches not ported: {', '.join(off)} ({_BRANCHES})")
 
 
 def _budgets(cfg: Config, occ, prop: bool = True):
@@ -377,12 +377,28 @@ def culling(cfg: Config, rays_o, rays_d, occ: OccupancyState = None):
     return near, far, hit, None, rcfg.far
 
 
+def fine_march_samples(cfg: Config, occ=None, prop: bool = True) -> int:
+    """Samples a ray of the fine march: the fine samples, joined with the
+    coarse pass's without a proposal or under `proposal.union`, or with
+    `proposal.cov_n` coverage samples. The march pads them to whole blocks
+    of kernels.block_samples (f64 + cov16 → 80 → 3 blocks of 32; p64 + f64
+    under union → 128 → 4 blocks)."""
+    n_c, _, n_fine = _budgets(cfg, occ, prop)
+    if not prop or cfg.proposal.union:
+        return n_c + n_fine
+    return n_fine + cfg.proposal.cov_n
+
+
 def fine_samples(cfg: Config, t_c, weights, n_fine: int,
-                 proposal: bool = True):
-    """Fine sample positions (sorted). From the proposal weights: edge-bin
-    PDF, ±dilate max-pool, uniform floor, deterministic inverse CDF. From
-    the full coarse march (proposal=False): mid-bin PDF, and the coarse
-    samples join the fine ones."""
+                 proposal: bool = True, strat=None):
+    """Fine sample positions (sorted), in the reference's order of
+    operations. From the proposal weights: edge-bin PDF, ±dilate max-pool,
+    uniform floor, deterministic inverse CDF; then joined with the
+    proposal samples t_c under `proposal.union`, or else with strat(cov_n)
+    coverage samples under `proposal.cov_n` (strat: n → (R, n) the chunk's
+    stratified samples, warped where the render warps them). From the full
+    coarse march (proposal=False): mid-bin PDF, and the coarse samples
+    join the fine ones."""
     pdf_bins, w_mid = _pdf_bins(t_c, weights,
                                 proposal and cfg.proposal.edge_bins)
     if not proposal:
@@ -396,7 +412,15 @@ def fine_samples(cfg: Config, t_c, weights, n_fine: int,
     a = cfg.proposal.uniform_mix
     if a > 0.0:
         w_mid = (1.0 - a) * w_mid + a * w_mid.mean(dim=-1, keepdim=True)
-    return torch.sort(sample_pdf(pdf_bins, w_mid, n_fine), dim=-1).values
+    t_f = sample_pdf(pdf_bins, w_mid, n_fine)
+    if cfg.proposal.union:
+        t_f = torch.cat([t_c, t_f], dim=-1)
+    elif cfg.proposal.cov_n > 0:
+        if strat is None:
+            raise ValueError("proposal.cov_n takes the chunk's stratified "
+                             "sampler (strat)")
+        t_f = torch.cat([strat(cfg.proposal.cov_n), t_f], dim=-1)
+    return torch.sort(t_f, dim=-1).values
 
 
 def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
@@ -411,8 +435,10 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
     per-ray cond input of conditioned nets. The coarse pass is the σ-only
     proposal march (K1), the generic proposal march, or the full coarse
     march; every march but K1's runs through the pipeline `_march`
-    picks."""
-    _check_supported(cfg, params)
+    picks. Under `occupancy.sample_warp`, with macro-box segments and
+    without `sampling.lindisp`, the stratified sets are warped onto each
+    ray's occupied bins and every march caps its widths at the occupied
+    runs' ends, as the reference does."""
     prop = use_proposal(cfg, params)
     n_c, sb_c, n_fine = _budgets(cfg, occ, prop)
     R = rays_o.shape[0]
@@ -422,30 +448,46 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
     packed = packed or pack_render_params(params, cfg, occ)
     near, far, alive0, seg, t_end = culling(cfg, rays_o, rays_d, occ)
     dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    t_c = stratified_sample(near, far, R, n_c, cfg.sampling.lindisp,
-                            device=rays_o.device)
+    warp = (cfg.occupancy.sample_warp and seg is not None
+            and not cfg.sampling.lindisp)
+    if warp:
+        bins_occ, gap_idx = occupancy_bins(seg, near, far,
+                                           cfg.occupancy.warp_bins)
 
+    def strat(n):
+        if warp:
+            return warp_stratified(bins_occ, near, far, n)
+        return stratified_sample(near, far, R, n, cfg.sampling.lindisp,
+                                 device=rays_o.device)
+
+    def caps(t_vals):
+        return delta_caps(gap_idx, near, far, t_vals) if warp else None
+
+    t_c = strat(n_c)
     alive_f = alive0
     if prop:
         pnet = packed["proposal"]
         if use_sigma_march(cfg, occ):
             out_c = sigma_march_pass(
                 pnet, sigmamarch.hoist_rays(pnet, rays_o, rays_d), t_c,
-                dnorm, alive0, cfg, t_end, seg=seg, sb=sb_c, plain=plain)
+                dnorm, alive0, cfg, t_end, seg=seg, sb=sb_c, plain=plain,
+                cap=caps(t_c))
         else:
             # the σ-only net has no view branch: its dirpart is zeros
             out_c = _march(cfg, pnet, rays_o, rays_d, viewdirs, t_c, dnorm,
-                           alive0, t_end, seg, plain, sb=sb_c)
+                           alive0, t_end, seg, plain, sb=sb_c,
+                           cap=caps(t_c))
         if cfg.proposal.cull_acc > 0.0:
             alive_f = alive0 & (out_c["acc"] > cfg.proposal.cull_acc)
     else:
         out_c = _march(cfg, packed["coarse"], rays_o, rays_d, viewdirs, t_c,
-                       dnorm, alive0, t_end, seg, plain, cond)
+                       dnorm, alive0, t_end, seg, plain, cond, cap=caps(t_c))
         if n_fine <= 0:
             return {"coarse": out_c, "fine": None}
-    t_all = fine_samples(cfg, t_c, out_c["weights"], n_fine, proposal=prop)
+    t_all = fine_samples(cfg, t_c, out_c["weights"], n_fine, proposal=prop,
+                         strat=strat)
     out_f = _march(cfg, packed["fine"], rays_o, rays_d, viewdirs, t_all,
-                   dnorm, alive_f, t_end, seg, plain, cond)
+                   dnorm, alive_f, t_end, seg, plain, cond, cap=caps(t_all))
     return {"coarse": out_c, "fine": out_f}
 
 

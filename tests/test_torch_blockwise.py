@@ -138,24 +138,17 @@ def _axis_rays(n=64):
 
 
 @pytest.mark.parametrize("ovr", [
-    "occupancy.sample_warp=true", "proposal.union=true", "proposal.cov_n=16"])
-def test_off_path_branches_raise(scene, ovr):
-    """Config branches not ported name their ROADMAP item."""
-    _, _, params_t, _ = scene
-    cfg = _cfg(ovr)
-    ro, rd = _axis_rays()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #15"):
-        tbw.render_rays_blockwise(params_t, cfg, ro, rd, rd)
-
-
-@pytest.mark.parametrize("ovr", [
     "proposal.sigma_march=false", "kernels.fused_carry=false",
-    "proposal.eval_n=96", "render.ndc=true"])
+    "proposal.eval_n=96", "render.ndc=true", "occupancy.sample_warp=true",
+    "proposal.union=true", "proposal.cov_n=16"])
 def test_ported_branches_run(scene, ovr):
     """The branches ported since (the generic proposal march, the
-    two-stage march, NDC) render 64 rays down the axis through the object
-    with the trained nets: finite outputs, an opaque centre. Their parity
-    with the reference is in tests/test_torch_blockwise_twostage.py."""
+    two-stage march, NDC, the occupancy-warped samples and width caps, the
+    union and the coverage samples of the fine march) render 64 rays down
+    the axis through the object with the trained nets: finite outputs, an
+    opaque centre. Their parity with the reference is in
+    tests/test_torch_blockwise_twostage.py and
+    tests/test_torch_branches.py."""
     _, _, params_t, occ_t = scene
     ro, rd = _axis_rays()
     with torch.no_grad():

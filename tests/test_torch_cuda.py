@@ -350,8 +350,9 @@ def test_sigma_march_edge_cases(dev, case, SB):
 
 
 def test_march_wrappers_reject_bad_shapes(dev):
-    """K1/K2 take their nets' widths (128, 256), SB in (16, 32, 64) and
-    whole tiles; R = 0 returns empty outputs without a launch."""
+    """K1/K2 take SB in (16, 32, 64), whole tiles and nets up to width 256
+    (K2 pads narrower ones; the σ march takes K2 off K1's width 128); R = 0
+    returns empty outputs without a launch."""
     rng = np.random.default_rng(12)
     fnet = slimmarch.split_hoist(fine_net(rng).to(dev))
     pnet = sigmamarch.pack_sigma(prop_net(rng).to(dev))
@@ -373,12 +374,12 @@ def test_march_wrappers_reject_bad_shapes(dev):
             net, sigmamarch.hoist_rays(net, ro, rd), torch.ones(R, device=dev),
             torch.ones((R, SB), device=dev), torch.ones((R, SB), device=dev))
 
-    narrow = slimmarch.split_hoist(fine_net(rng, W=128).to(dev))
-    for call in (lambda: k2(narrow, 64, 2, 32), lambda: k2(fnet, 256, 2, 8),
-                 lambda: k2(fnet, 96, 2, 32), lambda: k1(pnet, 64, 8),
-                 lambda: k1(pnet, 48, 64),
-                 lambda: k1(sigmamarch.pack_sigma(prop_net(rng, W=64).to(
-                     dev)), 32, 64)):
+    # widths K1 and K2 are not built for run padded (test_torch_skips'
+    # cases); what no padding reaches still raises
+    wide = sigmamarch.pack_sigma(prop_net(rng, W=320).to(dev))
+    for call in (lambda: k2(fnet, 256, 2, 8), lambda: k2(fnet, 96, 2, 32),
+                 lambda: k1(pnet, 64, 8), lambda: k1(pnet, 48, 64),
+                 lambda: k1(wide, 32, 64)):
         with pytest.raises(ValueError):
             call()
     n0 = dict(K.LAUNCHES)
@@ -1139,3 +1140,211 @@ def test_slim_march_kernel_no_view_branch(dev, which, NB, SB, eps):
     with pytest.raises(ValueError):
         slimmarch.slim_march(net, hz, posenc_mlp.hoist_dirs(net, rd), hit,
                              bhit, t, d, log_eps)
+
+
+# --- several skip layers; the σ march's and K2's other widths ----------------
+
+def skips_net(rng, W=256, L=10, depth=8, skips=(2, 4), vd=True, C=0):
+    """A random field whose layers after `skips` take γ(x) (and C cond rows
+    with trunk_0's), the reference's NeRFMLP convention."""
+    cx = 3 * (2 * L + 1) + C
+    shapes = {f"trunk_{i}": ((cx + W) if (i - 1) in skips else
+                             (cx if i == 0 else W), W) for i in range(depth)}
+    if vd:
+        shapes.update(sigma_head=(W, 1), feature=(W, W),
+                      view_0=(W + 27, W // 2), rgb_head=(W // 2, 3))
+    else:
+        shapes["out_head"] = (W, 4)
+    return load_flax_params({"params": {
+        name: {"kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(
+            np.float32),
+            "bias": (0.1 * rng.normal(size=o)).astype(np.float32)}
+        for name, (i, o) in shapes.items()}}, compute_dtype="bfloat16",
+        cond_dim=C)
+
+
+SKIP_NETS = {"fine": lambda rng, C=0: skips_net(rng, C=C),
+             "w64": lambda rng, C=0: skips_net(rng, 64, 4, 6, (1, 3), C=C),
+             "w128nv": lambda rng, C=0: skips_net(rng, 128, 6, 5, (0, 2),
+                                                  vd=False, C=C)}
+
+
+@pytest.mark.parametrize("depth,width,k0,skips,vd", [
+    (8, 256, 64, (5,), 1), (8, 256, 64, (3, 5), 1), (2, 128, 48, (), 0),
+    (6, 64, 32, (2, 4), 1), (16, 128, 48, (1, 4, 9, 15), 0)])
+def test_layout_matches_python(dev, depth, width, k0, skips, vd):
+    """fnt::make_layout (fnt_layout) equals posenc_mlp._layout offset for
+    offset, one skip layer or several."""
+    import ctypes
+    lay = posenc_mlp._layout(depth, width, k0, skips, bool(vd))
+    out = (ctypes.c_int * (3 * depth + 10))()
+    mask = sum(1 << i for i in skips)
+    assert K.library().fnt_layout(depth, width, k0, mask, vd, out) == 0
+    got = list(out)
+    want = [(-1 if v is None else v) for v in
+            lay["w_h"] + lay["w_a0"] + lay["b"]]
+    want += [lay.get(k, -1) for k in ("w_sig", "w_feat", "w_view", "w_rgb",
+                                      "w_out", "b_sig", "b_feat", "b_view",
+                                      "b_rgb", "b_out")]
+    assert got == want
+
+
+@pytest.mark.parametrize("which,n,spr,cond", [
+    ("fine", 4160, 64, False), ("fine", 3072, 192, True),
+    ("w64", 4096, 64, False), ("w64", 1088, 1, True),
+    ("w128nv", 4160, 64, True)])
+def test_field_kernel_two_skips(dev, which, n, spr, cond):
+    """K3 on nets with two skip layers (8×256 L = 10 with layers 3 and 5
+    taking γ(x), a padded 6×64 and a 5×128 without a view branch), with
+    and without the cond window (n_cond = 3): rgb 5e-3, σ 2e-2·(1+|σ|)."""
+    rng = np.random.default_rng(21)
+    C = 16 if cond else 0
+    net = posenc_mlp.pack_params(SKIP_NETS[which](rng, C=C).to(dev),
+                                 hoist_x=False)
+    assert len(net.skips) == 2 and net.n_cond == (3 if cond else 0)
+    R = n // spr
+    pts = _f32(rng, n, 3, lo=-1.2, hi=1.2, dev=dev)
+    dp = posenc_mlp.hoist_dirs(net, _f32(rng, R, 3, dev=dev)).contiguous()
+    cp = posenc_mlp.hoist_cond(net, torch.tensor(
+        rng.normal(size=(R, C)), dtype=torch.float32, device=dev)) \
+        if cond else None
+    key = "field_cond" if cond else "field"
+    n0 = K.LAUNCHES[key]
+    rgb_k, sig_k = posenc_mlp.field_rows(net, pts, dp, spr, cp)
+    rgb_p, sig_p = posenc_mlp.field_rows_plain(net, pts, dp, spr, cp)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[key] == n0 + 1
+    _close(rgb_k, rgb_p, 5e-3)
+    assert bool(((sig_k - sig_p).abs() <= 2e-2 * (1 + sig_p.abs())).all())
+
+
+@pytest.mark.parametrize("which,n,spr,cond", [
+    ("fine", 4096, 64, False), ("fine", 3072, 192, True),
+    ("w64", 4160, 64, True), ("w128nv", 1088, 1, False)])
+def test_field_bwd_kernel_two_skips(dev, which, n, spr, cond):
+    """K4 on two-skip nets: every output (d_pts through both skip layers'
+    posenc cotangents, d_dir, d_w, d_b and, conditioned, d_cond over three
+    slices) 1e-2 relative RMS against its plain version, bitwise the same
+    over two runs."""
+    rng = np.random.default_rng(22)
+    C = 16 if cond else 0
+    net = posenc_mlp.pack_params(SKIP_NETS[which](rng, C=C).to(dev),
+                                 hoist_x=False)
+    args = _bwd_inputs(rng, net, n, spr, dev)
+    cp = posenc_mlp.hoist_cond(net, torch.tensor(
+        rng.normal(size=(n // spr, C)), dtype=torch.float32, device=dev)) \
+        if cond else None
+    out_k = posenc_mlp.field_rows_backward(net, *args, spr, cp)
+    out_k2 = posenc_mlp.field_rows_backward(net, *args, spr, cp)
+    out_p = posenc_mlp.field_rows_backward_plain(net, *args, spr, cp)
+    torch.cuda.synchronize()
+    assert len(out_k) == (5 if cond else 4)
+    for i, (a, a2, b) in enumerate(zip(out_k, out_k2, out_p)):
+        assert torch.equal(a, a2), i
+        if i == 1 and not net.has_vd:
+            continue
+        assert _rel_rms(a, b) <= 1e-2, (i, _rel_rms(a, b))
+
+
+@pytest.mark.parametrize("cond", [False, True])
+def test_marches_two_skips(dev, cond):
+    """K2 (three hoisted x-layers; the cond folded into their intercepts)
+    and K6 (the cond window over three slices) on the 8×256 two-skip net:
+    rgb/w 5e-3 against their plain versions and K6 against K2, with a dead
+    tile, a dead (tile, block) pair and termination."""
+    rng = np.random.default_rng(23)
+    C = 16 if cond else 0
+    model = skips_net(rng, C=C).to(dev)
+    R, NB, SB = 192, 3, 32
+    ro, rd = _rays(R, dev)
+    t = torch.linspace(2.0, 6.0, NB * SB, device=dev).expand(
+        R, NB * SB).contiguous()
+    d = torch.full((R, NB * SB), 4.0 / (NB * SB), device=dev)
+    hit = torch.ones(R, device=dev)
+    hit[:64] = 0.0
+    bhit = torch.ones((R, NB), device=dev)
+    bhit[128:, 1] = 0.0
+    cond_v = (torch.tensor(rng.normal(size=(R, C)), dtype=torch.float32,
+                           device=dev) if cond else None)
+    snet = slimmarch.split_hoist(model)
+    cnet = posenc_mlp.pack_params(model, hoist_x=False)
+    assert len(snet.x_kernels) == 3
+    dp = posenc_mlp.hoist_dirs(snet, rd).contiguous()
+    cp = posenc_mlp.hoist_cond(snet, cond_v)
+    hf = slimmarch.hoist_rays(snet, ro, rd, cp)
+    log_eps = math.log(1e-3)
+    s_k = slimmarch.slim_march(snet, hf, dp, hit, bhit, t, d, log_eps)
+    s_p = slimmarch.slim_march_plain(snet, hf, dp, hit, bhit, t, d, log_eps)
+    args = (cnet, dp, ro, rd, hit, bhit, t, d, log_eps)
+    c_k = carrymarch.carry_march(*args, condpart=cp)
+    c_p = carrymarch.carry_march_plain(*args, condpart=cp)
+    torch.cuda.synchronize()
+    for a, b in ((s_k[0], s_p[0]), (s_k[1], s_p[1]), (c_k[0], c_p[0]),
+                 (c_k[3], c_p[3]), (c_k[0], s_k[0]), (c_k[3], s_k[1])):
+        _close(a, b, 5e-3)
+    assert bool((s_k[1][:64] == 0).all()) and float(s_k[1].sum()) > 0.0
+
+
+@pytest.mark.parametrize("W,depth,L", [(192, 2, 8), (256, 3, 8), (64, 2, 6)])
+def test_sigma_march_other_widths_take_k2(dev, W, depth, L):
+    """The σ march of a proposal K1 is not built for (the spec sweep's 2×192
+    and 3×256 at L = 8, and a 2×64) runs on K2 without a view branch,
+    zero-padded to its nearest width: w/acc/transmittance 2e-3 against
+    the plain version on the unpadded net, dead tiles exact zeros, counted
+    under "sigma_march_k2" and nowhere else."""
+    rng = np.random.default_rng(24)
+    cx = 3 * (2 * L + 1)
+    shapes = {"trunk_0": (cx, W), "out_head": (W, 4)}
+    shapes.update({f"trunk_{i}": (W, W) for i in range(1, depth)})
+    net = sigmamarch.pack_sigma(_net(rng, shapes).to(dev))
+    assert sigmamarch.sigma_kernel(net) == "K2"
+    R, SB = 256, 64
+    ro, rd = _rays(R, dev)
+    hz = sigmamarch.hoist_rays(net, ro, rd)
+    t = torch.linspace(2.0, 6.0, SB, device=dev).expand(R, SB).contiguous()
+    d = torch.full((R, SB), 4.0 / SB, device=dev)
+    alive = torch.ones(R, device=dev)
+    alive[:32] = 0.0                  # tile 0 dead
+    alive[40] = 0.0                   # culled ray in live tile 1
+    n0 = dict(K.LAUNCHES)
+    w_k, acc_k, lt_k = sigmamarch.sigma_march(net, hz, alive, t, d)
+    w_p, acc_p, lt_p = sigmamarch.sigma_march_plain(net, hz, alive, t, d)
+    torch.cuda.synchronize()
+    moved = {k for k in K.LAUNCHES if K.LAUNCHES[k] != n0[k]}
+    assert moved == {"sigma_march_k2"}
+    assert K.LAUNCHES["sigma_march_k2"] == n0["sigma_march_k2"] + 1
+    _close(w_k, w_p, 2e-3)
+    _close(acc_k, acc_p, 2e-3)
+    _close(lt_k.exp(), lt_p.exp(), 2e-3)
+    assert bool((w_k[:32] == 0).all() and (acc_k[:32] == 0).all())
+    assert float(acc_k[40]) > 0.0
+
+
+@pytest.mark.parametrize("W,L,skips", [(128, 10, (4,)), (128, 10, (1, 3)),
+                                       (64, 6, (2,))])
+def test_slim_march_view_branch_width_128(dev, W, L, skips):
+    """K2 with a view branch at width 128 (its own instantiation; the view
+    layer at N = 64), and a 64-wide net padded to it: rgb/w/transmittance
+    5e-3 against the plain version on the unpadded net."""
+    rng = np.random.default_rng(25)
+    net = slimmarch.split_hoist(skips_net(rng, W, L, 8, skips).to(dev))
+    assert slimmarch.march_net(net).width == 128
+    R, NB, SB = 192, 3, 32
+    ro, rd = _rays(R, dev)
+    hf = slimmarch.hoist_rays(net, ro, rd)
+    dp = posenc_mlp.hoist_dirs(net, rd).contiguous()
+    t = torch.linspace(2.0, 6.0, NB * SB, device=dev).expand(
+        R, NB * SB).contiguous()
+    d = torch.full((R, NB * SB), 4.0 / (NB * SB), device=dev)
+    hit = torch.ones(R, device=dev)
+    hit[:64] = 0.0
+    bhit = torch.ones((R, NB), device=dev)
+    n0 = K.LAUNCHES["slim_march"]
+    out_k = slimmarch.slim_march(net, hf, dp, hit, bhit, t, d, -6.9)
+    out_p = slimmarch.slim_march_plain(net, hf, dp, hit, bhit, t, d, -6.9)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["slim_march"] == n0 + NB
+    _close(out_k[0], out_p[0], 5e-3)
+    _close(out_k[1], out_p[1], 5e-3)
+    _close(out_k[2].exp(), out_p[2].exp(), 5e-3)
+    assert bool((out_k[1][:64] == 0).all()) and float(out_k[1].sum()) > 0.0

@@ -189,7 +189,7 @@ def test_wrappers_take_plain_on_cpu():
                                "probe_p1", "probe_p2", "field_cond",
                                "slim_march_cond", "carry_march_cond",
                                "field_bwd_cond", "field_alive",
-                               "slim_march_novd"}
+                               "slim_march_novd", "sigma_march_k2"}
     assert not any(K.LAUNCHES.values())
 
 

@@ -79,7 +79,7 @@ def test_padded_forward_equals_unpadded(W, depth, L, vd, skip):
     assert torch.equal(big.w[pos_w], net.w)
     assert torch.equal(big.b[pos_b], net.b)
     assert int((big.w != 0).sum()) == int((net.w != 0).sum())
-    assert (net.skip >= 0) == (skip is not None)
+    assert bool(net.skips) == (skip is not None)
     with torch.no_grad():
         rgb, sig = posenc_mlp.field_rows_plain(net, pts, dp, spr)
         rgb_b, sig_b = posenc_mlp.field_rows_plain(big, pts, dp_big, spr)

@@ -84,7 +84,7 @@ def test_proposal_march_slim_matches_reference(nets, n_prop):
         jnp.asarray(rd), jnp.asarray(t), jnp.asarray(dn),
         jnp.asarray(alive0), cfg_j, 6.0, L=prop_m.posenc_xyz, sb=SB)
     net = slimmarch.split_hoist(params_t["proposal"])
-    assert not net.has_vd and net.skip < 0 and len(net.x_kernels) == 1
+    assert not net.has_vd and not net.skips and len(net.x_kernels) == 1
     tro, trd = torch.from_numpy(ro), torch.from_numpy(rd)
     with torch.no_grad():
         out_t = tbw.marched_pass_slim(
