@@ -62,6 +62,19 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`), the command line,
    ≥ 40 dB against its plain frame (the last two also against the K1 + K2
    warp frame), and its GT-minus-dense delta at the bench pose (the
    gate's references) beside the shipped preset's;
+   frame-sb: the bench frame at SBs outside 16–64, each 1 warm-up + 3
+   timed frames, ≥ 40 dB against its plain frame and against the K1 + K2
+   frame: `kernels.block_samples=128` (the 96 fine samples padded to one
+   block of 128) and `=8` (12 blocks), the σ march at
+   `proposal.block_samples=128 proposal.eval_n=128` (K1 at 128), and K1 +
+   K6 at `kernels.block_samples=128` (`kernels.carry_hoist=false`);
+   sweep: the reference's spec sweep (`quality.run_sweep`, every row of
+   scripts/quality_check.py) at 800×800 at the bench pose through the
+   kernels: each row's PSNR against the GT and the dense row, its delta
+   and seconds, each proposal row's student against its teacher (a dead
+   student fails the phase, but for the 3×256 L = 8 row, whose seed-7
+   student dies in the reference's step too on the port's points:
+   tests/test_torch_distill.py), and that row distilled from seeds 0-3;
 8. scene: the hermetic 16-view 160×160 training scene (numpy, host);
 9. step: one training step from the committed weights through the kernels
    and through the plain versions: loss and every gradient compared;
@@ -72,6 +85,9 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`), the command line,
     occupancy refresh, culled steps, dense steps, an eval and a checkpoint;
 12. train-small: `train()` of a width-32, depth-3, L = 4 net with
     `kernels.use_pallas=true`: K3 and K4 on the padded net;
+    bench-train: `bench.bench_train` for blender_lego at the reference's
+    recipe (8 views of 64×64, 10 warm-up and 50 timed steps), its step ms
+    and training rays/s beside the step's;
 13. probe: TFLOP/s of each P1 variant and each P2 shape, and as yardsticks
     one torch.matmul at the field layer's shape and P1's chain as ten
     torch.matmul calls;
@@ -113,6 +129,13 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`), the command line,
     frames' latents move); and `train_matcher` at the reference's unit-test
     recipe, its held-out IoU against the keypoint-grid baseline.
 
+In [kernels], K1, K2 and K6 also run at SBs outside 16–64 on the
+flagship's nets at K1's chunk (8192 rays): K1 one block of 8, 128, 256
+and 512 samples, K2 and K6 256 samples a ray in 32, 2 and 1 blocks (SB 8,
+128, 256), and the conditioned K2 at its halved tile at SB 256, each
+against its plain version with the tolerances and the executed-tile
+checks of the rows at SB 16–64.
+
 In [kernels], K3, K2 and K6 also run a conditioned net: K3 and K6 through
 their cond window (a per-ray condpart), K2 with the cond folded into its
 x-intercepts, the marches at the conditioned (halved) tile; and K4 runs
@@ -127,8 +150,10 @@ right after it, so they count that path only; a conditioned net's
 launches of K2, K3, K4 and K6 count under "slim_march_cond",
 "field_cond", "field_bwd_cond" and "carry_march_cond", K3's launches with
 the tile-skip flag under "field_alive", K2's on a net without a view
-branch under "slim_march_novd", and K2's serving the σ march of a proposal
-K1 is not built for under "sigma_march_k2".
+branch under "slim_march_novd", K2's serving the σ march of a proposal
+K1 is not built for under "sigma_march_k2", and every launch of K1, K2
+and K6 at an SB outside 16–64 under "sigma_march_sb", "slim_march_sb" and
+"carry_march_sb".
 Any failure raises (non-zero exit). Imports nothing of JAX. The last line
 is the device JSON object.
 """
@@ -206,6 +231,19 @@ LLFF_STEPS = 24               # [llff]: steps of `train --config llff_fern`
 # tensor cores, float32 outside them, device memory
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
 FRAME = 800                   # frame height and width of the bench
+SB_K1 = (8, 128, 256, 512)    # [kernels]: K1's SBs outside 16–64
+SB_K26 = (8, 128, 256)        # K2's and K6's, 256 samples a ray
+SB_FRAMES = (                 # [frame-sb]: overrides, and the "_sb" count
+    (("kernels.block_samples=128",), "slim_march_sb"),
+    (("kernels.block_samples=8",), "slim_march_sb"),
+    (("proposal.block_samples=128", "proposal.eval_n=128"),
+     "sigma_march_sb"),
+    (("kernels.carry_hoist=false", "kernels.block_samples=128"),
+     "carry_march_sb"))
+# [sweep]: the row whose seed-7 student dies in both packages' steps, and
+# the seeds it is distilled from besides 7
+SWEEP_SHARED_DEATH = "proposal p64+f64+cov16 w256d3"
+SWEEP_SEEDS = (0, 1, 2, 3)
 RUN_DIR = os.path.join(ROOT, "build", "chip_smoke_run")
 
 SOURCES = {
@@ -246,6 +284,13 @@ SOURCES = {
     # K4's conditioned plan: the recompute's cond window and the dcond output
     "field_bwd_cond": ("src/fashion_nerf_torch/kernels/csrc/field_bwd.cu",
                        "src/fashion_nerf/kernels/posenc_mlp_pallas.py:635"),
+    # K1, K2 and K6 at an SB outside 16–64
+    "sigma_march_sb": ("src/fashion_nerf_torch/kernels/csrc/sigmamarch.cu",
+                       "src/fashion_nerf/kernels/sigmamarch_pallas.py:91"),
+    "slim_march_sb": ("src/fashion_nerf_torch/kernels/csrc/slimmarch.cu",
+                      "src/fashion_nerf/kernels/slimmarch_pallas.py:113"),
+    "carry_march_sb": ("src/fashion_nerf_torch/kernels/csrc/carrymarch.cu",
+                       "src/fashion_nerf/kernels/blockmarch_pallas.py:53"),
 }
 
 
@@ -577,7 +622,169 @@ def phase_kernels(cfg, device):
         cfg, pts, dirs, (o, d, alive_f, bhit, tf_pad, df_pad), args1, device)
     results["volrend"] = kernel_k5(cfg, rng, device)
     results.update(kernel_probe(device))
+    results.update(kernel_sb(cfg, fine, params["proposal"], trained, o, d,
+                             occ_ref, device))
     return results, occ_ref
+
+
+def kernel_sb(cfg, fine, prop_model, trained, o, d, occ, device):
+    """K1, K2 and K6 at SBs outside 16–64 on K1's chunk (8192 rays): K1 on
+    the committed proposal, one block of SB_K1 stratified samples a ray;
+    K2 and K6 on the committed fine net, 256 stratified samples a ray in
+    blocks of SB_K26, and K2 on the conditioned flagship (cond_tree) at
+    its halved tile at SB 256. Each against its plain version: K1 w/acc
+    ≤ K1_ATOL and the same tiles with a nonzero weight; K2 and K6 rgb/w
+    (K6 also acc) ≤ K2_ATOL / K6_ATOL and the same executed (tile, block)
+    pairs; K6 also against K2. Launches counted under the "_sb" entries
+    (two a block where the tiles exceed one launch's). → the SB 128 rows
+    as "sigma_march_sb", "slim_march_sb", "carry_march_sb"."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.core.sampling import stratified_sample
+    from fashion_nerf_torch.kernels import (carrymarch, posenc_mlp,
+                                            sigmamarch, slimmarch)
+    from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+    from fashion_nerf_torch.render.blockwise import (_block_hit_flags,
+                                                     _pass_dists, culling,
+                                                     march_liveness)
+    R = o.shape[0]
+    near, far, alive0, seg, t_end = culling(cfg, o, d, occ)
+    dnorm = torch.linalg.norm(d, dim=-1, keepdim=True)
+    log_eps = math.log(cfg.kernels.early_term_eps)
+    out = {}
+
+    def launches(name, fn):
+        n0 = K.LAUNCHES[name]
+        res = fn()
+        return res, K.LAUNCHES[name] - n0
+
+    prop = sigmamarch.pack_sigma(prop_model)
+    hz = sigmamarch.hoist_rays(prop, o, d)
+    for SB in SB_K1:
+        t_c = stratified_sample(near, far, R, SB, device=device)
+        t_pad, d_pad = _pass_dists(t_c, dnorm, t_end, SB)
+        alive = (alive0.float() * _block_hit_flags(t_pad, SB, seg, R, 1)[:, 0]
+                 ).contiguous()
+        args = (prop, hz, alive, t_pad.contiguous(), d_pad.contiguous())
+        (w_k, acc_k, lt_k), n_l = launches(
+            "sigma_march_sb", lambda: sigmamarch.sigma_march(*args))
+        w_p, acc_p, _ = sigmamarch.sigma_march_plain(*args)
+        torch.cuda.synchronize()
+        e = max(maxerr(w_k, w_p), maxerr(acc_k, acc_p))
+        rpt = K.TILE_ROWS // SB
+        live = (alive.view(-1, rpt) > 0).any(dim=1)
+        tiles_k = (w_k.view(-1, rpt * SB) != 0).any(dim=1)
+        tiles_p = (w_p.view(-1, rpt * SB) != 0).any(dim=1)
+        same = bool(torch.equal(tiles_k, tiles_p))
+        n_live = int(live.sum())
+        ms = cuda_ms(lambda: sigmamarch.sigma_march(*args))
+        pms = cuda_ms(lambda: sigmamarch.sigma_march_plain(*args))
+        b = bound(2 * n_live * K.TILE_ROWS * mlp_macs(prop),
+                  nbytes(alive, *hz, t_pad, d_pad, prop.w, prop.b, w_k, acc_k,
+                         lt_k))
+        want = -(-(R // rpt) // K.MARCH_MAX_TILES)
+        say("kernels", f"K1 sigma march at SB {SB}, chunk ({R} rays × 1×{SB})"
+            f": w/acc err {e:.3g} (tol {K1_ATOL}); live tiles {n_live}/"
+            f"{live.numel()}; tiles with a nonzero weight "
+            f"{int(tiles_k.sum())}, identical to plain: {same}; launches "
+            f"{n_l} (sigma_march_sb); kernel {ms:.3f} ms, plain {pms:.3f} "
+            f"ms; {bound_line(b, ms)}")
+        if not (e <= K1_ATOL and same and 0 < n_live < live.numel()
+                and n_l == want and bool(torch.isfinite(w_k).all())):
+            raise AssertionError(f"K1 at SB {SB} disagrees with its plain "
+                                 "version")
+        if SB == 128:
+            out["sigma_march_sb"] = dict(max_abs_err=e, ms=ms, plain_ms=pms,
+                                         **b)
+
+    def march_rows(label, fnet, cnet, hf, dp, cpr, tile_rows, SBs, k6=True):
+        t_f = stratified_sample(near, far, R, 256, device=device)
+        hit = alive0.float().contiguous()
+        for SB in SBs:
+            tf_pad, df_pad = _pass_dists(t_f, dnorm, t_end, SB)
+            NB = tf_pad.shape[1] // SB
+            bhit = _block_hit_flags(tf_pad, SB, seg, R, NB).contiguous()
+            args2 = (fnet, hf, dp, hit, bhit, tf_pad.contiguous(),
+                     df_pad.contiguous(), log_eps)
+            s_k, n2 = launches("slim_march_sb",
+                               lambda: slimmarch.slim_march(*args2))
+            s_p = slimmarch.slim_march_plain(*args2)
+            torch.cuda.synchronize()
+
+            def executed(w):
+                return march_liveness(w, hit, bhit, cfg,
+                                      tile_rows)["tile_alive"]
+
+            ex_k, ex_p = executed(s_k[1]), executed(s_p[1])
+            n_ex = int(ex_p.sum())
+            same = bool(torch.equal(ex_k, ex_p))
+            e2 = max(maxerr(s_k[0], s_p[0]), maxerr(s_k[1], s_p[1]))
+            ms2 = cuda_ms(lambda: slimmarch.slim_march(*args2))
+            pms2 = cuda_ms(lambda: slimmarch.slim_march_plain(*args2))
+            b2 = bound(2 * n_ex * tile_rows * mlp_macs(fnet),
+                       nbytes(hit, bhit, *hf, dp, tf_pad, df_pad, fnet.w,
+                              fnet.b, *s_k))
+            per_block = -(-(R // (tile_rows // SB)) // K.MARCH_MAX_TILES)
+            ok = (e2 <= K2_ATOL and same and 0 < n_ex < ex_p.numel()
+                  and n2 == NB * per_block
+                  and bool(torch.isfinite(s_k[0]).all()))
+            line = (f"K2 rgb/w err {e2:.3g} (tol {K2_ATOL}), launches {n2}, "
+                    f"{ms2:.3f} ms, plain {pms2:.3f} ms, "
+                    f"{bound_line(b2, ms2)}")
+            if SB == 128 and k6:
+                out["slim_march_sb"] = dict(max_abs_err=e2, ms=ms2,
+                                            plain_ms=pms2, **b2)
+            if k6:
+                args6 = (cnet, dp, o, d, hit, bhit, tf_pad.contiguous(),
+                         df_pad.contiguous(), log_eps)
+                c_k, n6 = launches("carry_march_sb",
+                                   lambda: carrymarch.carry_march(*args6))
+                c_p = carrymarch.carry_march_plain(*args6)
+                torch.cuda.synchronize()
+                ex6 = executed(c_k[3])
+                e6 = max(maxerr(c_k[0], c_p[0]), maxerr(c_k[2], c_p[2]),
+                         maxerr(c_k[3], c_p[3]))
+                e62 = max(maxerr(c_k[0], s_k[0]), maxerr(c_k[3], s_k[1]))
+                ms6 = cuda_ms(lambda: carrymarch.carry_march(*args6))
+                pms6 = cuda_ms(lambda: carrymarch.carry_march_plain(*args6))
+                b6 = bound(2 * n_ex * tile_rows * mlp_macs(cnet),
+                           nbytes(dp, o, d, hit, bhit, tf_pad, df_pad,
+                                  cnet.w, cnet.b, *c_k[:4]))
+                same = same and bool(torch.equal(ex6, ex_p))
+                ok = (ok and e6 <= K6_ATOL and e62 <= K6_ATOL and same
+                      and n6 == NB * per_block
+                      and bool(torch.isfinite(c_k[0]).all()))
+                line += (f"; K6 rgb/acc/w err {e6:.3g} (tol {K6_ATOL}), "
+                         f"against K2 {e62:.3g}, launches {n6}, {ms6:.3f} "
+                         f"ms, plain {pms6:.3f} ms, {bound_line(b6, ms6)}")
+                if SB == 128:
+                    out["carry_march_sb"] = dict(max_abs_err=e6, ms=ms6,
+                                                 plain_ms=pms6, **b6)
+            say("kernels", f"{label} at SB {SB}, chunk ({R} rays × {NB}×{SB}"
+                f"): executed (tile, block) {n_ex}/{ex_p.numel()}, identical "
+                f"to plain: {same}; {line}")
+            if not ok:
+                raise AssertionError(f"{label} at SB {SB}: a march disagrees "
+                                     "with its plain version")
+
+    fnet = slimmarch.split_hoist(fine)
+    march_rows("K2 and K6 fine march", fnet,
+               posenc_mlp.pack_params(fine, hoist_x=False),
+               slimmarch.hoist_rays(fnet, o, d),
+               posenc_mlp.hoist_dirs(fnet, d).contiguous(), None,
+               K.TILE_ROWS, SB_K26)
+    rng = np.random.default_rng(23)
+    cfine = load_flax_params(cond_tree(trained["fine"], TRYON_CC, rng),
+                             compute_dtype="bfloat16", device=device,
+                             cond_dim=TRYON_CC)
+    cfnet = slimmarch.split_hoist(cfine)
+    scene_cond = torch.from_numpy(rng.normal(size=(1, TRYON_CC)).astype(
+        np.float32)).to(device).expand(R, TRYON_CC)
+    cpr = posenc_mlp.hoist_cond(cfnet, scene_cond)
+    march_rows("K2 conditioned fine march (tile 1024)", cfnet, None,
+               slimmarch.hoist_rays(cfnet, o, d, cpr),
+               posenc_mlp.hoist_dirs(cfnet, d).contiguous(), cpr,
+               K.TILE_ROWS // 2, (256,), k6=False)
+    return out
 
 
 def kernel_k3_step(net, trained, device):
@@ -1782,6 +1989,104 @@ def phase_frame_propmarch(device, k2_rgb, gpu, smi):
     return launches
 
 
+def phase_frame_sb(device, k2_rgb, gpu, smi):
+    """The bench frame under each of SB_FRAMES, marches at SBs outside
+    16–64: against its plain frame and the K1 + K2 frame of phase 5
+    (≥ FRAME_PSNR_MIN dB each), its "_sb" kernel launched in the timed
+    frames. → launches summed over the frames."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.metrics import psnr
+    total = {k: 0 for k in K.LAUNCHES}
+    checks = {}
+    for ovr, count in SB_FRAMES:
+        rgb, ref, dt, dt_plain, launches, _ = frame_variant(
+            device, list(ovr), "frame-sb")
+        p_plain, p_k2 = float(psnr(rgb, ref)), float(psnr(rgb, k2_rgb))
+        for k, v in launches.items():
+            total[k] += v
+        say("frame-sb", f"{FRAME}x{FRAME} with {' '.join(ovr)}: {dt:.4f} "
+            f"s/frame ({FRAME * FRAME / dt:.1f} rays/s), plain versions "
+            f"{dt_plain:.4f} s; PSNR against the plain frame {p_plain:.2f} "
+            f"dB, against the K1 + K2 frame {p_k2:.2f} dB (min "
+            f"{FRAME_PSNR_MIN}); launches "
+            f"{ {k: v for k, v in launches.items() if v} }; {gpu} | {smi}")
+        checks[" ".join(ovr)] = (
+            launches[count] > 0 and p_plain >= FRAME_PSNR_MIN
+            and p_k2 >= FRAME_PSNR_MIN
+            and tuple(rgb.shape) == (FRAME, FRAME, 3)
+            and bool(torch.isfinite(rgb).all()))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"frame-sb checks failed: {failed}")
+    return total
+
+
+def phase_sweep(device, gate_cache, gpu, smi):
+    """The reference's spec sweep (`quality.run_sweep`) over every row at
+    800×800 at the bench pose, through the kernels, scored against the
+    gate's GT of that pose. Fails when a row raises or renders non-finite
+    pixels, or when a proposal row's student dies (`distill_health`) but
+    for SWEEP_SHARED_DEATH, whose verdict is printed. → launches of the
+    whole sweep."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.quality import run_sweep
+    t0 = time.perf_counter()
+    gt, _ = gate_cache[(0, FRAME, FRAME)]
+    K.reset_launches()
+    res = run_sweep((), 0, device, FRAME, FRAME, gt=gt,
+                    log=lambda m: say("sweep", m))
+    launches = dict(K.LAUNCHES)
+    bad = [r["name"] for r in res["rows"]
+           if not (bool(torch.isfinite(r["image"]).all())
+                   and tuple(r["image"].shape) == (FRAME, FRAME, 3))]
+    dead = [r["name"] for r in res["rows"]
+            if r["proposal"] is not None and r["proposal"]["dead"]]
+    for name in dead:
+        say("sweep", f"{name}: the distilled student is dead (σ > 0 on "
+            "no box point, or its MSE within 1% of the teacher's mean "
+            "square); "
+            + ("the reference's step dies too from this init on the "
+               "port's points (tests/test_torch_distill.py), so the row "
+               "reports what it reads" if name == SWEEP_SHARED_DEATH else
+               "no test shows the reference dying here"))
+    say("sweep", f"{len(res['rows'])} rows in "
+        f"{time.perf_counter() - t0:.1f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {gpu} | {smi}")
+    # the same row distilled from other seeds (the default is 7)
+    for seed in SWEEP_SEEDS:
+        row = run_sweep((SWEEP_SHARED_DEATH,), 0, device, FRAME, FRAME,
+                        gt=gt, log=lambda m: None, seed=seed)["rows"][-1]
+        h = row["proposal"]
+        say("sweep", f"{SWEEP_SHARED_DEATH} distilled from seed {seed}: σ > 0 "
+            f"on {h['share']:.3f} of the box, MSE {h['mse']:.4f} (teacher's "
+            f"mean square {h['teacher_ms']:.4f}){', DEAD' if h['dead'] else ''}"
+            f"; delta-vs-dense {row['delta']:+.3f} dB; distilled in "
+            f"{h['seconds']:.1f} s")
+        bad += [] if bool(torch.isfinite(row["image"]).all()) else [seed]
+    unexplained = [n for n in dead if n != SWEEP_SHARED_DEATH]
+    if bad or unexplained or len(res["rows"]) != 40:
+        raise AssertionError(f"sweep: non-finite rows {bad}, dead students "
+                             f"{unexplained}")
+    return launches
+
+
+def phase_bench_train(device, step_s, gpu, smi):
+    """`bench.bench_train` for blender_lego at the reference's recipe,
+    beside [step]'s time of a step from the committed weights."""
+    from fashion_nerf_torch.bench import bench_train
+    from fashion_nerf_torch.config import load_config
+    cfg = load_config("blender_lego")
+    with torch.enable_grad():
+        res = bench_train(cfg, device=device)
+    say("bench-train", f"{json.dumps(res)}; [step]'s step "
+        f"{step_s * 1e3:.1f} ms ({cfg.train.batch_rays / step_s:.1f} "
+        f"rays/s); {gpu} | {smi}")
+    if not (res["value"] > 0 and math.isfinite(res["step_ms"])
+            and res["device"] == gpu):
+        raise AssertionError(f"bench-train: {res}")
+    return res
+
+
 def phase_gate(device, gpu, smi):
     """`run_gate` at 800×800 over the 7 poses for the shipped preset (K1 +
     K2) and for `kernels.carry_hoist=false` (K1 + K6), scored against the
@@ -1907,6 +2212,23 @@ def distill_check(cfg, params, occ, field, device):
         grads.append([p.grad.detach().clone() for p in student.parameters()])
     student.zero_grad(set_to_none=True)
     rel = max(rel_rms(a, b) for a, b in zip(*grads))
+    health = prop_mod.distill_health(
+        cfg, lambda p, v: field(params["fine"], p, v), student, occ.box_min,
+        occ.box_max)
+    shared = (cfg.proposal.net_depth, cfg.proposal.net_width) == (3, 256)
+    verdict = ("dead: σ > 0 on no box point, or MSE within 1% of the "
+               "teacher's mean square; " + (
+                   "the reference's step dies too from this seed-7 init on "
+                   "the port's points (tests/test_torch_distill.py), so the "
+                   "frame reports what it reads" if shared else
+                   "no test shows the reference dying here")
+               if health["dead"] else "alive")
+    say("branches", f"distilled {cfg.proposal.net_depth}×"
+        f"{cfg.proposal.net_width} proposal on 8192 box points: σ > 0 on "
+        f"{health['share']:.3f}, MSE {health['mse']:.4f} (the teacher's "
+        f"mean square {health['teacher_ms']:.4f}); verdict: {verdict}")
+    if health["dead"] and not shared:
+        raise AssertionError("a distilled proposal died")
     say("branches", f"distilled {cfg.proposal.net_depth}×"
         f"{cfg.proposal.net_width} proposal on 8192 distillation points: "
         f"log-density MSE {mse:.4f} (the teacher's mean square "
@@ -3300,13 +3622,16 @@ def main() -> int:
     generic_launches = phase_frame_generic(device, k2_rgb, gpu, smi)
     phase_frame_twostage(device, k2_rgb, gpu, smi)
     propmarch_launches = phase_frame_propmarch(device, k2_rgb, gpu, smi)
+    sb_launches = phase_frame_sb(device, k2_rgb, gpu, smi)
     del k2_rgb
     gate, gate_cache = phase_gate(device, gpu, smi)
     branch_launches = phase_branches(device, gate, gate_cache, gpu, smi)
+    phase_sweep(device, gate_cache, gpu, smi)
     del gate, gate_cache
     torch.cuda.empty_cache()
     scene, ds = phase_scene(cfg, device)
-    phase_step(device, ds, gpu, smi)
+    step = phase_step(device, ds, gpu, smi)
+    phase_bench_train(device, step["step_s"], gpu, smi)
     phase_eval(device, ds)
     train_launches, _ = phase_train(scene, device, gpu, smi)
     phase_train_small(scene, device, gpu, smi)
@@ -3326,7 +3651,8 @@ def main() -> int:
     # conditioned K3 on the try-on setup's sweep and teacher, the
     # conditioned K2 and K6 on the try-on frames, K4's conditioned plan on
     # the try-on trainer; K3 with the tile flag on llff_fern's bench
-    # frames, K2 without a view branch on the sigma_march=false frames
+    # frames, K2 without a view branch on the sigma_march=false frames, K1,
+    # K2 and K6 at SBs outside 16-64 on the frame-sb frames
     launches = {**{k: render_launches[k] for k in ("sigma_march",
                                                    "slim_march")},
                 "carry_march": generic_launches["carry_march"],
@@ -3339,7 +3665,10 @@ def main() -> int:
                 "field_bwd_cond": tryon_train_launches["field_bwd_cond"],
                 "field_alive": llff_launches["field_alive"],
                 "slim_march_novd": propmarch_launches["slim_march_novd"],
-                "sigma_march_k2": branch_launches["sigma_march_k2"]}
+                "sigma_march_k2": branch_launches["sigma_march_k2"],
+                **{k: sb_launches[k] for k in ("sigma_march_sb",
+                                               "slim_march_sb",
+                                               "carry_march_sb")}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -3351,7 +3680,8 @@ def main() -> int:
                                        "carry_march_cond",
                                        "field_bwd_cond", "field_alive",
                                        "slim_march_novd",
-                                       "sigma_march_k2")]}))
+                                       "sigma_march_k2", "sigma_march_sb",
+                                       "slim_march_sb", "carry_march_sb")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))

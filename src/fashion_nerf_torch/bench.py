@@ -13,12 +13,19 @@ the render is blockwise. Frame: `render_image_blockwise` (K1 and K2 for
 `blender_lego`, the two-stage march through K3 for `llff_fern`), or the
 dense renderer when the config is not eligible for the blockwise path.
 Run as `python -m fashion_nerf_torch.bench [--config NAME]`.
+
+Training mode (`bench_train`, the reference's `bench_train`): steady-state
+training rays/s (forward, backward and Adam) of `TrainStep` on an 8-view
+64×64 synthetic scene, the rays resident on the device, 10 warm-up and 50
+timed steps between two synchronizes. Run as `python -m
+fashion_nerf_torch.bench --train [--config NAME] [--device cpu]`.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 
 import numpy as np
@@ -28,6 +35,8 @@ from fashion_nerf_torch.assets import _flatten, load_flagship
 from fashion_nerf_torch.config import Config, load_config
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.core.occupancy import build_from_config
+from fashion_nerf_torch.data.pipeline import RayDataset
+from fashion_nerf_torch.data.synthetic import make_synthetic_scene
 from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, load_flax_params
 from fashion_nerf_torch.models.proposal import attach_proposal
@@ -36,8 +45,8 @@ from fashion_nerf_torch.render.blockwise import (_budgets,
                                                  fine_march_samples,
                                                  render_image_blockwise)
 from fashion_nerf_torch.render.renderer import render_image
-from fashion_nerf_torch.train.loop import (_eval_cond, make_fields,
-                                           resolve_garment)
+from fashion_nerf_torch.train.loop import (TrainStep, _eval_cond,
+                                           make_fields, resolve_garment)
 from fashion_nerf_torch.train.state import create_train_state
 
 
@@ -205,11 +214,77 @@ def run_bench(cfg: Config, device="cuda", H: int = 800, W: int = 800,
     }
 
 
+def power_limit():
+    """The card's power limit as nvidia-smi prints it ("700.00 W"), or None
+    where nvidia-smi does not answer."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else None
+
+
+def bench_train(cfg: Config, steps: int = 50, warmup: int = 10,
+                device="cuda") -> dict:
+    """Steady-state training throughput: rays/s of `TrainStep` (forward,
+    backward and Adam) on the reference's recipe, an 8-view 64×64 synthetic
+    scene whose rays stay on the device, the state drawn from seed 0 as the
+    reference's PRNGKey(0). One synchronize after the warm-up steps and one
+    after the timed ones. device: CUDA, or the CPU when asked for by name
+    (`kernels.resolve_device`)."""
+    device = K.resolve_device(device)
+    scene = make_synthetic_scene(n_views=8, H=64, W=64, n_samples=32)
+    ds = RayDataset(scene["images"], scene["poses"], scene["focal"],
+                    device=device)
+    chain = GeneratorChain(0)
+    state = create_train_state(cfg, chain.once("init"),
+                               chain.once("run", device), device)
+    step = TrainStep(cfg, ds, garment=resolve_garment(cfg, scene, ds.H,
+                                                      ds.W, device))
+    all_rays = ds.batch_arrays()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(warmup):
+        state, _ = step(state, all_rays)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, all_rays)
+    sync()
+    dt = (time.perf_counter() - t0) / steps
+    on_card = device.type == "cuda"
+    return {
+        "metric": "train rays/sec/chip (fwd+bwd+adam)",
+        "value": round(cfg.train.batch_rays / dt, 1),
+        "unit": "rays/sec",
+        "step_ms": round(dt * 1e3, 3),
+        "config": cfg.name,
+        "device": (torch.cuda.get_device_name(device) if on_card
+                   else "cpu"),
+        "power_limit": power_limit() if on_card else None,
+    }
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m fashion_nerf_torch.bench")
     p.add_argument("--config", default="blender_lego")
+    p.add_argument("--train", action="store_true",
+                   help="training rays/s (bench_train) in place of the "
+                   "render frame")
+    p.add_argument("--device", default=None,
+                   help="with --train: cuda (default) or cpu")
     args = p.parse_args(argv)
-    print(json.dumps(run_bench(load_config(args.config))))
+    cfg = load_config(args.config)
+    if args.train:
+        print(json.dumps(bench_train(cfg, device=args.device)))
+    else:
+        print(json.dumps(run_bench(cfg)))
 
 
 if __name__ == "__main__":

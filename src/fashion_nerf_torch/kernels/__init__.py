@@ -41,7 +41,9 @@ wrapper adds one to its entry of `LAUNCHES` at every kernel launch (a
 conditioned net's launches of K2, K3, K4 and K6 to their "_cond"
 entries, K3's launches with the tile-skip flag to "field_alive", K2's
 on a net without a view branch to "slim_march_novd", and K2's for the σ
-march of a proposal K1 does not take to "sigma_march_k2").
+march of a proposal K1 does not take to "sigma_march_k2"); a march's
+launch at an SB outside SB_16_64 goes to its "_sb" entry instead
+("sigma_march_sb", "slim_march_sb", "carry_march_sb").
 """
 
 from __future__ import annotations
@@ -69,10 +71,17 @@ TILE_ROWS = 2048
 # rows of one consumer warpgroup's tile (csrc/fnt_common.cuh kRows): row
 # counts are its multiples
 SLAB_ROWS = 64
-# samples per block the marches K1, K2 and K6 take, K1's and K2's widths,
-# and the most predication tiles one launch takes (csrc/sigmamarch.cu,
-# slimmarch.cu, carrymarch.cu; K6's wrapper launches per range of tiles)
-MARCH_SB = (16, 32, 64)
+# samples per block the marches K1, K2 and K6 take: the reference's
+# (sigmamarch_pallas.py:160-162, slimmarch_pallas.py:255,
+# blockmarch_pallas.py:183-191), powers of two with a tile of
+# tile_rows // SB rays that is a multiple of its 4-row interleave
+# (`march_sb_ok`); K1's and K2's widths; and the most predication tiles
+# one launch takes (csrc/sigmamarch.cu, slimmarch.cu, carrymarch.cu; the
+# wrappers launch per range of tiles)
+MARCH_SB = tuple(2 ** i for i in range(10))
+# the SBs the marches took before every SB of the reference: their
+# launches keep their LAUNCHES entries, the others count under "_sb"
+SB_16_64 = (16, 32, 64)
 SIGMA_WIDTH, SLIM_WIDTH = 128, 256
 # K2's widths, with and without a view branch; narrower nets run zero-padded
 # to the nearest (slimmarch.march_net), as does the σ march of a proposal
@@ -101,7 +110,9 @@ LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
             # without a view branch (the generic proposal march)
             "field_alive": 0, "slim_march_novd": 0,
             # K2 serving the σ march of a proposal not K1's width
-            "sigma_march_k2": 0}
+            "sigma_march_k2": 0,
+            # K1, K2 and K6 at an SB outside SB_16_64
+            "sigma_march_sb": 0, "slim_march_sb": 0, "carry_march_sb": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -118,6 +129,39 @@ _SIGNATURES = {
 
 _lib = None
 build_info: dict = {}
+
+
+def march_sb_ok(SB: int, tile_rows: int = TILE_ROWS) -> bool:
+    """Whether the marches take SB samples a block at a predication tile
+    of tile_rows rows: SB in MARCH_SB and (tile_rows // SB) % 4 == 0, the
+    reference's assertion (so SB ≤ 512, or ≤ 256 at the conditioned tile
+    of 1024 rows)."""
+    return SB in MARCH_SB and (tile_rows // SB) % 4 == 0
+
+
+def march_count(name: str, SB: int) -> str:
+    """The LAUNCHES entry of a march launch at SB samples a block: `name`,
+    or the kernel's "_sb" entry outside SB_16_64."""
+    if SB in SB_16_64:
+        return name
+    kernel = ("sigma_march" if name == "sigma_march" else
+              "carry_march" if name.startswith("carry_march") else
+              "slim_march")
+    return kernel + "_sb"
+
+
+def tile_ranges(R: int, rpt: int):
+    """Slices of whole tiles of rpt rays, at most MARCH_MAX_TILES a
+    launch, covering R rays."""
+    step = MARCH_MAX_TILES * rpt
+    return [slice(r0, min(R, r0 + step)) for r0 in range(0, R, step)]
+
+
+def row_ptr(t, row: int):
+    """The address of row `row` of a contiguous tensor (None for None)."""
+    if t is None:
+        return None
+    return t.data_ptr() + row * t.stride(0) * t.element_size()
 
 
 def reset_launches() -> None:

@@ -81,11 +81,25 @@ def carry_march_plain(net: PackedNet, dirpart, rays_o, rays_d, hit,
     return rgb, depth, acc, w, logT
 
 
+def check_shapes(net: PackedNet, R: int, SB: int) -> None:
+    """Raise unless K6 takes R rays of SB-sample blocks on `net` (padded
+    to the nearest net it is built for, `posenc_mlp.kernel_net`)."""
+    if not K.march_sb_ok(SB, net.tile_rows):
+        raise ValueError(f"SB={SB}: the carry march takes SB in MARCH_SB = "
+                         f"{K.MARCH_SB} with (tile_rows // SB) % 4 == 0 "
+                         f"(tile_rows {net.tile_rows})")
+    if R % (net.tile_rows // SB):
+        raise ValueError(f"R={R} must be a multiple of "
+                         f"{net.tile_rows // SB}")
+    kernel_net(net)
+
+
 def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
                 d, log_eps: float, softplus: bool = False, condpart=None):
     """Generic carry march: CPU tensors take the plain version, CUDA
     tensors K6, one launch per sample block and per MARCH_MAX_TILES tiles
-    of rays. SB must be in MARCH_SB; a conditioned net takes its condpart.
+    of rays. SB as `kernels.march_sb_ok` takes it; a conditioned net takes
+    its condpart.
     A net narrower than the kernel's widths runs padded with zeros
     (`posenc_mlp.pad_packed`): the same function at the padded net's cost."""
     if not K.on_cuda(dirpart, rays_o, rays_d, hit, block_hit, t, d, net.w,
@@ -98,13 +112,11 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
     R, S = t.shape
     NB = block_hit.shape[1]
     SB = S // NB
-    if S != NB * SB or SB not in K.MARCH_SB:
-        raise ValueError(f"S={S}, NB={NB}: the carry march takes SB in "
-                         f"MARCH_SB = {K.MARCH_SB}")
+    if S != NB * SB:
+        raise ValueError(f"S={S} is not NB={NB} blocks")
+    check_shapes(net, R, SB)
     tile_rows = net.tile_rows
     rpt = tile_rows // SB
-    if R % rpt:
-        raise ValueError(f"R={R} must be a multiple of {rpt}")
     for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
                                                 (R, NB)),
                            ("rays_o", rays_o, (R, 3)),
@@ -127,20 +139,20 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
     w = torch.empty_like(t)
     carry = [torch.empty_like(depth) for _ in range(2)]
     lib = K.library()
-    step = K.MARCH_MAX_TILES * rpt
     for b in range(NB):
-        for r0 in range(0, R, step):
-            rays = slice(r0, min(R, r0 + step))
-            ptrs = [x.data_ptr() for x in (
-                hit[rays], block_hit[rays], rays_o[rays], rays_d[rays],
-                dirpart[rays], t[rays], d[rays], knet.w, wp, knet.b,
-                rgb[rays], depth[rays], acc[rays], w[rays],
-                carry[b % 2][rays], carry[(b + 1) % 2][rays])]
+        for rays in K.tile_ranges(R, rpt):
+            r0 = rays.start
+            ptrs = [K.row_ptr(x, r0) for x in (
+                hit, block_hit, rays_o, rays_d, dirpart, t, d)]
+            ptrs += [knet.w.data_ptr(), wp.data_ptr(), knet.b.data_ptr()]
+            ptrs += [K.row_ptr(x, r0) for x in (
+                rgb, depth, acc, w, carry[b % 2], carry[(b + 1) % 2])]
             code = lib.fnt_carry_march(
-                *ptrs, condpart[rays].data_ptr() if cw else None, cw,
+                *ptrs, K.row_ptr(condpart, r0) if cw else None, cw,
                 rays.stop - r0, NB, SB, b, knet.L, knet.depth, knet.width,
                 knet.k0, knet.skip_mask, int(knet.has_vd), int(softplus),
                 tile_rows, float(log_eps), K.stream())
             K.raise_on_error(code, "fnt_carry_march")
-            K.LAUNCHES["carry_march_cond" if cw else "carry_march"] += 1
+            K.LAUNCHES[K.march_count(
+                "carry_march_cond" if cw else "carry_march", SB)] += 1
     return rgb, depth, acc, w, carry[NB % 2]

@@ -40,10 +40,14 @@
 //   before its bias (wgf::forward<W, true>). A null condpart runs the
 //   kernel instantiated without it.
 // - Compositing by warps, as K2: one warp per ray (SB = 32, a lane per
-//   sample), per two rays (SB = 16), or two samples a lane (SB = 64); the
+//   sample), per 32/SB rays (SB < 32), or two samples a lane (SB = 64); the
 //   exclusive log(1−α) prefix, clamped at log(1e-10) per sample, is a
 //   shuffle scan on the carried logT, and rgb, depth (Σ w·t) and acc (Σ w)
 //   are segment sums added to the accumulators in device memory.
+// - Every SB the reference takes, as K2 (wg::march_sb_ok): below 16 the
+//   view terms and cond rows of a warpgroup's rays are read from device
+//   memory; above 64 warp 0 composites each item's 128 samples of the ray
+//   in order, one CUDA block running a ray's items (wg::unit_row0).
 // Predication is part of the result: a (tile, b) pair runs iff some ray of
 // the tile has hit ∧ block_hit[b] ∧ logT > log ε, and then every ray of the
 // tile is marched. The decision reads logT_in, written by the previous
@@ -56,7 +60,7 @@ namespace {
 
 constexpr int kStagesK6 = 3;
 constexpr int kMaxTilesK6 = 1024;
-constexpr int kMaxRaysK6 = wg::kWgRows / 16;   // rays of a warpgroup, SB ≥ 16
+constexpr int kMaxRaysK6 = wg::kWgRows / 16;   // rays staged a warpgroup
 
 template <int W>
 struct __align__(128) CarrySmem {
@@ -69,6 +73,7 @@ struct __align__(128) CarrySmem {
   float row_t[wg::kItemRows];
   float row_sigma[wg::kItemRows];
   float row_rgb[wg::kItemRows][3];
+  float long_run[6];   // a long ray's log-T carry, rgb, depth and acc sums
   int n_live;
   uint8_t tile_live[kMaxTilesK6];
   uint16_t live[kMaxTilesK6];
@@ -102,7 +107,9 @@ struct CarryArgs {
   Layout lay;
 };
 
-template <int W, bool kCond>
+// kOneRay: SB ≥ 16, rows rA and rA + 8 in one ray (its view term and
+// cond row read once); the other instantiations take SB < 16.
+template <int W, bool kCond, bool kOneRay>
 __global__ void __launch_bounds__(wgf::kThreads, 1)
     carry_march_kernel(const __grid_constant__ CarryArgs a) {
   constexpr int kHalf = W / 2;
@@ -112,7 +119,6 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   const Layout& lay = a.lay;
   const int SB = a.SB, S = a.NB * a.SB;
   const int rpt = a.tile_rows / SB;
-  const int items_per_tile = a.tile_rows / wg::kItemRows;
   const bool first = a.blk == 0;
   const long col0 = (long)a.blk * SB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -149,12 +155,14 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
           }
         }
       });
-  const int n_items = n_live * items_per_tile;
+  const int n_units = n_live * (a.tile_rows / wg::unit_rows(SB));
+  const int ipu = wg::unit_items(SB);
 
   if (warp >= wgf::kConsumers / 32) {
     wg::setmaxnreg_dec<40>();
     if (warp == wgf::kConsumers / 32 && lane == 0)
-      wgf::produce(s.ring, a.wp, a.slice_bytes, a.n_slices, n_items);
+      wgf::produce(s.ring, a.wp, a.slice_bytes, a.n_slices, n_units, nullptr,
+                   0, ipu);
     return;
   }
 
@@ -166,41 +174,109 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   float* row_t = s.row_t + 64 * g;
   float* row_sigma = s.row_sigma + 64 * g;
   float(*row_rgb)[3] = s.row_rgb + 64 * g;
-  const int nr = wg::kWgRows / SB;   // rays of the warpgroup
+  // rays of the warpgroup's rows; their view terms staged, or read from L2
+  const int nr = SB < wg::kWgRows ? wg::kWgRows / SB : 1;
+  const bool staged = nr <= kMaxRaysK6;
   wgf::Rows t{s.h[g], s.a0[g], bias, s.heads, pts, nullptr, nullptr,
               row_sigma, row_rgb, nullptr, tw, ww, lane, 1 + g,
               16 * ww + (lane >> 2), 2 * (lane & 3)};
-  // rows rA and rA + 8 lie in one ray (SB ≥ 16)
-  t.dir_lo = t.dir_hi = dirs[t.rA / SB];
+  // the rays of rows rA and rA + 8 (one ray at SB ≥ 16)
+  const int rl_lo = t.rA / SB, rl_hi = (t.rA + 8) / SB;
+  t.dir_lo = dirs[staged ? rl_lo : 0];
+  t.dir_hi = dirs[staged ? rl_hi : 0];
   wgf::RingPos rp{0, 0u, -1};
   float acc[W / 2];
 
-  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const long row0 = (long)s.live[it / items_per_tile] * a.tile_rows +
-                      (it % items_per_tile) * wg::kItemRows + 64 * g;
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+  for (int k = 0; k < ipu; ++k) {
+    const long row0 = wg::unit_row0(s.live, u, k, g, a.tile_rows, SB);
     const long ray0 = row0 / SB;   // first ray of the warpgroup
-    if (kCond) t.cond_lo = t.cond_hi = a.condpart + (ray0 + t.rA / SB) * a.cw;
-    if (tw < 64) row_t[tw] = a.t[(ray0 + tw / SB) * S + col0 + tw % SB];
-    if (lay.has_vd)
+    if (kCond) {
+      t.cond_lo = a.condpart + (ray0 + rl_lo) * a.cw;
+      t.cond_hi = a.condpart + (ray0 + rl_hi) * a.cw;
+    }
+    if (tw < 64)
+      row_t[tw] = SB <= wg::kWgRows
+                      ? a.t[(ray0 + tw / SB) * S + col0 + tw % SB]
+                      : a.t[ray0 * S + col0 + row0 % SB + tw];
+    if (lay.has_vd && staged)
       for (int i = tw; i < nr * kHalf; i += 128)
         dirs[i / kHalf][i % kHalf] = a.dirpart[ray0 * kHalf + i];
+    if (lay.has_vd && !staged) {
+      t.dir_lo = a.dirpart + (ray0 + rl_lo) * kHalf;
+      t.dir_hi = a.dirpart + (ray0 + rl_hi) * kHalf;
+    }
     wg::wg_sync(t.bar);
     for (int i = tw; i < 64 * 3; i += 128) {
-      const int r = i / 3, k = i % 3;
+      const int r = i / 3, c = i % 3;
       const long ray = ray0 + r / SB;
-      pts[r][k] = __fadd_rn(a.rays_o[ray * 3 + k],
-                            __fmul_rn(a.rays_d[ray * 3 + k], row_t[r]));
+      pts[r][c] = __fadd_rn(a.rays_o[ray * 3 + c],
+                            __fmul_rn(a.rays_d[ray * 3 + c], row_t[r]));
     }
     wg::wg_sync(t.bar);
     wgf::posenc_tile(t.A0, lay.k0, a.L, pts, tw);
     wg::fence_async_smem();
     wg::wg_sync(t.bar);
 
-    wgf::forward<W, kCond>(lay, t, s.ring, rp, acc, [](int, int) {}, [] {});
+    wgf::forward<W, kCond, kOneRay>(lay, t, s.ring, rp, acc,
+                                    [](int, int) {}, [] {});
 
     // compositing: segments of `seg` lanes per ray, q samples a lane
     const int seg = SB < 32 ? SB : 32, q = SB / seg;
-    if (ww < 2 / q) {
+    if (SB > wg::kWgRows) {
+      // a long ray: warp 0 takes the item's 128 samples, in order
+      wg::consumers_sync();
+      if (threadIdx.x < 32) {
+        const long rr = ray0;
+        const long base = rr * S + col0 + (long)k * wg::kItemRows;
+        // the carry and the rgb, depth and acc sums along the ray
+        float* run = s.long_run;
+        if (k == 0 && lane == 0) {
+          run[0] = first ? 0.0f : a.logT_in[rr];
+          for (int c = 1; c < 6; ++c) run[c] = 0.0f;
+        }
+        __syncwarp();
+        const float lt_run = run[0];
+        float c_run[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        float x[wg::kLongQ], lg[wg::kLongQ], part = 0.0f;
+#pragma unroll
+        for (int j = 0; j < wg::kLongQ; ++j) {
+          const int i = lane * wg::kLongQ + j;
+          x[j] = __fmul_rn(density(s.row_sigma[i], a.softplus), a.d[base + i]);
+          lg[j] = fmaxf(-x[j], kLogFloor);
+          part += lg[j];
+        }
+        const float incl = wg::seg_scan(part, 32);
+        float ex = __shfl_up_sync(0xffffffffu, incl, 1);
+        if (lane == 0) ex = 0.0f;
+        const float total = __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+        for (int j = 0; j < wg::kLongQ; ++j) {
+          const int i = lane * wg::kLongQ + j;
+          const float wk = __fmul_rn(1.0f - expf(-x[j]), expf(lt_run + ex));
+          a.w_out[base + i] = wk;
+          for (int c = 0; c < 3; ++c) c_run[c] += wk * s.row_rgb[i][c];
+          c_run[3] += wk * s.row_t[i];
+          c_run[4] += wk;
+          ex += lg[j];
+        }
+        for (int c = 0; c < 5; ++c) c_run[c] = wg::seg_sum(c_run[c], 32);
+        if (lane == 0) {
+          run[0] = lt_run + total;
+          for (int c = 0; c < 5; ++c) run[1 + c] += c_run[c];
+          if (k == ipu - 1) {
+            float* out = a.rgb + rr * 3;
+            for (int c = 0; c < 3; ++c)
+              out[c] = (first ? 0.0f : out[c]) + run[1 + c];
+            a.depth[rr] = (first ? 0.0f : a.depth[rr]) + run[4];
+            a.acc[rr] = (first ? 0.0f : a.acc[rr]) + run[5];
+            a.logT_out[rr] = run[0];
+          }
+        }
+        __syncwarp();
+      }
+      wg::consumers_sync();
+    } else if (ww < 2 / q) {
       const int ray_l = ww * (32 / seg) + lane / seg;   // ray in the group
       const int ks = (lane & (seg - 1)) * q;            // its first sample
       const long rr = ray0 + ray_l;
@@ -253,19 +329,20 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   }
 }
 
-template <int W, bool kCond>
+template <int W, bool kCond, bool kOneRay>
 int launch_carry(CarryArgs& a, cudaStream_t st) {
   const int smem = (int)sizeof(CarrySmem<W>) + a.n_b * 4;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      carry_march_kernel<W, kCond>,
+      carry_march_kernel<W, kCond, kOneRay>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int n_sm = 0;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
   if (err != cudaSuccess) return (int)err;
   if (a.R == 0) return 0;
-  carry_march_kernel<W, kCond><<<n_sm, wgf::kThreads, smem, st>>>(a);
+  carry_march_kernel<W, kCond, kOneRay><<<n_sm, wgf::kThreads, smem, st>>>(
+      a);
   return (int)cudaGetLastError();
 }
 
@@ -278,8 +355,9 @@ extern "C" {
 // the posenc operand: width 128 or 256, depth 2-8, k0 48 or 64. condpart:
 // null, or (R, cw) bf16 with cw = W times the layers that take the posenc
 // operand. The predication tile is tile_rows (2048 or 1024) rows; R must
-// be a multiple of it (tile_rows/SB rays) and at most 1024 tiles; SB is
-// 16, 32 or 64; wp holds the net's field slices
+// be a multiple of it (tile_rows/SB rays) and at most 1024 tiles; SB is a
+// power of two with (tile_rows/SB) % 4 == 0 (wg::march_sb_ok); wp holds
+// the net's field slices
 // (kernels/wgpack.py::field_buffer). Returns a cudaError_t.
 int fnt_carry_march(const void* hit, const void* block_hit,
                     const void* rays_o, const void* rays_d,
@@ -321,9 +399,9 @@ int fnt_carry_march(const void* hit, const void* block_hit,
   a.lay = make_layout(depth_layers, width, k0, skip_mask, has_vd);
   a.n_b = has_vd ? a.lay.b_rgb + 3 : a.lay.b_out + 4;
   a.n_slices = wgf::field_slice_bytes(a.lay, false, a.slice_bytes);
-  if (wgf::field_layout_error(a.lay) || a.n_slices < 0 ||
-      !(SB == 16 || SB == 32 || SB == 64) || 3 + 6 * L > k0 || R < 0 ||
-      !(tile_rows == kTileRows || tile_rows == kTileRows / 2) ||
+  if (wgf::field_layout_error(a.lay) || a.n_slices < 0 || 3 + 6 * L > k0 ||
+      R < 0 || !(tile_rows == kTileRows || tile_rows == kTileRows / 2) ||
+      !wg::march_sb_ok(SB, tile_rows) ||
       R % (tile_rows / SB) || R / (tile_rows / SB) > kMaxTilesK6 || blk < 0 ||
       blk >= NB || (reinterpret_cast<uintptr_t>(wp) & 15) ||
       (condpart != nullptr) != (cw > 0) ||
@@ -331,11 +409,18 @@ int fnt_carry_march(const void* hit, const void* block_hit,
                   (reinterpret_cast<uintptr_t>(condpart) & 3))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cw > 0)
-    return width == 256 ? launch_carry<256, true>(a, st)
-                        : launch_carry<128, true>(a, st);
-  return width == 256 ? launch_carry<256, false>(a, st)
-                      : launch_carry<128, false>(a, st);
+  if (cw > 0) {
+    if (SB >= 16)
+      return width == 256 ? launch_carry<256, true, true>(a, st)
+                          : launch_carry<128, true, true>(a, st);
+    return width == 256 ? launch_carry<256, true, false>(a, st)
+                        : launch_carry<128, true, false>(a, st);
+  }
+  if (SB >= 16)
+    return width == 256 ? launch_carry<256, false, true>(a, st)
+                        : launch_carry<128, false, true>(a, st);
+  return width == 256 ? launch_carry<256, false, false>(a, st)
+                      : launch_carry<128, false, false>(a, st);
 }
 
 }  // extern "C"

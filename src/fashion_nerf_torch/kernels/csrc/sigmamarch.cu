@@ -25,7 +25,15 @@
 //   takes the out head's σ column (128→1) as a register dot product
 //   reduced over the 4 lanes of a row.
 // - The per-ray prefix by one warp per ray: at SB = 64 each lane holds two
-//   samples and the exclusive log(1−α) prefix is a shuffle scan.
+//   samples and the exclusive log(1−α) prefix is a shuffle scan; below 32
+//   a warp's lanes split into segments of SB lanes, one ray each.
+// - Every SB the reference takes (wg::march_sb_ok: powers of two to 512).
+//   Below 16 a warpgroup's 64 rows hold more rays than the per-ray hoists
+//   staged in shared memory, so the epilogues read them from device memory
+//   (L2). Above 64 a ray spans both warpgroups, and above 128 several
+//   items: one CUDA block runs a ray's items in order (wg::unit_row0), and
+//   after each item warp 0 composites its 128 samples, the exclusive
+//   prefix carried in registers from item to item.
 #include "fnt_common.cuh"
 #include "wg_trunk.cuh"
 
@@ -35,7 +43,7 @@ namespace {
 constexpr int kW1 = 128;            // trunk width of this kernel
 constexpr int kThreadsK1 = 2 * 128;  // two warpgroups
 constexpr int kMaxTilesK1 = 1024;
-constexpr int kMaxRaysWg = wg::kWgRows / 16;   // rays of a warpgroup, SB ≥ 16
+constexpr int kMaxRaysWg = wg::kWgRows / 16;   // rays staged a warpgroup
 
 struct __align__(128) SigmaSmem {
   bf16 h[2][wg::kWgRows * kW1];        // activations per warpgroup
@@ -46,6 +54,7 @@ struct __align__(128) SigmaSmem {
   float wsig[kW1];                     // the out head's σ column
   float row_t[wg::kItemRows];
   float row_sigma[wg::kItemRows];
+  float long_run[2];   // a long ray's log-T carry and Σ w
   uint64_t wbar;
   int n_live;
   uint8_t tile_live[kMaxTilesK1];
@@ -72,6 +81,10 @@ struct SigmaArgs {
   Layout lay;
 };
 
+// kFew: SB < 16, more rays a warpgroup than are staged (the hoists are
+// read from L2); kLong: SB > 64, a ray spans both warpgroups (and items).
+// The instantiation without either takes SB 16-64.
+template <bool kFew, bool kLong>
 __global__ void __launch_bounds__(kThreadsK1, 2)
     sigma_march_kernel(const __grid_constant__ SigmaArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -108,7 +121,8 @@ __global__ void __launch_bounds__(kThreadsK1, 2)
         }
       });
   wg::mbar_wait(&s.wbar, 0);
-  const int n_items = n_live * wg::kItemsPerTile;
+  const int n_units = n_live * (kTileRows / wg::unit_rows(SB));
+  const int ipu = wg::unit_items(SB);
 
   const int g = threadIdx.x >> 7, tw = threadIdx.x & 127;
   const int ww = tw >> 5, lane = threadIdx.x & 31;
@@ -121,41 +135,72 @@ __global__ void __launch_bounds__(kThreadsK1, 2)
   float* row_sigma = s.row_sigma + 64 * g;
   float(*hx)[2][kW1] = s.hx[g];
   float(*ph)[2][kMaxK0] = s.ph[g];
-  const int k0 = lay.k0, n_ph = 6 * a.L, nr = wg::kWgRows / SB;
+  const int k0 = lay.k0, n_ph = 6 * a.L;
+  // rays of the warpgroup's rows; their hoists staged, or read from L2
+  const int nr = SB < wg::kWgRows ? wg::kWgRows / SB : 1;
+  constexpr bool staged = !kFew;
   const int rA = 16 * ww + (lane >> 2), cA = 2 * (lane & 3);
   float acc[kW1 / 2];
 
-  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const long row0 = (long)s.live[it / wg::kItemsPerTile] * kTileRows +
-                      (it % wg::kItemsPerTile) * wg::kItemRows + 64 * g;
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+  for (int k = 0; k < ipu; ++k) {
+    const long row0 = wg::unit_row0(s.live, u, k, g, kTileRows, SB);
     const long ray0 = row0 / SB;   // first ray of this warpgroup
     if (tw < 64) row_t[tw] = a.t[row0 + tw];
-    for (int i = tw; i < nr * 2 * kW1; i += 128) {
-      const int r = i / (2 * kW1), which = (i / kW1) & 1, c = i % kW1;
-      hx[r][which][c] = (which ? a.dWx : a.oWx)[(ray0 + r) * kW1 + c];
-    }
-    for (int i = tw; i < nr * 2 * n_ph; i += 128) {
-      const int r = i / (2 * n_ph), which = (i / n_ph) & 1, c = i % n_ph;
-      ph[r][which][c] = (which ? a.dF : a.oF)[(ray0 + r) * n_ph + c];
+    if (staged) {
+      for (int i = tw; i < nr * 2 * kW1; i += 128) {
+        const int r = i / (2 * kW1), which = (i / kW1) & 1, c = i % kW1;
+        hx[r][which][c] = (which ? a.dWx : a.oWx)[(ray0 + r) * kW1 + c];
+      }
+      for (int i = tw; i < nr * 2 * n_ph; i += 128) {
+        const int r = i / (2 * n_ph), which = (i / n_ph) & 1, c = i % n_ph;
+        ph[r][which][c] = (which ? a.dF : a.oF)[(ray0 + r) * n_ph + c];
+      }
     }
     wg::wg_sync(bar);
-    for (int i = tw; i < 32 * k0; i += 128) {
-      const int cm = i >> 5;
-      const int r = (cm & 7) * 8 + ((i & 31) >> 2);
-      const int c = (cm >> 3) * 8 + (i & 3) * 2;
-      const float(*p)[kMaxK0] = ph[r / SB];
-      float v0 = 0.0f, v1 = 0.0f;
-      if (c < n_ph) v0 = sinf(__fadd_rn(p[0][c], __fmul_rn(p[1][c], row_t[r])));
-      if (c + 1 < n_ph)
-        v1 = sinf(__fadd_rn(p[0][c + 1], __fmul_rn(p[1][c + 1], row_t[r])));
-      *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<char*>(A0) +
-                                         wg::cm_off(r, c, k0)) =
-          __floats2bfloat162_rn(v0, v1);
-    }
+    // the phases staged in shared memory, or (few rays) read from L2
+    auto posenc = [&](auto from_smem) {
+      for (int i = tw; i < 32 * k0; i += 128) {
+        const int cm = i >> 5;
+        const int r = (cm & 7) * 8 + ((i & 31) >> 2);
+        const int c = (cm >> 3) * 8 + (i & 3) * 2;
+        float v0 = 0.0f, v1 = 0.0f;
+        if constexpr (decltype(from_smem)::value) {
+          const float(*p)[kMaxK0] = ph[r / SB];
+          if (c < n_ph)
+            v0 = sinf(__fadd_rn(p[0][c], __fmul_rn(p[1][c], row_t[r])));
+          if (c + 1 < n_ph)
+            v1 = sinf(__fadd_rn(p[0][c + 1], __fmul_rn(p[1][c + 1], row_t[r])));
+        } else {
+          const float* p0 = a.oF + (ray0 + r / SB) * n_ph;
+          const float* p1 = a.dF + (ray0 + r / SB) * n_ph;
+          if (c < n_ph)
+            v0 = sinf(__fadd_rn(__ldg(p0 + c), __fmul_rn(__ldg(p1 + c),
+                                                         row_t[r])));
+          if (c + 1 < n_ph)
+            v1 = sinf(__fadd_rn(__ldg(p0 + c + 1),
+                                __fmul_rn(__ldg(p1 + c + 1), row_t[r])));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<char*>(A0) +
+                                           wg::cm_off(r, c, k0)) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    };
+    if constexpr (staged)
+      posenc(std::true_type{});
+    else
+      posenc(std::false_type{});
     wg::fence_async_smem();
     wg::wg_sync(bar);
 
-    const int rl = rA / SB;   // ray of both rows rA, rA + 8 (SB ≥ 16)
+    // the rays of rows rA and rA + 8 (one ray at SB ≥ 16): their x-term
+    // hoists staged, or (few rays) in oWx / dWx
+    const int rl_lo = rA / SB, rl_hi = (rA + 8) / SB;
+    const int rl = staged ? rl_lo : 0;
+    const float* gox_lo = a.oWx + (ray0 + rl_lo) * kW1;
+    const float* gdx_lo = a.dWx + (ray0 + rl_lo) * kW1;
+    const float* gox_hi = a.oWx + (ray0 + rl_hi) * kW1;
+    const float* gdx_hi = a.dWx + (ray0 + rl_hi) * kW1;
     const float t_lo = row_t[rA], t_hi = row_t[rA + 8];
     uint32_t woff = 0;        // byte offset of the layer's first slice
     for (int i = 0; i < lay.depth; ++i) {
@@ -177,6 +222,7 @@ __global__ void __launch_bounds__(kThreadsK1, 2)
       const float* bl = bias + lay.b[i];
       const bool xlayer = i == 0, last = i == lay.depth - 1;
       float sg_lo = 0.0f, sg_hi = 0.0f;
+      auto epilogue = [&](auto from_smem) {
 #pragma unroll
       for (int j = 0; j < kW1 / 8; ++j) {
         const int c = 8 * j + cA;
@@ -185,12 +231,27 @@ __global__ void __launch_bounds__(kThreadsK1, 2)
                       __fadd_rn(acc[4 * j + 2], b0),
                       __fadd_rn(acc[4 * j + 3], b1)};
         if (xlayer) {
-          const float o0 = hx[rl][0][c], o1 = hx[rl][0][c + 1];
-          const float d0 = hx[rl][1][c], d1 = hx[rl][1][c + 1];
-          v[0] = __fadd_rn(v[0], __fadd_rn(o0, __fmul_rn(d0, t_lo)));
-          v[1] = __fadd_rn(v[1], __fadd_rn(o1, __fmul_rn(d1, t_lo)));
-          v[2] = __fadd_rn(v[2], __fadd_rn(o0, __fmul_rn(d0, t_hi)));
-          v[3] = __fadd_rn(v[3], __fadd_rn(o1, __fmul_rn(d1, t_hi)));
+          if constexpr (decltype(from_smem)::value) {
+            const float o0 = hx[rl][0][c], o1 = hx[rl][0][c + 1];
+            const float d0 = hx[rl][1][c], d1 = hx[rl][1][c + 1];
+            v[0] = __fadd_rn(v[0], __fadd_rn(o0, __fmul_rn(d0, t_lo)));
+            v[1] = __fadd_rn(v[1], __fadd_rn(o1, __fmul_rn(d1, t_lo)));
+            v[2] = __fadd_rn(v[2], __fadd_rn(o0, __fmul_rn(d0, t_hi)));
+            v[3] = __fadd_rn(v[3], __fadd_rn(o1, __fmul_rn(d1, t_hi)));
+          } else {
+            v[0] = __fadd_rn(v[0], __fadd_rn(__ldg(gox_lo + c),
+                                              __fmul_rn(__ldg(gdx_lo + c),
+                                                        t_lo)));
+            v[1] = __fadd_rn(v[1], __fadd_rn(__ldg(gox_lo + c + 1),
+                                              __fmul_rn(__ldg(gdx_lo + c + 1),
+                                                        t_lo)));
+            v[2] = __fadd_rn(v[2], __fadd_rn(__ldg(gox_hi + c),
+                                              __fmul_rn(__ldg(gdx_hi + c),
+                                                        t_hi)));
+            v[3] = __fadd_rn(v[3], __fadd_rn(__ldg(gox_hi + c + 1),
+                                              __fmul_rn(__ldg(gdx_hi + c + 1),
+                                                        t_hi)));
+          }
         }
         const __nv_bfloat162 lo = __floats2bfloat162_rn(fmaxf(v[0], 0.0f),
                                                         fmaxf(v[1], 0.0f));
@@ -207,6 +268,11 @@ __global__ void __launch_bounds__(kThreadsK1, 2)
                                              wg::cm_off(rA + 8, c, kW1)) = hi;
         }
       }
+      };
+      if constexpr (staged)
+        epilogue(std::true_type{});
+      else
+        epilogue(std::false_type{});
       if (last) {
         sg_lo += __shfl_xor_sync(0xffffffffu, sg_lo, 1);
         sg_lo += __shfl_xor_sync(0xffffffffu, sg_lo, 2);
@@ -224,7 +290,49 @@ __global__ void __launch_bounds__(kThreadsK1, 2)
 
     // compositing: segments of `seg` lanes per ray, q samples a lane
     const int seg = SB < 32 ? SB : 32, q = SB / seg;
-    if (ww < 2 / q) {
+    if constexpr (kLong) {
+      // a long ray: warp 0 takes the item's 128 samples, in order
+      wg::consumers_sync();
+      if (threadIdx.x < 32) {
+        const long base = ray0 * SB + (long)k * wg::kItemRows;
+        // the carry and Σ w along the ray (shared memory)
+        float* run = s.long_run;
+        if (k == 0 && lane == 0) run[0] = run[1] = 0.0f;
+        __syncwarp();
+        const float lt_run = run[0];
+        float acc_run = 0.0f;
+        float x[wg::kLongQ], lg[wg::kLongQ], part = 0.0f;
+#pragma unroll
+        for (int j = 0; j < wg::kLongQ; ++j) {
+          const int i = lane * wg::kLongQ + j;
+          x[j] = __fmul_rn(density(s.row_sigma[i], a.softplus), a.d[base + i]);
+          lg[j] = fmaxf(-x[j], kLogFloor);
+          part += lg[j];
+        }
+        const float incl = wg::seg_scan(part, 32);
+        float ex = __shfl_up_sync(0xffffffffu, incl, 1);
+        if (lane == 0) ex = 0.0f;
+        const float total = __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+        for (int j = 0; j < wg::kLongQ; ++j) {
+          const float wk = __fmul_rn(1.0f - expf(-x[j]), expf(lt_run + ex));
+          a.w_out[base + lane * wg::kLongQ + j] = wk;
+          acc_run += wk;
+          ex += lg[j];
+        }
+        acc_run = wg::seg_sum(acc_run, 32);
+        if (lane == 0) {
+          run[0] = lt_run + total;
+          run[1] += acc_run;
+          if (k == ipu - 1) {
+            a.acc[ray0] = run[1];
+            a.logT[ray0] = run[0];
+          }
+        }
+        __syncwarp();
+      }
+      wg::consumers_sync();
+    } else if (ww < 2 / q) {
       const int ray_l = ww * (32 / seg) + lane / seg;
       const int ks = (lane & (seg - 1)) * q;
       const long rr = ray0 + ray_l;
@@ -268,7 +376,8 @@ __global__ void __launch_bounds__(kThreadsK1, 2)
 extern "C" {
 
 // The proposal march of a 128-wide σ-only net. R must be a multiple of the
-// tile (2048/SB rays) and at most 1024 tiles; SB is 16, 32 or 64; wp holds
+// tile (2048/SB rays) and at most 1024 tiles; SB is a power of two with
+// (2048/SB) % 4 == 0 (wg::march_sb_ok); wp holds
 // the net's march slices (kernels/wgpack.py, wp_elems bf16). Returns a
 // cudaError_t.
 int fnt_sigma_march(const void* alive, const void* oWx, const void* dWx,
@@ -301,24 +410,27 @@ int fnt_sigma_march(const void* alive, const void* oWx, const void* dWx,
   a.n_b = a.lay.b_out + 4;
   const int expect = k0 * kW1 + (depth - 1) * kW1 * kW1;
   const int smem = (int)sizeof(SigmaSmem) + a.wp_bytes + a.n_b * 4;
-  if (layout_error(a.lay) || width != kW1 || !(SB == 16 || SB == 32 ||
-      SB == 64) || 6 * L > k0 || R < 0 || R % (kTileRows / SB) ||
+  if (layout_error(a.lay) || width != kW1 || !wg::march_sb_ok(SB, kTileRows) ||
+      6 * L > k0 || R < 0 || R % (kTileRows / SB) ||
       R / (kTileRows / SB) > kMaxTilesK1 || wp_elems != expect ||
       smem > 227 * 1024 || (reinterpret_cast<uintptr_t>(wp) & 15))
     return (int)cudaErrorInvalidValue;
+  auto kernel = SB < 16 ? sigma_march_kernel<true, false>
+                : SB > wg::kWgRows ? sigma_march_kernel<false, true>
+                                   : sigma_march_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      sigma_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int n_sm = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sigma_march_kernel, kThreadsK1, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreadsK1, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   if (R == 0) return 0;
-  sigma_march_kernel<<<n_sm * per_sm, kThreadsK1, smem,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<n_sm * per_sm, kThreadsK1, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -49,8 +49,17 @@
 //   branch. The 128-wide field with a view branch takes the view layer at
 //   N = 64 (m64n64k16).
 // - Compositing by warps: one warp per ray (SB = 32; a lane per sample) or
-//   per two rays (SB = 16), two samples a lane at SB = 64: the exclusive
-//   log(1−α) prefix is a shuffle scan with the carried logT.
+//   per 32/SB rays (SB < 32, segments of SB lanes), two samples a lane at
+//   SB = 64: the exclusive log(1−α) prefix is a shuffle scan with the
+//   carried logT.
+// - Every SB the reference takes (wg::march_sb_ok: powers of two to 512,
+//   to 256 at the conditioned tile). Below 16 a warpgroup's 64 rows hold
+//   more rays than the per-ray hoists staged in shared memory, so the
+//   epilogues read them from device memory (L2). Above 64 a ray spans both
+//   warpgroups, and above 128 several items: one CUDA block runs a ray's
+//   items in order (wg::unit_row0), and after each item warp 0 composites
+//   its 128 samples, the carry and the rgb sums held in its registers from
+//   item to item.
 // The launch reads logT_in, written by the previous launch, and writes
 // logT_out, a separate buffer: no block reads a carry that another block
 // of the same launch is updating.
@@ -64,7 +73,7 @@ constexpr int kStages = 3;                   // weight ring slices
 constexpr int kConsumers = 2 * 128;           // two warpgroups
 constexpr int kThreadsK2 = kConsumers + 128;  // and the producer warpgroup
 constexpr int kMaxTilesK2 = 1024;
-constexpr int kMaxRaysWg = wg::kWgRows / 16;  // rays of a warpgroup, SB ≥ 16
+constexpr int kMaxRaysWg = wg::kWgRows / 16;  // rays staged a warpgroup
 constexpr int kMaxSlices = 96;
 
 template <int W>
@@ -82,6 +91,7 @@ struct __align__(128) SlimSmem {
   float row_t[wg::kItemRows];
   float row_sigma[wg::kItemRows];
   float row_rgb[wg::kItemRows][3];
+  float long_run[4];   // a long ray's log-T carry and rgb sums
   uint64_t full[kStages];
   uint64_t empty[kStages];
   int n_live;
@@ -178,7 +188,6 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
   const Layout& lay = a.lay;
   const int SB = a.SB, S = a.NB * a.SB;
   const int rpt = a.tile_rows / SB;
-  const int items_per_tile = a.tile_rows / wg::kItemRows;
   const bool first = a.blk == 0;
   const long col0 = (long)a.blk * SB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -220,7 +229,8 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
             for (int c = 0; c < 3; ++c) a.rgb[ray * 3 + c] = 0.0f;
         }
       });
-  const int n_items = n_live * items_per_tile;
+  const int n_units = n_live * (a.tile_rows / wg::unit_rows(SB));
+  const int ipu = wg::unit_items(SB);
 
   if (warp >= kConsumers / 32) {
     // producer warpgroup: one lane streams the net's slices for every item
@@ -228,7 +238,8 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
     if (warp == kConsumers / 32 && lane == 0) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+      for (int k = 0; k < ipu; ++k) {
         const char* src = reinterpret_cast<const char*>(a.wp);
         for (int sl = 0; sl < a.n_slices; ++sl) {
           const int bytes = a.slice_bytes[sl];
@@ -256,7 +267,9 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
   float(*ph)[2][kMaxK0] = s.ph[g];
   float(*xs)[2][kW] = s.xs[g];
   bf16(*dirs)[kHalf] = s.dirs[g];
-  const int nr = wg::kWgRows / SB;   // rays of the warpgroup
+  // rays of the warpgroup's rows; their hoists staged, or read from L2
+  const int nr = SB < wg::kWgRows ? wg::kWgRows / SB : 1;
+  const bool staged = nr <= kMaxRaysWg;
   float* row_t = s.row_t + 64 * g;
   float* row_sigma = s.row_sigma + 64 * g;
   float(*row_rgb)[3] = s.row_rgb + 64 * g;
@@ -270,40 +283,65 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
   float acc[kW / 2];
   float(&acc_v)[kHalf / 2] = *reinterpret_cast<float(*)[kHalf / 2]>(acc);
 
-  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const long row0 = (long)s.live[it / items_per_tile] * a.tile_rows +
-                      (it % items_per_tile) * wg::kItemRows + 64 * g;
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+  for (int k = 0; k < ipu; ++k) {
+    const long row0 = wg::unit_row0(s.live, u, k, g, a.tile_rows, SB);
     const long ray0 = row0 / SB;   // first ray of the warpgroup
-    if (tw < 64) row_t[tw] = a.t[(ray0 + tw / SB) * S + col0 + tw % SB];
-    for (int i = tw; i < nr * 2 * n_ph; i += 128) {
-      const int r = i / (2 * n_ph), which = (i / n_ph) & 1, c = i % n_ph;
-      ph[r][which][c] = (which ? a.dF : a.oF)[(ray0 + r) * n_ph + c];
+    if (tw < 64)
+      row_t[tw] = SB <= wg::kWgRows
+                      ? a.t[(ray0 + tw / SB) * S + col0 + tw % SB]
+                      : a.t[ray0 * S + col0 + row0 % SB + tw];
+    if (staged) {
+      for (int i = tw; i < nr * 2 * n_ph; i += 128) {
+        const int r = i / (2 * n_ph), which = (i / n_ph) & 1, c = i % n_ph;
+        ph[r][which][c] = (which ? a.dF : a.oF)[(ray0 + r) * n_ph + c];
+      }
+      if (kVd)
+        for (int i = tw; i < nr * kHalf; i += 128)
+          dirs[i / kHalf][i % kHalf] = a.dirpart[ray0 * kHalf + i];
     }
-    if (kVd)
-      for (int i = tw; i < nr * kHalf; i += 128)
-        dirs[i / kHalf][i % kHalf] = a.dirpart[ray0 * kHalf + i];
     wg::wg_sync(bar);
-    // posenc operand: 32 lanes fill one core matrix per step
-    for (int i = tw; i < 32 * k0; i += 128) {
-      const int cm = i >> 5;
-      const int r = (cm & 7) * 8 + ((i & 31) >> 2);
-      const int c = (cm >> 3) * 8 + (i & 3) * 2;
-      const float(*p)[kMaxK0] = ph[r / SB];
-      float v0 = 0.0f, v1 = 0.0f;
-      if (c < n_ph) v0 = sinf(__fadd_rn(p[0][c], __fmul_rn(p[1][c], row_t[r])));
-      if (c + 1 < n_ph)
-        v1 = sinf(__fadd_rn(p[0][c + 1], __fmul_rn(p[1][c + 1], row_t[r])));
-      st_pair(A0, r, c, k0, v0, v1);
-    }
+    // posenc operand: 32 lanes fill one core matrix per step; the phases
+    // staged in shared memory, or (few rays) read from device memory
+    auto posenc = [&](auto from_smem) {
+      for (int i = tw; i < 32 * k0; i += 128) {
+        const int cm = i >> 5;
+        const int r = (cm & 7) * 8 + ((i & 31) >> 2);
+        const int c = (cm >> 3) * 8 + (i & 3) * 2;
+        float v0 = 0.0f, v1 = 0.0f;
+        if constexpr (decltype(from_smem)::value) {
+          const float(*p)[kMaxK0] = ph[r / SB];
+          if (c < n_ph)
+            v0 = sinf(__fadd_rn(p[0][c], __fmul_rn(p[1][c], row_t[r])));
+          if (c + 1 < n_ph)
+            v1 = sinf(__fadd_rn(p[0][c + 1], __fmul_rn(p[1][c + 1], row_t[r])));
+        } else {
+          const float* p0 = a.oF + (ray0 + r / SB) * n_ph;
+          const float* p1 = a.dF + (ray0 + r / SB) * n_ph;
+          if (c < n_ph)
+            v0 = sinf(__fadd_rn(__ldg(p0 + c), __fmul_rn(__ldg(p1 + c),
+                                                         row_t[r])));
+          if (c + 1 < n_ph)
+            v1 = sinf(__fadd_rn(__ldg(p0 + c + 1),
+                                __fmul_rn(__ldg(p1 + c + 1), row_t[r])));
+        }
+        st_pair(A0, r, c, k0, v0, v1);
+      }
+    };
+    if (staged)
+      posenc(std::true_type{});
+    else
+      posenc(std::false_type{});
     wg::fence_async_smem();
     wg::wg_sync(bar);
 
-    const int rl = rA / SB;   // ray of both rows rA, rA + 8 (SB ≥ 16)
+    // rays of rows rA and rA + 8 (one ray at SB ≥ 16)
+    const int rl_lo = rA / SB, rl_hi = (rA + 8) / SB;
     const float t_lo = row_t[rA], t_hi = row_t[rA + 8];
     int xl = 0;
     for (int i = 0; i < lay.depth; ++i) {
       const bool xlayer = lay.w_a0[i] >= 0, last = i == lay.depth - 1;
-      if (xlayer)   // read after the wg_sync below; its last readers are done
+      if (xlayer && staged)   // read after the wg_sync below
         for (int j = tw; j < nr * 2 * kW; j += 128) {
           const int r = j / (2 * kW), which = (j / kW) & 1, c = j % kW;
           xs[r][which][c] = (which ? a.dX : a.oX)[(ray0 + r) * xw + xl * kW +
@@ -319,11 +357,18 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
       drain(acc, rp, s);
       wg::wg_sync(bar);   // the whole warpgroup is done reading H
       const float* bl = bias + lay.b[i];
-      const float* ox = xs[rl][0];
-      const float* dx = xs[rl][1];
+      const float* ox = xs[staged ? rl_lo : 0][0];
+      const float* dx = xs[staged ? rl_lo : 0][1];
+      // without staging (few rays), the rows' x-layer columns in oX / dX
+      const long xo = (long)xl * kW;
+      const float* gox_lo = a.oX + (ray0 + rl_lo) * xw + xo;
+      const float* gdx_lo = a.dX + (ray0 + rl_lo) * xw + xo;
+      const float* gox_hi = a.oX + (ray0 + rl_hi) * xw + xo;
+      const float* gdx_hi = a.dX + (ray0 + rl_hi) * xw + xo;
       // the σ head (lane 3), or the out head's four lanes
       float hd_lo[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       float hd_hi[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      auto epilogue = [&](auto from_smem) {
 #pragma unroll
       for (int j = 0; j < kW / 8; ++j) {
         const int c = 8 * j + cA;
@@ -332,11 +377,26 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
                       __fadd_rn(acc[4 * j + 2], b0),
                       __fadd_rn(acc[4 * j + 3], b1)};
         if (xlayer) {
-          const float o0 = ox[c], o1 = ox[c + 1], d0 = dx[c], d1 = dx[c + 1];
-          v[0] = __fadd_rn(v[0], __fadd_rn(o0, __fmul_rn(d0, t_lo)));
-          v[1] = __fadd_rn(v[1], __fadd_rn(o1, __fmul_rn(d1, t_lo)));
-          v[2] = __fadd_rn(v[2], __fadd_rn(o0, __fmul_rn(d0, t_hi)));
-          v[3] = __fadd_rn(v[3], __fadd_rn(o1, __fmul_rn(d1, t_hi)));
+          if constexpr (decltype(from_smem)::value) {
+            const float o0 = ox[c], o1 = ox[c + 1], d0 = dx[c], d1 = dx[c + 1];
+            v[0] = __fadd_rn(v[0], __fadd_rn(o0, __fmul_rn(d0, t_lo)));
+            v[1] = __fadd_rn(v[1], __fadd_rn(o1, __fmul_rn(d1, t_lo)));
+            v[2] = __fadd_rn(v[2], __fadd_rn(o0, __fmul_rn(d0, t_hi)));
+            v[3] = __fadd_rn(v[3], __fadd_rn(o1, __fmul_rn(d1, t_hi)));
+          } else {
+            v[0] = __fadd_rn(v[0], __fadd_rn(__ldg(gox_lo + c),
+                                              __fmul_rn(__ldg(gdx_lo + c),
+                                                        t_lo)));
+            v[1] = __fadd_rn(v[1], __fadd_rn(__ldg(gox_lo + c + 1),
+                                              __fmul_rn(__ldg(gdx_lo + c + 1),
+                                                        t_lo)));
+            v[2] = __fadd_rn(v[2], __fadd_rn(__ldg(gox_hi + c),
+                                              __fmul_rn(__ldg(gdx_hi + c),
+                                                        t_hi)));
+            v[3] = __fadd_rn(v[3], __fadd_rn(__ldg(gox_hi + c + 1),
+                                              __fmul_rn(__ldg(gdx_hi + c + 1),
+                                                        t_hi)));
+          }
         }
         const __nv_bfloat162 lo = __floats2bfloat162_rn(fmaxf(v[0], 0.0f),
                                                         fmaxf(v[1], 0.0f));
@@ -364,6 +424,11 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
           }
         }
       }
+      };
+      if (staged)
+        epilogue(std::true_type{});
+      else
+        epilogue(std::false_type{});
       xl += xlayer;
       if (last) {
 #pragma unroll
@@ -420,21 +485,32 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
       drain(acc_v, rp, s);
       {
         const float* bl = bias + lay.b_view;
-        const bf16* dirp = dirs[rl];
+        const bf16* dirp = dirs[staged ? rl_lo : 0];
+        const bf16* gdir_lo = a.dirpart + (ray0 + rl_lo) * kHalf;
+        const bf16* gdir_hi = a.dirpart + (ray0 + rl_hi) * kHalf;
         const float* wr = s.heads + kW;
         float c_lo[3] = {0.0f, 0.0f, 0.0f}, c_hi[3] = {0.0f, 0.0f, 0.0f};
+        auto view = [&](auto from_smem) {
 #pragma unroll
         for (int j = 0; j < kHalf / 8; ++j) {
           const int c = 8 * j + cA;
           const float2 bb = make_float2(bl[c], bl[c + 1]);
-          const float2 dv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(dirp + c));
+          float2 dl, dh;
+          if constexpr (decltype(from_smem)::value) {
+            dl = dh = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(dirp + c));
+          } else {
+            dl = __bfloat1622float2(__ldg(
+                reinterpret_cast<const __nv_bfloat162*>(gdir_lo + c)));
+            dh = __bfloat1622float2(__ldg(
+                reinterpret_cast<const __nv_bfloat162*>(gdir_hi + c)));
+          }
           const __nv_bfloat162 lo = __floats2bfloat162_rn(
-              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j], dv.x), bb.x), 0.0f),
-              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 1], dv.y), bb.y), 0.0f));
+              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j], dl.x), bb.x), 0.0f),
+              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 1], dl.y), bb.y), 0.0f));
           const __nv_bfloat162 hi = __floats2bfloat162_rn(
-              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 2], dv.x), bb.x), 0.0f),
-              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 3], dv.y), bb.y), 0.0f));
+              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 2], dh.x), bb.x), 0.0f),
+              fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j + 3], dh.y), bb.y), 0.0f));
 #pragma unroll
           for (int q = 0; q < 3; ++q) {
             const float w0 = wr[c * 3 + q], w1 = wr[(c + 1) * 3 + q];
@@ -444,6 +520,11 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
                            fmaf(__high2float(hi), w1, c_hi[q]));
           }
         }
+        };
+        if (staged)
+          view(std::true_type{});
+        else
+          view(std::false_type{});
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           c_lo[q] += __shfl_xor_sync(0xffffffffu, c_lo[q], 1);
@@ -461,7 +542,56 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
 
     // compositing: segments of `seg` lanes per ray, q samples a lane
     const int seg = SB < 32 ? SB : 32, q = SB / seg;
-    if (ww < 2 / q) {
+    if (SB > wg::kWgRows) {
+      // a long ray: warp 0 takes the item's 128 samples, in order
+      wg::consumers_sync();
+      if (threadIdx.x < 32) {
+        const long rr = ray0;
+        const long base = rr * S + col0 + (long)k * wg::kItemRows;
+        // the carry and the rgb sums along the ray (shared memory)
+        float* run = s.long_run;
+        if (k == 0 && lane == 0) {
+          run[0] = first ? 0.0f : a.logT_in[rr];
+          run[1] = run[2] = run[3] = 0.0f;
+        }
+        __syncwarp();
+        const float lt_run = run[0];
+        float c_run[3] = {0.0f, 0.0f, 0.0f};
+        float x[wg::kLongQ], lg[wg::kLongQ], part = 0.0f;
+#pragma unroll
+        for (int j = 0; j < wg::kLongQ; ++j) {
+          const int i = lane * wg::kLongQ + j;
+          x[j] = __fmul_rn(density(s.row_sigma[i], a.softplus), a.d[base + i]);
+          lg[j] = fmaxf(-x[j], kLogFloor);
+          part += lg[j];
+        }
+        const float incl = wg::seg_scan(part, 32);
+        float ex = __shfl_up_sync(0xffffffffu, incl, 1);
+        if (lane == 0) ex = 0.0f;
+        const float total = __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+        for (int j = 0; j < wg::kLongQ; ++j) {
+          const int i = lane * wg::kLongQ + j;
+          const float wk = __fmul_rn(1.0f - expf(-x[j]), expf(lt_run + ex));
+          a.w_out[base + i] = wk;
+          for (int c = 0; c < 3; ++c) c_run[c] += wk * s.row_rgb[i][c];
+          ex += lg[j];
+        }
+        for (int c = 0; c < 3; ++c) c_run[c] = wg::seg_sum(c_run[c], 32);
+        if (lane == 0) {
+          run[0] = lt_run + total;
+          for (int c = 0; c < 3; ++c) run[1 + c] += c_run[c];
+          if (k == ipu - 1) {
+            float* out = a.rgb + rr * 3;
+            for (int c = 0; c < 3; ++c)
+              out[c] = (first ? 0.0f : out[c]) + run[1 + c];
+            a.logT_out[rr] = run[0];
+          }
+        }
+        __syncwarp();
+      }
+      wg::consumers_sync();
+    } else if (ww < 2 / q) {
       const int ray_l = ww * (32 / seg) + lane / seg;   // ray in the group
       const int ks = (lane & (seg - 1)) * q;            // its first sample
       const long rr = ray0 + ray_l;
@@ -533,8 +663,9 @@ extern "C" {
 // view branch (has_vd 1) or without one (has_vd 0: the σ-only proposal
 // nets; dirpart may be null); skip_mask: its skip layers (Layout). The
 // predication tile is tile_rows (2048 or 1024) rows, tile_rows/SB rays; R
-// must be a multiple of it and at most 1024 tiles; SB is 16, 32 or 64; wp
-// holds the net's march slices (kernels/wgpack.py). Returns a cudaError_t.
+// must be a multiple of it and at most 1024 tiles; SB is a power of two
+// with (tile_rows/SB) % 4 == 0 (wg::march_sb_ok); wp holds the net's march
+// slices (kernels/wgpack.py). Returns a cudaError_t.
 int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
                    const void* dX, const void* oF, const void* dF,
                    const void* dirpart, const void* t, const void* d,
@@ -574,9 +705,9 @@ int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
   a.n_b = has_vd ? a.lay.b_rgb + 3 : a.lay.b_out + 4;
   const bool shape_ok = (width == 128 || width == 256) &&
                         (!has_vd || dirpart != nullptr);
-  if (layout_error(a.lay) || !shape_ok || !(SB == 16 || SB == 32 ||
-      SB == 64) || 6 * L > k0 || !(tile_rows == kTileRows ||
-      tile_rows == kTileRows / 2) || R < 0 || R % (tile_rows / SB) ||
+  if (layout_error(a.lay) || !shape_ok || 6 * L > k0 ||
+      !(tile_rows == kTileRows || tile_rows == kTileRows / 2) ||
+      !wg::march_sb_ok(SB, tile_rows) || R < 0 || R % (tile_rows / SB) ||
       R / (tile_rows / SB) > kMaxTilesK2 || blk < 0 || blk >= NB ||
       (reinterpret_cast<uintptr_t>(wp) & 15))
     return (int)cudaErrorInvalidValue;

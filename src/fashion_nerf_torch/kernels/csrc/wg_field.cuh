@@ -96,16 +96,18 @@ __device__ __forceinline__ bool item_live(const float* alive, int it,
 }
 
 // The producer lane: every live item takes all n_slices slices of src in
-// order; an item of a dead tile (item_live) takes none.
+// order; an item of a dead tile (item_live) takes none. reps: the items of
+// each of the block's n_items work units (wg::unit_items).
 template <int S>
 __device__ __forceinline__ void produce(Ring<S>& r, const bf16* src0,
                                         const int* slice_bytes, int n_slices,
                                         int n_items,
                                         const float* alive = nullptr,
-                                        int tile_rows = 0) {
+                                        int tile_rows = 0, int reps = 1) {
   int stage = 0;
   uint32_t phase = 0;
-  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x)
+  for (int rep = 0; rep < reps; ++rep) {
     if (!item_live(alive, it, tile_rows)) continue;
     const char* src = reinterpret_cast<const char*>(src0);
     for (int sl = 0; sl < n_slices; ++sl) {
@@ -255,7 +257,10 @@ struct Rows {
 // layer that takes the posenc operand (the first, then each skip layer)
 // takes float(condpart slice ci) before the bias, as the reference's
 // mlp_rows adds it (acc + c + b); without it the epilogue is unchanged.
-template <int W, bool kCond = false, int S, class Stored, class Guard>
+// kOneRay: rows rA and rA + 8 lie in one ray (a march of SB ≥ 16), so
+// their view term and cond row are read once, through dir_lo and cond_lo.
+template <int W, bool kCond = false, bool kOneRay = false, int S,
+          class Stored, class Guard>
 __device__ __forceinline__ void forward(const Layout& lay, Rows& t,
                                         Ring<S>& ring, RingPos& rp,
                                         float (&acc)[W / 2], Stored stored,
@@ -285,7 +290,8 @@ __device__ __forceinline__ void forward(const Layout& lay, Rows& t,
     for (int w = 0; w < W / 64; ++w) bits[w] = 0u;
     const bool cond_layer = kCond && lay.w_a0[i] >= 0;
     const bf16* c_lo = cond_layer ? t.cond_lo + ci * W : nullptr;
-    const bf16* c_hi = cond_layer ? t.cond_hi + ci * W : nullptr;
+    const bf16* c_hi =
+        cond_layer ? (kOneRay ? c_lo : t.cond_hi + ci * W) : nullptr;
     if (cond_layer) ++ci;
 #pragma unroll
     for (int j = 0; j < W / 8; ++j) {
@@ -408,7 +414,7 @@ __device__ __forceinline__ void forward(const Layout& lay, Rows& t,
       const float b0 = bl[c], b1 = bl[c + 1];
       const float2 dl = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(t.dir_lo + c));
-      const float2 dh = __bfloat1622float2(
+      const float2 dh = kOneRay ? dl : __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(t.dir_hi + c));
       const __nv_bfloat162 lo = __floats2bfloat162_rn(
           fmaxf(__fadd_rn(__fadd_rn(acc_v[4 * j], dl.x), b0), 0.0f),

@@ -28,13 +28,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace fnt {
 namespace wg {
 
 constexpr int kWgRows = 64;       // rows of one consumer warpgroup
 constexpr int kItemRows = 128;    // rows of one work item (two warpgroups)
 constexpr int kSliceK = 64;       // K rows of a full weight slice
-constexpr int kItemsPerTile = 2048 / kItemRows;   // items per predication tile
 
 __host__ __device__ __forceinline__ uint32_t cm_off(int r, int k, int K) {
   return (uint32_t)((r >> 3) * K * 16 + (k >> 3) * 128 + (r & 7) * 16 +
@@ -353,6 +354,10 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
+// Barrier over the two consumer warpgroups (256 threads, id 3).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
 
 // ---- mbarriers and bulk copies -----------------------------------------
 
@@ -437,7 +442,42 @@ __device__ int live_tiles(int n_tiles, int rpt, uint8_t* flags,
   return *n_live;
 }
 
+// ---- work units of the marches -------------------------------------------
+
+// A march launch's work comes in units: at SB <= 128 a unit is one work
+// item of 128 rows (64/SB whole rays a warpgroup, or half a ray at 128);
+// at SB > 128 a ray's block spans SB/128 items, and the unit is the ray:
+// one CUDA block runs its items in order and carries the ray's log-T
+// prefix from one to the next. unit_rows: the rows of a unit; unit_items:
+// its items.
+__host__ __device__ __forceinline__ int unit_rows(int SB) {
+  return SB > kItemRows ? SB : kItemRows;
+}
+__host__ __device__ __forceinline__ int unit_items(int SB) {
+  return SB > kItemRows ? SB / kItemRows : 1;
+}
+// First row of warpgroup g's 64 rows in item k of unit u (live: the
+// launch's live tiles, tile_rows rows each).
+__device__ __forceinline__ long unit_row0(const uint16_t* live, int u, int k,
+                                          int g, int tile_rows, int SB) {
+  const int upt = tile_rows / unit_rows(SB);
+  return (long)live[u / upt] * tile_rows + (long)(u % upt) * unit_rows(SB) +
+         k * kItemRows + kWgRows * g;
+}
+
 // ---- compositing ---------------------------------------------------------
+
+// The samples a block the marches take: the reference's rule, a power of
+// two whose tile of tile_rows/SB rays is a multiple of 4 rays (its row
+// interleave), so 1..512 at tile_rows 2048 and 1..256 at 1024.
+__host__ __device__ __forceinline__ bool march_sb_ok(int SB, int tile_rows) {
+  return SB >= 1 && SB <= 512 && (SB & (SB - 1)) == 0 &&
+         tile_rows % SB == 0 && (tile_rows / SB) % 4 == 0;
+}
+
+// Samples of a ray's block at SB >= 128 are composited an item at a time by
+// one warp: 128 samples, kLongQ consecutive ones a lane.
+constexpr int kLongQ = kItemRows / 32;
 
 // Inclusive prefix sum over aligned segments of `seg` lanes (a power of 2).
 __device__ __forceinline__ float seg_scan(float v, int seg) {

@@ -101,18 +101,28 @@ def sigma_march_plain(net: PackedNet, hoists, alive, t, d,
 def check_march_shape(R: int, SB: int, width: int, kernel_width: int,
                       tile_rows: int = K.TILE_ROWS):
     """Raise unless K1/K2 take R rays of SB samples a block and a net of
-    this width (kernels.MARCH_SB, whole tiles of tile_rows rows, at most
-    MARCH_MAX_TILES)."""
+    this width: SB as the reference asserts it (`kernels.march_sb_ok`) and
+    whole tiles of tile_rows // SB rays."""
     if width != kernel_width:
         raise ValueError(f"net width {width}: this march kernel is built "
                          f"for width {kernel_width}")
-    if SB not in K.MARCH_SB:
+    if not K.march_sb_ok(SB, tile_rows):
         raise ValueError(f"SB={SB}: the march kernels take SB in "
-                         f"{K.MARCH_SB}")
+                         f"{K.MARCH_SB} with (tile_rows // SB) % 4 == 0 "
+                         f"(tile_rows {tile_rows})")
     rpt = tile_rows // SB
-    if R % rpt or R // rpt > K.MARCH_MAX_TILES:
-        raise ValueError(f"R={R} must be a multiple of {rpt} and at most "
-                         f"{K.MARCH_MAX_TILES * rpt} rays")
+    if R % rpt:
+        raise ValueError(f"R={R} must be a multiple of {rpt}")
+
+
+def check_shapes(net: PackedNet, R: int, SB: int) -> None:
+    """Raise unless the kernel `sigma_kernel` names takes the σ march of
+    R rays of SB samples on `net` (K2 at its padded width)."""
+    if sigma_kernel(net) == "K1":
+        check_march_shape(R, SB, net.width, K.SIGMA_WIDTH)
+    else:
+        from fashion_nerf_torch.kernels import slimmarch
+        slimmarch.check_shapes(net, R, SB)
 
 
 def sigma_kernel(net: PackedNet) -> str:
@@ -123,9 +133,9 @@ def sigma_kernel(net: PackedNet) -> str:
 
 
 def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
-    """σ-only march: CPU tensors take the plain version, CUDA tensors K1,
-    or K2 at a width K1 does not take (`sigma_kernel`; its launches count
-    under "sigma_march_k2")."""
+    """σ-only march: CPU tensors take the plain version, CUDA tensors K1
+    (one launch per MARCH_MAX_TILES tiles), or K2 at a width K1 does not
+    take (`sigma_kernel`; its launches count under "sigma_march_k2")."""
     oF, dF, oWx, dWx = hoists
     if not K.on_cuda(alive, t, d, net.w, *hoists):
         return sigma_march_plain(net, hoists, alive, t, d, softplus)
@@ -136,6 +146,7 @@ def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
                            ("dF", dF, (R, nph)), ("t", t, (R, SB)),
                            ("d", d, (R, SB))):
         K.check(x, name, torch.float32, shape)
+    check_shapes(net, R, SB)
     if sigma_kernel(net) == "K2":
         from fashion_nerf_torch.kernels import slimmarch
         # one block: the tile of rays lives iff one of its rays is alive
@@ -145,18 +156,19 @@ def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
             net, hoists, None, alive, ones, t, d, -math.inf, softplus,
             count="sigma_march_k2")
         return w, w.sum(dim=1), logT
-    check_march_shape(R, SB, W, K.SIGMA_WIDTH)
     wp = march_buffer(net)
     w = torch.empty_like(d)
     acc = torch.empty((R,), dtype=torch.float32, device=d.device)
     logT = torch.empty_like(acc)
-    if R == 0:
-        return w, acc, logT
-    ptrs = [x.data_ptr() for x in (alive, oWx, dWx, oF, dF, t, d, net.w, wp,
-                                   net.b, w, acc, logT)]
-    code = K.library().fnt_sigma_march(
-        *ptrs, R, SB, net.L, net.depth, net.width, net.k0, int(softplus),
-        wp.numel(), K.stream())
-    K.raise_on_error(code, "fnt_sigma_march")
-    K.LAUNCHES["sigma_march"] += 1
+    lib = K.library()
+    for rays in K.tile_ranges(R, K.TILE_ROWS // SB):
+        r0 = rays.start
+        ptrs = [K.row_ptr(x, r0) for x in (alive, oWx, dWx, oF, dF, t, d)]
+        ptrs += [net.w.data_ptr(), wp.data_ptr(), net.b.data_ptr()]
+        ptrs += [K.row_ptr(x, r0) for x in (w, acc, logT)]
+        code = lib.fnt_sigma_march(
+            *ptrs, rays.stop - rays.start, SB, net.L, net.depth, net.width,
+            net.k0, int(softplus), wp.numel(), K.stream())
+        K.raise_on_error(code, "fnt_sigma_march")
+        K.LAUNCHES[K.march_count("sigma_march", SB)] += 1
     return w, acc, logT

@@ -158,10 +158,17 @@ def pad_hoists(net: PackedNet, knet: PackedNet, hoists):
         for x in (oX, dX))
 
 
+def check_shapes(net: PackedNet, R: int, SB: int) -> None:
+    """Raise unless K2 takes R rays of SB-sample blocks on `net` at the
+    width it runs it (`march_net`)."""
+    width = kernel_width(net.width)
+    check_march_shape(R, SB, width, width, net.tile_rows)
+
+
 def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
                log_eps: float, softplus: bool = False, count: str = None):
     """Multi-block march: CPU tensors take the plain version, CUDA tensors
-    K2 (one launch per sample block). A net without a view branch takes
+    K2 (one launch per sample block and per MARCH_MAX_TILES tiles). A net without a view branch takes
     dirpart None. A net of a width K2 is not built for runs zero-padded
     (`march_net`). count: the LAUNCHES entry the launches go to (default:
     by the net's kind)."""
@@ -179,8 +186,8 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     nx = len(net.x_kernels)
     if S != NB * SB:
         raise ValueError(f"S={S} is not NB={NB} blocks")
+    check_shapes(net, R, SB)
     knet = march_net(net)
-    check_march_shape(R, SB, knet.width, knet.width, net.tile_rows)
     for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
                                                 (R, NB)),
                            ("oX", oX, (R, nx * W)), ("dX", dX, (R, nx * W)),
@@ -196,19 +203,23 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     w = torch.empty_like(t)
     carry = [torch.empty((R,), dtype=torch.float32, device=t.device)
              for _ in range(2)]
-    if R == 0:
-        return rgb, w, carry[0]
     lib = K.library()
-    count = count or ("slim_march_cond" if net.n_cond else
-                      "slim_march" if net.has_vd else "slim_march_novd")
+    count = K.march_count(count or (
+        "slim_march_cond" if net.n_cond else
+        "slim_march" if net.has_vd else "slim_march_novd"), SB)
+    ranges = K.tile_ranges(R, net.tile_rows // SB)
     for b in range(NB):
-        ptrs = [None if x is None else x.data_ptr() for x in (
-            hit, block_hit, oX, dX, oF, dF, dirpart, t, d, knet.w, wp,
-            knet.b, rgb, w, carry[b % 2], carry[(b + 1) % 2])]
-        code = lib.fnt_slim_march(
-            *ptrs, R, NB, SB, b, knet.L, knet.depth, knet.width, knet.k0,
-            knet.skip_mask, int(knet.has_vd), int(softplus), net.tile_rows,
-            float(log_eps), K.stream())
-        K.raise_on_error(code, "fnt_slim_march")
-        K.LAUNCHES[count] += 1
+        for rays in ranges:
+            r0 = rays.start
+            ptrs = [K.row_ptr(x, r0) for x in (
+                hit, block_hit, oX, dX, oF, dF, dirpart, t, d)]
+            ptrs += [knet.w.data_ptr(), wp.data_ptr(), knet.b.data_ptr()]
+            ptrs += [K.row_ptr(x, r0) for x in (
+                rgb, w, carry[b % 2], carry[(b + 1) % 2])]
+            code = lib.fnt_slim_march(
+                *ptrs, rays.stop - rays.start, NB, SB, b, knet.L, knet.depth,
+                knet.width, knet.k0, knet.skip_mask, int(knet.has_vd),
+                int(softplus), net.tile_rows, float(log_eps), K.stream())
+            K.raise_on_error(code, "fnt_slim_march")
+            K.LAUNCHES[count] += 1
     return rgb, w, carry[NB % 2]

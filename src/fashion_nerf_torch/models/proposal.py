@@ -89,6 +89,47 @@ def distill_points(generator: torch.Generator, batch: int, bmin, bmax, wmin,
     return torch.where(sel, bmin + u * (bmax - bmin), wmin + u * (wmax - wmin))
 
 
+def distill_start(cfg: Config, generator: torch.Generator, device=None):
+    """→ (the student's initial weights, the points' generator): one seed
+    each, drawn from `generator`; the weights are drawn on the CPU, the
+    points on `device`. What `distill_proposal` starts from."""
+    device = torch.device(device or "cpu")
+    seeds = torch.randint(0, 2 ** 62, (2,), generator=generator,
+                          device=generator.device).tolist()
+    student = init_proposal(cfg, torch.Generator().manual_seed(seeds[0]),
+                            device)
+    return student, torch.Generator(device=device).manual_seed(seeds[1])
+
+
+class Distiller:
+    """The student and its Adam state over a distillation of `steps`
+    steps: the reference's optax.adam (b1 0.9, b2 0.999, ε 1e-8, no ε
+    under the root) with a cosine schedule from proposal.distill_lr to 0
+    (optax's `cosine_decay_schedule`, read at the pre-update count).
+    field: the unbound field the student runs through (`distill_loss`)."""
+
+    def __init__(self, cfg: Config, student: NeRFMLP, steps: int,
+                 field: Callable = None):
+        self.student, self.steps, self.field = student, steps, field
+        self.lr0 = cfg.proposal.distill_lr
+        self.act = cfg.model.sigma_activation
+        self.opt = torch.optim.Adam(student.parameters(), lr=self.lr0,
+                                    betas=(0.9, 0.999), eps=1e-8)
+
+    def step(self, i: int, pts, y):
+        """Adam step i on points pts (B, 1, 3) and the teacher's
+        log-densities y (B,) there → the loss before the step."""
+        frac = min(i, self.steps) / self.steps
+        for group in self.opt.param_groups:
+            group["lr"] = self.lr0 * 0.5 * (1.0 + math.cos(math.pi * frac))
+        with torch.enable_grad():
+            loss = distill_loss(self.student, pts, y, self.act, self.field)
+            self.opt.zero_grad(set_to_none=True)
+            loss.backward()
+        self.opt.step()
+        return loss
+
+
 def distill_proposal(cfg: Config, teacher: Callable,
                      generator: torch.Generator, box_min=None, box_max=None,
                      steps: Optional[int] = None, device=None,
@@ -97,16 +138,14 @@ def distill_proposal(cfg: Config, teacher: Callable,
 
     teacher: bound field (pts (B,1,3), viewdirs (B,3)) → (rgb, σ raw), run
       under no_grad with the fixed view direction (0, 0, −1).
-    generator: seeds every draw (the initial weights and the points), so
-      the result is a function of its state alone.
+    generator: seeds every draw (the initial weights and the points,
+      `distill_start`), so the result is a function of its state alone.
     box_min/box_max: (3,) sampling region of 7/8 of the points (the
       occupancy box when there is one); the rest sample occupancy.world.
     steps: in place of cfg.proposal.distill_steps.
     field: the unbound field the student runs through (`distill_loss`).
 
-    Adam with a cosine schedule from proposal.distill_lr to 0 over the
-    steps (optax's `cosine_decay_schedule`, read at the pre-update count).
-    Returns the proposal net on `device`."""
+    Adam steps of `Distiller`. Returns the proposal net on `device`."""
     pcfg = cfg.proposal
     steps = int(pcfg.distill_steps if steps is None else steps)
     batch = int(pcfg.distill_batch)
@@ -121,36 +160,46 @@ def distill_proposal(cfg: Config, teacher: Callable,
     bmin = wmin if box_min is None else vec(box_min)
     bmax = wmax if box_max is None else vec(box_max)
     dirs = torch.tensor([0.0, 0.0, -1.0], device=device).expand(batch, 3)
-
-    # one seed each for the weights (drawn on the CPU) and the points
-    # (drawn on the device), both taken from `generator`
-    seeds = torch.randint(0, 2 ** 62, (2,), generator=generator,
-                          device=generator.device).tolist()
-    student = init_proposal(cfg, torch.Generator().manual_seed(seeds[0]),
-                            device)
-    g_data = torch.Generator(device=device).manual_seed(seeds[1])
-    opt = torch.optim.Adam(student.parameters(), lr=pcfg.distill_lr,
-                           betas=(0.9, 0.999), eps=1e-8)
+    student, g_data = distill_start(cfg, generator, device)
+    run = Distiller(cfg, student, steps, field)
     t0 = time.perf_counter()
     loss = torch.zeros((), device=device)
     for i in range(steps):
         pts = distill_points(g_data, batch, bmin, bmax, wmin, wmax)
         with torch.no_grad():
             y = log_density(teacher(pts, dirs)[1][:, 0], act)
-        for group in opt.param_groups:
-            group["lr"] = pcfg.distill_lr * 0.5 * (
-                1.0 + math.cos(math.pi * i / steps))
-        with torch.enable_grad():
-            loss = distill_loss(student, pts, y, act, field)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-        opt.step()
+        loss = run.step(i, pts, y)
     final = float(loss.detach())    # the one host sync
     secs = time.perf_counter() - t0
     print(f"fashion-nerf-torch: proposal distilled in {steps} steps "
           f"({secs:.2f} s on {device.type}), final log-density MSE "
           f"{final:.4g}", file=sys.stderr)
     return student
+
+
+def distill_health(cfg: Config, teacher: Callable, student: NeRFMLP,
+                   box_min, box_max, n: int = 8192, seed: int = 0) -> dict:
+    """The student against its teacher on n points uniform in the box
+    (box_min, box_max), drawn from `seed` on the student's device:
+    share (of points with σ > 0), mse (of the log-densities), teacher_ms
+    (the teacher's own mean square: what a student with σ ≤ 0 everywhere
+    scores), and dead: σ > 0 on no point, or mse within 1% of teacher_ms.
+    teacher: bound field (pts, viewdirs) → (rgb, σ raw)."""
+    dev = next(student.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lo = torch.as_tensor(box_min, dtype=torch.float32, device=dev)
+    hi = torch.as_tensor(box_max, dtype=torch.float32, device=dev)
+    pts = lo + torch.rand((n, 1, 3), generator=g, device=dev) * (hi - lo)
+    dirs = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(n, 3)
+    act = cfg.model.sigma_activation
+    with torch.no_grad():
+        y = log_density(teacher(pts, dirs)[1][:, 0], act)
+        sigma = _module_field(student, pts, dirs)[1][:, 0]
+    share = float((sigma > 0).float().mean())
+    mse = float(((log_density(sigma, act) - y) ** 2).mean())
+    teacher_ms = float((y ** 2).mean())
+    return {"share": share, "mse": mse, "teacher_ms": teacher_ms,
+            "dead": share == 0.0 or mse >= 0.99 * teacher_ms}
 
 
 def _teacher_signature(fine_params) -> str:

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from fashion_nerf.bench import _bench_params as j_bench_params
+from fashion_nerf.bench import bench_train as j_bench_train
 from fashion_nerf.config import load_config as j_load_config
 from fashion_nerf_torch import bench
 from fashion_nerf_torch.assets import load_flagship
@@ -51,3 +52,45 @@ def test_trained_flag_matches_reference(name):
     want = j_bench_params(j_load_config(name))[1]
     got = bench.bench_params(load_config(name), "cpu")[1]
     assert got is want
+
+
+def test_bench_train_keys_match_reference():
+    """`bench_train` on the CPU: the reference's keys (its bench_train on
+    the same config, one warm-up step and one timed), value = batch rays / step seconds, and the
+    device's name and power limit beside them."""
+    got = bench.bench_train(load_config("tiny_lego"), steps=2, warmup=1,
+                            device="cpu")
+    want = j_bench_train(j_load_config("tiny_lego"), steps=1, warmup=1)
+    assert set(want) <= set(got)
+    assert set(got) - set(want) == {"device", "power_limit"}
+    assert got["device"] == "cpu" and got["power_limit"] is None
+    assert (got["metric"], got["unit"], got["config"]) == (
+        want["metric"], want["unit"], want["config"])
+    batch = load_config("tiny_lego").train.batch_rays
+    assert got["value"] == pytest.approx(batch / (got["step_ms"] / 1e3),
+                                         rel=1e-4)
+
+
+def test_bench_main_train_prints_one_line(monkeypatch, capsys):
+    """`python -m fashion_nerf_torch.bench --train` prints bench_train's
+    JSON line; without --train the render bench's; without CUDA and
+    without --device cpu it raises."""
+    import json
+    real = bench.bench_train
+    seen = {}
+
+    def fake_train(cfg, device=None):
+        seen["train"] = (cfg.name, device)
+        return {"metric": "m", "value": 1.0}
+
+    monkeypatch.setattr(bench, "bench_train", fake_train)
+    monkeypatch.setattr(bench, "run_bench", lambda cfg: {"render": cfg.name})
+    bench.main(["--train", "--config", "tiny_lego", "--device", "cpu"])
+    bench.main(["--config", "tiny_lego"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(x) for x in lines] == [
+        {"metric": "m", "value": 1.0}, {"render": "tiny_lego"}]
+    assert seen["train"] == ("tiny_lego", "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        real(load_config("tiny_lego"), steps=1, warmup=0)

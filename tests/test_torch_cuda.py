@@ -349,8 +349,164 @@ def test_sigma_march_edge_cases(dev, case, SB):
         assert int(live.sum()) == 1 and bool(live[3])
 
 
+def _sb_case(rng, R, NB, SB, dev):
+    """hit, block_hit, t, d over 8 tiles at any SB: 30% alive rays, 70%
+    block flags, a width per ray in [0.01, 1.5] whatever the sample count
+    (some rays terminate; a width of 100 or more would turn σ's bf16
+    rounding, 2e-2·(1 + |σ|), into weights 1e-2 apart), and tile 1 dead."""
+    S = NB * SB
+    rpt = R // 8
+    t = torch.linspace(2.0, 6.0, S, device=dev).expand(R, S).contiguous()
+    d = _f32(rng, R, 1, lo=0.01, hi=1.5, dev=dev).expand(R, S).contiguous()
+    hit = torch.tensor(rng.random(R) < 0.3, dtype=torch.float32, device=dev)
+    hit[:rpt] = 1.0
+    hit[rpt:2 * rpt] = 0.0
+    bhit = torch.tensor(rng.random((R, NB)) < 0.7, dtype=torch.float32,
+                        device=dev)
+    bhit[:, 0] = 1.0
+    return hit, bhit, t, d
+
+
+@pytest.mark.parametrize("SB", [1, 8, 128, 256, 512])
+def test_sigma_march_every_sb(dev, SB):
+    """K1 at SBs outside 16–64 against its plain version on 8 tiles:
+    w/acc/transmittance atol 2e-3, dead tiles exact zeros, live tiles
+    marched whole; launches counted under "sigma_march_sb"."""
+    rng = np.random.default_rng(15)
+    R = 8 * (K.TILE_ROWS // SB)
+    net = sigmamarch.pack_sigma(prop_net(rng).to(dev))
+    ro, rd = _rays(R, dev)
+    hz = sigmamarch.hoist_rays(net, ro, rd)
+    alive, _, t, d = _sb_case(rng, R, 1, SB, dev)
+    n0 = dict(K.LAUNCHES)
+    w_k, acc_k, lt_k = sigmamarch.sigma_march(net, hz, alive, t, d)
+    assert K.LAUNCHES["sigma_march_sb"] == n0["sigma_march_sb"] + 1
+    assert K.LAUNCHES["sigma_march"] == n0["sigma_march"]
+    w_p, acc_p, lt_p = sigmamarch.sigma_march_plain(net, hz, alive, t, d)
+    _close(w_k, w_p, 2e-3)
+    _close(acc_k, acc_p, 2e-3)
+    _close(lt_k.exp(), lt_p.exp(), 2e-3)
+    live = (alive.view(8, -1) > 0).any(dim=1)
+    marched = (acc_k.view(8, -1) > 0).any(dim=1)
+    assert torch.equal(live, marched) and not bool(live[1])
+
+
+@pytest.mark.parametrize("which,SB,NB", [
+    ("fine", 8, 4), ("fine", 128, 2), ("fine", 256, 2), ("fine", 512, 1),
+    ("fine", 1, 3), ("noview", 8, 2), ("noview", 256, 1), ("w64", 128, 2),
+    ("cond", 256, 2), ("cond", 8, 2)])
+def test_slim_march_every_sb(dev, which, SB, NB):
+    """K2 at SBs outside 16–64 (and a conditioned net at its halved tile,
+    up to 256) against its plain version on 8 tiles: rgb/w/transmittance
+    atol 5e-3 and identical executed (tile, block) pairs, with terminated
+    rays; launches counted under "slim_march_sb"."""
+    rng = np.random.default_rng(16)
+    eps = 1e-3
+    if which == "cond":
+        # the flagship's layout with 16 cond rows in trunk_0 and trunk_5
+        cx, W, cc = 63, 256, 16
+        shapes = {f"trunk_{i}": ((cx + cc + W) if i == 5 else
+                                 (cx + cc if i == 0 else W), W)
+                  for i in range(8)}
+        shapes.update(sigma_head=(W, 1), feature=(W, W),
+                      view_0=(W + 27, W // 2), rgb_head=(W // 2, 3))
+        tree = {"params": {
+            name: {"kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(
+                np.float32), "bias": (0.1 * rng.normal(size=o)).astype(
+                    np.float32)} for name, (i, o) in shapes.items()}}
+        model = load_flax_params(tree, compute_dtype="bfloat16",
+                                 cond_dim=cc).to(dev)
+    else:
+        model = FIELD_NETS[which](rng).to(dev)
+    net = slimmarch.split_hoist(model)
+    R = 8 * (net.tile_rows // SB)
+    ro, rd = _rays(R, dev)
+    cp = None
+    if which == "cond":
+        assert net.tile_rows == K.TILE_ROWS // 2
+        cp = posenc_mlp.hoist_cond(net, _f32(rng, R, 16, dev=dev))
+    hf = slimmarch.hoist_rays(net, ro, rd, cp)
+    dp = (posenc_mlp.hoist_dirs(net, rd).contiguous() if net.has_vd
+          else None)
+    hit, bhit, t, d = _sb_case(rng, R, NB, SB, dev)
+    args = (net, hf, dp, hit, bhit, t, d, math.log(eps))
+    n0 = dict(K.LAUNCHES)
+    out_k = slimmarch.slim_march(*args)
+    assert K.LAUNCHES["slim_march_sb"] == n0["slim_march_sb"] + NB
+    out_p = slimmarch.slim_march_plain(*args)
+    _close(out_k[0], out_p[0], 5e-3)
+    _close(out_k[1], out_p[1], 5e-3)
+    _close(out_k[2].exp(), out_p[2].exp(), 5e-3)
+    rpt = net.tile_rows // SB
+    cfg = SimpleNamespace(kernels=SimpleNamespace(early_term_eps=eps))
+    from fashion_nerf_torch.render.blockwise import march_liveness
+    live_k = march_liveness(out_k[1], hit, bhit, cfg,
+                            net.tile_rows)["tile_alive"]
+    live_p = march_liveness(out_p[1], hit, bhit, cfg,
+                            net.tile_rows)["tile_alive"]
+    assert torch.equal(live_k, live_p)
+    assert 0 < int(live_k.sum()) and not bool(live_k[1].any())
+    assert bool((out_k[1][rpt:2 * rpt] == 0).all())
+
+
+@pytest.mark.parametrize("which,SB,NB", [
+    ("fine", 8, 4), ("fine", 128, 2), ("fine", 256, 2), ("fine", 512, 1),
+    ("fine", 2, 2), ("w64nv", 256, 1), ("w32", 8, 2)])
+def test_carry_march_every_sb(dev, which, SB, NB):
+    """K6 at SBs outside 16–64 against its plain version on 8 tiles:
+    rgb/acc/w/transmittance atol 5e-3, depth 5e-3·far, identical executed
+    (tile, block) pairs; launches counted under "carry_march_sb"."""
+    rng = np.random.default_rng(17)
+    eps, far = 1e-3, 6.0
+    R = 8 * (K.TILE_ROWS // SB)
+    net = posenc_mlp.pack_params(FIELD_NETS[which](rng).to(dev),
+                                 hoist_x=False)
+    ro, rd = _rays(R, dev)
+    dp = posenc_mlp.hoist_dirs(net, rd).contiguous()
+    hit, bhit, t, d = _sb_case(rng, R, NB, SB, dev)
+    args = (net, dp, ro, rd, hit, bhit, t, d, math.log(eps))
+    n0 = dict(K.LAUNCHES)
+    out_k = carrymarch.carry_march(*args)
+    assert K.LAUNCHES["carry_march_sb"] == n0["carry_march_sb"] + NB
+    out_p = carrymarch.carry_march_plain(*args)
+    for name, a, b, tol in zip(("rgb", "depth", "acc", "w"), out_k, out_p,
+                               (5e-3, 5e-3 * far, 5e-3, 5e-3)):
+        assert float((a - b).abs().max()) <= tol, name
+    _close(out_k[4].exp(), out_p[4].exp(), 5e-3)
+    live_k = _executed(out_k[3], hit, bhit, eps)
+    live_p = _executed(out_p[3], hit, bhit, eps)
+    assert torch.equal(live_k, live_p)
+    assert 0 < int(live_k.sum()) and not bool(live_k[1].any())
+
+
+def test_march_wrappers_split_tiles(dev, monkeypatch):
+    """K1 and K2 march more tiles than one launch takes in ranges of rays,
+    with the same outputs as one launch."""
+    rng = np.random.default_rng(18)
+    SB, NB = 64, 2
+    R = 6 * (K.TILE_ROWS // SB)
+    pnet = sigmamarch.pack_sigma(prop_net(rng).to(dev))
+    fnet = slimmarch.split_hoist(fine_net(rng).to(dev))
+    ro, rd = _rays(R, dev)
+    hit, bhit, t, d = _sb_case(rng, R, NB, SB, dev)
+    a1 = (pnet, sigmamarch.hoist_rays(pnet, ro, rd), hit, t[:, :SB].contiguous(),
+          d[:, :SB].contiguous())
+    a2 = (fnet, slimmarch.hoist_rays(fnet, ro, rd),
+          posenc_mlp.hoist_dirs(fnet, rd).contiguous(), hit, bhit, t, d,
+          math.log(1e-3))
+    whole = sigmamarch.sigma_march(*a1) + slimmarch.slim_march(*a2)
+    monkeypatch.setattr(K, "MARCH_MAX_TILES", 4)
+    n0 = dict(K.LAUNCHES)
+    split = sigmamarch.sigma_march(*a1) + slimmarch.slim_march(*a2)
+    assert K.LAUNCHES["sigma_march"] == n0["sigma_march"] + 2
+    assert K.LAUNCHES["slim_march"] == n0["slim_march"] + 2 * NB
+    for a, b in zip(whole, split):
+        assert torch.equal(a, b)
+
+
 def test_march_wrappers_reject_bad_shapes(dev):
-    """K1/K2 take SB in (16, 32, 64), whole tiles and nets up to width 256
+    """K1/K2 take the reference's SBs (not 24 or 1024), whole tiles and
+    nets up to width 256
     (K2 pads narrower ones; the σ march takes K2 off K1's width 128); R = 0
     returns empty outputs without a launch."""
     rng = np.random.default_rng(12)
@@ -377,8 +533,8 @@ def test_march_wrappers_reject_bad_shapes(dev):
     # widths K1 and K2 are not built for run padded (test_torch_skips'
     # cases); what no padding reaches still raises
     wide = sigmamarch.pack_sigma(prop_net(rng, W=320).to(dev))
-    for call in (lambda: k2(fnet, 256, 2, 8), lambda: k2(fnet, 96, 2, 32),
-                 lambda: k1(pnet, 64, 8), lambda: k1(pnet, 48, 64),
+    for call in (lambda: k2(fnet, 340, 2, 24), lambda: k2(fnet, 96, 2, 32),
+                 lambda: k1(pnet, 64, 1024), lambda: k1(pnet, 48, 64),
                  lambda: k1(wide, 32, 64)):
         with pytest.raises(ValueError):
             call()
@@ -480,7 +636,8 @@ def test_carry_march_shapes_and_edge_cases(dev, which, SB, case):
 
 def test_carry_march_wrapper_splits_and_rejects(dev, monkeypatch):
     """More tiles than one launch takes are marched in ranges of rays (the
-    same outputs as one launch); SB outside MARCH_SB, ragged tiles and a
+    same outputs as one launch); SB outside the reference's (24, 1024),
+    ragged tiles and a
     net that cannot be padded raise ValueError; R = 0 launches nothing."""
     rng = np.random.default_rng(14)
     NB, SB = 2, 32
@@ -509,8 +666,8 @@ def test_carry_march_wrapper_splits_and_rejects(dev, monkeypatch):
 
     wide = posenc_mlp.pack_params(small_net(rng, 512, 3, 4, False).to(dev),
                                   hoist_x=False)
-    for bad in (lambda: call(net, 256, 8), lambda: call(net, 96, 32),
-                lambda: call(wide, 64, 32)):
+    for bad in (lambda: call(net, 340, 24), lambda: call(net, 96, 32),
+                lambda: call(wide, 64, 32), lambda: call(net, 8, 1024)):
         with pytest.raises(ValueError):
             bad()
     n0 = K.LAUNCHES["carry_march"]

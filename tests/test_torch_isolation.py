@@ -189,7 +189,9 @@ def test_wrappers_take_plain_on_cpu():
                                "probe_p1", "probe_p2", "field_cond",
                                "slim_march_cond", "carry_march_cond",
                                "field_bwd_cond", "field_alive",
-                               "slim_march_novd", "sigma_march_k2"}
+                               "slim_march_novd", "sigma_march_k2",
+                               "sigma_march_sb", "slim_march_sb",
+                               "carry_march_sb"}
     assert not any(K.LAUNCHES.values())
 
 

@@ -167,8 +167,22 @@ def test_main_exit_code(monkeypatch, ok, code):
 
 
 def test_main_refuses_without_gate_or_cuda(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quality.main(["--device", "cpu"])
+    """Without --gate the entry point runs the spec sweep with its flags;
+    without CUDA and without --device cpu either mode raises."""
+    seen = {}
+
+    def fake(only, pose, device, H, W, overrides, log):
+        seen.update(only=only, pose=pose, device=device.type, H=H,
+                    overrides=overrides)
+        return {"rows": [], "pose": pose}
+
+    monkeypatch.setattr(quality, "run_sweep", fake)
+    assert quality.main(["--device", "cpu", "--size", "16", "--pose", "2",
+                         "--only", "dense, w256d3", "--extra",
+                         "a.b=1"]) == 0
+    assert seen == {"only": ["dense", "w256d3"], "pose": 2, "device": "cpu",
+                    "H": 16, "overrides": ["a.b=1"]}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        quality.main(["--gate"])
+    for argv in (["--gate"], []):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            quality.main(argv)

@@ -99,11 +99,13 @@ def test_march_buffer_is_built_once():
 @pytest.mark.parametrize("R,SB,width,ok", [
     (64, 32, 256, True), (0, 32, 256, True), (32, 64, 128, True),
     (128, 16, 256, True), (64, 32, 128, False), (64, 8, 256, False),
-    (16, 128, 256, False), (96, 32, 256, False),
-    (1025 * 64, 32, 256, False), (1024 * 64, 32, 256, True)])
+    (16, 128, 256, True), (96, 32, 256, False), (340, 24, 256, False),
+    (8, 1024, 256, False), (1025 * 64, 32, 256, True),
+    (1024 * 64, 32, 256, True)])
 def test_check_march_shape(R, SB, width, ok):
-    """SB in (16, 32, 64), whole tiles, at most MARCH_MAX_TILES tiles, the
-    kernel's width; R = 0 passes."""
+    """The reference's SBs (not 24 or 1024), whole tiles and the kernel's
+    width; any number of tiles (the wrappers launch per MARCH_MAX_TILES);
+    R = 0 passes."""
     if ok:
         sigmamarch.check_march_shape(R, SB, width, width if width in (
             K.SIGMA_WIDTH, K.SLIM_WIDTH) else 0)
