@@ -15,7 +15,10 @@ distilled on the card, the `blender_lego`
 trainer at full width (`train()`, from random init), the same trainer on a
 width-32 net, which the field kernels run zero-padded, the tensor-core
 probe (`python -m fashion_nerf_torch.probe [--shapes]`), the command line,
-`llff_fern` end to end, and try-on serving and training. Phases, in order:
+distribution (two ranks on the card: the dp=2 and tp=2 steps, `train`
+under `torch.distributed.run`, the segmented ray scan, the dp-sharded
+render and the `data.stream` prefetch), `llff_fern` end to end, and try-on
+serving and training. Phases, in order:
 
 1. device: name, power limit, TF32 off;
 2. build: nvcc builds the kernels from src/fashion_nerf_torch/kernels/csrc,
@@ -97,14 +100,27 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`), the command line,
     PNGs read back), two `train --resume` steps at a vanishing learning
     rate and `eval` again, which distils a proposal for the moved weights,
     `bench`, and `parity` on a root without scenes;
-15. llff: `llff_fern` at full width through `cli.main` on the hermetic
+15. dist: two ranks over gloo on the one card, started by `python -m
+    torch.distributed.run --nproc_per_node 2 chip_smoke.py --dist-worker`:
+    `train --set dist.dp=2` (24 steps, `cli.main` on the group) on the
+    hermetic scene written in the blender layout, its loss curve beside
+    `train()` in one process; 3 steps under dp=2 and under dp=1×tp=2
+    against one process's (step-1 loss, every step-1 gradient, the
+    parameters after 3 steps; the tp shards' shapes), `segmented_ray_scan`
+    at 2 segments on the flagship's fine samples against `volume_render`,
+    `render_image` over dp=2 against one process, each rank's K3/K4/K5
+    launches; the dp=2 checkpoint restored in one process and `cli eval`
+    of it; `train()` with `data.stream=true` (its batches against
+    `host_batch_iter`'s, the step with the prefetch against the device
+    gather, the device's busy share in a profiler window);
+16. llff: `llff_fern` at full width through `cli.main` on the hermetic
     forward scene: `train` (K3 + K4 + K5; the loss falls), `eval`
     through the two-stage kernels and with `kernels.use_pallas=false`,
     `render` of an LLFF fixture's spiral (the loader), `bench` at
     800×800 from random init (160 K3 launches a frame) with one live
     chunk held against plain, a 378×504 frame (scanline order) against
     plain, and `parity` over a root of two fixture scenes;
-16. tryon: the garment-conditioned try-on serving path at `viton_tryon`'s
+17. tryon: the garment-conditioned try-on serving path at `viton_tryon`'s
     full width: `preprocess` on the procedural pair with the committed
     matcher (its cond stack against the same function on the CPU), the
     matcher's held-out IoUs on the card, a conditioned state built from
@@ -115,7 +131,7 @@ probe (`python -m fashion_nerf_torch.probe [--shapes]`), the command line,
     conditioned-teacher distillation, two garments' frames, `eval` and
     `render` of the checkpoint, `render` of a `dynamic_tryon` checkpoint
     over 4 poses (latents 0-3);
-17. tryon-train: conditioned training at the try-on presets' full width:
+18. tryon-train: conditioned training at the try-on presets' full width:
     `train --config viton_tryon --resume` (cli.main) from a checkpoint of
     the [tryon] fixture on the hermetic viton scene through a cond-aware
     occupancy refresh, culled and dense steps, an eval and a checkpoint;
@@ -144,8 +160,8 @@ d_condpart summed per ray) at the try-on step's fine shape, at the sparsity
 prior's one sample a ray, and on a zero-padded conditioned net.
 
 The launch counters are reset just before each path (phases 4, 6, each
-frame set of 7's branches, 11, 12 and 13, each subcommand of 14 and 15,
-each path of 16 and 17) and read
+frame set of 7's branches, 11, 12 and 13, each subcommand of 14 and 16,
+each path of 15 (on each rank), 17 and 18) and read
 right after it, so they count that path only; a conditioned net's
 launches of K2, K3, K4 and K6 count under "slim_march_cond",
 "field_cond", "field_bwd_cond" and "carry_march_cond", K3's launches with
@@ -156,10 +172,16 @@ and K6 at an SB outside 16–64 under "sigma_march_sb", "slim_march_sb" and
 "carry_march_sb".
 Any failure raises (non-zero exit). Imports nothing of JAX. The last line
 is the device JSON object.
+
+`python3 chip_smoke.py --phase-times ROOT` runs ROOT/chip_smoke.py (e.g.
+another commit's `git archive` unpacked under build/) with its output
+passed through, then prints the seconds it spent a phase tag; run it on
+two trees in one call to compare their phases on one card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -245,6 +267,17 @@ SB_FRAMES = (                 # [frame-sb]: overrides, and the "_sb" count
 SWEEP_SHARED_DEATH = "proposal p64+f64+cov16 w256d3"
 SWEEP_SEEDS = (0, 1, 2, 3)
 RUN_DIR = os.path.join(ROOT, "build", "chip_smoke_run")
+# [dist]: two ranks on the one card; the checks' tolerances. The step-1
+# loss: each rank's rows go through K3 as in one process, only the sum's
+# order differs; gradients: K4's row sums split in two and all_reduced;
+# after 3 Adam steps the reference's rule (tests/distributed/test_dp.py:
+# 55-73); the segmented scan the reference's (test_segmented.py)
+DIST_RANKS, DIST_STEPS, DIST_CHECK_STEPS = 2, 24, 3
+DIST_LOSS_REL, DIST_GRAD_REL = 1e-5, 1e-4
+DIST_PARAM_GAP, DIST_PARAM_SHARE = 1e-4, 0.01
+SEG_RAYS, SEG_ATOL, SEG_DEPTH_ATOL = 8192, 3e-4, 3e-3
+DIST_FRAME = 200              # render_image over dp=2: a 200×200 frame
+DIST_JOIN_S = 300             # a group of ranks that takes longer is killed
 
 SOURCES = {
     "field": ("src/fashion_nerf_torch/kernels/csrc/field.cu",
@@ -2397,13 +2430,13 @@ def committed_state(cfg, device):
 def phase_scene(cfg, device):
     """The hermetic training scene that `train` builds when data.root is
     empty (the scene the committed weights were trained on)."""
-    from fashion_nerf_torch.data.pipeline import RayDataset
+    from fashion_nerf_torch.data.pipeline import ray_dataset
     from fashion_nerf_torch.train.loop import load_dataset
     t0 = time.perf_counter()
     scene = load_dataset(cfg)
     secs = time.perf_counter() - t0
-    ds = RayDataset(scene["images"], scene["poses"], scene["focal"],
-                    precrop_frac=cfg.train.precrop_frac, device=device)
+    ds = ray_dataset(cfg, scene["images"], scene["poses"], scene["focal"],
+                     device=device)
     ds.val_image, ds.val_pose = scene["val_image"], scene["val_pose"]
     say("scene", f"{ds.N} views of {ds.H}x{ds.W} and a val view rendered "
         f"in {secs:.1f} s (numpy, host); {ds.n_rays} rays on the card")
@@ -3600,11 +3633,555 @@ def phase_tryon_train(device, gpu, smi):
     return launches
 
 
+def dist_state(cfg, device):
+    """The state `train()` starts from (the run's seed)."""
+    from fashion_nerf_torch.prng import GeneratorChain
+    from fashion_nerf_torch.train.state import create_train_state
+    chain = GeneratorChain(cfg.train.seed)
+    return create_train_state(cfg, chain.once("init"),
+                              chain.once("run", device), device)
+
+
+def write_blender_scene(root, scene) -> str:
+    """The hermetic training scene in the blender layout (RGB PNGs,
+    transforms_{train,val,test}.json; the val view is the test view too),
+    for the launched ranks, which load it by path."""
+    from fashion_nerf_torch.png import write_png
+    os.makedirs(root, exist_ok=True)
+    H, W = scene["images"].shape[1:3]
+    angle = 2.0 * math.atan(0.5 * W / float(scene["focal"]))
+
+    def frames(split, images, poses):
+        out = []
+        for i, (img, pose) in enumerate(zip(images, poses)):
+            name = f"{split}/r_{i}"
+            os.makedirs(os.path.join(root, split), exist_ok=True)
+            write_png(os.path.join(root, name + ".png"),
+                      (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8))
+            m = np.eye(4)
+            m[:3, :4] = np.asarray(pose)[:3, :4]
+            out.append({"file_path": name, "transform_matrix": m.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": angle, "frames": out}, f)
+
+    frames("train", scene["images"], scene["poses"])
+    for split in ("val", "test"):
+        frames(split, [scene["val_image"]], [scene["val_pose"]])
+    return root
+
+
+def torchrun(argv, label: str, out_dir: str) -> tuple:
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    DIST_RANKS` of argv from the repo root → (stdout, stderr, seconds).
+    The launcher and its ranks run in a session of their own, killed
+    whole when they outlast DIST_JOIN_S."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="4")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(DIST_RANKS), *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DIST_JOIN_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"[dist] {label}: the ranks did not finish in "
+                             f"{DIST_JOIN_S} s and were killed")
+    secs = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"{label}.log"), "w") as f:
+        f.write(f"$ {' '.join(cmd)}\n--- stdout\n{out}\n--- stderr\n{err}")
+    if proc.returncode != 0:
+        raise AssertionError(f"[dist] {label} failed ({proc.returncode}):\n"
+                             f"{out[-3000:]}\n{err[-6000:]}")
+    return out, err, secs
+
+
+def dist_steps(cfg, ds, device, mesh=None, n=DIST_CHECK_STEPS) -> dict:
+    """n steps of `TrainStep` from the state `train()` starts from (the
+    run's seed) → losses, the first step's (reduced) gradients, the full
+    parameters after the last, and under tp each leaf's master and Adam
+    moment shapes."""
+    from fashion_nerf_torch.dist import mesh as dmesh
+    from fashion_nerf_torch.train.loop import TrainStep
+    state = dist_state(cfg, device)
+    if mesh is not None:
+        state = dmesh.shard_state(mesh, state)
+    step = TrainStep(cfg, ds, mesh=mesh)
+    losses, grads, shapes = [], None, None
+    with torch.enable_grad():
+        for k in range(n):
+            state, m = step(state, ds.batch_arrays())
+            losses.append(float(m["loss"]))
+            if k == 0:
+                grads = {f"{a}.{b}": p.grad.detach().clone()
+                         for a, net in state.nets().items()
+                         for b, p in net.named_parameters()}
+    opt = state.optimizer
+    if isinstance(opt, dmesh.ShardedAdam):
+        names = {id(p): f"{a}.{b}" for a, net in state.nets().items()
+                 for b, p in net.named_parameters()}
+        local = opt.adam.state_dict()["state"]
+        shapes = {names[id(p)]: (tuple(p.shape), tuple(m.shape),
+                                 tuple(local[i]["exp_avg"].shape), s)
+                  for i, (p, m, s) in enumerate(zip(
+                      opt.full, opt.masters, opt.sharded))}
+    torch.cuda.synchronize()
+    return {"losses": losses, "grads": grads, "shapes": shapes,
+            "params": {f"{a}.{b}": p.detach().clone()
+                       for a, net in state.nets().items()
+                       for b, p in net.named_parameters()}}
+
+
+def far_share(a: dict, b: dict, gap: float) -> float:
+    bad = sum(int(((a[k] - b[k]).abs() > gap).sum()) for k in b)
+    return bad / sum(v.numel() for v in b.values())
+
+
+def fine_samples(cfg, nets, o, d, device):
+    """The dense path's fine inputs for rays (o, d): 64 stratified coarse
+    samples through K3, the 128 inverse-CDF samples → (rgb (R,192,3),
+    σ (R,192), t (R,192)) of the fine field through K3."""
+    from fashion_nerf_torch.core.sampling import sample_pdf, stratified_sample
+    from fashion_nerf_torch.core.volrend import volume_render
+    from fashion_nerf_torch.train.loop import make_fields
+    field_c, field_f = make_fields(cfg)
+    s = cfg.sampling
+    t_c = stratified_sample(cfg.render.near, cfg.render.far, o.shape[0],
+                            s.n_coarse, device=device)
+    rgb_c, sig_c = field_c(nets["coarse"], o[:, None] + d[:, None]
+                           * t_c[..., None], d)
+    w = volume_render(rgb_c, sig_c, t_c, d)["weights"]
+    t_f = sample_pdf(0.5 * (t_c[:, 1:] + t_c[:, :-1]), w[:, 1:-1], s.n_fine)
+    t = torch.sort(torch.cat([t_c, t_f], -1), -1).values
+    rgb, sigma = field_f(nets["fine"], o[:, None] + d[:, None] * t[..., None],
+                         d)
+    return rgb.contiguous(), sigma.contiguous(), t.contiguous()
+
+
+def dist_worker(job_path: str) -> int:
+    """One rank of [dist]'s group (started by `python -m
+    torch.distributed.run --nproc_per_node 2 chip_smoke.py --dist-worker
+    JOB`): `train --set dist.dp=2` through `cli.main` on the group, the
+    dp=2 and dp=1×tp=2 steps, `segmented_ray_scan` at 2 segments on the
+    flagship's fine samples, and `render_image` over dp=2 against the same
+    frame in this process; each rank's K3/K4/K5 launches per path. Rank 0
+    writes the tensors and every rank its JSON line to the job's
+    directory."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.assets import load_flagship
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.core.volrend import volume_render
+    from fashion_nerf_torch.data.pipeline import ray_dataset
+    from fashion_nerf_torch.dist import mesh as dmesh
+    from fashion_nerf_torch.dist.segmented import segmented_ray_scan
+    from fashion_nerf_torch.metrics import psnr
+    from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+    from fashion_nerf_torch.render.renderer import render_image
+    from fashion_nerf_torch.train.loop import load_dataset, make_fields
+    import contextlib
+    import io
+    from fashion_nerf_torch import cli
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    device = torch.device("cuda", 0)
+    backend = dmesh.init_distributed(device=device)
+    rank = dmesh.rank()
+    row = {"rank": rank, "backend": backend, "launches": {}, "ms": {}}
+
+    def counts():
+        return {k: K.LAUNCHES[k] for k in ("field", "field_bwd", "volrend")}
+
+    # `train --set dist.dp=2` through the command line, on this group
+    out, err = io.StringIO(), io.StringIO()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        row["cli_rc"] = cli.main(job["cli"])
+    torch.cuda.synchronize()
+    row["ms"]["cli"] = (time.perf_counter() - t0) * 1e3
+    row["launches"]["cli"] = counts()
+    row["cli_stdout"], row["cli_stderr"] = out.getvalue(), err.getvalue()
+
+    cfg = load_config("blender_lego", job["overrides"])
+    scene = load_dataset(cfg, device)
+    ds = ray_dataset(cfg, scene["images"], scene["poses"], scene["focal"],
+                     device=device)
+
+    for label, (dp, tp) in (("dp2", (2, 1)), ("tp2", (1, 2))):
+        mesh = dmesh.make_mesh(dp, tp)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = dist_steps(cfg, ds, device, mesh)
+        row["ms"][label] = (time.perf_counter() - t0) * 1e3
+        row["launches"][label] = counts()
+        if rank == 0:
+            torch.save(res, os.path.join(job["out"], f"{label}.pt"))
+        del res
+
+    # segmented_ray_scan: the flagship's fine samples of 8192 rays of the
+    # val view, split in two along the samples
+    trained, _ = load_flagship()
+    nets = {k: load_flax_params(trained[k],
+                                compute_dtype=cfg.model.compute_dtype,
+                                device=device) for k in ("coarse", "fine")}
+    o, d = ds.rays_o[-2 * SEG_RAYS:-SEG_RAYS], ds.rays_d[-2 * SEG_RAYS:-SEG_RAYS]
+    K.reset_launches()
+    rgb, sigma, t = fine_samples(cfg, nets, o, d, device)
+    for x in (rgb, sigma, t):          # rank 0's, bitwise on both
+        dmesh.broadcast_([x])
+    S = sigma.shape[1] // dmesh.world_size()
+    cols = slice(rank * S, (rank + 1) * S)
+    seg = lambda: segmented_ray_scan(        # noqa: E731
+        None, rgb[:, cols].contiguous(), sigma[:, cols].contiguous(),
+        t[:, cols].contiguous(), d, white_bkgd=True)
+    got = seg()
+    row["ms"]["segmented"] = cuda_ms(seg)
+    row["launches"]["segmented"] = counts()
+    if rank == 0:
+        ref = volume_render(rgb, sigma, t, d, white_bkgd=True)
+        row["segmented"] = {
+            "shape": list(sigma.shape),
+            **{k: maxerr(got[k], ref[k]) for k in ("rgb", "depth", "acc")},
+            "volume_render_ms": cuda_ms(lambda: volume_render(
+                rgb, sigma, t, d, white_bkgd=True))}
+
+    # render_image over dp=2: a DIST_FRAME² dense frame, K3 and K5
+    mesh = dmesh.make_mesh(2, 1)
+    field_c, field_f = make_fields(cfg)
+    fc = (lambda pts, vd, *c: field_c(nets["coarse"], pts, vd, *c))
+    ff = (lambda pts, vd, *c: field_f(nets["fine"], pts, vd, *c))
+    focal = float(scene["focal"]) * DIST_FRAME / ds.W
+    frame = (lambda m: render_image(         # noqa: E731
+        fc, ff, DIST_FRAME, DIST_FRAME, focal, scene["val_pose"], cfg,
+        use_fused_render=True, device=device, mesh=m))
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = frame(mesh)["rgb"]
+    torch.cuda.synchronize()
+    row["ms"]["render_mesh"] = (time.perf_counter() - t0) * 1e3
+    row["launches"]["render"] = counts()
+    if rank == 0:
+        t0 = time.perf_counter()
+        one = frame(None)["rgb"]
+        torch.cuda.synchronize()
+        row["ms"]["render_one"] = (time.perf_counter() - t0) * 1e3
+        row["render"] = {"shape": list(img.shape),
+                         "psnr": float(psnr(img, one)),
+                         "finite": bool(torch.isfinite(img).all())}
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    dmesh.shutdown_distributed()
+    return 0
+
+
+def phase_dist(scene, device, gpu, smi):
+    """Distribution (`fashion_nerf_torch.dist`) at blender_lego's full width
+    on the one card: two ranks over gloo, each on cuda:0.
+
+    - one group started by `python -m torch.distributed.run
+      --nproc_per_node 2 chip_smoke.py --dist-worker`: `train --set
+      dist.dp=2` through `cli.main` for DIST_STEPS steps on the hermetic
+      scene written in the blender layout, beside `train()` in this
+      process from the same seed (the loss curves side by side); 3 steps under dp=2
+      and under dp=1×tp=2 against the same steps here (step-1 loss, every
+      step-1 gradient, the parameters after 3 steps; the tp shards'
+      shapes), `segmented_ray_scan` at 2 segments against `volume_render`,
+      `render_image` over dp=2 against one process; K3/K4/K5 launches per
+      rank;
+    - the dp=2 checkpoint restored here, and `cli eval` of it against
+      `evaluate` of the restored weights;
+    - `train()` with data.stream=true: its batches against
+      `host_batch_iter`'s, the step time with the prefetch against the
+      device gather's, and the device's busy share over a profiler window.
+    Two ranks on one card measure no scaling: their rays/s are labelled so.
+    """
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from fashion_nerf_torch import ckpt as ckpt_lib
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.data import pipeline
+    from fashion_nerf_torch.data.pipeline import RayDataset
+    from fashion_nerf_torch.train import loop
+    t_phase = time.perf_counter()
+    base = os.path.join(ROOT, "build", "chip_smoke_dist")
+    shutil.rmtree(base, ignore_errors=True)
+    root = write_blender_scene(os.path.join(base, "scene"), scene)
+    run = os.path.join(base, "run")
+    common = [f"data.root={root}", f"train.iters={DIST_STEPS}",
+              "train.log_every=1", f"train.eval_every={DIST_STEPS}",
+              f"train.ckpt_every={DIST_STEPS}"]
+    cfg = load_config("blender_lego", common + [f"out_dir={run}"])
+    checks = {}
+
+    # 1. one group of two ranks: `train --set dist.dp=2` through the
+    # command line, then the worker's checks
+    argv = ["train", "--config", "blender_lego", "--out", run, "--set",
+            "dist.dp=2"]
+    for o in common:
+        argv += ["--set", o]
+    work = os.path.join(base, "worker")
+    os.makedirs(work)
+    job = os.path.join(work, "job.json")
+    with open(job, "w") as f:
+        json.dump({"out": work, "cli": argv,
+                   "overrides": [f"data.root={root}"]}, f)
+    _, _, secs_w = torchrun([os.path.join(ROOT, "chip_smoke.py"),
+                             "--dist-worker", job], "worker", base)
+    rows = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            rows.append(json.load(f))
+    out = rows[0]["cli_stdout"]
+    meshes = [json.loads(ln) for r in rows
+              for ln in r["cli_stderr"].splitlines()
+              if ln.startswith('{"mesh"')]
+    logs = [json.loads(ln.split(" ", 1)[1]) for ln in out.splitlines()
+            if ln.startswith('[fashion-nerf-torch] {"loss"')]
+    evals = [json.loads(ln.split(" ", 1)[1])["val_psnr"]
+             for ln in out.splitlines()
+             if ln.startswith('[fashion-nerf-torch] {"step"')]
+    summary = [ln for r in rows for ln in r["cli_stdout"].splitlines()
+               if ln.startswith('{"done"')]
+    # the same run in this process
+    ds_dict = loop.load_dataset(cfg, device)
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        _, hist = loop.train(
+            dataclasses.replace(cfg, out_dir=os.path.join(base, "one")),
+            dataset_dict=ds_dict, device=device, log_fn=lambda e: None)
+    torch.cuda.synchronize()
+    secs_one = time.perf_counter() - t0
+    one = [h for h in hist if "loss" in h]
+    curve = [(e["loss"], o["loss"]) for e, o in zip(logs, one)]
+    rate2 = statistics.median(e["rays_per_sec"] for e in logs[1:])
+    rate1 = statistics.median(e["rays_per_sec"] for e in one[1:])
+    say("dist", f"torchrun --nproc_per_node {DIST_RANKS} chip_smoke.py "
+        f"--dist-worker: {secs_w:.1f} s with start-up, of which `train "
+        f"--set dist.dp=2` (cli.main on the group) {rows[0]['ms']['cli'] / 1e3:.1f}"
+        f" s: {len(logs)} steps, exit {[r['cli_rc'] for r in rows]}; mesh "
+        f"lines {meshes}; eval {evals}; summary lines {len(summary)}")
+    say("dist", "loss curve, two ranks | one process: " + "; ".join(
+        f"{i + 1}: {a:.6f} | {b:.6f}" for i, (a, b) in enumerate(curve)))
+    say("dist", f"rays/s of two ranks sharing one card (no scaling "
+        f"measured) {rate2:.1f}, one process {rate1:.1f} (median of the "
+        f"log windows after the first; one process's {DIST_STEPS} steps + "
+        f"eval {secs_one:.2f} s); {gpu} | {smi}")
+    e1 = abs(curve[0][0] - curve[0][1]) / abs(curve[0][1])
+    checks["cli"] = (len(logs) == DIST_STEPS and len(summary) == 1
+                     and all(r["cli_rc"] == 0 for r in rows)
+                     and len(meshes) == DIST_RANKS
+                     and all(m["backend"] == "gloo" for m in meshes)
+                     and all(math.isfinite(e["loss"]) for e in logs)
+                     and e1 <= DIST_LOSS_REL and len(evals) == 1)
+
+    # 2. the worker's steps against the same steps here
+    wcfg = load_config("blender_lego", [f"data.root={root}"])
+    ds = pipeline.ray_dataset(wcfg, ds_dict["images"], ds_dict["poses"],
+                              ds_dict["focal"], device=device)
+    single = dist_steps(wcfg, ds, device)
+    for label in ("dp2", "tp2"):
+        res = torch.load(os.path.join(work, f"{label}.pt"),
+                         map_location=device, weights_only=False)
+        e_loss = abs(res["losses"][0] - single["losses"][0]) / abs(
+            single["losses"][0])
+        rel = {k: rel_rms(res["grads"][k], g)
+               for k, g in single["grads"].items()}
+        worst = max(rel, key=rel.get)
+        share = far_share(res["params"], single["params"], DIST_PARAM_GAP)
+        say("dist", f"{label}: losses {[round(x, 7) for x in res['losses']]}"
+            f" against one process {[round(x, 7) for x in single['losses']]}"
+            f"; step-1 loss rel {e_loss:.3g} (tol {DIST_LOSS_REL}); worst "
+            f"step-1 gradient relative RMS {rel[worst]:.3g} ({worst}, tol "
+            f"{DIST_GRAD_REL}) over {len(rel)} parameters; after "
+            f"{DIST_CHECK_STEPS} steps {share:.4%} of parameters more than "
+            f"{DIST_PARAM_GAP} apart (tol {DIST_PARAM_SHARE:.0%})")
+        checks[label] = (e_loss <= DIST_LOSS_REL and rel[worst] <= DIST_GRAD_REL
+                         and share < DIST_PARAM_SHARE)
+        if label == "tp2":
+            trunk = {k: v for k, v in res["shapes"].items()
+                     if ".trunk." in k or ".feature." in k or ".view_0." in k}
+            say("dist", "tp2 shards (full, master, Adam moment, sharded): "
+                + "; ".join(f"{k} {v[0]}→{v[1]}/{v[2]}"
+                            f"{'' if v[3] else ' replicated'}"
+                            for k, v in trunk.items() if k.startswith(
+                                "coarse")))
+            rule_ok = all(
+                v[3] == (v[1][0] * 2 == v[0][0]) and v[1] == v[2]
+                for v in res["shapes"].values())
+            heads = [k for k, v in res["shapes"].items() if v[3] and (
+                "head" in k)]
+            checks["tp2 shards"] = (rule_ok and not heads and sum(
+                v[3] for v in res["shapes"].values()) == 2 * 2 * 10)
+        del res
+    for r in rows:
+        say("dist", f"rank {r['rank']} ({r['backend']}): launches "
+            f"{r['launches']}; ms {({k: round(v, 1) for k, v in r['ms'].items()})}")
+    seg = rows[0]["segmented"]
+    say("dist", f"segmented_ray_scan, 2 segments of {seg['shape']} (the "
+        f"flagship's fine samples): against volume_render on the card rgb "
+        f"{seg['rgb']:.3g}, acc {seg['acc']:.3g} (tol {SEG_ATOL}), depth "
+        f"{seg['depth']:.3g} (tol {SEG_DEPTH_ATOL}); "
+        f"{rows[0]['ms']['segmented']:.3f} ms a scan (gloo, host-staged), "
+        f"volume_render {seg['volume_render_ms']:.3f} ms")
+    checks["segmented"] = (seg["rgb"] <= SEG_ATOL and seg["acc"] <= SEG_ATOL
+                           and seg["depth"] <= SEG_DEPTH_ATOL)
+    ren = rows[0]["render"]
+    say("dist", f"render_image over dp=2, {ren['shape']}: {ren['psnr']:.2f}"
+        f" dB against one process (min {FRAME_PSNR_MIN}); "
+        f"{rows[0]['ms']['render_mesh']:.1f} ms over two ranks, "
+        f"{rows[0]['ms']['render_one']:.1f} ms in one")
+    checks["render"] = ren["psnr"] >= FRAME_PSNR_MIN and ren["finite"]
+    checks["launches"] = all(
+        r["launches"][p][k] > 0 for r in rows
+        for p, k in (("cli", "field"), ("cli", "field_bwd"),
+                     ("cli", "volrend"), ("dp2", "field"), ("dp2", "field_bwd"),
+                     ("tp2", "field"), ("tp2", "field_bwd"),
+                     ("render", "field"), ("render", "volrend")))
+
+    # 3. the dp=2 checkpoint in one process, and cli eval of it
+    restored = ckpt_lib.restore(os.path.join(run, cfg.name, "ckpt"),
+                                dist_state(cfg, device))
+    ds_eval = RayDataset(ds_dict["images"], ds_dict["poses"],
+                         ds_dict["focal"], device=device)
+    ds_eval.val_image, ds_eval.val_pose = (ds_dict["val_image"],
+                                           ds_dict["val_pose"])
+    _, p_one = loop.evaluate(cfg, restored, ds_eval)
+    rc, lines, _, secs_e, _, _ = cli_call(
+        ["eval", "--config", "blender_lego", "--out", run, "--set",
+         f"data.root={root}", "--set", "occupancy.enabled=false", "--set",
+         "kernels.blockwise=false"], phase="dist")
+    p_cli = json.loads(lines[-1])["psnr"]
+    say("dist", f"dp=2 checkpoint step {restored.step} restored in one "
+        f"process: evaluate {p_one:.4f} dB; cli eval of the run (dense, "
+        f"K3 + K5 off the culling) {p_cli:.4f} dB in {secs_e:.2f} s (tol "
+        f"{CLI_PSNR_TOL} dB)")
+    checks["checkpoint"] = (rc == 0 and restored.step == DIST_STEPS
+                            and abs(p_cli - p_one) <= CLI_PSNR_TOL)
+    del restored
+
+    # 4. data.stream
+    seen = []
+    real = loop.prefetch_to_device
+
+    def recording(it, **kw):
+        for b in real(it, **kw):
+            seen.append({k: v.cpu() for k, v in b.items()})
+            yield b
+
+    scfg = load_config("blender_lego", common + [
+        "data.stream=true", f"out_dir={os.path.join(base, 'stream')}"])
+    loop.prefetch_to_device = recording
+    K.reset_launches()
+    try:
+        with torch.enable_grad():
+            _, shist = loop.train(scfg, dataset_dict=ds_dict, device=device,
+                                  log_fn=lambda e: None)
+    finally:
+        loop.prefetch_to_device = real
+    torch.cuda.synchronize()
+    s_launch = dict(K.LAUNCHES)
+    want = pipeline.host_batch_iter(ds.batch_arrays(), scfg.train.batch_rays,
+                                    seed=scfg.train.seed)
+    same = all(all(torch.equal(got[k], torch.from_numpy(w[k])) for k in w)
+               for got, w in zip(seen[:DIST_STEPS], want))
+    slogs = [h for h in shist if "loss" in h]
+
+    # the streamed step against the device gather, and a profiler window
+    def timed(streamed: bool, n: int) -> float:
+        state = dist_state(scfg, device)
+        step = loop.TrainStep(scfg, ds, streamed=streamed)
+        it = pipeline.prefetch_to_device(pipeline.host_batch_iter(
+            ds.batch_arrays(), scfg.train.batch_rays, seed=1), size=2,
+            device=device)
+        with torch.enable_grad():
+            step(state, next(it) if streamed else ds.batch_arrays())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(state, next(it) if streamed else ds.batch_arrays())
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    ms = {lab: timed(s, 10) for lab, s in (("stream", True),
+                                            ("gather", False))}
+    state = dist_state(scfg, device)
+    step = loop.TrainStep(scfg, ds, streamed=True)
+    it = pipeline.prefetch_to_device(pipeline.host_batch_iter(
+        ds.batch_arrays(), scfg.train.batch_rays, seed=1), size=2,
+        device=device)
+    with torch.enable_grad():
+        step(state, next(it))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step(state, next(it))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
+    say("dist", f"data.stream=true: {len(slogs)} steps of train(), loss "
+        f"{slogs[0]['loss']:.5f} → {slogs[-1]['loss']:.5f}; the first "
+        f"{min(len(seen), DIST_STEPS)} batches equal host_batch_iter's: "
+        f"{same}; launches {s_launch}; a step {ms['stream']:.2f} ms with "
+        f"the prefetch, {ms['gather']:.2f} ms with the device gather (mean "
+        f"of 10); profiler window of 5 streamed steps: {wall * 1e3:.1f} ms, "
+        f"device {busy * 1e3:.1f} ms (busy {busy / wall:.3f}, idle "
+        f"{1 - busy / wall:.3f}; copies on the side stream counted in "
+        f"full); {gpu} | {smi}")
+    checks["stream"] = (same and len(seen) >= DIST_STEPS
+                        and len(slogs) == DIST_STEPS
+                        and all(math.isfinite(h["loss"]) for h in slogs)
+                        and s_launch["field_bwd"] > 0)
+    say("dist", f"checks {checks}; phase {time.perf_counter() - t_phase:.1f}"
+        f" s; {gpu} | {smi}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"dist checks failed: {failed}")
+    return rows
+
+
+def phase_times(root: str) -> int:
+    """Run ROOT/chip_smoke.py (another checkout's, or this one's) with its
+    output passed through, then print `[phase-times]`: the seconds spent
+    before each of its lines summed by the line's [tag], so two trees'
+    phases compare within one call."""
+    import re
+    tag = re.compile(r"^\[([\w-]+)\]")
+    proc = subprocess.Popen([sys.executable, "-u", "chip_smoke.py"],
+                            cwd=root, stdout=subprocess.PIPE, text=True)
+    t_prev = t0 = time.perf_counter()
+    spent = {}
+    for line in proc.stdout:
+        now = time.perf_counter()
+        m = tag.match(line)
+        key = m.group(1) if m else "untagged"
+        spent[key] = spent.get(key, 0.0) + now - t_prev
+        t_prev = now
+        print(line, end="", flush=True)
+    rc = proc.wait()
+    print("[phase-times] " + json.dumps(
+        {"root": root, "rc": rc, "total_s": time.perf_counter() - t0,
+         "s": spent}), flush=True)
+    return rc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "main path needs a CUDA device", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-worker":
+        return dist_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase-times":
+        return phase_times(sys.argv[2])
     from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch import kernels as K
 
@@ -3637,6 +4214,7 @@ def main() -> int:
     phase_train_small(scene, device, gpu, smi)
     probe_launches = phase_probe(device, gpu, smi)
     phase_cli(scene, device, gpu, smi)
+    phase_dist(scene, device, gpu, smi)
     del scene, ds
     torch.cuda.empty_cache()
     llff_launches = phase_llff(device, gpu, smi)

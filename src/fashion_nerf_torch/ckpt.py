@@ -10,6 +10,12 @@ Retention keeps the latest `keep` checkpoints and, beside them, the one
 with the best `val_psnr` among those saved with one (the reference's
 LatestN ∪ BestN policy). The metrics of the kept steps live in
 `metrics.json` beside them.
+
+Under a mesh every rank calls `save` and `restore`: a checkpoint holds
+full tensors (a tensor-parallel optimizer's state_dict gathers its
+moments),
+rank 0 alone writes it, and every rank reads it, so one written by ranks
+restores in one process and the reverse.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import re
 from typing import Optional
 
 import torch
+
+from fashion_nerf_torch.dist.mesh import is_main
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 _INDEX = "metrics.json"
@@ -59,12 +67,16 @@ def _write_index(directory: str, index: dict) -> None:
 
 def save(directory: str, state, keep: int = 3,
          metrics: Optional[dict] = None) -> int:
-    """Save `state` at its step, then prune to the retention policy."""
+    """Save `state` at its step, then prune to the retention policy (on
+    rank 0; the other ranks take part in gathering the state only)."""
+    optimizer = state.optimizer.state_dict()    # a collective under tp
+    if not is_main():
+        return state.step
     os.makedirs(directory, exist_ok=True)
     payload = {
         "step": state.step,
         "nets": {k: v.state_dict() for k, v in state.nets().items()},
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": optimizer,
         "generator": state.generator.get_state(),
         "generator_device": state.generator.device.type,
     }

@@ -5,7 +5,10 @@
         [--profile] [--sanitize] [--device cuda|cpu]
 
 - `train` trains, logging one JSON line per log step, and ends with a JSON
-  summary line. Checkpoints go to DIR/NAME/ckpt.
+  summary line. Checkpoints go to DIR/NAME/ckpt. Started by
+  `python -m torch.distributed.run --nproc_per_node N -m fashion_nerf_torch
+  train --set dist.dp=N ...`, the N ranks train one run (`dist.dp`,
+  `dist.tp`; `dist.mesh`).
 - `eval` restores the latest checkpoint, renders the test views (the
   held-out view where the dataset has no test split) and prints one JSON
   line: psnr, ssim, n_views and, for a real scene, its anchor row.
@@ -95,8 +98,11 @@ def main(argv=None, dataset: Optional[dict] = None) -> int:
 
     run_dir = os.path.join(cfg.out_dir, cfg.name)
     os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
+    path = os.path.join(run_dir, "config.json")
+    tmp = f"{path}.{os.getpid()}.tmp"      # the ranks of a run write it too
+    with open(tmp, "w") as f:
         json.dump(config_to_dict(cfg), f, indent=1)
+    os.replace(tmp, path)
 
     with (_profiler(run_dir) if args.profile else contextlib.nullcontext()):
         if args.cmd == "train":
@@ -130,13 +136,31 @@ def _profiler(run_dir: str):
 
 
 def _cmd_train(cfg, args, device, dataset):
+    """Train; under `python -m torch.distributed.run --nproc_per_node N`
+    the ranks join one process group, cfg.dist names the mesh (its
+    `{"mesh": …}` line goes to stderr) and rank 0 alone logs and prints the
+    summary. A group the caller already joined is used and left up."""
     import torch
+    from fashion_nerf_torch.dist import mesh as dmesh
     from fashion_nerf_torch.train.loop import train
-    with torch.enable_grad():
-        state, history = train(cfg, dataset_dict=dataset, resume=args.resume,
-                               device=device)
-    print(json.dumps({"done": True, "steps": state.step,
-                      "final": history[-1] if history else None}))
+    joins = not torch.distributed.is_initialized()
+    backend = dmesh.init_distributed(cfg.dist.multihost, device=device)
+    mesh = dmesh.resolve_mesh(cfg.dist)
+    if mesh is not None:
+        print(json.dumps(dmesh.describe(mesh, backend, device)),
+              file=sys.stderr, flush=True)
+    main = dmesh.is_main()
+    try:
+        with torch.enable_grad():
+            state, history = train(cfg, dataset_dict=dataset,
+                                   resume=args.resume, device=device,
+                                   mesh=mesh)
+    finally:
+        if joins and backend is not None:
+            dmesh.shutdown_distributed()
+    if main:
+        print(json.dumps({"done": True, "steps": state.step,
+                          "final": history[-1] if history else None}))
     return 0
 
 

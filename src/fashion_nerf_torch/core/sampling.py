@@ -3,12 +3,15 @@
 Counterpart of `fashion_nerf.core.sampling`. The render path is
 deterministic (no jitter, evenly spaced quantiles); training jitters the
 stratified bins and draws random quantiles. Every draw comes from an
-explicit `torch.Generator`.
+explicit `torch.Generator`, or a data-parallel rank's rows of one
+(`prng.RowDraws`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from fashion_nerf_torch.prng import rand
 
 
 def stratified_sample(near, far, n_rays: int, n_samples: int,
@@ -33,7 +36,7 @@ def stratified_sample(near, far, n_rays: int, n_samples: int,
         mids = 0.5 * (z[:, 1:] + z[:, :-1])
         upper = torch.cat([mids, z[:, -1:]], dim=-1)
         lower = torch.cat([z[:, :1], mids], dim=-1)
-        u = torch.rand(z.shape, generator=generator, device=device)
+        u = rand(z.shape, generator, device)
         z = lower + (upper - lower) * u
     return z
 
@@ -57,8 +60,7 @@ def sample_pdf(bins, weights, n_samples: int, eps: float = 1e-5, *,
         u = torch.linspace(0.0, 1.0, n_samples, dtype=torch.float32,
                            device=cdf.device).expand(R, n_samples).contiguous()
     else:
-        u = torch.rand((R, n_samples), generator=generator,
-                       device=cdf.device)
+        u = rand((R, n_samples), generator, cdf.device)
     # last edge with cdf ≤ u, first edge with cdf > u (clamped to the end)
     above = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = above - 1

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from fashion_nerf_torch.prng import randn
+
 _INF_DIST = 1e10
 
 
@@ -34,8 +36,8 @@ def volume_render(rgb, sigma, t_vals, rays_d, white_bkgd: bool = False,
     dists = dists * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
 
     if raw_noise_std > 0.0:
-        sigma = sigma + torch.randn(sigma.shape, generator=generator,
-                                    device=sigma.device) * raw_noise_std
+        sigma = sigma + randn(sigma.shape, generator,
+                              sigma.device) * raw_noise_std
     density = (torch.nn.functional.softplus(sigma)
                if sigma_activation == "softplus" else torch.relu(sigma))
     alpha = 1.0 - torch.exp(-density * dists)

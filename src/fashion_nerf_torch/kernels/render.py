@@ -18,6 +18,7 @@ import torch
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.core.volrend import volume_render
 from fashion_nerf_torch.kernels.sigmamarch import _density
+from fashion_nerf_torch.prng import randn
 
 _INF_DIST = 1e10
 _LOG_FLOOR = -23.025851
@@ -104,8 +105,8 @@ def fused_render_rays(rgb, sigma, t_vals, rays_d, white_bkgd: bool = False,
     returns). σ noise, when asked for, is drawn from `generator` before the
     kernel. plain=True takes the plain version on any device."""
     if raw_noise_std > 0.0:
-        sigma = sigma + torch.randn(sigma.shape, generator=generator,
-                                    device=sigma.device) * raw_noise_std
+        sigma = sigma + randn(sigma.shape, generator,
+                              sigma.device) * raw_noise_std
     rgb_map, depth, acc, weights = _FusedRender.apply(
         rgb, sigma, t_vals, rays_d, white_bkgd,
         sigma_activation == "softplus", plain)

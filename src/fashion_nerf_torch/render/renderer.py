@@ -8,7 +8,8 @@ generator; evaluation is deterministic and renders whole images in chunks
 of `cfg.render.chunk` rays. Without occupancy culling the evaluation
 composites through kernel K5 (kernels/render.py) when the config asks for
 the fused render; the culled path composites with `volume_render` and its
-finite last interval, as the reference does.
+finite last interval, as the reference does. Under a device mesh
+`render_image` deals whole chunks to the dp ranks.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from fashion_nerf_torch.config import Config
@@ -24,6 +26,7 @@ from fashion_nerf_torch.core.occupancy import (cull_background,
                                                ray_aabb_intersect)
 from fashion_nerf_torch.core.sampling import sample_pdf, stratified_sample
 from fashion_nerf_torch.core.volrend import volume_render
+from fashion_nerf_torch.dist.mesh import axis_rank, axis_size
 from fashion_nerf_torch.kernels.render import fused_render_rays
 
 
@@ -100,16 +103,25 @@ def _rays_for_pose(H: int, W: int, focal, c2w, cfg: Config, device=None):
 def render_image(field_coarse: Callable, field_fine: Optional[Callable],
                  H: int, W: int, focal, c2w, cfg: Config,
                  use_fused_render: bool = False, occ=None,
-                 plain: bool = False, device=None, cond=None):
+                 plain: bool = False, device=None, cond=None, mesh=None):
     """Render an H×W image in chunks of cfg.render.chunk rays (the last one
     padded; pad directions are unit vectors) → dict rgb (H,W,3), depth,
     acc, disp (H,W). field_*: fields (pts (R,S,3), viewdirs (R,3)) →
     (rgb, σ); with a per-scene cond vector (Cc,) they are called as
-    field(pts, viewdirs, cond (R, Cc)), the vector broadcast per chunk."""
+    field(pts, viewdirs, cond (R, Cc)), the vector broadcast per chunk.
+
+    mesh: a ("dp", ...) DeviceMesh; the chunk count is padded to a
+    multiple of dp, each dp rank renders its run of whole chunks and an
+    all_gather over "dp" assembles the image on every rank."""
     rays_o, rays_d, viewdirs = _rays_for_pose(H, W, focal, c2w, cfg, device)
     n = rays_o.shape[0]
     chunk = min(cfg.render.chunk, n)
     n_chunks = -(-n // chunk)
+    ndp = 1 if mesh is None else axis_size(mesh, "dp")
+    n_chunks = -(-n_chunks // ndp) * ndp        # chunk runs divide over dp
+    per = n_chunks // ndp
+    mine = range(axis_rank(mesh, "dp") * per,
+                 (axis_rank(mesh, "dp") + 1) * per)
     pad = n_chunks * chunk - n
     unit = torch.zeros((pad, 3), device=rays_o.device)
     unit[:, 2] = -1.0
@@ -118,7 +130,7 @@ def render_image(field_coarse: Callable, field_fine: Optional[Callable],
     vd = torch.cat([viewdirs, unit])
     cond_rays = None if cond is None else cond.expand(chunk, cond.shape[-1])
     outs = []
-    for c in range(n_chunks):
+    for c in mine:
         sl = slice(c * chunk, (c + 1) * chunk)
         v = vd[sl]
         fc = (lambda pts, _rd, *c, v=v: field_coarse(pts, v, *c))
@@ -129,8 +141,22 @@ def render_image(field_coarse: Callable, field_fine: Optional[Callable],
                           plain=plain, cond=cond_rays)
         head = out["fine"] if out["fine"] is not None else out["coarse"]
         outs.append({k: head[k] for k in ("rgb", "depth", "acc", "disp")})
-    return {k: torch.cat([o[k] for o in outs])[:n].reshape(
-        (H, W) + outs[0][k].shape[1:]) for k in outs[0]}
+    rows = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    if ndp > 1:
+        rows = _gather_rows(rows, mesh.get_group("dp"), ndp)
+    return {k: v[:n].reshape((H, W) + v.shape[1:]) for k, v in rows.items()}
+
+
+def _gather_rows(rows: dict, group, n_ranks: int) -> dict:
+    """Every dp rank's rows of the image, in rank order: one all_gather of
+    the (rows, 6) packing of rgb, depth, acc and disp."""
+    packed = torch.cat([rows["rgb"], rows["depth"][:, None],
+                        rows["acc"][:, None], rows["disp"][:, None]], 1)
+    parts = [torch.empty_like(packed) for _ in range(n_ranks)]
+    dist.all_gather(parts, packed.contiguous(), group=group)
+    full = torch.cat(parts)
+    return {"rgb": full[:, :3], "depth": full[:, 3], "acc": full[:, 4],
+            "disp": full[:, 5]}
 
 
 def render_path(field_coarse: Callable, field_fine: Optional[Callable],

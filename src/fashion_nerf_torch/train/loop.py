@@ -15,9 +15,19 @@ cond built inside the step (`make_cond`: the garment encoder's code of the
 run's garment stack, broadcast to every ray, then each ray's frame latent),
 so the encoder and the latent table are part of the step's graph; K4 (or
 its plain version) returns the condpart's cotangent. The occupancy refresh
-and the evaluation take the per-scene cond vector (`_eval_cond`). Not
-ported here, each raising NotImplementedError: the device mesh and
-data-parallel step and `data.stream` prefetch (ROADMAP Queue 1 #14).
+and the evaluation take the per-scene cond vector (`_eval_cond`).
+
+Under a ("dp", "tp") mesh (`dist.mesh`; the ranks started by
+`python -m torch.distributed.run`) the step is the single-process step
+split over rays: each rank renders its rows of the global batch, with its
+rows of every per-ray draw (`prng.RowDraws`), the loss is its local sum
+over the global ray count, terms not taken over rays (the sparsity prior)
+count on the first dp block only, and the gradients are summed over the
+ranks before Adam. Under tp > 1 Adam updates each rank's column shards and
+the full weights are gathered for the next step (`dist.mesh.ShardedAdam`).
+Every rank runs K3, K4 (and K5 in `evaluate`) on its own rows. With
+`data.stream` the batches come from the host (`host_batch_iter`, through
+`prefetch_to_device`) instead of the device-resident gather.
 """
 
 from __future__ import annotations
@@ -32,12 +42,15 @@ import torch
 from fashion_nerf_torch.config import Config
 from fashion_nerf_torch import ckpt as ckpt_lib
 from fashion_nerf_torch.core.occupancy import build_from_config
-from fashion_nerf_torch.data.pipeline import RayDataset, sample_batch
+from fashion_nerf_torch.data.pipeline import (RayDataset, host_batch_iter,
+                                              prefetch_to_device, ray_dataset,
+                                              sample_batch)
+from fashion_nerf_torch.dist import mesh as dmesh
 from fashion_nerf_torch.kernels import resolve_device
 from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
 from fashion_nerf_torch.logging_ import MetricLogger
 from fashion_nerf_torch.metrics import mse_to_psnr, psnr
-from fashion_nerf_torch.prng import GeneratorChain
+from fashion_nerf_torch.prng import GeneratorChain, RowDraws
 from fashion_nerf_torch.render.renderer import render_image, render_rays
 from fashion_nerf_torch.train.state import (TrainState, create_train_state,
                                             learning_rate)
@@ -117,14 +130,16 @@ class TrainStep:
     → (state, metrics), updating state in place.
 
     streamed: all_rays is the batch itself (pre-gathered), as the
-    reference's streamed step takes it. occ_culled: the reduced
-    occ_coarse + occ_fine budget inside the box of `occ`. sparsity_pts:
-    explicit sparsity-prior points in place of the generator's draw.
-    garment: the (H, W, 7) conditioning stack of a conditioned run."""
+    reference's streamed step takes it; under a mesh, this rank's rows of
+    it. occ_culled: the reduced occ_coarse + occ_fine budget inside the box
+    of `occ`. sparsity_pts: explicit sparsity-prior points in place of the
+    generator's draw. garment: the (H, W, 7) conditioning stack of a
+    conditioned run. mesh: the ("dp", "tp") DeviceMesh of a distributed
+    run (`dist.mesh`); its metrics are the global batch's on every rank."""
 
     def __init__(self, cfg: Config, dataset: RayDataset,
                  streamed: bool = False, occ_culled: bool = False,
-                 plain: bool = False, garment=None):
+                 plain: bool = False, garment=None, mesh=None):
         if occ_culled:
             cfg = dataclasses.replace(cfg, sampling=dataclasses.replace(
                 cfg.sampling, n_coarse=cfg.train.occ_coarse,
@@ -139,10 +154,28 @@ class TrainStep:
                          else None)
         self.streamed = streamed
         self.garment = garment
+        self.mesh = mesh
+        self.rows = (None if mesh is None
+                     else dmesh.ray_sharding(mesh, cfg.train.batch_rays))
+
+    def draws(self, state: TrainState):
+        """The step's per-ray draws: the state's generator, or this rank's
+        rows of its draws at the global batch's shape."""
+        if self.rows is None:
+            return state.generator
+        return RowDraws(state.generator, self.rows.start, self.rows.stop,
+                        self.cfg.train.batch_rays)
+
+    def _mse(self, rgb, target):
+        if self.mesh is None:
+            return torch.mean((rgb - target) ** 2)
+        return torch.sum((rgb - target) ** 2) / (self.cfg.train.batch_rays
+                                                 * target.shape[-1])
 
     def loss(self, state: TrainState, batch: dict, occ=None,
              sparsity_pts=None):
-        """→ (loss, aux) with the autograd graph of the step."""
+        """→ (loss, aux) with the autograd graph of the step; under a mesh
+        this rank's share of them."""
         cfg, g = self.cfg, state.generator
         vd = batch["viewdirs"]
         cond = make_cond(cfg, state.nets(), batch, self.garment)
@@ -150,18 +183,25 @@ class TrainStep:
         ff = (_bind(self.field_f, state.fine, vd) if self.use_fine
               else None)
         out = render_rays(fc, ff, batch["rays_o"], batch["rays_d"], cfg,
-                          train=True, generator=g, occ=occ, cond=cond)
-        loss_c = torch.mean((out["coarse"]["rgb"] - batch["rgb"]) ** 2)
+                          train=True, generator=self.draws(state), occ=occ,
+                          cond=cond)
+        loss_c = self._mse(out["coarse"]["rgb"], batch["rgb"])
         loss, loss_f = loss_c, loss_c
         if self.use_fine:
-            loss_f = torch.mean((out["fine"]["rgb"] - batch["rgb"]) ** 2)
+            loss_f = self._mse(out["fine"]["rgb"], batch["rgb"])
             loss = loss_c + loss_f
         aux = {"mse_coarse": loss_c, "mse_fine": loss_f}
         if cfg.train.sparsity_weight > 0.0:
             pts = (sparsity_points(cfg, g, batch["rays_o"].device)
                    if sparsity_pts is None else sparsity_pts)
-            loss_sp = sparsity_loss(cfg, state.nets(), self.field_c,
-                                    self.field_f, pts, cond)
+            if dmesh.axis_rank(self.mesh, "dp") == 0:
+                # the prior is no sum over rays: the first dp block (whose
+                # first ray is the batch's, the conditioned prior's cond)
+                # counts it
+                loss_sp = sparsity_loss(cfg, state.nets(), self.field_c,
+                                        self.field_f, pts, cond)
+            else:
+                loss_sp = torch.zeros((), device=pts.device)
             loss = loss + cfg.train.sparsity_weight * loss_sp
             aux["sparsity"] = loss_sp
         return loss, aux
@@ -169,21 +209,27 @@ class TrainStep:
     def __call__(self, state: TrainState, all_rays: dict, occ=None,
                  sparsity_pts=None):
         cfg = self.cfg
+        n = cfg.train.batch_rays if self.rows is None else (
+            self.rows.stop - self.rows.start)
         batch = all_rays if self.streamed else sample_batch(
-            all_rays, state.generator, cfg.train.batch_rays, self.n_total,
+            all_rays, self.draws(state), n, self.n_total,
             crop_idx=self.crop_idx, step=state.step,
             precrop_iters=cfg.train.precrop_iters)
         loss, aux = self.loss(state, batch, occ, sparsity_pts)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        values = {"loss": loss.detach(),
+                  **{k: v.detach() for k, v in aux.items()}}
+        if self.mesh is not None:
+            dmesh.reduce_gradients(self.mesh, state.parameters())
+            values = dmesh.reduce_scalars(self.mesh, values)
         for group in opt.param_groups:
             group["lr"] = learning_rate(cfg, state.step)
         opt.step()
         state.step += 1
-        metrics = {"loss": loss.detach(),
-                   "psnr": mse_to_psnr(aux["mse_fine"].detach()),
-                   **{k: v.detach() for k, v in aux.items()}}
+        metrics = {"loss": values["loss"],
+                   "psnr": mse_to_psnr(values["mse_fine"]), **values}
         return state, metrics
 
 
@@ -208,11 +254,13 @@ def refresh_occupancy(cfg: Config, state: TrainState, plain: bool = False,
 
 
 def evaluate(cfg: Config, state: TrainState, dataset: RayDataset,
-             plain: bool = False, garment=None, frame_id: int = 0):
+             plain: bool = False, garment=None, frame_id: int = 0,
+             mesh=None):
     """Render the held-out view (fused field; K5 compositing when
     kernels.fused_render) → (outputs, val PSNR). A conditioned or dynamic
     run renders with the cond vector of `garment` and frame `frame_id`'s
-    latent (the held-out view has none of its own: frame 0 stands in)."""
+    latent (the held-out view has none of its own: frame 0 stands in).
+    mesh: the view's chunks are dealt to the dp ranks (`render_image`)."""
     field_c, field_f = make_fields(cfg, plain=plain)
     fc = (lambda pts, vd, *c: field_c(state.coarse, pts, vd, *c))
     ff = None
@@ -225,7 +273,7 @@ def evaluate(cfg: Config, state: TrainState, dataset: RayDataset,
                            dataset.val_pose, cfg,
                            use_fused_render=(cfg.kernels.use_pallas
                                              and cfg.kernels.fused_render),
-                           plain=plain, device=dev, cond=cond)
+                           plain=plain, device=dev, cond=cond, mesh=mesh)
         val = torch.as_tensor(dataset.val_image, dtype=torch.float32,
                               device=dev)
         return out, float(psnr(out["rgb"], val))
@@ -259,18 +307,9 @@ def _eval_cond(cfg: Config, nets: dict, garment, frame_id: int = 0):
     return None if cond is None else cond[0]
 
 
-def _check_supported(cfg: Config) -> None:
-    if cfg.data.stream:
-        raise NotImplementedError("data.stream prefetch is not ported "
-                                  "(ROADMAP Queue 1 #14)")
-    if cfg.dist.multihost or cfg.dist.tp > 1 or cfg.dist.dp > 1:
-        raise NotImplementedError("the device mesh and data-parallel step "
-                                  "are not ported (ROADMAP Queue 1 #14)")
-
-
 def train(cfg: Config, dataset_dict: Optional[dict] = None,
           log_fn: Optional[Callable] = None, resume: bool = False,
-          fault_at_step: Optional[int] = None, device=None):
+          fault_at_step: Optional[int] = None, device=None, mesh=None):
     """The training loop: data → state → steps with the log, eval and
     checkpoint cadences → (state, history).
 
@@ -279,14 +318,22 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
     (a test hook for kill-and-resume). Log entries carry the cumulative
     counts of occupancy refreshes, culled and dense steps. device: CUDA
     by default; the CPU (every kernel's plain version) only when asked for
-    by name; raises when CUDA is wanted and there is none."""
-    _check_supported(cfg)
+    by name; raises when CUDA is wanted and there is none.
+
+    Distribution: joins the launcher's process group
+    (`dist.mesh.init_distributed(cfg.dist.multihost)`) and, without a
+    `mesh`, takes cfg.dist's (`resolve_mesh`: None in one process). Every
+    rank holds the same state and history; rank 0 alone logs and writes
+    checkpoints. data.stream: the batches come from `host_batch_iter`
+    through `prefetch_to_device`, this rank's rows of each."""
     device = resolve_device(device)
+    dmesh.init_distributed(cfg.dist.multihost, device=device)
+    if mesh is None:
+        mesh = dmesh.resolve_mesh(cfg.dist)
     if dataset_dict is None:
         dataset_dict = load_dataset(cfg, device)
-    dataset = RayDataset(dataset_dict["images"], dataset_dict["poses"],
-                         dataset_dict["focal"], ndc=cfg.render.ndc,
-                         precrop_frac=cfg.train.precrop_frac, device=device)
+    dataset = ray_dataset(cfg, dataset_dict["images"], dataset_dict["poses"],
+                          dataset_dict["focal"], device=device)
     dataset.val_image = dataset_dict["val_image"]
     dataset.val_pose = dataset_dict["val_pose"]
 
@@ -294,14 +341,27 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
     state = create_train_state(cfg, chain.once("init"),
                                chain.once("run", device), device)
     chain.freeze()     # every later draw comes from state.generator
+    if mesh is not None:
+        state = dmesh.shard_state(mesh, state)
     garment = resolve_garment(cfg, dataset_dict, dataset.H, dataset.W,
                               device)
-    step_fn = TrainStep(cfg, dataset, garment=garment)
+    streamed = cfg.data.stream
+    step_fn = TrainStep(cfg, dataset, streamed=streamed, garment=garment,
+                        mesh=mesh)
     occ_train = cfg.train.occ_train
-    step_fast = (TrainStep(cfg, dataset, occ_culled=True, garment=garment)
+    step_fast = (TrainStep(cfg, dataset, streamed=streamed, occ_culled=True,
+                           garment=garment, mesh=mesh)
                  if occ_train else None)
     all_rays = dataset.batch_arrays()
-    logger = log_fn or MetricLogger(cfg)
+    batch_iter = None
+    if streamed:
+        batch_iter = prefetch_to_device(
+            host_batch_iter(all_rays, cfg.train.batch_rays,
+                            seed=cfg.train.seed),
+            size=2, device=device, rows=step_fn.rows)
+    main = dmesh.is_main()
+    logger = log_fn or MetricLogger(cfg if main else None)
+    log = logger if main else (lambda entry: None)
     ckpt_dir = os.path.join(cfg.out_dir, cfg.name, "ckpt")
     start = 0
     if resume and ckpt_lib.latest_step(ckpt_dir) is not None:
@@ -319,13 +379,17 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
             with torch.no_grad():
                 cond_vec = _eval_cond(cfg, state.nets(), garment)
             occ_state = refresh_occupancy(cfg, state, cond_vec=cond_vec)
+            if mesh is not None:
+                # every rank sweeps; rank 0's grid is the one all cull with
+                dmesh.broadcast_(occ_state)
             counts["refreshes"] += 1
+        batch = next(batch_iter) if streamed else all_rays
         if (occ_state is not None
                 and (i + 1) % cfg.train.occ_dense_every != 0):
-            state, metrics = step_fast(state, all_rays, occ_state)
+            state, metrics = step_fast(state, batch, occ_state)
             counts["culled_steps"] += 1
         else:
-            state, metrics = step_fn(state, all_rays)
+            state, metrics = step_fn(state, batch)
             counts["dense_steps"] += 1
         rays_done += cfg.train.batch_rays
         if (i + 1) % cfg.train.log_every == 0:
@@ -335,11 +399,11 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
                          **counts)
             t0, rays_done = now, 0
             history.append(entry)
-            logger(entry)
+            log(entry)
         if (i + 1) % cfg.train.eval_every == 0:
             _, last_val_psnr = evaluate(cfg, state, dataset,
-                                        garment=garment)
-            logger({"step": i + 1, "val_psnr": last_val_psnr})
+                                        garment=garment, mesh=mesh)
+            log({"step": i + 1, "val_psnr": last_val_psnr})
             history.append({"step": i + 1, "val_psnr": last_val_psnr})
             t0 = time.perf_counter()   # eval stays out of the rays/s window
         if (i + 1) % cfg.train.ckpt_every == 0:

@@ -28,7 +28,7 @@ class TrainState:
     step: int
     coarse: NeRFMLP
     fine: Optional[NeRFMLP]
-    optimizer: torch.optim.Adam
+    optimizer: torch.optim.Adam     # a dist.mesh.ShardedAdam under tp > 1
     generator: torch.Generator
     encoder: Optional[GarmentEncoder] = None
     latents: Optional[LatentTable] = None

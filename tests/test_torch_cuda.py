@@ -1505,3 +1505,134 @@ def test_slim_march_view_branch_width_128(dev, W, L, skips):
     _close(out_k[1], out_p[1], 5e-3)
     _close(out_k[2].exp(), out_p[2].exp(), 5e-3)
     assert bool((out_k[1][:64] == 0).all()) and float(out_k[1].sum()) > 0.0
+
+
+# distribution on the card: two ranks over gloo, each on cuda:0
+# (tests/torch_dist_worker.py), and the stream's prefetch
+
+DIST_OVR = ["model.net_depth=3", "model.net_width=32", "model.posenc_xyz=4",
+            "kernels.use_pallas=true", "sampling.n_coarse=16",
+            "sampling.n_fine=16", "sampling.perturb=false",
+            "train.batch_rays=64", "train.precrop_iters=0",
+            "train.sparsity_points=64"]
+
+
+def _dist_inputs(tmp_path, n_steps):
+    """A small scene, a fresh state's parameters, fed batches and prior
+    points, segmented-scan arrays → (npz path, the arrays)."""
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.data.pipeline import RayDataset
+    from fashion_nerf_torch.data.synthetic import make_synthetic_scene
+    from fashion_nerf_torch.prng import GeneratorChain
+    from fashion_nerf_torch.train.state import create_train_state
+    cfg = load_config("blender_lego", DIST_OVR)
+    scene = make_synthetic_scene(n_views=2, H=16, W=16, n_samples=16)
+    ds = RayDataset(scene["images"], scene["poses"], scene["focal"])
+    chain = GeneratorChain(0)
+    state = create_train_state(cfg, chain.once("init"), chain.once("run"))
+    rng = np.random.default_rng(0)
+    arrs = {"scene/images": scene["images"], "scene/poses": scene["poses"],
+            "scene/focal": np.float32(scene["focal"])}
+    for k, net in state.nets().items():
+        for name, leaf in net.to_flax_params()["params"].items():
+            for kind, v in leaf.items():
+                arrs[f"params/{k}/params/{name}/{kind}"] = v
+    host = {k: v.numpy() for k, v in ds.batch_arrays().items()}
+    for s in range(n_steps):
+        idx = rng.integers(0, ds.n_rays, 64)
+        for k, v in host.items():
+            arrs[f"batch{s}/{k}"] = v[idx]
+        arrs[f"sparsity{s}"] = rng.uniform(-1.5, 1.5, (64, 1, 3)).astype(
+            np.float32)
+    R, S = 512, 64
+    arrs.update({"seg/rgb": rng.uniform(0, 1, (R, S, 3)).astype(np.float32),
+                 "seg/sigma": rng.normal(0.5, 2.0, (R, S)).astype(np.float32),
+                 "seg/t": np.sort(rng.uniform(2, 6, (R, S)), -1).astype(
+                     np.float32),
+                 "seg/d": rng.normal(size=(R, 3)).astype(np.float32),
+                 "seg/white": np.array(True)})
+    path = str(tmp_path / "inputs.npz")
+    np.savez(path, **arrs)
+    return path, arrs
+
+
+def test_dp2_step_and_segmented_scan_on_one_card(dev, tmp_path):
+    """Two ranks on one card: three dp=2 steps through K3/K4 against one
+    process's (step-1 loss 1e-5 relative, every step-1 gradient 1e-4
+    relative RMS, under 1% of parameters more than 1e-4 apart after 3
+    steps), and `segmented_ray_scan` at 2 segments against
+    `volume_render` (rgb and acc 3e-4, depth 3e-3)."""
+    import torch_dist_worker as worker
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.core.volrend import volume_render
+    from fashion_nerf_torch.data.pipeline import RayDataset
+    from fashion_nerf_torch.train.loop import TrainStep
+    from fashion_nerf_torch.train.state import state_from_params
+    n = 3
+    path, arrs = _dist_inputs(tmp_path, n)
+    procs = worker.run_job(str(tmp_path / "job.json"), 2, path,
+                           str(tmp_path), [
+                               dict(kind="steps", name="dp2", dp=2, tp=1,
+                                    config="blender_lego", overrides=DIST_OVR,
+                                    streamed=True, n_steps=n, seed=0),
+                               dict(kind="segmented", name="seg",
+                                    cases=["seg"])], device="cuda")
+    cfg = load_config("blender_lego", DIST_OVR)
+    ds = RayDataset(arrs["scene/images"], arrs["scene/poses"],
+                    float(arrs["scene/focal"]), device=dev)
+    state = state_from_params(cfg, worker.tree(np.load(path), "params"),
+                              torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    step = TrainStep(cfg, ds, streamed=True)
+    losses, grads = [], None
+    for s in range(n):
+        batch = {k: torch.from_numpy(arrs[f"batch{s}/{k}"]).to(dev)
+                 for k in ("rays_o", "rays_d", "viewdirs", "rgb",
+                           "frame_ids")}
+        with torch.enable_grad():
+            state, m = step(state, batch, sparsity_pts=torch.from_numpy(
+                arrs[f"sparsity{s}"]).to(dev))
+        losses.append(float(m["loss"]))
+        if s == 0:
+            grads = {f"{a}.{b}": p.grad.detach().cpu()
+                     for a, net in state.nets().items()
+                     for b, p in net.named_parameters()}
+    worker.join(procs, "dp2 on the card")
+    got = torch.load(tmp_path / "dp2.pt", weights_only=False)
+    assert abs(got["losses"][0] - losses[0]) <= 1e-5 * abs(losses[0])
+    for k, g in grads.items():
+        rel = (got["grads"][k] - g).double().norm() / g.double().norm()
+        assert float(rel) <= 1e-4, k
+    params = {f"{a}.{b}": p.detach().cpu() for a, net in state.nets().items()
+              for b, p in net.named_parameters()}
+    far = sum(int(((got["params"][k] - v).abs() > 1e-4).sum())
+              for k, v in params.items())
+    assert far / sum(v.numel() for v in params.values()) < 0.01
+    seg = torch.load(tmp_path / "seg.pt", weights_only=False)["seg"]
+    ref = volume_render(*(torch.from_numpy(arrs[f"seg/{k}"]).to(dev)
+                          for k in ("rgb", "sigma", "t", "d")),
+                        white_bkgd=True)
+    for k, tol in (("rgb", 3e-4), ("acc", 3e-4), ("depth", 3e-3)):
+        assert float((seg[k] - ref[k].cpu()).abs().max()) <= tol, k
+
+
+@pytest.mark.parametrize("rows", [None, slice(16, 32)])
+def test_prefetch_to_device_matches_a_synchronous_copy(dev, rows):
+    """The prefetch's batches (pinned, side stream, event) equal the
+    iterator's copied synchronously, a dp rank's rows of them when asked,
+    and are ready on the consumer's stream."""
+    from fashion_nerf_torch.data.pipeline import (host_batch_iter,
+                                                  prefetch_to_device)
+    rng = np.random.default_rng(1)
+    rays = {"rays_o": rng.normal(size=(4096, 3)).astype(np.float32),
+            "frame_ids": rng.integers(0, 9, 4096)}
+    want = host_batch_iter(rays, 32, seed=4)
+    got = prefetch_to_device(host_batch_iter(rays, 32, seed=4), size=2,
+                             device=dev, rows=rows)
+    sl = slice(None) if rows is None else rows
+    for _ in range(6):
+        b, w = next(got), next(want)
+        for k in w:
+            assert b[k].device.type == "cuda"
+            sync = torch.from_numpy(w[k][sl]).to(dev)
+            assert torch.equal(b[k] * 1, sync), k

@@ -238,12 +238,21 @@ def test_cli_train_on_cpu(tmp_path, capsys):
     assert (tmp_path / "tiny_lego" / "ckpt" / "step_00000004.pt").exists()
 
 
-@pytest.mark.parametrize("ovr,item", [
-    (["data.stream=true"], "#14"), (["dist.tp=2"], "#14")])
-def test_train_refuses_paths_not_ported(ovr, item):
-    with pytest.raises(NotImplementedError, match=item):
-        loop.train(load_config("tiny_lego", ovr), log_fn=lambda e: None,
-                   device="cpu")
+@pytest.mark.parametrize("ovr", [["data.stream=true"],
+                                 ["dist.multihost=true"]])
+def test_train_runs_stream_and_multihost_in_one_process(ovr):
+    """`data.stream` (host batches through the prefetch) and
+    `dist.multihost` without a launcher (one process: the group is not
+    joined) train; `dist.tp=2` under two ranks: tests/test_torch_dist.py."""
+    cfg = load_config("tiny_lego", ovr + [
+        "model.net_depth=2", "model.net_width=32", "model.posenc_xyz=2",
+        "sampling.n_coarse=8", "train.batch_rays=32", "train.iters=2",
+        "train.log_every=1", "train.eval_every=100", "train.ckpt_every=100",
+        "data.root="])
+    with torch.enable_grad():
+        state, hist = loop.train(cfg, log_fn=lambda e: None, device="cpu")
+    assert state.step == 2
+    assert all(np.isfinite(h["loss"]) for h in hist)
 
 
 def test_train_conditioned_field_on_cpu():
