@@ -92,7 +92,8 @@ def main(argv=None, dataset: Optional[dict] = None) -> int:
         # --out is the run directory of every subcommand: checkpoints live
         # under <out>/<config>/ckpt, render writes <out>/<config>/render
         cfg = dataclasses.replace(cfg, out_dir=args.out)
-    device = resolve_device(args.device)
+    # train resolves its device once it has joined its group (`_cmd_train`)
+    device = None if args.cmd == "train" else resolve_device(args.device)
     if args.sanitize:
         torch.autograd.set_detect_anomaly(True)
 
@@ -106,7 +107,7 @@ def main(argv=None, dataset: Optional[dict] = None) -> int:
 
     with (_profiler(run_dir) if args.profile else contextlib.nullcontext()):
         if args.cmd == "train":
-            return _cmd_train(cfg, args, device, dataset)
+            return _cmd_train(cfg, args, dataset)
         with torch.no_grad():
             if args.cmd == "render":
                 return _cmd_render(cfg, device, dataset)
@@ -135,16 +136,19 @@ def _profiler(run_dir: str):
     prof.export_chrome_trace(os.path.join(run_dir, "trace", "trace.json"))
 
 
-def _cmd_train(cfg, args, device, dataset):
+def _cmd_train(cfg, args, dataset):
     """Train; under `python -m torch.distributed.run --nproc_per_node N`
     the ranks join one process group, cfg.dist names the mesh (its
     `{"mesh": …}` line goes to stderr) and rank 0 alone logs and prints the
-    summary. A group the caller already joined is used and left up."""
+    summary. A group the caller already joined is used and left up. The
+    device is resolved after the join: a rank's is its card."""
     import torch
     from fashion_nerf_torch.dist import mesh as dmesh
+    from fashion_nerf_torch.kernels import resolve_device
     from fashion_nerf_torch.train.loop import train
     joins = not torch.distributed.is_initialized()
-    backend = dmesh.init_distributed(cfg.dist.multihost, device=device)
+    backend = dmesh.init_distributed(cfg.dist.multihost, device=args.device)
+    device = resolve_device(args.device)
     mesh = dmesh.resolve_mesh(cfg.dist)
     if mesh is not None:
         print(json.dumps(dmesh.describe(mesh, backend, device)),

@@ -9,7 +9,8 @@ itself:
 - DP over rays. Every rank holds the same generator state, draws the
   global batch's indices and every per-ray random tensor at the global
   shape and keeps its own rows (`ray_sharding`, `prng.RowDraws`). The loss
-  is the local sum over the global ray count, and `reduce_gradients` sums
+  is the local mean times the rows' share of the global batch (the local
+  sum over the global ray count), and `reduce_gradients` sums
   the gradients over the ranks before Adam. So a step equals the
   single-process step up to the order of float sums.
 - TP. The leaves the reference's `_tp_rule` shards over "tp" (the Dense
@@ -20,12 +21,16 @@ itself:
   weights under GSPMD, so after every Adam update the shards are gathered
   over "tp" into the full weights the next step packs.
 
-Backends are chosen, never fallen back to: NCCL when this host runs one
-rank, gloo when its ranks share a card (NCCL refuses two ranks on one
-device) and on the CPU. The kernels launch on the process's cuda:0
-(`kernels.on_cuda`), so ranks started on one host share that card. Gloo
-takes CUDA tensors in all_reduce, broadcast and all_gather and stages them
-through host memory; the port uses only those three collectives.
+Devices and backends are chosen, never fallen back to (`card_plan`): on
+a host with a card for each of its ranks, rank LOCAL_RANK runs on
+cuda:LOCAL_RANK and the group is NCCL, whose collectives stay on the
+cards; on a host with one card, its ranks share cuda:0 over gloo (NCCL
+refuses two ranks on one device), which takes CUDA tensors in all_reduce,
+broadcast and all_gather and stages them through host memory; the CPU is
+gloo. Any other count of ranks and cards raises. `init_distributed`
+makes the rank's card torch's current device, `kernels.resolve_device`
+gives that card, so every tensor of a rank lives there, and the kernels
+launch on their operands' card (`kernels.on_cuda`).
 """
 
 from __future__ import annotations
@@ -55,44 +60,77 @@ def is_main() -> bool:
     return rank() == 0
 
 
-def choose_backend(device, multihost: bool = False) -> str:
-    """gloo on the CPU and where this host's ranks share its card; nccl
-    where the host runs one rank (torchrun's LOCAL_WORLD_SIZE; without it,
-    every rank is on this host unless multihost)."""
-    if torch.device(device).type != "cuda":
-        return "gloo"
+def local_ranks(multihost: bool = False) -> tuple:
+    """(this process's index among its host's ranks, the host's ranks), as
+    the launcher says (torch.distributed.run's LOCAL_RANK and
+    LOCAL_WORLD_SIZE); without them every rank is on this host unless
+    multihost, then one rank a host."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    on_host = int(os.environ.get("LOCAL_WORLD_SIZE",
-                                 1 if multihost else world))
-    return "nccl" if on_host == 1 else "gloo"
+    rank_ = int(os.environ.get("RANK", "0"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     1 if multihost else world))
+    local_rank = int(os.environ.get("LOCAL_RANK", 0 if multihost else rank_))
+    return local_rank, local_world
 
 
-def init_distributed(multihost: bool = False,
-                     device=None) -> Optional[str]:
+def card_plan(multihost: bool = False) -> tuple:
+    """(this rank's card, the backend) on a CUDA host: rank LOCAL_RANK on
+    cuda:LOCAL_RANK over NCCL when the host has a card for each of its
+    ranks; every rank on cuda:0 over gloo when the host has one card (NCCL
+    refuses two ranks on one device). Raises on any other count: more
+    ranks than cards, more than one card."""
+    local_rank, local_world = local_ranks(multihost)
+    cards = torch.cuda.device_count()
+    if cards < 1:
+        raise RuntimeError("no CUDA device for the ranks")
+    if local_world <= cards:
+        return local_rank, "nccl"
+    if cards == 1:
+        return 0, "gloo"
+    raise RuntimeError(
+        f"{local_world} ranks on this host and {cards} CUDA devices: one "
+        f"rank a card needs {local_world} cards, and ranks share a card "
+        "only on a host that shows one (CUDA_VISIBLE_DEVICES)")
+
+
+def init_distributed(multihost: bool = False, device=None) -> Optional[str]:
     """Join the process group the launcher describes (RANK, WORLD_SIZE,
     MASTER_ADDR, MASTER_PORT, as torch.distributed.run sets them) and
     return its backend. A single process (no launcher, WORLD_SIZE 1) is a
     no-op returning None, as in the reference; a process already in a
     group returns that group's backend. multihost: the ranks span hosts,
     one a host unless LOCAL_WORLD_SIZE says otherwise (the same env://
-    rendezvous serves one host or many). device: the ranks' device
-    (CUDA unless the CPU is asked for by name)."""
+    rendezvous serves one host or many). device: the ranks' device (CUDA
+    unless the CPU is asked for by name). On CUDA the rank's card
+    (`card_plan`) becomes torch's current device (`bind_group`), so a
+    rank's `kernels.resolve_device()` is its card from here on."""
     if dist.is_initialized():
         return dist.get_backend()
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return None
-    from fashion_nerf_torch.kernels import resolve_device
-    device = resolve_device(device)
-    backend = choose_backend(device, multihost)
-    if device.type == "cuda":
-        # the kernels launch on cuda:0; initialise it now, before a mesh
-        # would pick the device LOCAL_RANK names
-        torch.cuda.set_device(0)
-        torch.cuda.init()
-    dist.init_process_group(
-        backend, init_method="env://",
-        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    if device is not None and torch.device(device).type == "cpu":
+        backend, card = "gloo", None
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the card "
+                               "(pass device cpu to run the plain versions)")
+        card, backend = card_plan(multihost)
+    bind_group(backend, card, init_method="env://")
     return backend
+
+
+def bind_group(backend: str, card: Optional[int] = None, **kw) -> None:
+    """`init_process_group(backend, **kw)` for this process, on `card`
+    when one is given: it becomes torch's current device first, and an
+    NCCL group is bound to it (`device_id`: its communicator is made now,
+    and a failure raises here, with no other backend tried)."""
+    if card is not None:
+        torch.cuda.set_device(card)
+        torch.cuda.init()
+    if backend == "nccl":
+        kw["device_id"] = torch.device("cuda", card)
+    dist.init_process_group(
+        backend, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S), **kw)
 
 
 def shutdown_distributed() -> None:
@@ -145,12 +183,14 @@ def axis_rank(mesh, axis: str) -> int:
 
 
 def describe(mesh, backend: Optional[str], device) -> dict:
-    """The `{"mesh": …}` line the CLI prints to stderr."""
-    dev = torch.device(device).type
+    """The `{"mesh": …}` line the CLI prints to stderr: the rank's device
+    (cuda:N or cpu) and where its collectives stage CUDA tensors ("host"
+    under gloo, None under NCCL and on the CPU)."""
+    dev = torch.device(device)
     return {"mesh": {a: axis_size(mesh, a) for a in AXES},
             "backend": backend, "world": world_size(), "rank": rank(),
-            "device": dev,
-            "staging": ("host" if backend == "gloo" and dev == "cuda"
+            "device": str(dev),
+            "staging": ("host" if backend == "gloo" and dev.type == "cuda"
                         else None)}
 
 

@@ -33,7 +33,10 @@ What cannot be padded into the range raises ValueError.
 
 Path rule, the same in every wrapper: tensors on the CPU take the plain
 PyTorch version; tensors on a CUDA device take the kernel, or the call
-raises. Nothing falls back from one to the other. The sources are built on
+raises. Nothing falls back from one to the other. A kernel launches on its
+operands' card (`on_cuda` gives it; operands on two cards raise), on that
+card's current stream (`launch_args`): several cards in one process, or one
+rank a card, each run their own. The sources are built on
 first use into one shared library under `build/fashion_nerf_torch/` at
 the repo root, named by a hash of the sources and flags, and loaded with
 ctypes: one nvcc per source, all started together, then one link. Each
@@ -55,6 +58,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -116,14 +120,21 @@ LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# every entry that launches ends with (int device, void* stream): the
+# ordinal of its operands' card, current for the call (fnt::DeviceGuard
+# gives the thread's device back, so torch's current device stays), and a
+# stream of that card (`launch_args`)
+_ON_DEVICE = [_I, _P]
 _SIGNATURES = {
-    "fnt_field_forward": [_P] * 9 + [_I] * 10 + [_P],
-    "fnt_sigma_march": [_P] * 13 + [_I] * 8 + [_P],
-    "fnt_slim_march": [_P] * 16 + [_I] * 12 + [ctypes.c_float, _P],
-    "fnt_field_backward": [_P] * 20 + [ctypes.c_long] + [_I] * 12 + [_P],
-    "fnt_volrend": [_P] * 8 + [_I] * 4 + [_P],
-    "fnt_carry_march": [_P] * 17 + [_I] * 13 + [ctypes.c_float, _P],
-    "fnt_tc_probe": [_P] * 3 + [_I] * 6 + [_P],
+    "fnt_field_forward": [_P] * 9 + [_I] * 10 + _ON_DEVICE,
+    "fnt_sigma_march": [_P] * 13 + [_I] * 8 + _ON_DEVICE,
+    "fnt_slim_march": [_P] * 16 + [_I] * 12 + [ctypes.c_float] + _ON_DEVICE,
+    "fnt_field_backward": ([_P] * 20 + [ctypes.c_long] + [_I] * 12
+                           + _ON_DEVICE),
+    "fnt_volrend": [_P] * 8 + [_I] * 4 + _ON_DEVICE,
+    "fnt_carry_march": [_P] * 17 + [_I] * 13 + [ctypes.c_float] + _ON_DEVICE,
+    "fnt_tc_probe": [_P] * 3 + [_I] * 6 + _ON_DEVICE,
+    # host only: the packed layout, for checking
     "fnt_layout": [_I] * 5 + [_P],
 }
 
@@ -248,19 +259,19 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def on_cuda(*tensors) -> bool:
-    """True when every tensor is on a CUDA device, False when every one is
-    on the CPU; raises on anything else."""
+def on_cuda(*tensors) -> Optional[torch.device]:
+    """The CUDA device every tensor is on, or None when every one is on
+    the CPU; raises on anything else: a CPU/CUDA mix, or tensors on two
+    cards. (None entries are skipped; anything with a `.device` will do.)"""
     devs = {t.device for t in tensors if t is not None}
     kinds = {d.type for d in devs}
     if kinds == {"cpu"}:
-        return False
+        return None
     if kinds == {"cuda"}:
-        if any(d.index not in (None, 0) for d in devs):
-            # the library's own CUDA runtime launches on device 0
-            raise ValueError(f"tensors on {sorted(map(str, devs))}: the "
-                             "kernels run on cuda:0")
-        return True
+        if len(devs) > 1:
+            raise ValueError(f"tensors on {sorted(map(str, devs))}: a kernel "
+                             "launches on one card, its operands' own")
+        return next(iter(devs))
     raise ValueError(f"tensors on devices {sorted(kinds)}: the kernels take "
                      "all-CUDA inputs, the plain versions all-CPU inputs")
 
@@ -268,13 +279,18 @@ def on_cuda(*tensors) -> bool:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the CPU is asked for
     by name. Raises when CUDA is wanted and there is none, so nothing falls
-    back to the CPU silently."""
+    back to the CPU silently. A CUDA device without an ordinal is torch's
+    current card: in a rank, the one `dist.mesh.init_distributed` made
+    current (a rank joins its group before it resolves its device)."""
     if device is not None and torch.device(device).type == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card (pass "
                            "device cpu to run the plain versions)")
-    return torch.device(device or "cuda")
+    dev = torch.device(device or "cuda")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def check(t, name: str, dtype, shape) -> None:
@@ -288,8 +304,10 @@ def check(t, name: str, dtype, shape) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def launch_args(dev: torch.device) -> tuple:
+    """The last two arguments of every launching entry: the card's ordinal
+    and its current stream (of that card, not of torch's current device)."""
+    return dev.index, torch.cuda.current_stream(dev).cuda_stream
 
 
 def raise_on_error(code: int, name: str) -> None:

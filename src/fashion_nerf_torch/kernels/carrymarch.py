@@ -102,8 +102,9 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
     its condpart.
     A net narrower than the kernel's widths runs padded with zeros
     (`posenc_mlp.pad_packed`): the same function at the padded net's cost."""
-    if not K.on_cuda(dirpart, rays_o, rays_d, hit, block_hit, t, d, net.w,
-                     condpart):
+    dev = K.on_cuda(dirpart, rays_o, rays_d, hit, block_hit, t, d, net.w,
+                    condpart)
+    if dev is None:
         return carry_march_plain(net, dirpart, rays_o, rays_d, hit,
                                  block_hit, t, d, log_eps, softplus,
                                  condpart)
@@ -132,7 +133,6 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
     condpart = pad_condpart(net, knet.width, condpart)
     cw = 0 if condpart is None else condpart.shape[1]
     wp = field_buffer(knet)
-    dev = t.device
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
     depth = torch.empty((R,), dtype=torch.float32, device=dev)
     acc = torch.empty_like(depth)
@@ -151,7 +151,7 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
                 *ptrs, K.row_ptr(condpart, r0) if cw else None, cw,
                 rays.stop - r0, NB, SB, b, knet.L, knet.depth, knet.width,
                 knet.k0, knet.skip_mask, int(knet.has_vd), int(softplus),
-                tile_rows, float(log_eps), K.stream())
+                tile_rows, float(log_eps), *K.launch_args(dev))
             K.raise_on_error(code, "fnt_carry_march")
             K.LAUNCHES[K.march_count(
                 "carry_march_cond" if cw else "carry_march", SB)] += 1

@@ -330,15 +330,14 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
 }
 
 template <int W, bool kCond, bool kOneRay>
-int launch_carry(CarryArgs& a, cudaStream_t st) {
+int launch_carry(CarryArgs& a, int device, cudaStream_t st) {
   const int smem = (int)sizeof(CarrySmem<W>) + a.n_b * 4;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      carry_march_kernel<W, kCond, kOneRay>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = set_smem(
+      (const void*)carry_march_kernel<W, kCond, kOneRay>, device, smem);
   if (err != cudaSuccess) return (int)err;
   int n_sm = 0;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  err = sm_count(device, &n_sm);
   if (err != cudaSuccess) return (int)err;
   if (a.R == 0) return 0;
   carry_march_kernel<W, kCond, kOneRay><<<n_sm, wgf::kThreads, smem, st>>>(
@@ -358,7 +357,8 @@ extern "C" {
 // be a multiple of it (tile_rows/SB rays) and at most 1024 tiles; SB is a
 // power of two with (tile_rows/SB) % 4 == 0 (wg::march_sb_ok); wp holds
 // the net's field slices
-// (kernels/wgpack.py::field_buffer). Returns a cudaError_t.
+// (kernels/wgpack.py::field_buffer). device: the operands' CUDA device.
+// Returns a cudaError_t.
 int fnt_carry_march(const void* hit, const void* block_hit,
                     const void* rays_o, const void* rays_d,
                     const void* dirpart, const void* t, const void* d,
@@ -367,8 +367,11 @@ int fnt_carry_march(const void* hit, const void* block_hit,
                     void* logT_out, const void* condpart, int cw, int R,
                     int NB, int SB, int blk, int L, int depth_layers,
                     int width, int k0, int skip_mask, int has_vd, int softplus,
-                    int tile_rows, float log_eps, void* stream) {
+                    int tile_rows, float log_eps, int device,
+                    void* stream) {
   using namespace fnt;
+  DeviceGuard on(device);
+  if (on.error()) return on.error();
   CarryArgs a;
   a.hit = static_cast<const float*>(hit);
   a.block_hit = static_cast<const float*>(block_hit);
@@ -409,18 +412,19 @@ int fnt_carry_march(const void* hit, const void* block_hit,
                   (reinterpret_cast<uintptr_t>(condpart) & 3))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int dv = device;
   if (cw > 0) {
     if (SB >= 16)
-      return width == 256 ? launch_carry<256, true, true>(a, st)
-                          : launch_carry<128, true, true>(a, st);
-    return width == 256 ? launch_carry<256, true, false>(a, st)
-                        : launch_carry<128, true, false>(a, st);
+      return width == 256 ? launch_carry<256, true, true>(a, dv, st)
+                          : launch_carry<128, true, true>(a, dv, st);
+    return width == 256 ? launch_carry<256, true, false>(a, dv, st)
+                        : launch_carry<128, true, false>(a, dv, st);
   }
   if (SB >= 16)
-    return width == 256 ? launch_carry<256, false, true>(a, st)
-                        : launch_carry<128, false, true>(a, st);
-  return width == 256 ? launch_carry<256, false, false>(a, st)
-                      : launch_carry<128, false, false>(a, st);
+    return width == 256 ? launch_carry<256, false, true>(a, dv, st)
+                        : launch_carry<128, false, true>(a, dv, st);
+  return width == 256 ? launch_carry<256, false, false>(a, dv, st)
+                      : launch_carry<128, false, false>(a, dv, st);
 }
 
 }  // extern "C"

@@ -185,15 +185,14 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
 }
 
 template <int W, bool kCond>
-int launch_field(FieldArgs& a, cudaStream_t st) {
+int launch_field(FieldArgs& a, int device, cudaStream_t st) {
   const int smem = (int)sizeof(FieldSmem<W>) + a.n_b * 4;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      field_kernel<W, kCond>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err = set_smem((const void*)field_kernel<W, kCond>, device,
+                             smem);
   if (err != cudaSuccess) return (int)err;
   int n_sm = 0;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  err = sm_count(device, &n_sm);
   if (err != cudaSuccess) return (int)err;
   if (a.n == 0) return 0;
   const int n_items = (a.n + wg::kItemRows - 1) / wg::kItemRows;
@@ -213,14 +212,16 @@ extern "C" {
 // condpart: null, or (n / spr, cw) bf16
 // with cw = W times the layers that take the posenc operand. alive: null,
 // or n / tile_rows f32 tile flags, tile_rows a multiple of 128 or n itself.
-// Returns a cudaError_t.
+// device: the operands' CUDA device. Returns a cudaError_t.
 int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
                       const void* wp, const void* b, void* rgb, void* sigma,
                       const void* condpart, const void* alive, int cw,
                       int tile_rows, int n, int spr, int L, int depth,
                       int width, int k0, int skip_mask, int has_vd,
-                      void* stream) {
+                      int device, void* stream) {
   using namespace fnt;
+  DeviceGuard on(device);
+  if (on.error()) return on.error();
   FieldArgs a;
   a.pts = static_cast<const float*>(pts);
   a.dirpart = static_cast<const bf16*>(dirpart);
@@ -251,10 +252,10 @@ int fnt_field_forward(const void* pts, const void* dirpart, const void* w,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cw > 0)
-    return width == 256 ? launch_field<256, true>(a, st)
-                        : launch_field<128, true>(a, st);
-  return width == 256 ? launch_field<256, false>(a, st)
-                      : launch_field<128, false>(a, st);
+    return width == 256 ? launch_field<256, true>(a, device, st)
+                        : launch_field<128, true>(a, device, st);
+  return width == 256 ? launch_field<256, false>(a, device, st)
+                      : launch_field<128, false>(a, device, st);
 }
 
 // The layout every kernel builds from these arguments, for checking it

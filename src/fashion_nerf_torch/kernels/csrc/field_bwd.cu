@@ -817,25 +817,28 @@ __global__ void dir_sum_kernel(const float* dpart, float* d_dir, long n_rays,
 }
 
 template <int W, bool kCond>
-int launch_rows(RowsArgs& ra, int n_sm, cudaStream_t st, bool launch) {
+int launch_rows(RowsArgs& ra, int n_sm, int device, cudaStream_t st,
+                bool launch) {
   const int smem = (int)sizeof(BwdSmem<W>) + ra.n_b * 4;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (!launch)
-    return (int)cudaFuncSetAttribute(
-        bwd_rows_kernel<W, kCond>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return (int)set_smem((const void*)bwd_rows_kernel<W, kCond>, device,
+                         smem);
   const int items = (int)((ra.rows + wg::kItemRows - 1) / wg::kItemRows);
   bwd_rows_kernel<W, kCond><<<items < n_sm ? items : n_sm, wgf::kThreads,
                               smem, st>>>(ra);
   return (int)cudaGetLastError();
 }
 
-int launch_rows_any(RowsArgs& ra, int n_sm, cudaStream_t st, bool launch) {
+// launch false: only set the rows kernel's shared memory limit on device
+int launch_rows_any(RowsArgs& ra, int n_sm, int device, cudaStream_t st,
+                    bool launch) {
+  const bool w256 = ra.lay.width == 256;
   if (ra.cw > 0)
-    return ra.lay.width == 256 ? launch_rows<256, true>(ra, n_sm, st, launch)
-                               : launch_rows<128, true>(ra, n_sm, st, launch);
-  return ra.lay.width == 256 ? launch_rows<256, false>(ra, n_sm, st, launch)
-                             : launch_rows<128, false>(ra, n_sm, st, launch);
+    return w256 ? launch_rows<256, true>(ra, n_sm, device, st, launch)
+                : launch_rows<128, true>(ra, n_sm, device, st, launch);
+  return w256 ? launch_rows<256, false>(ra, n_sm, device, st, launch)
+              : launch_rows<128, false>(ra, n_sm, device, st, launch);
 }
 
 }  // namespace
@@ -848,7 +851,7 @@ extern "C" {
 // their transposes (kernels/wgpack.py::field_buffer(net, True)). condpart:
 // null, or (n / spr, cw) bf16 with cw = W times the layers that take the
 // posenc operand; then d_cond (n / spr, cw) and cpart (n / 64, M, cw) f32.
-// Returns a cudaError_t.
+// device: the operands' CUDA device. Returns a cudaError_t.
 int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
                        const void* wp, const void* b, const void* g_rgb,
                        const void* g_sigma, void* d_pts, void* d_dir,
@@ -859,8 +862,10 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
                        int spr, int L, int depth, int width, int k0,
                        int skip_mask, int has_vd, int chunk, int n_split,
                        int M,
-                       int cw, void* stream) {
+                       int cw, int device, void* stream) {
   using namespace fnt;
+  DeviceGuard on(device);
+  if (on.error()) return on.error();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Layout lay = make_layout(depth, width, k0, skip_mask, has_vd);
   const Regions reg = make_regions(lay);
@@ -932,14 +937,13 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
   ra.lay = lay;
   ra.reg = reg;
 
-  int err = launch_rows_any(ra, 0, st, false);
+  int err = launch_rows_any(ra, 0, device, st, false);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(
-      wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(WgradSmem));
+  cudaError_t e = set_smem((const void*)wgrad_kernel, device,
+                           (int)sizeof(WgradSmem));
   if (e != cudaSuccess) return (int)e;
   int n_sm = 0;
-  e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  e = sm_count(device, &n_sm);
   if (e != cudaSuccess) return (int)e;
   if (n == 0) return 0;
 
@@ -948,7 +952,7 @@ int fnt_field_backward(const void* pts, const void* dirpart, const void* w,
     const int slabs = (int)(rows / kRows);
     ra.rows = rows;
     ra.r0 = r0;
-    err = launch_rows_any(ra, n_sm, st, true);
+    err = launch_rows_any(ra, n_sm, device, st, true);
     if (err) return err;
     wa.rows = rows;
     wa.rows_per_split = ((rows + n_split - 1) / n_split + 63) / 64 * 64;

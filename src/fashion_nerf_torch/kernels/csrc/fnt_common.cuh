@@ -17,7 +17,111 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace fnt {
+
+// ---- the device a launch runs on ------------------------------------------
+// The library links nvcc's static CUDA runtime. A runtime's current device
+// is the calling thread's current driver context, which torch's runtime
+// reads too. Every extern "C" entry that launches takes the ordinal of its
+// operands' device, makes it current for the call (DeviceGuard) and gives
+// the thread's device back at its end, so torch's current device does not
+// move. The facts a launch needs from that device (its SM count, a
+// kernel's dynamic shared memory limit, its occupancy) are asked once per
+// device and kept here: cudaFuncSetAttribute acts on the current device
+// only.
+
+// `device` current from construction to destruction; error() is 0 or the
+// cudaError_t of making it current.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    if (device < 0) {
+      err_ = cudaErrorInvalidDevice;
+      return;
+    }
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      moved_ = err_ == cudaSuccess;
+    }
+  }
+  ~DeviceGuard() {
+    if (moved_) cudaSetDevice(prev_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  int error() const { return (int)err_; }
+
+ private:
+  cudaError_t err_ = cudaSuccess;
+  int prev_ = 0;
+  bool moved_ = false;
+};
+
+struct DeviceFacts {
+  std::mutex mu;
+  std::map<int, int> n_sm;                                     // device →
+  std::map<std::tuple<const void*, int>, int> smem;            // set bytes
+  std::map<std::tuple<const void*, int, int, int>, int> occ;   // per SM
+};
+
+inline DeviceFacts& device_facts() {
+  static DeviceFacts f;
+  return f;
+}
+
+// The SM count of `device`, asked once.
+inline cudaError_t sm_count(int device, int* n_sm) {
+  DeviceFacts& f = device_facts();
+  std::lock_guard<std::mutex> lock(f.mu);
+  auto it = f.n_sm.find(device);
+  if (it == f.n_sm.end()) {
+    int n = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    it = f.n_sm.emplace(device, n).first;
+  }
+  *n_sm = it->second;
+  return cudaSuccess;
+}
+
+// Sets `kernel`'s dynamic shared memory limit on `device`, the current one,
+// to `bytes` unless the last call for this kernel and device set the same.
+inline cudaError_t set_smem(const void* kernel, int device, int bytes) {
+  DeviceFacts& f = device_facts();
+  std::lock_guard<std::mutex> lock(f.mu);
+  const auto key = std::make_tuple(kernel, device);
+  auto it = f.smem.find(key);
+  if (it != f.smem.end() && it->second == bytes) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) f.smem[key] = bytes;
+  return err;
+}
+
+// Resident blocks per SM of `kernel` at `threads` and `smem` bytes on
+// `device`, the current one, asked once (after set_smem).
+inline cudaError_t blocks_per_sm(const void* kernel, int device, int threads,
+                                 int smem, int* per_sm) {
+  DeviceFacts& f = device_facts();
+  std::lock_guard<std::mutex> lock(f.mu);
+  const auto key = std::make_tuple(kernel, device, threads, smem);
+  auto it = f.occ.find(key);
+  if (it == f.occ.end()) {
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    it = f.occ.emplace(key, n).first;
+  }
+  *per_sm = it->second;
+  return cudaSuccess;
+}
 
 using bf16 = __nv_bfloat16;
 

@@ -378,15 +378,17 @@ extern "C" {
 // The proposal march of a 128-wide σ-only net. R must be a multiple of the
 // tile (2048/SB rays) and at most 1024 tiles; SB is a power of two with
 // (2048/SB) % 4 == 0 (wg::march_sb_ok); wp holds
-// the net's march slices (kernels/wgpack.py, wp_elems bf16). Returns a
-// cudaError_t.
+// the net's march slices (kernels/wgpack.py, wp_elems bf16). device: the
+// operands' CUDA device. Returns a cudaError_t.
 int fnt_sigma_march(const void* alive, const void* oWx, const void* dWx,
                     const void* oF, const void* dF, const void* t,
                     const void* d, const void* w, const void* wp,
                     const void* b, void* w_out, void* acc, void* logT, int R,
                     int SB, int L, int depth, int width, int k0, int softplus,
-                    int wp_elems, void* stream) {
+                    int wp_elems, int device, void* stream) {
   using namespace fnt;
+  DeviceGuard on(device);
+  if (on.error()) return on.error();
   SigmaArgs a;
   a.alive = static_cast<const float*>(alive);
   a.oWx = static_cast<const float*>(oWx);
@@ -418,14 +420,13 @@ int fnt_sigma_march(const void* alive, const void* oWx, const void* dWx,
   auto kernel = SB < 16 ? sigma_march_kernel<true, false>
                 : SB > wg::kWgRows ? sigma_march_kernel<false, true>
                                    : sigma_march_kernel<false, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = set_smem((const void*)kernel, device, smem);
   if (err != cudaSuccess) return (int)err;
   int n_sm = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  err = sm_count(device, &n_sm);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreadsK1, smem);
+  err = blocks_per_sm((const void*)kernel, device, kThreadsK1, smem,
+                      &per_sm);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   if (R == 0) return 0;

@@ -639,15 +639,14 @@ __global__ void __launch_bounds__(kThreadsK2, 1)
 }
 
 template <int W, bool kVd>
-int launch_slim(SlimArgs& a, cudaStream_t st) {
+int launch_slim(SlimArgs& a, int device, cudaStream_t st) {
   const int smem = (int)sizeof(SlimSmem<W>) + a.n_b * 4;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      slim_march_kernel<W, kVd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err =
+      set_smem((const void*)slim_march_kernel<W, kVd>, device, smem);
   if (err != cudaSuccess) return (int)err;
   int n_sm = 0;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  err = sm_count(device, &n_sm);
   if (err != cudaSuccess) return (int)err;
   if (a.R == 0) return 0;
   slim_march_kernel<W, kVd><<<n_sm, kThreadsK2, smem, st>>>(a);
@@ -665,7 +664,8 @@ extern "C" {
 // predication tile is tile_rows (2048 or 1024) rows, tile_rows/SB rays; R
 // must be a multiple of it and at most 1024 tiles; SB is a power of two
 // with (tile_rows/SB) % 4 == 0 (wg::march_sb_ok); wp holds the net's march
-// slices (kernels/wgpack.py). Returns a cudaError_t.
+// slices (kernels/wgpack.py). device: the operands' CUDA device. Returns a
+// cudaError_t.
 int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
                    const void* dX, const void* oF, const void* dF,
                    const void* dirpart, const void* t, const void* d,
@@ -674,8 +674,10 @@ int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
                    int NB, int SB, int blk, int L, int depth, int width,
                    int k0, int skip_mask, int has_vd, int softplus,
                    int tile_rows,
-                   float log_eps, void* stream) {
+                   float log_eps, int device, void* stream) {
   using namespace fnt;
+  DeviceGuard on(device);
+  if (on.error()) return on.error();
   SlimArgs a;
   a.hit = static_cast<const float*>(hit);
   a.block_hit = static_cast<const float*>(block_hit);
@@ -731,10 +733,10 @@ int fnt_slim_march(const void* hit, const void* block_hit, const void* oX,
   if (n >= kMaxSlices) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (has_vd)
-    return width == 256 ? launch_slim<256, true>(a, st)
-                        : launch_slim<128, true>(a, st);
-  return width == 256 ? launch_slim<256, false>(a, st)
-                      : launch_slim<128, false>(a, st);
+    return width == 256 ? launch_slim<256, true>(a, device, st)
+                        : launch_slim<128, true>(a, device, st);
+  return width == 256 ? launch_slim<256, false>(a, device, st)
+                      : launch_slim<128, false>(a, device, st);
 }
 
 }  // extern "C"

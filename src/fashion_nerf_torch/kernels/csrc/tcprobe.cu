@@ -380,15 +380,14 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
 }
 
 template <int S, bool kHold>
-int launch_probe(const ProbeArgs& a, cudaStream_t st) {
+int launch_probe(const ProbeArgs& a, int device, cudaStream_t st) {
   const int smem = (int)sizeof(ProbeSmem<S>) +
                    a.n_wg * a.n_bufs * wg::kWgRows * a.W * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      tc_probe_kernel<S, kHold>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err =
+      set_smem((const void*)tc_probe_kernel<S, kHold>, device, smem);
   if (err != cudaSuccess) return (int)err;
   int n_sm = 0;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, 0);
+  err = sm_count(device, &n_sm);
   if (err != cudaSuccess) return (int)err;
   if (a.n == 0) return 0;
   const int item_rows = wg::kWgRows * a.n_wg;
@@ -407,11 +406,14 @@ extern "C" {
 // f32. n must be a multiple of 64 and W of 256, at most 1024; streams takes
 // depth >= 2 (even layers feed stream 1, odd ones stream 2); hold (the
 // activations held in registers) takes the chain at W = 256. Shapes whose
-// tiles do not fit in shared memory (probe_plan) are refused. Returns a
-// cudaError_t.
+// tiles do not fit in shared memory (probe_plan) are refused. device: the
+// operands' CUDA device. Returns a cudaError_t.
 int fnt_tc_probe(const void* x, const void* wp, void* out, int n, int width,
-                 int depth, int relu, int mode, int hold, void* stream) {
+                 int depth, int relu, int mode, int hold, int device,
+                 void* stream) {
   using namespace fnt;
+  DeviceGuard on(device);
+  if (on.error()) return on.error();
   ProbeArgs a;
   a.x = static_cast<const bf16*>(x);
   a.wp = static_cast<const bf16*>(wp);
@@ -432,10 +434,10 @@ int fnt_tc_probe(const void* x, const void* wp, void* out, int n, int width,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hold) {
     if (a.slots != kDeepP || a.n_wg != 2) return (int)cudaErrorInvalidValue;
-    return launch_probe<kDeepP, true>(a, st);
+    return launch_probe<kDeepP, true>(a, device, st);
   }
-  return a.slots == kDeepP ? launch_probe<kDeepP, false>(a, st)
-                           : launch_probe<kShallowP, false>(a, st);
+  if (a.slots == kDeepP) return launch_probe<kDeepP, false>(a, device, st);
+  return launch_probe<kShallowP, false>(a, device, st);
 }
 
 }  // extern "C"

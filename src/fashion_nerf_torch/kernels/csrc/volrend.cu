@@ -17,6 +17,8 @@
 // the triangular matmul have no counterpart here.
 #include <cuda_runtime.h>
 
+#include "fnt_common.cuh"
+
 namespace {
 
 constexpr int kRaysPerBlock = 8;
@@ -93,11 +95,14 @@ volrend_kernel(const float* __restrict__ rgb, const float* __restrict__ sigma,
 extern "C" {
 
 // rgb (R,S,3), sigma/t (R,S), dnorm (R,) → rgb_out (R,3), depth/acc (R,),
-// weights (R,S); all f32 and contiguous. Returns a cudaError_t.
+// weights (R,S); all f32 and contiguous; device: their CUDA device.
+// Returns a cudaError_t.
 int fnt_volrend(const void* rgb, const void* sigma, const void* t,
                 const void* dnorm, void* rgb_out, void* depth, void* acc,
                 void* weights, int R, int S, int white, int softplus,
-                void* stream) {
+                int device, void* stream) {
+  fnt::DeviceGuard on(device);
+  if (on.error()) return on.error();
   if (R < 0 || S < 1) return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   const int blocks = (R + kRaysPerBlock - 1) / kRaysPerBlock;

@@ -580,7 +580,8 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int, condpart=None,
     operand, runs padded with zeros (`pad_packed`): the same function at
     the padded net's cost in tensor-core time."""
     n = pts.shape[0]
-    if not K.on_cuda(pts, dirpart, net.w, condpart, alive):
+    dev = K.on_cuda(pts, dirpart, net.w, condpart, alive)
+    if dev is None:
         return field_rows_plain(net, pts, dirpart, spr, condpart, alive)
     if not net.x_rows:
         raise ValueError("field_rows needs a net packed with hoist_x=False")
@@ -598,8 +599,8 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int, condpart=None,
     condpart = pad_condpart(unpadded, net.width, condpart)
     if net.has_vd and dirpart.shape[1] != net.width // 2:
         raise ValueError(f"dirpart width {dirpart.shape[1]}")
-    rgb = torch.empty((n, 3), dtype=torch.float32, device=pts.device)
-    sigma = torch.empty((n,), dtype=torch.float32, device=pts.device)
+    rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    sigma = torch.empty((n,), dtype=torch.float32, device=dev)
     wp = wgpack.field_buffer(net)
     ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, wp, net.b, rgb,
                                    sigma)]
@@ -608,7 +609,7 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int, condpart=None,
         *ptrs, condpart.data_ptr() if cw else None,
         None if alive is None else alive.data_ptr(), cw, tile, n, spr,
         net.L, net.depth, net.width, net.k0, net.skip_mask,
-        int(net.has_vd), K.stream())
+        int(net.has_vd), *K.launch_args(dev))
     K.raise_on_error(code, "fnt_field_forward")
     K.LAUNCHES["field_alive" if alive is not None else
                "field_cond" if cw else "field"] += 1
@@ -744,7 +745,8 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     and d_w, d_b, d_dirpart and d_condpart come back in the unpadded net's
     layout."""
     n = pts.shape[0]
-    if not K.on_cuda(pts, dirpart, net.w, g_rgb, g_sigma, condpart):
+    dev = K.on_cuda(pts, dirpart, net.w, g_rgb, g_sigma, condpart)
+    if dev is None:
         return field_rows_backward_plain(net, pts, dirpart, g_rgb, g_sigma,
                                          spr, condpart)
     if not net.x_rows:
@@ -763,7 +765,7 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     half = dirpart.shape[1]
     if net.has_vd and half != net.width // 2:
         raise ValueError(f"dirpart width {half}")
-    dev, f32 = pts.device, torch.float32
+    f32 = torch.float32
     chunk = min(n, K.BWD_CHUNK_ROWS)
     n_split = max(1, min(16, chunk // 8192))
     M = min(K.SLAB_ROWS, (K.SLAB_ROWS - 1) // spr + 2)
@@ -790,7 +792,8 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     ptrs += [x.data_ptr() if cw else None for x in (condpart, d_cond, cpart)]
     code = K.library().fnt_field_backward(
         *ptrs, ws.numel(), n, spr, net.L, net.depth, net.width, net.k0,
-        net.skip_mask, int(net.has_vd), chunk, n_split, M, cw, K.stream())
+        net.skip_mask, int(net.has_vd), chunk, n_split, M, cw,
+        *K.launch_args(dev))
     K.raise_on_error(code, "fnt_field_backward")
     K.LAUNCHES["field_bwd_cond" if cw else "field_bwd"] += 1
     out = (d_pts, d_dir, d_w, d_b) + ((d_cond,) if cw else ())

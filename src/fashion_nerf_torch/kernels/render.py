@@ -47,7 +47,8 @@ def volrend(rgb, sigma, t_vals, dnorm, white_bkgd: bool,
             softplus: bool = False):
     """Fused volume render → (rgb, depth, acc, weights). CPU tensors: plain
     version; CUDA tensors: kernel K5."""
-    if not K.on_cuda(rgb, sigma, t_vals, dnorm):
+    dev = K.on_cuda(rgb, sigma, t_vals, dnorm)
+    if dev is None:
         return volrend_plain(rgb, sigma, t_vals, dnorm, white_bkgd, softplus)
     R, S = sigma.shape
     K.check(rgb, "rgb", torch.float32, (R, S, 3))
@@ -55,7 +56,7 @@ def volrend(rgb, sigma, t_vals, dnorm, white_bkgd: bool,
     K.check(t_vals, "t_vals", torch.float32, (R, S))
     K.check(dnorm, "dnorm", torch.float32, (R,))
     # one allocation for the four outputs; the results are views of it
-    buf = torch.empty((R * (S + 5),), device=sigma.device)
+    buf = torch.empty((R * (S + 5),), device=dev)
     weights, rgb_map, depth, acc = (
         v.view(shape) for v, shape in zip(
             buf.split((R * S, 3 * R, R, R)), ((R, S), (R, 3), (R,), (R,))))
@@ -64,7 +65,7 @@ def volrend(rgb, sigma, t_vals, dnorm, white_bkgd: bool,
     ptrs = [x.data_ptr() for x in (rgb, sigma, t_vals, dnorm, rgb_map,
                                    depth, acc, weights)]
     code = K.library().fnt_volrend(*ptrs, R, S, int(white_bkgd),
-                                   int(softplus), K.stream())
+                                   int(softplus), *K.launch_args(dev))
     K.raise_on_error(code, "fnt_volrend")
     K.LAUNCHES["volrend"] += 1
     return rgb_map, depth, acc, weights

@@ -137,7 +137,8 @@ def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
     (one launch per MARCH_MAX_TILES tiles), or K2 at a width K1 does not
     take (`sigma_kernel`; its launches count under "sigma_march_k2")."""
     oF, dF, oWx, dWx = hoists
-    if not K.on_cuda(alive, t, d, net.w, *hoists):
+    dev = K.on_cuda(alive, t, d, net.w, *hoists)
+    if dev is None:
         return sigma_march_plain(net, hoists, alive, t, d, softplus)
     R, SB = d.shape
     W, nph = net.width, 6 * net.L
@@ -151,14 +152,14 @@ def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
         from fashion_nerf_torch.kernels import slimmarch
         # one block: the tile of rays lives iff one of its rays is alive
         # (logT starts at 0 > log ε); a dead tile gives w = 0, logT = 0
-        ones = torch.ones((R, 1), dtype=torch.float32, device=d.device)
+        ones = torch.ones((R, 1), dtype=torch.float32, device=dev)
         _, w, logT = slimmarch.slim_march(
             net, hoists, None, alive, ones, t, d, -math.inf, softplus,
             count="sigma_march_k2")
         return w, w.sum(dim=1), logT
     wp = march_buffer(net)
     w = torch.empty_like(d)
-    acc = torch.empty((R,), dtype=torch.float32, device=d.device)
+    acc = torch.empty((R,), dtype=torch.float32, device=dev)
     logT = torch.empty_like(acc)
     lib = K.library()
     for rays in K.tile_ranges(R, K.TILE_ROWS // SB):
@@ -168,7 +169,7 @@ def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
         ptrs += [K.row_ptr(x, r0) for x in (w, acc, logT)]
         code = lib.fnt_sigma_march(
             *ptrs, rays.stop - rays.start, SB, net.L, net.depth, net.width,
-            net.k0, int(softplus), wp.numel(), K.stream())
+            net.k0, int(softplus), wp.numel(), *K.launch_args(dev))
         K.raise_on_error(code, "fnt_sigma_march")
         K.LAUNCHES[K.march_count("sigma_march", SB)] += 1
     return w, acc, logT

@@ -176,7 +176,8 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     if (dirpart is None) == net.has_vd:
         raise ValueError("a net with a view branch takes a dirpart, and "
                          "only it")
-    if not K.on_cuda(dirpart, hit, block_hit, t, d, net.w, *hoists):
+    dev = K.on_cuda(dirpart, hit, block_hit, t, d, net.w, *hoists)
+    if dev is None:
         return slim_march_plain(net, hoists, dirpart, hit, block_hit, t, d,
                                 log_eps, softplus)
     R, S = t.shape
@@ -199,9 +200,9 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
         dirpart = pad_dirpart(net, knet, dirpart)
     oF, dF, oX, dX = pad_hoists(net, knet, hoists)
     wp = march_buffer(knet)
-    rgb = torch.empty((R, 3), dtype=torch.float32, device=t.device)
+    rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
     w = torch.empty_like(t)
-    carry = [torch.empty((R,), dtype=torch.float32, device=t.device)
+    carry = [torch.empty((R,), dtype=torch.float32, device=dev)
              for _ in range(2)]
     lib = K.library()
     count = K.march_count(count or (
@@ -219,7 +220,8 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
             code = lib.fnt_slim_march(
                 *ptrs, rays.stop - rays.start, NB, SB, b, knet.L, knet.depth,
                 knet.width, knet.k0, knet.skip_mask, int(knet.has_vd),
-                int(softplus), net.tile_rows, float(log_eps), K.stream())
+                int(softplus), net.tile_rows, float(log_eps),
+                *K.launch_args(dev))
             K.raise_on_error(code, "fnt_slim_march")
             K.LAUNCHES[count] += 1
     return rgb, w, carry[NB % 2]

@@ -150,7 +150,8 @@ def _launch(x, ws, mode: str, relu: bool, counter: str):
     code = K.library().fnt_tc_probe(x.data_ptr(), wp.data_ptr(),
                                     out.data_ptr(), n, W, ws.shape[0],
                                     int(relu), MODES[mode],
-                                    int(mode == "hold"), K.stream())
+                                    int(mode == "hold"),
+                                    *K.launch_args(x.device))
     K.raise_on_error(code, "fnt_tc_probe")
     K.LAUNCHES[counter] += 1
     return out
@@ -192,7 +193,7 @@ def tc_chain(x, ws, mode: str, relu: bool = False):
     relu and the bf16 cast, zero rows add exact zeros) and the output cut
     back. The weights are laid out for the kernel inside the call
     (`pack_probe_weights`), so the probe's times include it."""
-    if not K.on_cuda(x, ws):
+    if K.on_cuda(x, ws) is None:
         return tc_chain_plain(x, ws, mode, relu)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}")

@@ -20,8 +20,9 @@ and the evaluation take the per-scene cond vector (`_eval_cond`).
 Under a ("dp", "tp") mesh (`dist.mesh`; the ranks started by
 `python -m torch.distributed.run`) the step is the single-process step
 split over rays: each rank renders its rows of the global batch, with its
-rows of every per-ray draw (`prng.RowDraws`), the loss is its local sum
-over the global ray count, terms not taken over rays (the sparsity prior)
+rows of every per-ray draw (`prng.RowDraws`), the loss is its local mean
+times its rows' share of the global batch (one rank: the single-process
+loss bit for bit), terms not taken over rays (the sparsity prior)
 count on the first dp block only, and the gradients are summed over the
 ranks before Adam. Under tp > 1 Adam updates each rank's column shards and
 the full weights are gathered for the next step (`dist.mesh.ShardedAdam`).
@@ -167,10 +168,15 @@ class TrainStep:
                         self.cfg.train.batch_rays)
 
     def _mse(self, rgb, target):
+        """The batch's mean squared error; under a mesh this rank's share
+        of it, its rows' mean times their share of the global batch, so
+        that a group of one rank takes the single-process step bit for
+        bit."""
+        mse = torch.mean((rgb - target) ** 2)
         if self.mesh is None:
-            return torch.mean((rgb - target) ** 2)
-        return torch.sum((rgb - target) ** 2) / (self.cfg.train.batch_rays
-                                                 * target.shape[-1])
+            return mse
+        return mse * ((self.rows.stop - self.rows.start)
+                      / self.cfg.train.batch_rays)
 
     def loss(self, state: TrainState, batch: dict, occ=None,
              sparsity_pts=None):
@@ -326,8 +332,8 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
     rank holds the same state and history; rank 0 alone logs and writes
     checkpoints. data.stream: the batches come from `host_batch_iter`
     through `prefetch_to_device`, this rank's rows of each."""
-    device = resolve_device(device)
     dmesh.init_distributed(cfg.dist.multihost, device=device)
+    device = resolve_device(device)      # after the join: a rank's card
     if mesh is None:
         mesh = dmesh.resolve_mesh(cfg.dist)
     if dataset_dict is None:

@@ -8,6 +8,7 @@ This file imports no JAX, so it also runs on a GPU host without JAX:
 (`--noconftest` skips tests/conftest.py, which imports JAX.)"""
 
 import math
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -1507,8 +1508,9 @@ def test_slim_march_view_branch_width_128(dev, W, L, skips):
     assert bool((out_k[1][:64] == 0).all()) and float(out_k[1].sum()) > 0.0
 
 
-# distribution on the card: two ranks over gloo, each on cuda:0
-# (tests/torch_dist_worker.py), and the stream's prefetch
+# distribution on the card: two ranks over gloo, each on cuda:0, two over
+# NCCL each on its own card (tests/torch_dist_worker.py), a group of one
+# rank over NCCL, and the stream's prefetch
 
 DIST_OVR = ["model.net_depth=3", "model.net_width=32", "model.posenc_xyz=4",
             "kernels.use_pallas=true", "sampling.n_coarse=16",
@@ -1557,11 +1559,35 @@ def _dist_inputs(tmp_path, n_steps):
 
 
 def test_dp2_step_and_segmented_scan_on_one_card(dev, tmp_path):
-    """Two ranks on one card: three dp=2 steps through K3/K4 against one
-    process's (step-1 loss 1e-5 relative, every step-1 gradient 1e-4
-    relative RMS, under 1% of parameters more than 1e-4 apart after 3
-    steps), and `segmented_ray_scan` at 2 segments against
-    `volume_render` (rgb and acc 3e-4, depth 3e-3)."""
+    """Two ranks on one card (the first visible; gloo): three dp=2 steps
+    through K3/K4 against one process's (step-1 loss 1e-5 relative, every
+    step-1 gradient 1e-4 relative RMS, under 1% of parameters more than
+    1e-4 apart after 3 steps), and `segmented_ray_scan` at 2 segments
+    against `volume_render` (rgb and acc 3e-4, depth 3e-3)."""
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    ranks = _dp2_against_one_process(dev, tmp_path,
+                                     {"CUDA_VISIBLE_DEVICES": first})
+    assert [r["backend"] for r in ranks] == ["gloo", "gloo"]
+    assert [r["device"] for r in ranks] == ["cuda:0", "cuda:0"]
+
+
+def test_dp2_nccl_step_over_two_cards(dev, tmp_path):
+    """One rank a card: two ranks, each on its own card over NCCL
+    (`dist.mesh.card_plan`), held to the one-card test's bounds against one
+    process. Needs two cards; skipped on fewer."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA devices, have "
+                    f"{torch.cuda.device_count()}")
+    ranks = _dp2_against_one_process(dev, tmp_path, {})
+    assert [r["backend"] for r in ranks] == ["nccl", "nccl"]
+    assert [r["device"] for r in ranks] == ["cuda:0", "cuda:1"]
+    assert [r["card"] for r in ranks] == [0, 1]
+
+
+def _dp2_against_one_process(dev, tmp_path, env: dict) -> list:
+    """Three dp=2 steps and a 2-segment `segmented_ray_scan` in a group of
+    two worker ranks started with `env`, against the same in this process
+    on `dev` → each rank's backend and device."""
     import torch_dist_worker as worker
     from fashion_nerf_torch.config import load_config
     from fashion_nerf_torch.core.volrend import volume_render
@@ -1576,7 +1602,10 @@ def test_dp2_step_and_segmented_scan_on_one_card(dev, tmp_path):
                                     config="blender_lego", overrides=DIST_OVR,
                                     streamed=True, n_steps=n, seed=0),
                                dict(kind="segmented", name="seg",
-                                    cases=["seg"])], device="cuda")
+                                    cases=["seg"]),
+                               dict(kind="whoami", name="whoami",
+                                    every_rank=True)],
+                           device="cuda", env=env)
     cfg = load_config("blender_lego", DIST_OVR)
     ds = RayDataset(arrs["scene/images"], arrs["scene/poses"],
                     float(arrs["scene/focal"]), device=dev)
@@ -1614,6 +1643,9 @@ def test_dp2_step_and_segmented_scan_on_one_card(dev, tmp_path):
                         white_bkgd=True)
     for k, tol in (("rgb", 3e-4), ("acc", 3e-4), ("depth", 3e-3)):
         assert float((seg[k] - ref[k].cpu()).abs().max()) <= tol, k
+    return [torch.load(tmp_path / f"whoami.{r}.pt", weights_only=False)
+            for r in range(2)]
+
 
 
 @pytest.mark.parametrize("rows", [None, slice(16, 32)])
@@ -1636,3 +1668,48 @@ def test_prefetch_to_device_matches_a_synchronous_copy(dev, rows):
             assert b[k].device.type == "cuda"
             sync = torch.from_numpy(w[k][sl]).to(dev)
             assert torch.equal(b[k] * 1, sync), k
+
+
+def test_one_rank_nccl_step_is_the_step_without_a_mesh(dev):
+    """A group of one rank over NCCL on the card
+    (`torch_dist_worker.group_of_one`): three TrainSteps under
+    make_mesh(1, 1), through K3/K4 and the mesh's collectives, bitwise the
+    steps without a mesh; `reduce_gradients`, `reduce_scalars` and
+    `broadcast_` of a bool occupancy grid give back what they were
+    given."""
+    import torch_dist_worker as worker
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.data.pipeline import RayDataset
+    from fashion_nerf_torch.data.synthetic import make_synthetic_scene
+    cfg = load_config("blender_lego", DIST_OVR)
+    scene = make_synthetic_scene(n_views=2, H=16, W=16, n_samples=16)
+    ds = RayDataset(scene["images"], scene["poses"], scene["focal"],
+                    device=dev)
+    got = worker.group_of_one(cfg, ds, torch.device("cuda", 0))
+    assert (got["backend"], got["card"]) == ("nccl", 0)
+    assert got["launches"]["field_bwd"] > 0
+    assert got["bitwise"] == {"losses": True, "grads": True, "params": True}
+    assert all(got["collectives"].values()), got["collectives"]
+
+
+# each kernel on the last card (cuda:0 on a one-card host) while torch's
+# current device stays cuda:0: the wrappers launch on their operands' card
+LAST_CARD_CASES = {
+    "K1": lambda d, mp: test_sigma_march_kernel(d, "mixed"),
+    "K2": lambda d, mp: test_slim_march_kernel(d, 1e-3),
+    "K3": lambda d, mp: test_field_kernel(d, "fine", 3072, 192),
+    "K4": lambda d, mp: test_field_backward_kernel(d, mp, 192, 3072, 640),
+    "K5": lambda d, mp: test_volrend_kernel(d, 192, True),
+    "K6": lambda d, mp: test_carry_march_kernel(d, 1e-3),
+    "P1": lambda d, mp: test_tc_probe_kernel(d, "chain", 256, 9, True),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(LAST_CARD_CASES))
+def test_kernel_on_the_last_card(dev, monkeypatch, kernel):
+    """The kernel's own test at one of its shapes, with every operand on
+    cuda:{device_count - 1}."""
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    LAST_CARD_CASES[kernel](last, monkeypatch)
+    torch.cuda.synchronize(last)
+    assert torch.cuda.current_device() == 0

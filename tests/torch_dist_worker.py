@@ -6,7 +6,7 @@ and join a group of them.
         python tests/torch_dist_worker.py JOB.json
 
 Joins the group the environment describes (gloo: on the CPU, or ranks
-sharing one card), runs the job's tasks in order on the job's device
+sharing one card; NCCL: one rank a card), runs the job's tasks in order on the job's device
 (every rank runs every task) and has rank 0 write each task's results to
 OUT/<task name>.pt. The inputs come from the job's npz: the scene, the
 batches, the parameters and the segmented scan's arrays. Imports torch and
@@ -79,12 +79,14 @@ def join(procs, label: str) -> list:
 
 
 def run_job(path: str, world: int, inputs: str, out: str, tasks: list,
-            device: str = "cpu") -> list:
-    """Write a job and start `world` workers on it (join them later)."""
+            device: str = "cpu", env: dict = None) -> list:
+    """Write a job and start `world` workers on it (join them later), with
+    `env` added to their environment."""
     with open(path, "w") as f:
         json.dump({"inputs": inputs, "out": out, "tasks": tasks,
                    "device": device}, f)
-    return start([[sys.executable, os.path.abspath(__file__), path]] * world)
+    return start([[sys.executable, os.path.abspath(__file__), path]] * world,
+                 env=env)
 
 
 def tree(inputs, prefix: str) -> dict:
@@ -236,7 +238,93 @@ def task_restore(task, inputs, mesh):
             "tp_rank": dmesh.axis_rank(mesh, "tp")}
 
 
-TASKS = {"steps": task_steps, "shardings": task_shardings,
+def group_of_one(cfg, ds, device, n: int = 3) -> dict:
+    """The collectives' plumbing at world size 1: a process group of this
+    one process (`dist.mesh.bind_group` over an in-process store: NCCL
+    bound to the card, gloo on the CPU), n TrainSteps of the run's seed
+    under make_mesh(1, 1) against the same steps without a mesh, and
+    `reduce_gradients`, `reduce_scalars` and `broadcast_` of a bool
+    occupancy grid; leaves the group. → {"backend", "card" (torch's
+    current device, None on the CPU), "losses", "launches" (K3, K4 and K5
+    launches of the mesh's steps), "bitwise": {"losses", "grads",
+    "params"}: the mesh's steps equal bit for bit to the steps without,
+    "collectives": {name: gave back what it was given}}."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.prng import GeneratorChain
+    from fashion_nerf_torch.train.loop import TrainStep
+    from fashion_nerf_torch.train.state import create_train_state
+    device = torch.device(device)
+
+    def steps(mesh):
+        chain = GeneratorChain(cfg.train.seed)
+        state = create_train_state(cfg, chain.once("init"),
+                                   chain.once("run", device), device)
+        step = TrainStep(cfg, ds, mesh=mesh)
+        losses, grads = [], None
+        for k in range(n):
+            with torch.enable_grad():
+                state, m = step(state, ds.batch_arrays())
+            losses.append(float(m["loss"]))
+            if k == 0:
+                grads = [p.grad.clone() for p in state.parameters()]
+        return losses, grads, [p.detach().clone()
+                               for p in state.parameters()]
+
+    cuda = device.type == "cuda"
+    backend = "nccl" if cuda else "gloo"
+    dmesh.bind_group(backend, device.index if cuda else None,
+                     store=torch.distributed.HashStore(), rank=0,
+                     world_size=1)
+    try:
+        mesh = dmesh.make_mesh(1, 1)
+        kinds = ("field", "field_bwd", "volrend")
+        n0 = {k: K.LAUNCHES[k] for k in kinds}
+        got = steps(mesh)
+        launches = {k: K.LAUNCHES[k] - n0[k] for k in kinds}
+        want = steps(None)
+        g = torch.Generator(device=device).manual_seed(3)
+        params = [torch.nn.Parameter(torch.randn(s, generator=g,
+                                                 device=device))
+                  for s in ((256, 63), (256,), (3, 128))]
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=g, device=device)
+        sent = [p.grad.clone() for p in params]
+        dmesh.reduce_gradients(mesh, params)
+        scalars = {"loss": torch.tensor(0.25, device=device),
+                   "psnr": torch.tensor(21.5, device=device)}
+        summed = dmesh.reduce_scalars(mesh, scalars)
+        grid = torch.rand((128,) * 3, generator=g, device=device) > 0.7
+        before = grid.clone()
+        dmesh.broadcast_([grid])
+        return {
+            "backend": torch.distributed.get_backend(),
+            "card": torch.cuda.current_device() if cuda else None,
+            "losses": got[0], "launches": launches,
+            "bitwise": {"losses": got[0] == want[0], **{
+                k: all(torch.equal(x, y) for x, y in zip(a, b))
+                for k, a, b in (("grads", got[1], want[1]),
+                                ("params", got[2], want[2]))}},
+            "collectives": {
+                "reduce_gradients": all(torch.equal(p.grad, t)
+                                        for p, t in zip(params, sent)),
+                "reduce_scalars": all(torch.equal(summed[k], v)
+                                      for k, v in scalars.items()),
+                "broadcast_": (grid.dtype == torch.bool
+                               and torch.equal(grid, before))}}
+    finally:
+        dmesh.shutdown_distributed()
+
+
+def task_whoami(task, inputs, mesh):
+    """This rank's group backend, its device and torch's current card."""
+    from fashion_nerf_torch.kernels import resolve_device
+    return {"backend": torch.distributed.get_backend(),
+            "device": str(resolve_device(DEVICE)),
+            "card": (torch.cuda.current_device()
+                     if torch.cuda.is_available() else None)}
+
+
+TASKS = {"steps": task_steps, "whoami": task_whoami, "shardings": task_shardings,
          "segmented": task_segmented, "render": task_render,
          "train": task_train, "restore": task_restore}
 
