@@ -37,6 +37,7 @@ from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, check_condpart,
                                                    pad_dirpart, per_row)
 from fashion_nerf_torch.kernels.slimmarch import block_weights, live_rows
 from fashion_nerf_torch.kernels.wgpack import field_buffer
+from fashion_nerf_torch.trace import span
 
 _BF = torch.bfloat16
 
@@ -108,51 +109,53 @@ def carry_march(net: PackedNet, dirpart, rays_o, rays_d, hit, block_hit, t,
         return carry_march_plain(net, dirpart, rays_o, rays_d, hit,
                                  block_hit, t, d, log_eps, softplus,
                                  condpart)
-    if not net.x_rows:
-        raise ValueError("carry_march needs a net packed with hoist_x=False")
-    R, S = t.shape
-    NB = block_hit.shape[1]
-    SB = S // NB
-    if S != NB * SB:
-        raise ValueError(f"S={S} is not NB={NB} blocks")
-    check_shapes(net, R, SB)
-    tile_rows = net.tile_rows
-    rpt = tile_rows // SB
-    for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
-                                                (R, NB)),
-                           ("rays_o", rays_o, (R, 3)),
-                           ("rays_d", rays_d, (R, 3)),
-                           ("t", t, (R, S)), ("d", d, (R, S))):
-        K.check(x, name, torch.float32, shape)
-    K.check(dirpart, "dirpart", _BF, (R, dirpart.shape[1]))
-    check_condpart(net, condpart, R)
-    if net.has_vd and dirpart.shape[1] != net.width // 2:
-        raise ValueError(f"dirpart width {dirpart.shape[1]}")
-    knet = kernel_net(net)
-    dirpart = pad_dirpart(net, knet, dirpart)
-    condpart = pad_condpart(net, knet.width, condpart)
-    cw = 0 if condpart is None else condpart.shape[1]
-    wp = field_buffer(knet)
-    rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    depth = torch.empty((R,), dtype=torch.float32, device=dev)
-    acc = torch.empty_like(depth)
-    w = torch.empty_like(t)
-    carry = [torch.empty_like(depth) for _ in range(2)]
-    lib = K.library()
-    for b in range(NB):
-        for rays in K.tile_ranges(R, rpt):
-            r0 = rays.start
-            ptrs = [K.row_ptr(x, r0) for x in (
-                hit, block_hit, rays_o, rays_d, dirpart, t, d)]
-            ptrs += [knet.w.data_ptr(), wp.data_ptr(), knet.b.data_ptr()]
-            ptrs += [K.row_ptr(x, r0) for x in (
-                rgb, depth, acc, w, carry[b % 2], carry[(b + 1) % 2])]
-            code = lib.fnt_carry_march(
-                *ptrs, K.row_ptr(condpart, r0) if cw else None, cw,
-                rays.stop - r0, NB, SB, b, knet.L, knet.depth, knet.width,
-                knet.k0, knet.skip_mask, int(knet.has_vd), int(softplus),
-                tile_rows, float(log_eps), *K.launch_args(dev))
-            K.raise_on_error(code, "fnt_carry_march")
-            K.LAUNCHES[K.march_count(
-                "carry_march_cond" if cw else "carry_march", SB)] += 1
-    return rgb, depth, acc, w, carry[NB % 2]
+    with span("fnt.kernel.carry_march"):
+        if not net.x_rows:
+            raise ValueError("carry_march needs a net packed with "
+                             "hoist_x=False")
+        R, S = t.shape
+        NB = block_hit.shape[1]
+        SB = S // NB
+        if S != NB * SB:
+            raise ValueError(f"S={S} is not NB={NB} blocks")
+        check_shapes(net, R, SB)
+        tile_rows = net.tile_rows
+        rpt = tile_rows // SB
+        for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
+                                                    (R, NB)),
+                               ("rays_o", rays_o, (R, 3)),
+                               ("rays_d", rays_d, (R, 3)),
+                               ("t", t, (R, S)), ("d", d, (R, S))):
+            K.check(x, name, torch.float32, shape)
+        K.check(dirpart, "dirpart", _BF, (R, dirpart.shape[1]))
+        check_condpart(net, condpart, R)
+        if net.has_vd and dirpart.shape[1] != net.width // 2:
+            raise ValueError(f"dirpart width {dirpart.shape[1]}")
+        knet = kernel_net(net)
+        dirpart = pad_dirpart(net, knet, dirpart)
+        condpart = pad_condpart(net, knet.width, condpart)
+        cw = 0 if condpart is None else condpart.shape[1]
+        wp = field_buffer(knet)
+        rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
+        depth = torch.empty((R,), dtype=torch.float32, device=dev)
+        acc = torch.empty_like(depth)
+        w = torch.empty_like(t)
+        carry = [torch.empty_like(depth) for _ in range(2)]
+        lib = K.library()
+        for b in range(NB):
+            for rays in K.tile_ranges(R, rpt):
+                r0 = rays.start
+                ptrs = [K.row_ptr(x, r0) for x in (
+                    hit, block_hit, rays_o, rays_d, dirpart, t, d)]
+                ptrs += [knet.w.data_ptr(), wp.data_ptr(), knet.b.data_ptr()]
+                ptrs += [K.row_ptr(x, r0) for x in (
+                    rgb, depth, acc, w, carry[b % 2], carry[(b + 1) % 2])]
+                code = lib.fnt_carry_march(
+                    *ptrs, K.row_ptr(condpart, r0) if cw else None, cw,
+                    rays.stop - r0, NB, SB, b, knet.L, knet.depth, knet.width,
+                    knet.k0, knet.skip_mask, int(knet.has_vd), int(softplus),
+                    tile_rows, float(log_eps), *K.launch_args(dev))
+                K.raise_on_error(code, "fnt_carry_march")
+                K.LAUNCHES[K.march_count(
+                    "carry_march_cond" if cw else "carry_march", SB)] += 1
+        return rgb, depth, acc, w, carry[NB % 2]

@@ -66,6 +66,7 @@ from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.kernels import wgpack
 from fashion_nerf_torch.core.posenc import posenc
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP
+from fashion_nerf_torch.trace import span
 
 _BF = torch.bfloat16
 
@@ -583,37 +584,39 @@ def field_rows(net: PackedNet, pts, dirpart, spr: int, condpart=None,
     dev = K.on_cuda(pts, dirpart, net.w, condpart, alive)
     if dev is None:
         return field_rows_plain(net, pts, dirpart, spr, condpart, alive)
-    if not net.x_rows:
-        raise ValueError("field_rows needs a net packed with hoist_x=False")
-    unpadded = net
-    net = kernel_net(unpadded)
-    check_field_shape(n, spr, net.width, net.depth, net.k0)
-    K.check(pts, "pts", torch.float32, (n, 3))
-    K.check(dirpart, "dirpart", _BF, (n // spr, dirpart.shape[1]))
-    check_condpart(unpadded, condpart, n // spr)
-    tile = 0
-    if alive is not None:
-        tile = alive_tile_rows(unpadded, n)
-        K.check(alive, "alive", torch.float32, (n // tile,))
-    dirpart = pad_dirpart(unpadded, net, dirpart)
-    condpart = pad_condpart(unpadded, net.width, condpart)
-    if net.has_vd and dirpart.shape[1] != net.width // 2:
-        raise ValueError(f"dirpart width {dirpart.shape[1]}")
-    rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    sigma = torch.empty((n,), dtype=torch.float32, device=dev)
-    wp = wgpack.field_buffer(net)
-    ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, wp, net.b, rgb,
-                                   sigma)]
-    cw = 0 if condpart is None else condpart.shape[1]
-    code = K.library().fnt_field_forward(
-        *ptrs, condpart.data_ptr() if cw else None,
-        None if alive is None else alive.data_ptr(), cw, tile, n, spr,
-        net.L, net.depth, net.width, net.k0, net.skip_mask,
-        int(net.has_vd), *K.launch_args(dev))
-    K.raise_on_error(code, "fnt_field_forward")
-    K.LAUNCHES["field_alive" if alive is not None else
-               "field_cond" if cw else "field"] += 1
-    return rgb, sigma
+    with span("fnt.kernel.field"):
+        if not net.x_rows:
+            raise ValueError("field_rows needs a net packed with "
+                             "hoist_x=False")
+        unpadded = net
+        net = kernel_net(unpadded)
+        check_field_shape(n, spr, net.width, net.depth, net.k0)
+        K.check(pts, "pts", torch.float32, (n, 3))
+        K.check(dirpart, "dirpart", _BF, (n // spr, dirpart.shape[1]))
+        check_condpart(unpadded, condpart, n // spr)
+        tile = 0
+        if alive is not None:
+            tile = alive_tile_rows(unpadded, n)
+            K.check(alive, "alive", torch.float32, (n // tile,))
+        dirpart = pad_dirpart(unpadded, net, dirpart)
+        condpart = pad_condpart(unpadded, net.width, condpart)
+        if net.has_vd and dirpart.shape[1] != net.width // 2:
+            raise ValueError(f"dirpart width {dirpart.shape[1]}")
+        rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        sigma = torch.empty((n,), dtype=torch.float32, device=dev)
+        wp = wgpack.field_buffer(net)
+        ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, wp, net.b, rgb,
+                                       sigma)]
+        cw = 0 if condpart is None else condpart.shape[1]
+        code = K.library().fnt_field_forward(
+            *ptrs, condpart.data_ptr() if cw else None,
+            None if alive is None else alive.data_ptr(), cw, tile, n, spr,
+            net.L, net.depth, net.width, net.k0, net.skip_mask,
+            int(net.has_vd), *K.launch_args(dev))
+        K.raise_on_error(code, "fnt_field_forward")
+        K.LAUNCHES["field_alive" if alive is not None else
+                   "field_cond" if cw else "field"] += 1
+        return rgb, sigma
 
 
 def _rows_bwd_heads(net: PackedNet, h, dir_rows, g_rgb, g_sigma, gw, gb):
@@ -749,65 +752,69 @@ def field_rows_backward(net: PackedNet, pts, dirpart, g_rgb, g_sigma,
     if dev is None:
         return field_rows_backward_plain(net, pts, dirpart, g_rgb, g_sigma,
                                          spr, condpart)
-    if not net.x_rows:
-        raise ValueError("field_rows_backward needs a net packed with "
-                         "hoist_x=False")
-    unpadded, cols = net, dirpart.shape[1]
-    net = kernel_net(unpadded)
-    check_field_shape(n, spr, net.width, net.depth, net.k0)
-    K.check(pts, "pts", torch.float32, (n, 3))
-    K.check(dirpart, "dirpart", _BF, (n // spr, cols))
-    K.check(g_rgb, "g_rgb", torch.float32, (n, 3))
-    K.check(g_sigma, "g_sigma", torch.float32, (n,))
-    check_condpart(unpadded, condpart, n // spr)
-    dirpart = pad_dirpart(unpadded, net, dirpart)
-    condpart = pad_condpart(unpadded, net.width, condpart)
-    half = dirpart.shape[1]
-    if net.has_vd and half != net.width // 2:
-        raise ValueError(f"dirpart width {half}")
-    f32 = torch.float32
-    chunk = min(n, K.BWD_CHUNK_ROWS)
-    n_split = max(1, min(16, chunk // 8192))
-    M = min(K.SLAB_ROWS, (K.SLAB_ROWS - 1) // spr + 2)
-    cw = 0 if condpart is None else condpart.shape[1]
-    ws = torch.empty(chunk * bwd_workspace_cols(net), dtype=_BF, device=dev)
-    wpart = torch.empty((n_split, net.lay["n_w"]), dtype=f32, device=dev)
-    bpart = torch.empty((chunk // K.SLAB_ROWS, net.lay["n_b"]), dtype=f32,
-                        device=dev)
-    dpart = torch.empty((n // K.SLAB_ROWS, M, half), dtype=f32, device=dev)
-    cpart = torch.empty((n // K.SLAB_ROWS, M, cw), dtype=f32, device=dev)
-    d_pts = torch.empty((n, 3), dtype=f32, device=dev)
-    d_dir = (torch.empty if net.has_vd else torch.zeros)(
-        (n // spr, half), dtype=f32, device=dev)
-    d_cond = torch.empty((n // spr, cw), dtype=f32, device=dev)
-    d_w = torch.empty(net.lay["n_w"], dtype=f32, device=dev)
-    d_b = torch.empty(net.lay["n_b"], dtype=f32, device=dev)
-    wp = wgpack.field_buffer(net, transposed=True)
-    a0s = torch.empty(chunk * net.k0, dtype=f32, device=dev)
-    masks = torch.empty((chunk // K.SLAB_ROWS + 1) * net.depth * net.width
-                        * 2, dtype=torch.int32, device=dev)
-    ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, wp, net.b, g_rgb,
-                                   g_sigma, d_pts, d_dir, d_w, d_b, ws, a0s,
-                                   masks, wpart, bpart, dpart)]
-    ptrs += [x.data_ptr() if cw else None for x in (condpart, d_cond, cpart)]
-    code = K.library().fnt_field_backward(
-        *ptrs, ws.numel(), n, spr, net.L, net.depth, net.width, net.k0,
-        net.skip_mask, int(net.has_vd), chunk, n_split, M, cw,
-        *K.launch_args(dev))
-    K.raise_on_error(code, "fnt_field_backward")
-    K.LAUNCHES["field_bwd_cond" if cw else "field_bwd"] += 1
-    out = (d_pts, d_dir, d_w, d_b) + ((d_cond,) if cw else ())
-    if net.unpad is None:
+    with span("fnt.kernel.field_bwd"):
+        if not net.x_rows:
+            raise ValueError("field_rows_backward needs a net packed with "
+                             "hoist_x=False")
+        unpadded, cols = net, dirpart.shape[1]
+        net = kernel_net(unpadded)
+        check_field_shape(n, spr, net.width, net.depth, net.k0)
+        K.check(pts, "pts", torch.float32, (n, 3))
+        K.check(dirpart, "dirpart", _BF, (n // spr, cols))
+        K.check(g_rgb, "g_rgb", torch.float32, (n, 3))
+        K.check(g_sigma, "g_sigma", torch.float32, (n,))
+        check_condpart(unpadded, condpart, n // spr)
+        dirpart = pad_dirpart(unpadded, net, dirpart)
+        condpart = pad_condpart(unpadded, net.width, condpart)
+        half = dirpart.shape[1]
+        if net.has_vd and half != net.width // 2:
+            raise ValueError(f"dirpart width {half}")
+        f32 = torch.float32
+        chunk = min(n, K.BWD_CHUNK_ROWS)
+        n_split = max(1, min(16, chunk // 8192))
+        M = min(K.SLAB_ROWS, (K.SLAB_ROWS - 1) // spr + 2)
+        cw = 0 if condpart is None else condpart.shape[1]
+        ws = torch.empty(chunk * bwd_workspace_cols(net), dtype=_BF,
+                         device=dev)
+        wpart = torch.empty((n_split, net.lay["n_w"]), dtype=f32, device=dev)
+        bpart = torch.empty((chunk // K.SLAB_ROWS, net.lay["n_b"]), dtype=f32,
+                            device=dev)
+        dpart = torch.empty((n // K.SLAB_ROWS, M, half), dtype=f32, device=dev)
+        cpart = torch.empty((n // K.SLAB_ROWS, M, cw), dtype=f32, device=dev)
+        d_pts = torch.empty((n, 3), dtype=f32, device=dev)
+        d_dir = (torch.empty if net.has_vd else torch.zeros)(
+            (n // spr, half), dtype=f32, device=dev)
+        d_cond = torch.empty((n // spr, cw), dtype=f32, device=dev)
+        d_w = torch.empty(net.lay["n_w"], dtype=f32, device=dev)
+        d_b = torch.empty(net.lay["n_b"], dtype=f32, device=dev)
+        wp = wgpack.field_buffer(net, transposed=True)
+        a0s = torch.empty(chunk * net.k0, dtype=f32, device=dev)
+        masks = torch.empty((chunk // K.SLAB_ROWS + 1) * net.depth * net.width
+                            * 2, dtype=torch.int32, device=dev)
+        ptrs = [x.data_ptr() for x in (pts, dirpart, net.w, wp, net.b,
+                                       g_rgb, g_sigma, d_pts, d_dir, d_w,
+                                       d_b, ws, a0s, masks, wpart, bpart,
+                                       dpart)]
+        ptrs += [x.data_ptr() if cw else None
+                 for x in (condpart, d_cond, cpart)]
+        code = K.library().fnt_field_backward(
+            *ptrs, ws.numel(), n, spr, net.L, net.depth, net.width, net.k0,
+            net.skip_mask, int(net.has_vd), chunk, n_split, M, cw,
+            *K.launch_args(dev))
+        K.raise_on_error(code, "fnt_field_backward")
+        K.LAUNCHES["field_bwd_cond" if cw else "field_bwd"] += 1
+        out = (d_pts, d_dir, d_w, d_b) + ((d_cond,) if cw else ())
+        if net.unpad is None:
+            return out
+        # the original entries' gradients; those of the padding are zeros
+        pos_w, pos_b = net.unpad
+        out = (d_pts, d_dir[:, :cols].contiguous(), d_w.index_select(0, pos_w),
+               d_b.index_select(0, pos_b))
+        if cw:
+            W = unpadded.width
+            out += (d_cond.reshape(n // spr, -1, net.width)[:, :, :W]
+                    .reshape(n // spr, -1).contiguous(),)
         return out
-    # the original entries' gradients; those of the padding are zeros
-    pos_w, pos_b = net.unpad
-    out = (d_pts, d_dir[:, :cols].contiguous(), d_w.index_select(0, pos_w),
-           d_b.index_select(0, pos_b))
-    if cw:
-        W = unpadded.width
-        out += (d_cond.reshape(n // spr, -1, net.width)[:, :, :W]
-                .reshape(n // spr, -1).contiguous(),)
-    return out
 
 
 class FusedField(torch.autograd.Function):

@@ -19,6 +19,7 @@ from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.core.volrend import volume_render
 from fashion_nerf_torch.kernels.sigmamarch import _density
 from fashion_nerf_torch.prng import randn
+from fashion_nerf_torch.trace import span
 
 _INF_DIST = 1e10
 _LOG_FLOOR = -23.025851
@@ -50,25 +51,26 @@ def volrend(rgb, sigma, t_vals, dnorm, white_bkgd: bool,
     dev = K.on_cuda(rgb, sigma, t_vals, dnorm)
     if dev is None:
         return volrend_plain(rgb, sigma, t_vals, dnorm, white_bkgd, softplus)
-    R, S = sigma.shape
-    K.check(rgb, "rgb", torch.float32, (R, S, 3))
-    K.check(sigma, "sigma", torch.float32, (R, S))
-    K.check(t_vals, "t_vals", torch.float32, (R, S))
-    K.check(dnorm, "dnorm", torch.float32, (R,))
-    # one allocation for the four outputs; the results are views of it
-    buf = torch.empty((R * (S + 5),), device=dev)
-    weights, rgb_map, depth, acc = (
-        v.view(shape) for v, shape in zip(
-            buf.split((R * S, 3 * R, R, R)), ((R, S), (R, 3), (R,), (R,))))
-    if R == 0:
+    with span("fnt.kernel.volrend"):
+        R, S = sigma.shape
+        K.check(rgb, "rgb", torch.float32, (R, S, 3))
+        K.check(sigma, "sigma", torch.float32, (R, S))
+        K.check(t_vals, "t_vals", torch.float32, (R, S))
+        K.check(dnorm, "dnorm", torch.float32, (R,))
+        # one allocation for the four outputs; the results are views of it
+        buf = torch.empty((R * (S + 5),), device=dev)
+        weights, rgb_map, depth, acc = (
+            v.view(shape) for v, shape in zip(
+                buf.split((R * S, 3 * R, R, R)), ((R, S), (R, 3), (R,), (R,))))
+        if R == 0:
+            return rgb_map, depth, acc, weights
+        ptrs = [x.data_ptr() for x in (rgb, sigma, t_vals, dnorm, rgb_map,
+                                       depth, acc, weights)]
+        code = K.library().fnt_volrend(*ptrs, R, S, int(white_bkgd),
+                                       int(softplus), *K.launch_args(dev))
+        K.raise_on_error(code, "fnt_volrend")
+        K.LAUNCHES["volrend"] += 1
         return rgb_map, depth, acc, weights
-    ptrs = [x.data_ptr() for x in (rgb, sigma, t_vals, dnorm, rgb_map,
-                                   depth, acc, weights)]
-    code = K.library().fnt_volrend(*ptrs, R, S, int(white_bkgd),
-                                   int(softplus), *K.launch_args(dev))
-    K.raise_on_error(code, "fnt_volrend")
-    K.LAUNCHES["volrend"] += 1
-    return rgb_map, depth, acc, weights
 
 
 class _FusedRender(torch.autograd.Function):

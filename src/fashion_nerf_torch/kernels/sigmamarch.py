@@ -35,6 +35,7 @@ from fashion_nerf_torch.kernels.posenc_mlp import (PackedNet, _bf,
                                                    phase_consts)
 from fashion_nerf_torch.kernels.wgpack import march_buffer
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP
+from fashion_nerf_torch.trace import span
 
 _LOG_FLOOR = -23.025851   # log(1e-10) floor on log(1 - α)
 
@@ -140,36 +141,37 @@ def sigma_march(net: PackedNet, hoists, alive, t, d, softplus: bool = False):
     dev = K.on_cuda(alive, t, d, net.w, *hoists)
     if dev is None:
         return sigma_march_plain(net, hoists, alive, t, d, softplus)
-    R, SB = d.shape
-    W, nph = net.width, 6 * net.L
-    for name, x, shape in (("alive", alive, (R,)), ("oWx", oWx, (R, W)),
-                           ("dWx", dWx, (R, W)), ("oF", oF, (R, nph)),
-                           ("dF", dF, (R, nph)), ("t", t, (R, SB)),
-                           ("d", d, (R, SB))):
-        K.check(x, name, torch.float32, shape)
-    check_shapes(net, R, SB)
-    if sigma_kernel(net) == "K2":
-        from fashion_nerf_torch.kernels import slimmarch
-        # one block: the tile of rays lives iff one of its rays is alive
-        # (logT starts at 0 > log ε); a dead tile gives w = 0, logT = 0
-        ones = torch.ones((R, 1), dtype=torch.float32, device=dev)
-        _, w, logT = slimmarch.slim_march(
-            net, hoists, None, alive, ones, t, d, -math.inf, softplus,
-            count="sigma_march_k2")
-        return w, w.sum(dim=1), logT
-    wp = march_buffer(net)
-    w = torch.empty_like(d)
-    acc = torch.empty((R,), dtype=torch.float32, device=dev)
-    logT = torch.empty_like(acc)
-    lib = K.library()
-    for rays in K.tile_ranges(R, K.TILE_ROWS // SB):
-        r0 = rays.start
-        ptrs = [K.row_ptr(x, r0) for x in (alive, oWx, dWx, oF, dF, t, d)]
-        ptrs += [net.w.data_ptr(), wp.data_ptr(), net.b.data_ptr()]
-        ptrs += [K.row_ptr(x, r0) for x in (w, acc, logT)]
-        code = lib.fnt_sigma_march(
-            *ptrs, rays.stop - rays.start, SB, net.L, net.depth, net.width,
-            net.k0, int(softplus), wp.numel(), *K.launch_args(dev))
-        K.raise_on_error(code, "fnt_sigma_march")
-        K.LAUNCHES[K.march_count("sigma_march", SB)] += 1
-    return w, acc, logT
+    with span("fnt.kernel.sigma_march"):
+        R, SB = d.shape
+        W, nph = net.width, 6 * net.L
+        for name, x, shape in (("alive", alive, (R,)), ("oWx", oWx, (R, W)),
+                               ("dWx", dWx, (R, W)), ("oF", oF, (R, nph)),
+                               ("dF", dF, (R, nph)), ("t", t, (R, SB)),
+                               ("d", d, (R, SB))):
+            K.check(x, name, torch.float32, shape)
+        check_shapes(net, R, SB)
+        if sigma_kernel(net) == "K2":
+            from fashion_nerf_torch.kernels import slimmarch
+            # one block: the tile of rays lives iff one of its rays is alive
+            # (logT starts at 0 > log ε); a dead tile gives w = 0, logT = 0
+            ones = torch.ones((R, 1), dtype=torch.float32, device=dev)
+            _, w, logT = slimmarch.slim_march(
+                net, hoists, None, alive, ones, t, d, -math.inf, softplus,
+                count="sigma_march_k2")
+            return w, w.sum(dim=1), logT
+        wp = march_buffer(net)
+        w = torch.empty_like(d)
+        acc = torch.empty((R,), dtype=torch.float32, device=dev)
+        logT = torch.empty_like(acc)
+        lib = K.library()
+        for rays in K.tile_ranges(R, K.TILE_ROWS // SB):
+            r0 = rays.start
+            ptrs = [K.row_ptr(x, r0) for x in (alive, oWx, dWx, oF, dF, t, d)]
+            ptrs += [net.w.data_ptr(), wp.data_ptr(), net.b.data_ptr()]
+            ptrs += [K.row_ptr(x, r0) for x in (w, acc, logT)]
+            code = lib.fnt_sigma_march(
+                *ptrs, rays.stop - rays.start, SB, net.L, net.depth, net.width,
+                net.k0, int(softplus), wp.numel(), *K.launch_args(dev))
+            K.raise_on_error(code, "fnt_sigma_march")
+            K.LAUNCHES[K.march_count("sigma_march", SB)] += 1
+        return w, acc, logT

@@ -39,6 +39,7 @@ from fashion_nerf_torch.kernels.sigmamarch import (_LOG_FLOOR, _density,
                                                    check_march_shape)
 from fashion_nerf_torch.kernels.wgpack import march_buffer
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP
+from fashion_nerf_torch.trace import span
 
 _BF = torch.bfloat16
 
@@ -180,48 +181,50 @@ def slim_march(net: PackedNet, hoists, dirpart, hit, block_hit, t, d,
     if dev is None:
         return slim_march_plain(net, hoists, dirpart, hit, block_hit, t, d,
                                 log_eps, softplus)
-    R, S = t.shape
-    NB = block_hit.shape[1]
-    SB = S // NB
-    W, nph = net.width, 6 * net.L
-    nx = len(net.x_kernels)
-    if S != NB * SB:
-        raise ValueError(f"S={S} is not NB={NB} blocks")
-    check_shapes(net, R, SB)
-    knet = march_net(net)
-    for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
-                                                (R, NB)),
-                           ("oX", oX, (R, nx * W)), ("dX", dX, (R, nx * W)),
-                           ("oF", oF, (R, nph)), ("dF", dF, (R, nph)),
-                           ("t", t, (R, S)), ("d", d, (R, S))):
-        K.check(x, name, torch.float32, shape)
-    if net.has_vd:
-        K.check(dirpart, "dirpart", _BF, (R, W // 2))
-        dirpart = pad_dirpart(net, knet, dirpart)
-    oF, dF, oX, dX = pad_hoists(net, knet, hoists)
-    wp = march_buffer(knet)
-    rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    w = torch.empty_like(t)
-    carry = [torch.empty((R,), dtype=torch.float32, device=dev)
-             for _ in range(2)]
-    lib = K.library()
-    count = K.march_count(count or (
-        "slim_march_cond" if net.n_cond else
-        "slim_march" if net.has_vd else "slim_march_novd"), SB)
-    ranges = K.tile_ranges(R, net.tile_rows // SB)
-    for b in range(NB):
-        for rays in ranges:
-            r0 = rays.start
-            ptrs = [K.row_ptr(x, r0) for x in (
-                hit, block_hit, oX, dX, oF, dF, dirpart, t, d)]
-            ptrs += [knet.w.data_ptr(), wp.data_ptr(), knet.b.data_ptr()]
-            ptrs += [K.row_ptr(x, r0) for x in (
-                rgb, w, carry[b % 2], carry[(b + 1) % 2])]
-            code = lib.fnt_slim_march(
-                *ptrs, rays.stop - rays.start, NB, SB, b, knet.L, knet.depth,
-                knet.width, knet.k0, knet.skip_mask, int(knet.has_vd),
-                int(softplus), net.tile_rows, float(log_eps),
-                *K.launch_args(dev))
-            K.raise_on_error(code, "fnt_slim_march")
-            K.LAUNCHES[count] += 1
-    return rgb, w, carry[NB % 2]
+    with span("fnt.kernel.slim_march"):
+        R, S = t.shape
+        NB = block_hit.shape[1]
+        SB = S // NB
+        W, nph = net.width, 6 * net.L
+        nx = len(net.x_kernels)
+        if S != NB * SB:
+            raise ValueError(f"S={S} is not NB={NB} blocks")
+        check_shapes(net, R, SB)
+        knet = march_net(net)
+        for name, x, shape in (("hit", hit, (R,)), ("block_hit", block_hit,
+                                                    (R, NB)),
+                               ("oX", oX, (R, nx * W)),
+                               ("dX", dX, (R, nx * W)),
+                               ("oF", oF, (R, nph)), ("dF", dF, (R, nph)),
+                               ("t", t, (R, S)), ("d", d, (R, S))):
+            K.check(x, name, torch.float32, shape)
+        if net.has_vd:
+            K.check(dirpart, "dirpart", _BF, (R, W // 2))
+            dirpart = pad_dirpart(net, knet, dirpart)
+        oF, dF, oX, dX = pad_hoists(net, knet, hoists)
+        wp = march_buffer(knet)
+        rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
+        w = torch.empty_like(t)
+        carry = [torch.empty((R,), dtype=torch.float32, device=dev)
+                 for _ in range(2)]
+        lib = K.library()
+        count = K.march_count(count or (
+            "slim_march_cond" if net.n_cond else
+            "slim_march" if net.has_vd else "slim_march_novd"), SB)
+        ranges = K.tile_ranges(R, net.tile_rows // SB)
+        for b in range(NB):
+            for rays in ranges:
+                r0 = rays.start
+                ptrs = [K.row_ptr(x, r0) for x in (
+                    hit, block_hit, oX, dX, oF, dF, dirpart, t, d)]
+                ptrs += [knet.w.data_ptr(), wp.data_ptr(), knet.b.data_ptr()]
+                ptrs += [K.row_ptr(x, r0) for x in (
+                    rgb, w, carry[b % 2], carry[(b + 1) % 2])]
+                code = lib.fnt_slim_march(
+                    *ptrs, rays.stop - rays.start, NB, SB, b, knet.L,
+                    knet.depth, knet.width, knet.k0, knet.skip_mask,
+                    int(knet.has_vd), int(softplus), net.tile_rows,
+                    float(log_eps), *K.launch_args(dev))
+                K.raise_on_error(code, "fnt_slim_march")
+                K.LAUNCHES[count] += 1
+        return rgb, w, carry[NB % 2]

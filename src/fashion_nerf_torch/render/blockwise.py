@@ -64,6 +64,7 @@ from fashion_nerf_torch.kernels.posenc_mlp import (field_rows,
                                                    field_rows_plain,
                                                    hoist_cond, hoist_dirs,
                                                    pack_params)
+from fashion_nerf_torch.trace import span
 
 _INF_DIST = 1e10
 
@@ -446,13 +447,6 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
     if R % unit:
         raise ValueError(f"R={R} is not a multiple of {unit}")
     packed = packed or pack_render_params(params, cfg, occ)
-    near, far, alive0, seg, t_end = culling(cfg, rays_o, rays_d, occ)
-    dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    warp = (cfg.occupancy.sample_warp and seg is not None
-            and not cfg.sampling.lindisp)
-    if warp:
-        bins_occ, gap_idx = occupancy_bins(seg, near, far,
-                                           cfg.occupancy.warp_bins)
 
     def strat(n):
         if warp:
@@ -463,31 +457,44 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
     def caps(t_vals):
         return delta_caps(gap_idx, near, far, t_vals) if warp else None
 
-    t_c = strat(n_c)
+    with span("fnt.rays.culling"):
+        near, far, alive0, seg, t_end = culling(cfg, rays_o, rays_d, occ)
+        dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        warp = (cfg.occupancy.sample_warp and seg is not None
+                and not cfg.sampling.lindisp)
+        if warp:
+            bins_occ, gap_idx = occupancy_bins(seg, near, far,
+                                               cfg.occupancy.warp_bins)
+        t_c = strat(n_c)
     alive_f = alive0
-    if prop:
-        pnet = packed["proposal"]
-        if use_sigma_march(cfg, occ):
-            out_c = sigma_march_pass(
-                pnet, sigmamarch.hoist_rays(pnet, rays_o, rays_d), t_c,
-                dnorm, alive0, cfg, t_end, seg=seg, sb=sb_c, plain=plain,
-                cap=caps(t_c))
+    with span("fnt.rays.coarse"):
+        if prop:
+            pnet = packed["proposal"]
+            if use_sigma_march(cfg, occ):
+                out_c = sigma_march_pass(
+                    pnet, sigmamarch.hoist_rays(pnet, rays_o, rays_d), t_c,
+                    dnorm, alive0, cfg, t_end, seg=seg, sb=sb_c, plain=plain,
+                    cap=caps(t_c))
+            else:
+                # the σ-only net has no view branch: its dirpart is zeros
+                out_c = _march(cfg, pnet, rays_o, rays_d, viewdirs, t_c,
+                               dnorm, alive0, t_end, seg, plain, sb=sb_c,
+                               cap=caps(t_c))
+            if cfg.proposal.cull_acc > 0.0:
+                alive_f = alive0 & (out_c["acc"] > cfg.proposal.cull_acc)
         else:
-            # the σ-only net has no view branch: its dirpart is zeros
-            out_c = _march(cfg, pnet, rays_o, rays_d, viewdirs, t_c, dnorm,
-                           alive0, t_end, seg, plain, sb=sb_c,
+            out_c = _march(cfg, packed["coarse"], rays_o, rays_d, viewdirs,
+                           t_c, dnorm, alive0, t_end, seg, plain, cond,
                            cap=caps(t_c))
-        if cfg.proposal.cull_acc > 0.0:
-            alive_f = alive0 & (out_c["acc"] > cfg.proposal.cull_acc)
-    else:
-        out_c = _march(cfg, packed["coarse"], rays_o, rays_d, viewdirs, t_c,
-                       dnorm, alive0, t_end, seg, plain, cond, cap=caps(t_c))
-        if n_fine <= 0:
-            return {"coarse": out_c, "fine": None}
-    t_all = fine_samples(cfg, t_c, out_c["weights"], n_fine, proposal=prop,
-                         strat=strat)
-    out_f = _march(cfg, packed["fine"], rays_o, rays_d, viewdirs, t_all,
-                   dnorm, alive_f, t_end, seg, plain, cond, cap=caps(t_all))
+    if not prop and n_fine <= 0:
+        return {"coarse": out_c, "fine": None}
+    with span("fnt.rays.pdf"):
+        t_all = fine_samples(cfg, t_c, out_c["weights"], n_fine,
+                             proposal=prop, strat=strat)
+    with span("fnt.rays.fine"):
+        out_f = _march(cfg, packed["fine"], rays_o, rays_d, viewdirs, t_all,
+                       dnorm, alive_f, t_end, seg, plain, cond,
+                       cap=caps(t_all))
     return {"coarse": out_c, "fine": out_f}
 
 
@@ -511,70 +518,88 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
     cond: the per-scene (Cc,) cond vector of a conditioned field. Under
     `render.ndc` the rays are mapped to NDC and the field's view
     directions stay the world directions."""
-    if device is None:
-        device = next(next(iter(params.values())).parameters()).device
-    rays_o, rays_d = generate_rays(H, W, focal, c2w, device=device)
-    rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
-    viewdirs = rays_d
-    if cfg.render.ndc:
-        rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
-    n = rays_o.shape[0]
-    tiled = H % 8 == 0 and W % 8 == 0
-    inv = None
-    if tiled:
-        order, inv = _tile_order(H, W)
-        order_t = torch.from_numpy(order).to(device)
-        rays_o, rays_d = rays_o[order_t], rays_d[order_t]
-        viewdirs = viewdirs[order_t]
+    with span("fnt.frame"):
+        if device is None:
+            device = next(next(iter(params.values())).parameters()).device
+        with span("fnt.frame.rays"):
+            rays_o, rays_d = generate_rays(H, W, focal, c2w, device=device)
+            rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+            viewdirs = rays_d
+            if cfg.render.ndc:
+                rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+            n = rays_o.shape[0]
+            tiled = H % 8 == 0 and W % 8 == 0
+            inv = None
+            if tiled:
+                order, inv = _tile_order(H, W)
+                order_t = torch.from_numpy(order).to(device)
+                rays_o, rays_d = rays_o[order_t], rays_d[order_t]
+                viewdirs = viewdirs[order_t]
 
-    unit = rays_per_chunk_unit(cfg)
-    chunk = max(unit, (min(cfg.render.chunk, n) // unit) * unit)
-    n_chunks = -(-n // chunk)
-    pad = n_chunks * chunk - n
-    if pad:
-        # pad origins far outside any scene box so padding joins the
-        # dead-chunk / dead-tile skip; unit directions keep norms finite
-        fill_d = torch.zeros((pad, 3), device=device)
-        fill_d[:, 2] = -1.0
-        rays_o = torch.cat([rays_o, torch.full((pad, 3), 1e6,
-                                               device=device)])
-        rays_d = torch.cat([rays_d, fill_d])
-        viewdirs = torch.cat([viewdirs, fill_d])
+            unit = rays_per_chunk_unit(cfg)
+            chunk = max(unit, (min(cfg.render.chunk, n) // unit) * unit)
+            n_chunks = -(-n // chunk)
+            pad = n_chunks * chunk - n
+            if pad:
+                # pad origins far outside any scene box so padding joins
+                # the dead-chunk / dead-tile skip; unit directions keep
+                # norms finite
+                fill_d = torch.zeros((pad, 3), device=device)
+                fill_d[:, 2] = -1.0
+                rays_o = torch.cat([rays_o, torch.full((pad, 3), 1e6,
+                                                       device=device)])
+                rays_d = torch.cat([rays_d, fill_d])
+                viewdirs = torch.cat([viewdirs, fill_d])
 
-    packed = pack_render_params(params, cfg, occ)
-    bg = 1.0 if cfg.render.white_bkgd else 0.0
-    outs = []
-    for c in range(n_chunks):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        o, d, v = rays_o[sl], rays_d[sl], viewdirs[sl]
-        live = True
-        if occ is not None:
+        with span("fnt.frame.pack"):
+            packed = pack_render_params(params, cfg, occ)
+        bg = 1.0 if cfg.render.white_bkgd else 0.0
+        outs = []
+        for c in range(n_chunks):
+            with span("fnt.chunk"):
+                outs.append(_chunk(params, cfg, rays_o, rays_d, viewdirs,
+                                   slice(c * chunk, (c + 1) * chunk), occ,
+                                   packed, plain, cond, bg, device))
+
+        with span("fnt.frame.unchunk"):
+            inv_t = torch.from_numpy(inv).to(device) if tiled else None
+
+            def unchunk(key):
+                flat = torch.cat([o[key] for o in outs])[:n]
+                if tiled:
+                    flat = flat[inv_t]
+                return flat.reshape((H, W) + flat.shape[1:])
+
+            return {k: unchunk(k) for k in outs[0]}
+
+
+def _chunk(params: dict, cfg: Config, rays_o, rays_d, viewdirs, sl: slice,
+           occ, packed: dict, plain: bool, cond, bg: float, device) -> dict:
+    """One chunk of `render_image_blockwise`: the rays of `sl` rendered
+    (`render_rays_blockwise`), or, when all of them miss the occupancy
+    box, the background every miss ray converges to; chunk_live says
+    which."""
+    o, d, v = rays_o[sl], rays_d[sl], viewdirs[sl]
+    chunk = o.shape[0]
+    live = True
+    if occ is not None:
+        with span("fnt.chunk.cull"):
             _, _, hit = ray_aabb_intersect(o, d, occ.box_min, occ.box_max,
                                            cfg.render.near, cfg.render.far)
             live = bool(hit.any())
-        if live:
-            c = None if cond is None else cond.expand(chunk, cond.shape[-1])
+    if live:
+        c = None if cond is None else cond.expand(chunk, cond.shape[-1])
+        with span("fnt.chunk.march"):
             f = render_rays_blockwise(params, cfg, o, d, v, occ=occ,
                                       packed=packed, plain=plain, cond=c)
-            head = f["fine"] if f["fine"] is not None else f["coarse"]
-            out = {k: head[k] for k in ("rgb", "depth", "acc", "disp")}
-        else:
-            # the exact output every miss ray converges to
-            out = {"rgb": torch.full((chunk, 3), bg, device=device),
-                   "depth": torch.zeros((chunk,), device=device),
-                   "acc": torch.zeros((chunk,), device=device),
-                   "disp": torch.full((chunk,), 1e10, device=device)}
-        out["chunk_live"] = torch.full((chunk,), live, dtype=torch.bool,
-                                       device=device)
-        outs.append(out)
-
-    inv_t = torch.from_numpy(inv).to(device) if tiled else None
-
-    def unchunk(key):
-        flat = torch.cat([o[key] for o in outs])[:n]
-        if tiled:
-            flat = flat[inv_t]
-        return flat.reshape((H, W) + flat.shape[1:])
-
-    return {k: unchunk(k) for k in outs[0]}
-
+        head = f["fine"] if f["fine"] is not None else f["coarse"]
+        out = {k: head[k] for k in ("rgb", "depth", "acc", "disp")}
+    else:
+        # the exact output every miss ray converges to
+        out = {"rgb": torch.full((chunk, 3), bg, device=device),
+               "depth": torch.zeros((chunk,), device=device),
+               "acc": torch.zeros((chunk,), device=device),
+               "disp": torch.full((chunk,), 1e10, device=device)}
+    out["chunk_live"] = torch.full((chunk,), live, dtype=torch.bool,
+                                   device=device)
+    return out

@@ -55,6 +55,7 @@ from fashion_nerf_torch.prng import GeneratorChain, RowDraws
 from fashion_nerf_torch.render.renderer import render_image, render_rays
 from fashion_nerf_torch.train.state import (TrainState, create_train_state,
                                             learning_rate)
+from fashion_nerf_torch.trace import span
 
 
 def _xla_field(net, pts, viewdirs, cond=None):
@@ -214,29 +215,35 @@ class TrainStep:
 
     def __call__(self, state: TrainState, all_rays: dict, occ=None,
                  sparsity_pts=None):
-        cfg = self.cfg
-        n = cfg.train.batch_rays if self.rows is None else (
-            self.rows.stop - self.rows.start)
-        batch = all_rays if self.streamed else sample_batch(
-            all_rays, self.draws(state), n, self.n_total,
-            crop_idx=self.crop_idx, step=state.step,
-            precrop_iters=cfg.train.precrop_iters)
-        loss, aux = self.loss(state, batch, occ, sparsity_pts)
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        values = {"loss": loss.detach(),
-                  **{k: v.detach() for k, v in aux.items()}}
-        if self.mesh is not None:
-            dmesh.reduce_gradients(self.mesh, state.parameters())
-            values = dmesh.reduce_scalars(self.mesh, values)
-        for group in opt.param_groups:
-            group["lr"] = learning_rate(cfg, state.step)
-        opt.step()
-        state.step += 1
-        metrics = {"loss": values["loss"],
-                   "psnr": mse_to_psnr(values["mse_fine"]), **values}
-        return state, metrics
+        with span("fnt.step"):
+            cfg = self.cfg
+            n = cfg.train.batch_rays if self.rows is None else (
+                self.rows.stop - self.rows.start)
+            with span("fnt.step.gather"):
+                batch = all_rays if self.streamed else sample_batch(
+                    all_rays, self.draws(state), n, self.n_total,
+                    crop_idx=self.crop_idx, step=state.step,
+                    precrop_iters=cfg.train.precrop_iters)
+            with span("fnt.step.forward"):
+                loss, aux = self.loss(state, batch, occ, sparsity_pts)
+            opt = state.optimizer
+            with span("fnt.step.backward"):
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+            values = {"loss": loss.detach(),
+                      **{k: v.detach() for k, v in aux.items()}}
+            if self.mesh is not None:
+                with span("fnt.step.reduce"):
+                    dmesh.reduce_gradients(self.mesh, state.parameters())
+                    values = dmesh.reduce_scalars(self.mesh, values)
+            with span("fnt.step.adam"):
+                for group in opt.param_groups:
+                    group["lr"] = learning_rate(cfg, state.step)
+                opt.step()
+            state.step += 1
+            metrics = {"loss": values["loss"],
+                       "psnr": mse_to_psnr(values["mse_fine"]), **values}
+            return state, metrics
 
 
 def refresh_occupancy(cfg: Config, state: TrainState, plain: bool = False,
@@ -255,7 +262,7 @@ def refresh_occupancy(cfg: Config, state: TrainState, plain: bool = False,
                                   field_f(state.fine, pts, dirs, *cond)[1])
         return rgb, sigma
 
-    with torch.no_grad():
+    with torch.no_grad(), span("fnt.occ_refresh"):
         return build_from_config(cfg, union, device=dev, cond=cond_vec)
 
 
