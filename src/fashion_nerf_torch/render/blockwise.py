@@ -500,13 +500,29 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
 
 def _tile_order(H: int, W: int, th: int = 8, tw: int = 8):
     """Ray permutation making each run of th·tw rays a th×tw pixel block,
-    and its inverse (numpy int arrays)."""
+    and its inverse (numpy int arrays): the definition `_to_tiles` and
+    `_from_tiles` compute in closed form."""
     yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     key = ((yy // th) * ((W + tw - 1) // tw) + (xx // tw)) * (th * tw) \
         + (yy % th) * tw + (xx % tw)
     order = np.argsort(key.reshape(-1), kind="stable")
     inv = np.argsort(order, kind="stable")
     return order, inv
+
+
+def _to_tiles(x, H: int, W: int):
+    """(H·W, ...) rays in scanline order → in 8×8 pixel-block order
+    (`_tile_order`'s order, H and W multiples of 8), on x's device."""
+    rest = x.shape[1:]
+    return (x.reshape(H // 8, 8, W // 8, 8, *rest).transpose(1, 2)
+            .reshape(H * W, *rest))
+
+
+def _from_tiles(x, H: int, W: int):
+    """The inverse of `_to_tiles`, to the (H, W, ...) image."""
+    rest = x.shape[1:]
+    return (x.reshape(H // 8, W // 8, 8, 8, *rest).transpose(1, 2)
+            .reshape(H, W, *rest))
 
 
 def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
@@ -529,12 +545,9 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
                 rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
             n = rays_o.shape[0]
             tiled = H % 8 == 0 and W % 8 == 0
-            inv = None
             if tiled:
-                order, inv = _tile_order(H, W)
-                order_t = torch.from_numpy(order).to(device)
-                rays_o, rays_d = rays_o[order_t], rays_d[order_t]
-                viewdirs = viewdirs[order_t]
+                rays_o, rays_d, viewdirs = (_to_tiles(x, H, W) for x in
+                                            (rays_o, rays_d, viewdirs))
 
             unit = rays_per_chunk_unit(cfg)
             chunk = max(unit, (min(cfg.render.chunk, n) // unit) * unit)
@@ -562,12 +575,10 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
                                    packed, plain, cond, bg, device))
 
         with span("fnt.frame.unchunk"):
-            inv_t = torch.from_numpy(inv).to(device) if tiled else None
-
             def unchunk(key):
                 flat = torch.cat([o[key] for o in outs])[:n]
                 if tiled:
-                    flat = flat[inv_t]
+                    return _from_tiles(flat, H, W)
                 return flat.reshape((H, W) + flat.shape[1:])
 
             return {k: unchunk(k) for k in outs[0]}

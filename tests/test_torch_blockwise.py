@@ -25,6 +25,7 @@ from fashion_nerf_torch.metrics import psnr
 from fashion_nerf_torch.models.nerf_mlp import load_flax_params
 from fashion_nerf_torch.models.proposal import attach_proposal
 from fashion_nerf_torch.render import blockwise as tbw
+from gathered_frame import gathered_frame
 
 torch.set_num_threads(2)
 
@@ -127,6 +128,44 @@ def test_tile_order_matches_reference():
     for h, w in ((32, 32), (16, 40)):
         for a, b in zip(tbw._tile_order(h, w), jbw._tile_order(h, w)):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("h, w", [(32, 32), (16, 40), (800, 800)])
+def test_tile_permutation_is_tile_order(h, w):
+    """The views' permutation on the pixel indices is `_tile_order`'s
+    order, its undo is the inverse, and the round trip is the identity
+    for trailing shapes () and (3,)."""
+    order, inv = tbw._tile_order(h, w)
+    idx = torch.arange(h * w)
+    np.testing.assert_array_equal(tbw._to_tiles(idx, h, w).numpy(), order)
+    back = tbw._from_tiles(idx, h, w)
+    assert back.shape == (h, w)
+    np.testing.assert_array_equal(back.reshape(-1).numpy(), inv)
+    for x in (torch.randn(h * w), torch.randn(h * w, 3)):
+        back = tbw._from_tiles(tbw._to_tiles(x, h, w), h, w)
+        assert torch.equal(back, x.reshape((h, w) + x.shape[1:]))
+
+
+@pytest.mark.parametrize("h, w, all_live", [(32, 32, False),
+                                            (24, 20, True)])
+def test_frame_is_the_gathered_frame(scene, h, w, all_live):
+    """A frame in 256-ray chunks at half the bench focal, tiled (32×32:
+    two of its four chunks miss the box) and in scanline order (24×20, 480
+    rays: one chunk padded), is bit for bit the frame built by index
+    gathers (tests/gathered_frame.py)."""
+    _, _, params_t, occ_t = scene
+    cfg = _cfg("render.chunk=256")
+    focal = FOCAL / 2
+    with torch.no_grad():
+        got = tbw.render_image_blockwise(params_t, cfg, h, w, focal, _c2w(),
+                                         occ=occ_t)
+        want = gathered_frame(params_t, cfg, h, w, focal, _c2w(), occ=occ_t)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].shape[:2] == (h, w), k
+        assert torch.equal(got[k], want[k]), k
+    live = got["chunk_live"]
+    assert live.any() and bool(live.all()) == all_live
 
 
 def _axis_rays(n=64):

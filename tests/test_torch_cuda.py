@@ -1713,3 +1713,33 @@ def test_kernel_on_the_last_card(dev, monkeypatch, kernel):
     LAST_CARD_CASES[kernel](last, monkeypatch)
     torch.cuda.synchronize(last)
     assert torch.cuda.current_device() == 0
+
+
+def test_frame_is_the_gathered_frame_on_the_card(dev):
+    """The flagship (committed weights and proposal, 64³ occupancy culling,
+    K1 and K2) at the bench pose, a 64×64 frame in 512-ray chunks, a
+    quarter of which miss the box: bit for bit the frame built by index
+    gathers (tests/gathered_frame.py), on the card's own tensors."""
+    from gathered_frame import gathered_frame
+    from fashion_nerf_torch.bench import bench_pose, bench_setup
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.render.blockwise import render_image_blockwise
+    cfg = load_config("blender_lego", ["render.chunk=512"])
+    s = bench_setup(cfg, dev)
+    params, occ = s["params"], s["occ"]
+    assert occ is not None and "proposal" in params
+    focal, c2w = bench_pose(64)
+    K.reset_launches()
+    with torch.no_grad():
+        got = render_image_blockwise(params, cfg, 64, 64, focal, c2w,
+                                     occ=occ, device=dev)
+        want = gathered_frame(params, cfg, 64, 64, focal, c2w, occ=occ,
+                              device=dev)
+    torch.cuda.synchronize(dev)
+    assert K.LAUNCHES["sigma_march"] > 0 and K.LAUNCHES["slim_march"] > 0
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].device == dev and got[k].shape[:2] == (64, 64), k
+        assert torch.equal(got[k], want[k]), k
+    live = got["chunk_live"]
+    assert live.any() and not live.all()
