@@ -160,7 +160,19 @@ serving and training. Phases, in order:
     the steps' rays/s; `eval` of the trained checkpoint through the kernels
     and the plain dense renderer; a few `dynamic_tryon` steps (the trained
     frames' latents move); and `train_matcher` at the reference's unit-test
-    recipe, its held-out IoU against the keypoint-grid baseline.
+    recipe, its held-out IoU against the keypoint-grid baseline;
+19. m360: mip-NeRF 360 (`mipnerf360`, seeded nets at the published
+    widths): K7 at the cell `m360.render.orbit`'s shapes (the 8×1024 NeRF
+    MLP on 2,097,152 rows, a 65,536-ray chunk × 32; the 4×256 proposal on
+    4,194,304 rows, × 64) against its plain version, with kernel ms (CUDA
+    events, median of 5), bound ms, share, plain ms and `library_ms`: a
+    `torch.matmul` chain at the trunk's shapes in bf16 (the yardstick; the
+    port never calls it); then the cell's 1237×822 frame in 65,536-ray
+    chunks through `render_image_blockwise`, K7's launches counted over it
+    alone, against perfbench/reference/mipnerf360.py within the cell's
+    limits (perfbench/checks/m360.render.orbit.json).
+    `python3 chip_smoke.py --only m360` runs the device, build and m360
+    phases alone.
 
 In [kernels], K1, K2 and K6 also run at SBs outside 16–64 on the
 flagship's nets at K1's chunk (8192 rays): K1 one block of 8, 128, 256
@@ -192,6 +204,8 @@ is the device JSON object.
 
 `python3 chip_smoke.py --only multicard` runs the device, build, scene
 and multicard phases alone (on a machine with several cards).
+`python3 chip_smoke.py --only m360` runs the device, build and m360
+phases alone.
 `python3 chip_smoke.py --phase-times ROOT` runs ROOT/chip_smoke.py (e.g.
 another commit's `git archive` unpacked under build/) with its output
 passed through, then prints the seconds it spent a phase tag; run it on
@@ -359,6 +373,8 @@ SOURCES = {
                       "src/fashion_nerf/kernels/slimmarch_pallas.py:113"),
     "carry_march_sb": ("src/fashion_nerf_torch/kernels/csrc/carrymarch.cu",
                        "src/fashion_nerf/kernels/blockmarch_pallas.py:53"),
+    "wide_field": ("src/fashion_nerf_torch/kernels/csrc/widefield.cu",
+                   "none (the JAX package has no mip-NeRF 360)"),
 }
 
 
@@ -4720,6 +4736,121 @@ def phase_times(root: str) -> int:
     return rc
 
 
+# multiply-adds an evaluation of mip-NeRF 360's nets (perfbench/roofline.py
+# counts the same from the layer shapes)
+M360_MACS = {"fine": 7_787_264, "proposal": 215_296}
+
+
+def phase_m360(device, gpu, smi) -> dict:
+    """[m360]: K7 at the cell's shapes against its plain version and a
+    torch.matmul chain, then a full-width frame against the reference."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.config import config_to_dict, load_config
+    from fashion_nerf_torch.kernels import widefield as wf
+    from fashion_nerf_torch.models.mipnerf360 import init_nets
+    from fashion_nerf_torch.render.blockwise import render_image_blockwise
+    sys.path.insert(0, ROOT)
+    from perfbench.drivers.render import make_poses
+    from perfbench.reference import mipnerf360 as ref
+    cfg = load_config("mipnerf360")
+    nets = {k: v.to(device) for k, v in init_nets(
+        cfg, torch.Generator().manual_seed(0)).items()}
+    results = {}
+    K.reset_launches()
+    for name, rows, spr in (("fine", 2_097_152, 32),
+                            ("proposal", 4_194_304, 64)):
+        p = wf.pack_wide(nets[name])
+        g = torch.Generator(device=device).manual_seed(1)
+        mean = torch.rand((rows, 3), generator=g, device=device) * 4 - 2
+        var = torch.rand((rows, 3), generator=g, device=device) * 1e-3
+        dp = (wf.dir_term(p, torch.randn((rows // spr, 3), generator=g,
+                                         device=device)).contiguous()
+              if p.has_vd else None)
+        ms = cuda_ms(lambda: wf.wide_rows(p, mean, var, dp, spr), reps=5)
+        rgb, sig = wf.wide_rows(p, mean, var, dp, spr)
+        rgb_p, sig_p = wf.wide_rows_plain(p, mean, var, dp, spr)
+        pms = cuda_ms(lambda: wf.wide_rows_plain(p, mean, var, dp, spr),
+                      reps=1)
+        # the same bf16 operands summed in another order: an activation
+        # that rounds to the neighbouring bf16 on one side moves the rest
+        # of its row by ~0.4% of that value; the largest σ gap over the
+        # 2M rows read 1.24e-3 on an H100 (σ's spread 0.036)
+        e_sig, r_sig = maxerr(sig, sig_p), rel_rms(sig, sig_p)
+        spread = float(sig_p.std())
+        if e_sig > 5e-3 or r_sig > 1e-2:
+            raise RuntimeError(f"K7 {name}: σ off its plain version by "
+                               f"{e_sig} (rel. rms {r_sig}, spread {spread})")
+        e_rgb = maxerr(rgb, rgb_p) if p.has_vd else 0.0
+        if e_rgb > 2e-3:
+            raise RuntimeError(f"K7 {name}: rgb off by {e_rgb}")
+        del rgb, sig, rgb_p, sig_p
+        # the yardstick: the trunk (and the bottleneck) as torch.matmul
+        # calls on bf16 operands of the same shapes
+        W, x = p.width, torch.randn((rows, 128), device=device,
+                                    dtype=torch.bfloat16)
+        ws = [torch.randn((128 if i == 0 else W + (128 if (i - 1) in p.skips
+                                                  else 0), W),
+                          device=device, dtype=torch.bfloat16) * 0.03
+              for i in range(p.depth)]
+        w_bn = torch.randn((W, 256), device=device, dtype=torch.bfloat16)
+
+        def chain():
+            h = x
+            for i, w in enumerate(ws):
+                h = torch.relu((torch.cat([h, x], 1) if i and (i - 1)
+                                in p.skips else h) @ w)
+            return h @ w_bn if p.has_vd else h
+
+        lib = cuda_ms(chain, reps=3)
+        del x, ws, w_bn, mean, var, dp
+        torch.cuda.empty_cache()
+        b = bound(rows * 2 * M360_MACS[name],
+                  rows * (40 if p.has_vd else 28))
+        b["library_ms"] = lib
+        results[name] = dict(max_abs_err=max(e_sig, e_rgb), ms=ms,
+                             plain_ms=pms, **b)
+        say("m360", f"K7 {name} ({p.depth}×{W}) on {rows} rows: kernel "
+            f"{ms:.3f} ms, {bound_line(b, ms)}, plain {pms:.1f} ms, "
+            f"library_ms {lib:.3f} (torch.matmul chain), max |σ err| "
+            f"{e_sig:.2e}, rel. rms {r_sig:.2e} (σ spread {spread:.3f}), "
+            f"max |rgb err| {e_rgb:.2e}")
+    # the cell's frame (its size, field of view, first pose and chunk)
+    # through the main path, the launches counted over it alone, held to
+    # the cell's limits as the benchmark's comparison computes them
+    with open(os.path.join(ROOT, "perfbench", "traffic",
+                           "orbit40_bicycle4.json")) as f:
+        traffic = json.load(f)
+    with open(os.path.join(ROOT, "perfbench", "checks",
+                           "m360.render.orbit.json")) as f:
+        limits = json.load(f)["limits"]
+    H, W = traffic["frame"]
+    focal = 0.5 * W / math.tan(0.5 * traffic["fov_x"])
+    c2w = make_poses(traffic["poses"])[0]
+    cfg = load_config("mipnerf360", [f"{k}={v}" for k, v in
+                                     traffic["overrides"].items()])
+    K.reset_launches()
+    with torch.no_grad():
+        got = render_image_blockwise(nets, cfg, H, W, focal, c2w,
+                                     device=device)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    trees = {k: v.to_tree() for k, v in nets.items()}
+    want = ref.render_frame(config_to_dict(cfg), ref.build(trees, device),
+                            H, W, focal, c2w, device)
+    err = (got["rgb"] - want["rgb"]).abs().reshape(-1)
+    mae = float(err.mean())
+    p99 = float(torch.quantile(err[::max(1, err.numel() // (1 << 24))].cpu(),
+                               0.99))
+    say("m360", f"{W}×{H} frame in {cfg.render.chunk}-ray chunks: "
+        f"{launches['wide_field']} K7 launches; against the reference rgb "
+        f"mae {mae:.3e} (limit {limits['rgb_mae']}), p99 {p99:.3e} "
+        f"(limit {limits['rgb_p99']}), max {float(err.max()):.3e}; {gpu} | "
+        f"{smi}")
+    if mae > limits["rgb_mae"] or p99 > limits["rgb_p99"]:
+        raise RuntimeError("the mip-NeRF 360 frame is off the reference")
+    return {"results": results, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -4740,6 +4871,11 @@ def main() -> int:
     phase_build()
     device = torch.device("cuda", 0)
     cfg = load_config("blender_lego")
+    if sys.argv[1:] == ["--only", "m360"]:
+        phase_m360(device, gpu, smi)
+        say("done", f"[m360] alone in {time.perf_counter() - t_start:.1f} s, "
+            f"the build included; {gpu} | {smi}")
+        return 0
     if sys.argv[1:] == ["--only", "multicard"]:
         scene, _ = phase_scene(cfg, device)
         phase_multicard(scene, device, gpu, smi)
@@ -4778,6 +4914,9 @@ def main() -> int:
     tryon_launches = phase_tryon(device, gpu, smi)
     torch.cuda.empty_cache()
     tryon_train_launches = phase_tryon_train(device, gpu, smi)
+    torch.cuda.empty_cache()
+    m360 = phase_m360(device, gpu, smi)
+    results["wide_field"] = m360["results"]["fine"]
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included; {gpu} | {smi}")
     # K1 and K2 run on the render path, K6 on the carry_hoist=false render
@@ -4802,7 +4941,8 @@ def main() -> int:
                 "sigma_march_k2": branch_launches["sigma_march_k2"],
                 **{k: sb_launches[k] for k in ("sigma_march_sb",
                                                "slim_march_sb",
-                                               "carry_march_sb")}}
+                                               "carry_march_sb")},
+                "wide_field": m360["launches"]["wide_field"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -4815,7 +4955,8 @@ def main() -> int:
                                        "field_bwd_cond", "field_alive",
                                        "slim_march_novd",
                                        "sigma_march_k2", "sigma_march_sb",
-                                       "slim_march_sb", "carry_march_sb")]}))
+                                       "slim_march_sb", "carry_march_sb",
+                                       "wide_field")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))

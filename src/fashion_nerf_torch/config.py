@@ -1,11 +1,14 @@
-"""The port's configuration tree: frozen dataclasses, the five presets and
+"""The port's configuration tree: frozen dataclasses, the presets and
 dotted `--set a.b=c` overrides.
 
 The port's own copy of `fashion_nerf.config`, with the same field names,
-defaults and presets (tests/test_torch_config_assets.py holds every preset
-equal to the reference's), so that the port imports nothing of the JAX
-package. Why each preset's values were chosen is written beside the
-reference's copy. Fields that select among the reference's TPU kernels
+defaults and five presets (tests/test_torch_config_assets.py holds every
+one equal to the reference's), so that the port imports nothing of the JAX
+package. The port adds the `mipnerf360` preset and the model fields it
+needs (`ipe_deg`, `bottleneck_width`, `view_width`); `ipe_deg` = 0 leaves
+the five presets rendering as the reference's, and only mip-NeRF 360's nets
+read the two widths. Why each preset's values were chosen is written beside
+the reference's copy. Fields that select among the reference's TPU kernels
 (`use_pallas`, `fused_*`, `interpret`) are kept for equality; the port's
 route is fixed by the device (kernels/__init__.py).
 """
@@ -31,6 +34,12 @@ class ModelConfig:
     condition_dim: int = 64       # garment feature dim injected into the trunk
     n_latents: int = 0            # 0 = no latent table
     latent_dim: int = 32
+    # mip-NeRF 360 (render/m360.py): > 0 takes the integrated encoding of
+    # contracted cone Gaussians of this degree in place of γ(x), and the
+    # nets of models/mipnerf360.py; 0 = the NeRF MLP above
+    ipe_deg: int = 0
+    bottleneck_width: int = 256   # its NeRF MLP's feature layer
+    view_width: int = 128         # its one view layer
 
 
 @dataclass(frozen=True)
@@ -169,7 +178,7 @@ class Config:
     out_dir: str = "runs"
 
 
-# --- The five acceptance presets (BASELINE.json:7-11) -----------------------
+# --- The five acceptance presets (BASELINE.json:7-11), and mip-NeRF 360 ------
 
 PRESETS: dict = {}
 
@@ -246,6 +255,28 @@ _register(Config(
                          early_term_eps=1e-3),
     train=TrainConfig(iters=100_000, batch_rays=2048, sparsity_weight=1e-4),
     data=DataConfig(dataset="tiny", frame_ids=tuple(range(64))),
+))
+
+
+# mip-NeRF 360 (Barron et al., CVPR 2022) at its published widths: an 8×1024
+# NeRF MLP with a skip after layer 4, a 256-wide bottleneck and one 128-wide
+# view layer; a 4×256 σ-only proposal MLP evaluated twice on 64 intervals
+# each, then 32 for the NeRF MLP; samples spaced in disparity (g = 1/x)
+# from near 0.2 to far 1e6, IPE degree 12, view encoding degree 4. Render
+# only: the port does not train it.
+_register(Config(
+    name="mipnerf360",
+    model=ModelConfig(net_depth=8, net_width=1024, skips=(4,), posenc_dir=4,
+                      use_viewdirs=True, sigma_activation="softplus",
+                      compute_dtype="bfloat16", ipe_deg=12),
+    sampling=SamplingConfig(n_coarse=64, n_fine=32, perturb=False,
+                            lindisp=True),
+    render=RenderConfig(near=0.2, far=1e6, white_bkgd=True, chunk=65536),
+    proposal=ProposalConfig(enabled=True, net_depth=4, net_width=256,
+                            eval_n=64),
+    kernels=KernelConfig(use_pallas=True),
+    train=TrainConfig(iters=250_000, batch_rays=16384),
+    data=DataConfig(dataset="llff", llff_factor=4),
 ))
 
 

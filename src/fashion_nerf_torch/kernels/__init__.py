@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
-Eight kernels, CUDA C++ for sm_90a under `csrc/`:
+Nine kernels, CUDA C++ for sm_90a under `csrc/`:
 
 - K1 `sigmamarch.cu`: the σ-only proposal march (kernels/sigmamarch.py);
 - K2 `slimmarch.cu`: the multi-block march of the 8×256 field (or a
@@ -13,23 +13,28 @@ Eight kernels, CUDA C++ for sm_90a under `csrc/`:
 - K5 `volrend.cu`: the fused volume render (kernels/render.py);
 - K6 `carrymarch.cu`: the generic carry march (kernels/carrymarch.py);
 - P1/P2 `tcprobe.cu`: the tensor-core probe's bf16 chains (probe.py),
-  counted as `probe_p1` (the field's chain) and `probe_p2` (the sweep).
+  counted as `probe_p1` (the field's chain) and `probe_p2` (the sweep);
+- K7 `widefield.cu`: mip-NeRF 360's nets at widths 256 and 1024 on the
+  integrated encoding of cone Gaussians, layer by layer
+  (kernels/widefield.py), counted as `wide_field`.
 
 Every kernel with matrix products runs on Hopper's warpgroup matrix
 multiply (`wgmma`) with its weights brought into shared memory by bulk
 asynchronous copies behind mbarriers: K1 and K2 on the loop of
 `csrc/wg_trunk.cuh`; K3, K4, K6 and the probe on that of
 `csrc/wg_field.cuh` (a producer warpgroup streaming weight slices through
-a ring to two consumer warpgroups). K5 has no matrix product and is plain
-CUDA. Shapes: K1 width 128 (the σ march of any other proposal width runs
-on K2 without a view branch, zero-padded to its nearest width); K2 widths
-SLIM_WIDTHS with or without a view branch, SB in MARCH_SB; K3, K4 and
-K6 widths FIELD_WIDTHS, depths FIELD_DEPTHS and posenc operand widths
-FIELD_K0. A narrower net runs zero-padded to the nearest shape
-(`posenc_mlp.pad_packed`: the same function, at the padded net's cost in
-tensor-core time); the probe widths that are multiples of 256 up to 1024,
-others zero-padded. Every packed net may have any number of skip layers.
-What cannot be padded into the range raises ValueError.
+a ring to two consumer warpgroups); K7 on a loop of its own in the same
+shape, whose ring carries the activation blocks beside the weight slices.
+K5 has no matrix product and is plain CUDA. Shapes: K1 width 128 (the σ
+march of any other proposal width runs on K2 without a view branch,
+zero-padded to its nearest width); K2 widths SLIM_WIDTHS with or without a
+view branch, SB in MARCH_SB; K3, K4 and K6 widths FIELD_WIDTHS, depths
+FIELD_DEPTHS and posenc operand widths FIELD_K0. A narrower net runs
+zero-padded to the nearest shape (`posenc_mlp.pad_packed`: the same
+function, at the padded net's cost in tensor-core time); the probe widths
+that are multiples of 256 up to 1024, others zero-padded. Every packed net
+may have any number of skip layers. What cannot be padded into the range
+raises ValueError.
 
 Path rule, the same in every wrapper: tensors on the CPU take the plain
 PyTorch version; tensors on a CUDA device take the kernel, or the call
@@ -116,7 +121,9 @@ LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
             # K2 serving the σ march of a proposal not K1's width
             "sigma_march_k2": 0,
             # K1, K2 and K6 at an SB outside SB_16_64
-            "sigma_march_sb": 0, "slim_march_sb": 0, "carry_march_sb": 0}
+            "sigma_march_sb": 0, "slim_march_sb": 0, "carry_march_sb": 0,
+            # K7, mip-NeRF 360's wide field (one a call of its entry)
+            "wide_field": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -134,6 +141,7 @@ _SIGNATURES = {
     "fnt_volrend": [_P] * 8 + [_I] * 4 + _ON_DEVICE,
     "fnt_carry_march": [_P] * 17 + [_I] * 13 + [ctypes.c_float] + _ON_DEVICE,
     "fnt_tc_probe": [_P] * 3 + [_I] * 6 + _ON_DEVICE,
+    "fnt_wide_field": [_P] * 11 + [_I] * 7 + _ON_DEVICE,
     # host only: the packed layout, for checking
     "fnt_layout": [_I] * 5 + [_P],
 }

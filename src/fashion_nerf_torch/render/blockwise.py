@@ -32,10 +32,12 @@ Predication is per tile of TILE_ROWS // SB rays, as in the reference
 maps the rays to NDC under `render.ndc` (the view directions stay the
 world ones), orders rays in 8×8 pixel blocks so a tile is a pixel block
 (scanline order when H or W is not a multiple of 8), and skips chunks
-whose rays all miss the occupancy box. A conditioned field takes a per-scene cond
-vector (garment code ⊕ latent); its per-ray condpart is hoisted once per
-march (`posenc_mlp.hoist_cond`) and enters K2 folded into its
-x-intercepts, K6 through its cond window. The proposal stays
+whose rays all miss the occupancy box. mip-NeRF 360's nets (a config with
+`model.ipe_deg > 0`) render each chunk through `m360.render_rays_m360`
+instead, in the same frame loop, with no culling. A conditioned field takes
+a per-scene cond vector (garment code ⊕ latent); its per-ray condpart is
+hoisted once per march (`posenc_mlp.hoist_cond`) and enters K2 folded into
+its x-intercepts, K6 through its cond window. The proposal stays
 unconditioned.
 
 `plain=True` routes every march through its plain PyTorch version on any
@@ -53,6 +55,7 @@ import torch.nn.functional as F
 from fashion_nerf_torch.config import Config
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.core.cameras import generate_rays, ndc_rays
+from fashion_nerf_torch.core.cones import cone_radius
 from fashion_nerf_torch.core.occupancy import (OccupancyState,
                                                ray_aabb_intersect,
                                                ray_multi_aabb)
@@ -64,6 +67,7 @@ from fashion_nerf_torch.kernels.posenc_mlp import (field_rows,
                                                    field_rows_plain,
                                                    hoist_cond, hoist_dirs,
                                                    pack_params)
+from fashion_nerf_torch.render import m360
 from fashion_nerf_torch.trace import span
 
 _INF_DIST = 1e10
@@ -564,15 +568,26 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
                 rays_d = torch.cat([rays_d, fill_d])
                 viewdirs = torch.cat([viewdirs, fill_d])
 
+        mip = m360.takes(params)
         with span("fnt.frame.pack"):
-            packed = pack_render_params(params, cfg, occ)
-        bg = 1.0 if cfg.render.white_bkgd else 0.0
+            packed = (m360.pack_m360(params, cfg) if mip
+                      else pack_render_params(params, cfg, occ))
+        if mip:
+            radius = cone_radius(focal)
+
+            def one(sl):
+                return _chunk_m360(params, cfg, rays_o, rays_d, viewdirs, sl,
+                                   packed, plain, radius)
+        else:
+            bg = 1.0 if cfg.render.white_bkgd else 0.0
+
+            def one(sl):
+                return _chunk(params, cfg, rays_o, rays_d, viewdirs, sl, occ,
+                              packed, plain, cond, bg, device)
         outs = []
         for c in range(n_chunks):
             with span("fnt.chunk"):
-                outs.append(_chunk(params, cfg, rays_o, rays_d, viewdirs,
-                                   slice(c * chunk, (c + 1) * chunk), occ,
-                                   packed, plain, cond, bg, device))
+                outs.append(one(slice(c * chunk, (c + 1) * chunk)))
 
         with span("fnt.frame.unchunk"):
             def unchunk(key):
@@ -613,4 +628,17 @@ def _chunk(params: dict, cfg: Config, rays_o, rays_d, viewdirs, sl: slice,
                "disp": torch.full((chunk,), 1e10, device=device)}
     out["chunk_live"] = torch.full((chunk,), live, dtype=torch.bool,
                                    device=device)
+    return out
+
+
+def _chunk_m360(params: dict, cfg: Config, rays_o, rays_d, viewdirs,
+                sl: slice, packed: dict, plain: bool, radius: float) -> dict:
+    """One chunk of a mip-NeRF 360 frame: every ray of `sl` rendered
+    (`m360.render_rays_m360`), none culled."""
+    with span("fnt.chunk.march"):
+        head = m360.render_rays_m360(params, cfg, rays_o[sl], rays_d[sl],
+                                     viewdirs[sl], radius, packed=packed,
+                                     plain=plain)
+    out = {k: head[k] for k in ("rgb", "depth", "acc", "disp")}
+    out["chunk_live"] = torch.ones_like(out["acc"], dtype=torch.bool)
     return out

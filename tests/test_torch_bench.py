@@ -11,10 +11,11 @@ import torch
 
 from fashion_nerf.bench import _bench_params as j_bench_params
 from fashion_nerf.bench import bench_train as j_bench_train
+from fashion_nerf.config import PRESETS as J_PRESETS
 from fashion_nerf.config import load_config as j_load_config
 from fashion_nerf_torch import bench
 from fashion_nerf_torch.assets import load_flagship
-from fashion_nerf_torch.config import PRESETS, load_config
+from fashion_nerf_torch.config import load_config
 
 torch.set_num_threads(2)
 
@@ -47,7 +48,7 @@ def test_blender_lego_keeps_its_choice():
     assert bool(s["occ"].boxes_occ.any())
 
 
-@pytest.mark.parametrize("name", sorted(PRESETS))
+@pytest.mark.parametrize("name", sorted(J_PRESETS))
 def test_trained_flag_matches_reference(name):
     want = j_bench_params(j_load_config(name))[1]
     got = bench.bench_params(load_config(name), "cpu")[1]

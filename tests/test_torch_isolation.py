@@ -191,7 +191,7 @@ def test_wrappers_take_plain_on_cpu():
                                "field_bwd_cond", "field_alive",
                                "slim_march_novd", "sigma_march_k2",
                                "sigma_march_sb", "slim_march_sb",
-                               "carry_march_sb"}
+                               "carry_march_sb", "wide_field"}
     assert not any(K.LAUNCHES.values())
 
 
