@@ -48,10 +48,14 @@ serving and training. Phases, in order:
    (786,432 rows; conditioned 393,216), K2 and K6 at the fine march's
    chunk; K2 with a view branch on an 8×128 net; the σ march at the
    sweep's 2×192 and 3×256 L = 8 proposals, which K2 without a view branch
-   serves zero-padded to 256 (counted under "sigma_march_k2");
+   serves zero-padded to 256 (counted under "sigma_march_k2"); K8 (the
+   occupancy culling against the 512 macro boxes) at the orbit cell's
+   65,536-ray chunk, box_cull and block_hit at NB 1 and 3, equal to its
+   plain versions, with the plain composition's time as library_ms;
 4. setup: flagship + proposal asset, occupancy sweep through K3;
 5. frame: the frame through the kernels (1 warm-up + 3 timed), then through
-   the plain versions; PSNR between them and non-trivial-image checks;
+   the plain versions; PSNR between them and non-trivial-image checks; K8's
+   launches, one box_cull and two block_hit a live chunk;
 6. frame-generic: the same frame with `kernels.carry_hoist=false` (K1 +
    K6), against its plain frame and against the K2 frame of phase 5;
    frame-twostage: with `kernels.fused_carry=false` (one K3 launch with
@@ -297,6 +301,12 @@ LLFF_STEPS = 24               # [llff]: steps of `train --config llff_fern`
 # tensor cores, float32 outside them, device memory
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
 FRAME = 800                   # frame height and width of the bench
+# K8's LAUNCHES entries, and its f32 instructions a (ray, occupied box)
+# pair: the slab test's 6 subtractions and 6 multiplications, 6 per-axis
+# min/max, 4 reductions over the axes, 4 for the clamp, 1 compare, 2 for
+# the union (csrc/boxcull.cu)
+K8_ENTRIES = ("box_cull", "block_hit")
+K8_INSTR = 29
 SB_K1 = (8, 128, 256, 512)    # [kernels]: K1's SBs outside 16–64
 SB_K26 = (8, 128, 256)        # K2's and K6's, 256 samples a ray
 SB_FRAMES = (                 # [frame-sb]: overrides, and the "_sb" count
@@ -375,6 +385,13 @@ SOURCES = {
                        "src/fashion_nerf/kernels/blockmarch_pallas.py:53"),
     "wide_field": ("src/fashion_nerf_torch/kernels/csrc/widefield.cu",
                    "none (the JAX package has no mip-NeRF 360)"),
+    # K8's two entries: a chunk's culling and a march's block flags
+    "box_cull": ("src/fashion_nerf_torch/kernels/csrc/boxcull.cu",
+                 "none (the reference culls in XLA glue: "
+                 "src/fashion_nerf/core/occupancy.py::ray_multi_aabb)"),
+    "block_hit": ("src/fashion_nerf_torch/kernels/csrc/boxcull.cu",
+                  "none (the reference culls in XLA glue: "
+                  "src/fashion_nerf/render/blockwise.py::_block_hit_flags)"),
 }
 
 
@@ -554,7 +571,7 @@ def march_chunk(cfg, params, fine, occ, device) -> SimpleNamespace:
     dnorm = torch.linalg.norm(d, dim=-1, keepdim=True)
     t_c = stratified_sample(near, far, R, n_prop, device=device)
     t_pad, d_pad = _pass_dists(t_c, dnorm, t_end, p_sb)
-    alive = (alive0.float() * _block_hit_flags(t_pad, p_sb, seg, R, 1)[:, 0]
+    alive = (alive0.float() * _block_hit_flags(t_pad, p_sb, seg)[:, 0]
              ).contiguous()
     prop = sigmamarch.pack_sigma(params["proposal"])
     hz = sigmamarch.hoist_rays(prop, o, d)
@@ -565,7 +582,7 @@ def march_chunk(cfg, params, fine, occ, device) -> SimpleNamespace:
     alive_f = alive0 & (acc_p > cfg.proposal.cull_acc)
     tf_pad, df_pad = _pass_dists(t_all, dnorm, t_end, SB)
     NB = tf_pad.shape[1] // SB
-    bhit = _block_hit_flags(tf_pad, SB, seg, R, NB).contiguous()
+    bhit = _block_hit_flags(tf_pad, SB, seg).contiguous()
     fnet = slimmarch.split_hoist(fine)
     hf = slimmarch.hoist_rays(fnet, o, d)
     dp = posenc_mlp.hoist_dirs(fnet, d).contiguous()
@@ -646,6 +663,7 @@ def phase_kernels(cfg, device):
     with torch.no_grad():
         occ_ref = build_from_config(
             cfg, lambda p, v: field_plain(fine, p, v), device=device)
+    results.update(kernel_k8(cfg, occ_ref, device))
     ch = march_chunk(cfg, params, fine, occ_ref, device)
     c, o, d, R, p_sb = ch.c, ch.o, ch.d, ch.R, ch.p_sb
 
@@ -730,6 +748,114 @@ def phase_kernels(cfg, device):
     return results, occ_ref
 
 
+def kernel_k8(cfg, occ, device) -> dict:
+    """K8 at the orbit cell's chunk: the 65,536 rays of an 800×800 orbit
+    frame (perfbench/traffic/orbit40_800.json, its first pose, tile order)
+    with the most rays in the global box, against the flagship's 512 macro
+    boxes (the occupied ones, `occupied_boxes`): box_cull, then block_hit
+    at NB 1 (the proposal's 64 samples) and NB 3 (96 samples in blocks of
+    32), each equal to its plain version (the torch composition on the
+    occupied boxes, timed as library_ms) and to the composition over all
+    512 boxes with their flags (what the render ran before K8, timed as
+    all_boxes_ms), with the kernel's device time (torch.profiler) beside a
+    call of its wrapper, its bound (the bytes of rays and samples in and
+    results out at 3.35 TB/s) and the f32 issue floor (K8_INSTR
+    instructions a (ray, occupied box) pair at half the 67 TFLOP/s FMA
+    rate)."""
+    from fashion_nerf_torch.core.cameras import generate_rays
+    from fashion_nerf_torch.core.occupancy import (block_overlap,
+                                                   box_segments,
+                                                   occupied_boxes,
+                                                   ray_aabb_intersect,
+                                                   ray_multi_aabb)
+    from fashion_nerf_torch.core.sampling import stratified_sample
+    from fashion_nerf_torch.kernels import boxcull
+    from fashion_nerf_torch.render.blockwise import _pass_dists, _to_tiles
+    sys.path.insert(0, ROOT)
+    from perfbench.drivers.render import make_poses
+    with open(os.path.join(ROOT, "perfbench", "traffic",
+                           "orbit40_800.json")) as f:
+        traffic = json.load(f)
+    H, W = traffic["frame"]
+    chunk = traffic["overrides"]["render.chunk"]
+    focal = 0.5 * W / math.tan(0.5 * traffic["fov_x"])
+    o, d = generate_rays(H, W, focal, make_poses(traffic["poses"])[0],
+                         device=device)
+    o, d = (_to_tiles(x.reshape(-1, 3), H, W) for x in (o, d))
+    near, far = cfg.render.near, cfg.render.far
+    n_box = [int(ray_aabb_intersect(o[c:c + chunk], d[c:c + chunk],
+                                    occ.box_min, occ.box_max, near,
+                                    far)[2].sum())
+             for c in range(0, H * W - chunk + 1, chunk)]
+    c = chunk * int(np.argmax(n_box))
+    o, d = o[c:c + chunk].contiguous(), d[c:c + chunk]
+    R = chunk
+    n_boxes, n_occ = occ.boxes_occ.numel(), int(occ.boxes_occ.sum())
+    issue_ms = R * n_occ * K8_INSTR / (PEAK_F32 / 2) * 1e3
+    out = {}
+    seg = box_segments(o, d, *occupied_boxes(occ), near, far)
+    got = boxcull.box_cull(seg)
+    want = boxcull.box_cull_plain(seg)
+    full = ray_multi_aabb(o, d, occ, near, far)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(got, want, full))
+    n_hit = int(got[2].sum())
+    rows = [("box_cull", "box_cull_kernel", lambda: boxcull.box_cull(seg),
+             lambda: boxcull.box_cull_plain(seg),
+             lambda: ray_multi_aabb(o, d, occ, near, far)[:3], same,
+             nbytes(o, d, *got), f"{R} rays")]
+    for NB, SB, S in ((1, 64, 64), (3, 32, 96)):
+        t = stratified_sample(got[0], got[1], R, S)
+        t_pad, _ = _pass_dists(t, torch.ones((R, 1), device=device), far, SB)
+        t_pad = t_pad.contiguous()
+        f_k = boxcull.block_hit(t_pad, SB, seg)
+        f_p = boxcull.block_hit_plain(t_pad, SB, seg)
+        f_a = block_overlap(t_pad, SB, full[3:], R, NB)
+        torch.cuda.synchronize()
+
+        def kern(t_pad=t_pad, SB=SB):
+            return boxcull.block_hit(t_pad, SB, seg)
+
+        def plain(t_pad=t_pad, SB=SB):
+            return boxcull.block_hit_plain(t_pad, SB, seg)
+
+        def all_boxes(t_pad=t_pad, SB=SB, NB=NB):
+            return block_overlap(t_pad, SB, ray_multi_aabb(
+                o, d, occ, near, far)[3:], R, NB)
+        ok = (torch.equal(f_k, f_p) and torch.equal(f_k, f_a)
+              and 0 < f_k.sum() < f_k.numel())
+        rows.append((f"block_hit NB {NB}", "block_hit_kernel", kern, plain,
+                     all_boxes, ok,
+                     nbytes(o, d, t_pad, f_k),
+                     f"{R} rays × {NB}×{SB}, {int(f_k.sum())} blocks hit"))
+    for label, kname, fn, plain, before, ok, n_b, shape in rows:
+        dev_k = device_ms(fn, kname)
+        ms = dev_k["cold"]
+        call_ms = cuda_ms(fn)
+        lib = cuda_ms(plain)
+        all_ms = cuda_ms(before)
+        b = bound(0, n_b)
+        b["library_ms"] = lib
+        say("kernels", f"K8 {label} ({shape}; {n_occ} of {n_boxes} boxes "
+            f"occupied, {n_hit} rays hit): equal to plain and to all boxes: "
+            f"{ok}; kernel on the device {ms:.4f} ms (inputs warm "
+            f"{dev_k['warm']:.4f}), a call of the wrapper {call_ms:.3f} ms; "
+            f"library_ms (the plain composition, occupied boxes) {lib:.3f}, "
+            f"all {n_boxes} boxes with their flags {all_ms:.3f}; "
+            f"{bound_line(b, ms)}; f32 issue floor {issue_ms:.4f} ms "
+            f"({issue_ms / ms:.1%})")
+        if not (ok and 0 < n_hit < R):
+            raise AssertionError(f"K8 {label} disagrees with its plain "
+                                 "version")
+        out[label] = dict(max_abs_err=0.0, ms=ms, wrapper_ms=call_ms,
+                          plain_ms=lib, all_boxes_ms=all_ms,
+                          issue_ms=issue_ms, **b)
+    return {"box_cull": out["box_cull"],
+            "block_hit": {**out["block_hit NB 3"],
+                          "nb1": out["block_hit NB 1"]}}
+
+
 def kernel_sb(cfg, fine, prop_model, trained, o, d, occ, device):
     """K1, K2 and K6 at SBs outside 16–64 on K1's chunk (8192 rays): K1 on
     the committed proposal, one block of SB_K1 stratified samples a ray;
@@ -765,7 +891,7 @@ def kernel_sb(cfg, fine, prop_model, trained, o, d, occ, device):
     for SB in SB_K1:
         t_c = stratified_sample(near, far, R, SB, device=device)
         t_pad, d_pad = _pass_dists(t_c, dnorm, t_end, SB)
-        alive = (alive0.float() * _block_hit_flags(t_pad, SB, seg, R, 1)[:, 0]
+        alive = (alive0.float() * _block_hit_flags(t_pad, SB, seg)[:, 0]
                  ).contiguous()
         args = (prop, hz, alive, t_pad.contiguous(), d_pad.contiguous())
         (w_k, acc_k, lt_k), n_l = launches(
@@ -805,7 +931,7 @@ def kernel_sb(cfg, fine, prop_model, trained, o, d, occ, device):
         for SB in SBs:
             tf_pad, df_pad = _pass_dists(t_f, dnorm, t_end, SB)
             NB = tf_pad.shape[1] // SB
-            bhit = _block_hit_flags(tf_pad, SB, seg, R, NB).contiguous()
+            bhit = _block_hit_flags(tf_pad, SB, seg).contiguous()
             args2 = (fnet, hf, dp, hit, bhit, tf_pad.contiguous(),
                      df_pad.contiguous(), log_eps)
             s_k, n2 = launches("slim_march_sb",
@@ -1956,6 +2082,9 @@ def phase_frame(cfg, device, params, occ, gpu, smi):
     checks = {
         "launches": all(launches[k] > 0 for k in ("field", "sigma_march",
                                                   "slim_march")),
+        # K8: box_cull once, block_hit twice (proposal, fine) a live chunk
+        "k8": (launches["box_cull"] == launches["sigma_march"]
+               and launches["block_hit"] == 2 * launches["sigma_march"]),
         "psnr": p >= FRAME_PSNR_MIN,
         "shape_finite": (tuple(rgb.shape) == (H, W, 3)
                          and bool(torch.isfinite(rgb).all())),
@@ -2475,6 +2604,7 @@ def phase_branches(device, gate, gate_cache, gpu, smi):
             f"dense 64+128 frame's: {delta:+.3f} dB (the shipped preset's "
             f"{base['delta']:+.3f}); launches of the 3 frames {launches}; "
             f"{gpu} | {smi}")
+        # K8 culls every branch (the warp bins its segments materialised)
         want = {"cov_n": ("sigma_march", "slim_march"),
                 "union": ("sigma_march", "slim_march"),
                 "sample_warp": ("sigma_march", "slim_march"),
@@ -2482,6 +2612,7 @@ def phase_branches(device, gate, gate_cache, gpu, smi):
                 "prop 3×256 L8": ("sigma_march_k2", "slim_march"),
                 "sample_warp K6": ("sigma_march", "carry_march"),
                 "sample_warp two-stage": ("field_alive",)}[label]
+        want += K8_ENTRIES
         checks[label] = (p_plain >= FRAME_PSNR_MIN
                          and set(launches) == set(want)
                          and bool(torch.isfinite(rgb).all())
@@ -4919,7 +5050,7 @@ def main() -> int:
     results["wide_field"] = m360["results"]["fine"]
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included; {gpu} | {smi}")
-    # K1 and K2 run on the render path, K6 on the carry_hoist=false render
+    # K1, K2 and K8 run on the render path, K6 on the carry_hoist=false render
     # path, K3, K4 and K5 on the training path, P1 and P2 on the probe; the
     # conditioned K3 on the try-on setup's sweep and teacher, the
     # conditioned K2 and K6 on the try-on frames, K4's conditioned plan on
@@ -4927,7 +5058,8 @@ def main() -> int:
     # frames, K2 without a view branch on the sigma_march=false frames, K1,
     # K2 and K6 at SBs outside 16-64 on the frame-sb frames
     launches = {**{k: render_launches[k] for k in ("sigma_march",
-                                                   "slim_march")},
+                                                   "slim_march", "box_cull",
+                                                   "block_hit")},
                 "carry_march": generic_launches["carry_march"],
                 **{k: train_launches[k] for k in ("field", "field_bwd",
                                                   "volrend")},
@@ -4956,7 +5088,8 @@ def main() -> int:
                                        "slim_march_novd",
                                        "sigma_march_k2", "sigma_march_sb",
                                        "slim_march_sb", "carry_march_sb",
-                                       "wide_field")]}))
+                                       "wide_field", "box_cull",
+                                       "block_hit")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))

@@ -5,7 +5,11 @@ A σ sweep of the trained fine field on a G³ lattice gives a binary grid,
 reduced to a tight AABB and to macro³ sub-AABBs. Rays are slab-tested
 against them: rays that miss skip the field, rays that hit concentrate
 their sample budget inside their occupied interval, and sample blocks that
-overlap no occupied box are culled in the marches. Training rebuilds the
+overlap no occupied box are culled in the marches. The blockwise render
+tests its rays against the occupied boxes alone (`occupied_boxes`, once an
+image) through kernel K8 (kernels/boxcull.py), which recomputes the per-box
+segments from a `BoxSegments` handle instead of materialising them; the
+compositions here are its plain versions. Training rebuilds the
 grid from the live nets (train/loop.py::refresh_occupancy) and composites
 missing rays with `cull_background`.
 """
@@ -179,18 +183,29 @@ def ray_multi_aabb(rays_o, rays_d, occ: OccupancyState, near, far):
 
     → t_lo, t_hi (R,) union interval over hit boxes (far on a miss),
     hit (R,), seg_lo, seg_hi, seg_hit (R, K) per-box entry/exit/hit."""
-    inv = _safe_inv(rays_d)
+    return ray_multi_aabb_inv(rays_o, _safe_inv(rays_d), occ.boxes_min,
+                              occ.boxes_max, near, far, occ.boxes_occ)
+
+
+def ray_multi_aabb_inv(rays_o, inv, boxes_min, boxes_max, near, far,
+                       boxes_occ=None):
+    """`ray_multi_aabb` from the reciprocal directions inv (R,3)
+    (`_safe_inv`) against boxes_min, boxes_max (K,3) with occupancy
+    flags boxes_occ (K,), or all occupied when None: the plain composition
+    K8 (kernels/boxcull.py) is held to."""
     t_near = t_far = None
     for d in range(3):
         o_d, i_d = rays_o[:, d:d + 1], inv[:, d:d + 1]
-        t0 = (occ.boxes_min[None, :, d] - o_d) * i_d                # (R, K)
-        t1 = (occ.boxes_max[None, :, d] - o_d) * i_d
+        t0 = (boxes_min[None, :, d] - o_d) * i_d                    # (R, K)
+        t1 = (boxes_max[None, :, d] - o_d) * i_d
         lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
         t_near = lo if t_near is None else torch.maximum(t_near, lo)
         t_far = hi if t_far is None else torch.minimum(t_far, hi)
     seg_lo = t_near.clamp(near, far)
     seg_hi = t_far.clamp(near, far)
-    seg_hit = (seg_hi > seg_lo) & occ.boxes_occ[None, :]
+    seg_hit = seg_hi > seg_lo
+    if boxes_occ is not None:
+        seg_hit = seg_hit & boxes_occ[None, :]
     hit = seg_hit.any(dim=1)
     far_t = torch.full_like(seg_lo, far)
     near_t = torch.full_like(seg_lo, near)
@@ -199,6 +214,56 @@ def ray_multi_aabb(rays_o, rays_d, occ: OccupancyState, near, far):
     far_r = far_t[:, 0]
     return (torch.where(hit, t_lo, far_r), torch.where(hit, t_hi, far_r),
             hit, seg_lo, seg_hi, seg_hit)
+
+
+def occupied_boxes(occ: OccupancyState):
+    """→ lo, hi (n, 3) f32, contiguous: the occupied macro boxes alone, in
+    their order (one host sync: n is read back). Culling against them gives
+    what culling against all K with their flags gives (the union and the
+    flags are mins, maxes and ors over the hit boxes). With none occupied,
+    one box of zero volume, which no ray enters (its clamped exit is never
+    above its entry)."""
+    idx = occ.boxes_occ.nonzero()[:, 0]
+    if idx.numel() == 0:
+        idx = idx.new_zeros(1)
+        return occ.boxes_min[idx], occ.boxes_min[idx]
+    return occ.boxes_min[idx], occ.boxes_max[idx]
+
+
+def block_overlap(t_pad, SB: int, seg, R: int, NB: int):
+    """(R, NB) f32: 1 where block b's t-range [t_pad[:, b·SB], max over its
+    SB samples] overlaps a segment of seg = (seg_lo, seg_hi, seg_hit)
+    (R, K) that the ray hits (a block ends at the max over the block, so
+    zero-padded tails never end one)."""
+    seg_lo, seg_hi, seg_hit = seg
+    tb = t_pad.reshape(R, NB, SB)
+    t_starts = tb[:, :, 0]
+    t_ends = tb.amax(dim=2)
+    overlap = ((seg_lo[:, None, :] <= t_ends[..., None])
+               & (seg_hi[:, None, :] >= t_starts[..., None])
+               & seg_hit[:, None, :])
+    return overlap.any(dim=-1).float()
+
+
+class BoxSegments(NamedTuple):
+    """A chunk's per-(ray, box) segments left unmaterialised: the rays,
+    their reciprocal directions (`_safe_inv`), the boxes lo, hi (n, 3)
+    (`occupied_boxes`) and the [near, far] clip. K8 (kernels/boxcull.py)
+    computes the union interval and the marches' block flags from it, so
+    no (R, n) tensor is written."""
+    rays_o: torch.Tensor
+    inv_d: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    near: float
+    far: float
+
+
+def box_segments(rays_o, rays_d, lo, hi, near, far) -> BoxSegments:
+    """The `BoxSegments` handle of (R,3) rays against boxes lo, hi (n,3),
+    clipped to [near, far]."""
+    return BoxSegments(rays_o.contiguous(), _safe_inv(rays_d), lo, hi,
+                       near, far)
 
 
 def cull_background(out: dict, hit, white_bkgd: bool) -> dict:

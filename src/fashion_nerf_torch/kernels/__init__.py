@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
-Nine kernels, CUDA C++ for sm_90a under `csrc/`:
+Ten kernels, CUDA C++ for sm_90a under `csrc/`:
 
 - K1 `sigmamarch.cu`: the σ-only proposal march (kernels/sigmamarch.py);
 - K2 `slimmarch.cu`: the multi-block march of the 8×256 field (or a
@@ -16,7 +16,10 @@ Nine kernels, CUDA C++ for sm_90a under `csrc/`:
   counted as `probe_p1` (the field's chain) and `probe_p2` (the sweep);
 - K7 `widefield.cu`: mip-NeRF 360's nets at widths 256 and 1024 on the
   integrated encoding of cone Gaussians, layer by layer
-  (kernels/widefield.py), counted as `wide_field`.
+  (kernels/widefield.py), counted as `wide_field`;
+- K8 `boxcull.cu`: occupancy culling against the macro boxes, the union
+  interval a ray (`box_cull`) and the per-block flags of a march
+  (`block_hit`), without the per-(ray, box) tensors (kernels/boxcull.py).
 
 Every kernel with matrix products runs on Hopper's warpgroup matrix
 multiply (`wgmma`) with its weights brought into shared memory by bulk
@@ -25,8 +28,8 @@ asynchronous copies behind mbarriers: K1 and K2 on the loop of
 `csrc/wg_field.cuh` (a producer warpgroup streaming weight slices through
 a ring to two consumer warpgroups); K7 on a loop of its own in the same
 shape, whose ring carries the activation blocks beside the weight slices.
-K5 has no matrix product and is plain CUDA. Shapes: K1 width 128 (the σ
-march of any other proposal width runs on K2 without a view branch,
+K5 and K8 have no matrix product and are plain CUDA. Shapes: K1 width 128
+(the σ march of any other proposal width runs on K2 without a view branch,
 zero-padded to its nearest width); K2 widths SLIM_WIDTHS with or without a
 view branch, SB in MARCH_SB; K3, K4 and K6 widths FIELD_WIDTHS, depths
 FIELD_DEPTHS and posenc operand widths FIELD_K0. A narrower net runs
@@ -123,7 +126,9 @@ LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
             # K1, K2 and K6 at an SB outside SB_16_64
             "sigma_march_sb": 0, "slim_march_sb": 0, "carry_march_sb": 0,
             # K7, mip-NeRF 360's wide field (one a call of its entry)
-            "wide_field": 0}
+            "wide_field": 0,
+            # K8's two entries: a chunk's culling, a march's block flags
+            "box_cull": 0, "block_hit": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -142,6 +147,10 @@ _SIGNATURES = {
     "fnt_carry_march": [_P] * 17 + [_I] * 13 + [ctypes.c_float] + _ON_DEVICE,
     "fnt_tc_probe": [_P] * 3 + [_I] * 6 + _ON_DEVICE,
     "fnt_wide_field": [_P] * 11 + [_I] * 7 + _ON_DEVICE,
+    "fnt_box_cull": ([_P] * 7 + [_I] * 2 + [ctypes.c_float] * 2
+                     + _ON_DEVICE),
+    "fnt_block_hit": ([_P] * 6 + [_I] * 4 + [ctypes.c_float] * 2
+                      + _ON_DEVICE),
     # host only: the packed layout, for checking
     "fnt_layout": [_I] * 5 + [_P],
 }

@@ -1,13 +1,14 @@
 """Blockwise early-terminated rendering; counterpart of
 `fashion_nerf.render.blockwise`.
 
-Per chunk of rays: macro-box culling ranges (`ray_multi_aabb`), a σ-only
+Per chunk of rays: macro-box culling ranges (K8's `box_cull`), a σ-only
 proposal march over one block of stratified samples (kernel K1), an
 edge-bin PDF dilated and mixed with a uniform floor, deterministic fine
 samples (`sample_pdf`), joined with stratified coverage samples under
 `proposal.cov_n` or with the proposal samples under `proposal.union`,
 proposal-acc ray culling, and the fine march over NB blocks with early
-termination and per-block macro-box culling. Under
+termination and per-block macro-box culling (K8's `block_hit`, which
+recomputes each ray's per-box segments, so none is materialised). Under
 `occupancy.sample_warp` (with macro boxes, not `sampling.lindisp`) every
 stratified set is placed on the occupied bins of each ray's union range
 (`core.sampling.warp_stratified`), and every march caps each sample's
@@ -40,8 +41,9 @@ hoisted once per march (`posenc_mlp.hoist_cond`) and enters K2 folded into
 its x-intercepts, K6 through its cond window. The proposal stays
 unconditioned.
 
-`plain=True` routes every march through its plain PyTorch version on any
-device: the reference frame that chip_smoke.py holds the kernels against.
+`plain=True` routes every march, and the culling, through its plain
+PyTorch version on any device: the reference frame that chip_smoke.py
+holds the kernels against.
 """
 
 from __future__ import annotations
@@ -56,13 +58,14 @@ from fashion_nerf_torch.config import Config
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.core.cameras import generate_rays, ndc_rays
 from fashion_nerf_torch.core.cones import cone_radius
-from fashion_nerf_torch.core.occupancy import (OccupancyState,
-                                               ray_aabb_intersect,
-                                               ray_multi_aabb)
+from fashion_nerf_torch.core.occupancy import (BoxSegments, OccupancyState,
+                                               box_segments, occupied_boxes,
+                                               ray_aabb_intersect)
 from fashion_nerf_torch.core.sampling import (delta_caps, occupancy_bins,
                                               sample_pdf, stratified_sample,
                                               warp_stratified)
-from fashion_nerf_torch.kernels import carrymarch, sigmamarch, slimmarch
+from fashion_nerf_torch.kernels import (boxcull, carrymarch, sigmamarch,
+                                        slimmarch)
 from fashion_nerf_torch.kernels.posenc_mlp import (field_rows,
                                                    field_rows_plain,
                                                    hoist_cond, hoist_dirs,
@@ -92,19 +95,17 @@ def _pass_dists(t_vals, dnorm, t_end, SB, cap=None):
     return F.pad(t_vals, (0, pad)), F.pad(dists, (0, pad))
 
 
-def _block_hit_flags(t_pad, SB, seg, R, NB):
+def _block_hit_flags(t_pad, SB, seg: BoxSegments, plain: bool = False):
     """(R, NB) f32: 1 where the block's t-range [first sample, max over the
-    block] overlaps an occupied macro box; all ones without boxes."""
+    block] overlaps an occupied macro box of the chunk's `BoxSegments`
+    (K8's `block_hit`; plain: its plain version); all ones without boxes
+    (seg None)."""
     if seg is None:
-        return torch.ones((R, NB), dtype=torch.float32, device=t_pad.device)
-    seg_lo, seg_hi, seg_hit = seg
-    tb = t_pad.reshape(R, NB, SB)
-    t_starts = tb[:, :, 0]
-    t_ends = tb.amax(dim=2)
-    overlap = ((seg_lo[:, None, :] <= t_ends[..., None])
-               & (seg_hi[:, None, :] >= t_starts[..., None])
-               & seg_hit[:, None, :])
-    return overlap.any(dim=-1).float()
+        R, S = t_pad.shape
+        return torch.ones((R, S // SB), dtype=torch.float32,
+                          device=t_pad.device)
+    fn = boxcull.block_hit_plain if plain else boxcull.block_hit
+    return fn(t_pad.contiguous(), SB, seg)
 
 
 def _pdf_bins(t_c, weights, edge_bins: bool):
@@ -129,7 +130,7 @@ def sigma_march_pass(net, hoists, t_vals, dnorm, alive0, cfg: Config, t_end,
     t_pad, d_pad = _pass_dists(t_vals, dnorm, t_end, SB, cap)
     if t_pad.shape[1] != SB:
         raise ValueError(f"single-block march: {S} samples, SB={SB}")
-    alive = alive0.float() * _block_hit_flags(t_pad, SB, seg, R, 1)[:, 0]
+    alive = alive0.float() * _block_hit_flags(t_pad, SB, seg, plain)[:, 0]
     fn = sigmamarch.sigma_march_plain if plain else sigmamarch.sigma_march
     w, acc, _ = fn(net, hoists, alive.contiguous(), t_pad.contiguous(),
                    d_pad.contiguous(),
@@ -143,16 +144,14 @@ def sigma_march_pass(net, hoists, t_vals, dnorm, alive0, cfg: Config, t_end,
 
 
 def _march_inputs(cfg: Config, t_vals, dnorm, t_end, seg, sb=None,
-                  cap=None):
+                  cap=None, plain: bool = False):
     """→ (t_pad, d_pad, block_hit, log ε) of a multi-block march of sb
     samples a block (default kernels.block_samples); cap: the widths' caps
     (`_pass_dists`)."""
-    R = t_vals.shape[0]
     SB = sb or cfg.kernels.block_samples
     eps = cfg.kernels.early_term_eps
     t_pad, d_pad = _pass_dists(t_vals, dnorm, t_end, SB, cap)
-    NB = t_pad.shape[1] // SB
-    block_hit = _block_hit_flags(t_pad, SB, seg, R, NB)
+    block_hit = _block_hit_flags(t_pad, SB, seg, plain)
     log_eps = math.log(eps) if eps > 0 else -1e30
     return (t_pad.contiguous(), d_pad.contiguous(), block_hit.contiguous(),
             log_eps)
@@ -195,7 +194,8 @@ def marched_pass_slim(net, dirpart, hoists, t_vals, dnorm, alive0,
     acc, weights (R, S), disp. A net without a view branch (the proposal
     net) takes no dirpart. cap: the widths' caps (`_pass_dists`)."""
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg, sb, cap)
+                                                     t_end, seg, sb, cap,
+                                                     plain)
     hit = alive0.float().contiguous()
     fn = slimmarch.slim_march_plain if plain else slimmarch.slim_march
     rgb, w, _ = fn(net, hoists, dirpart if net.has_vd else None, hit,
@@ -213,7 +213,8 @@ def marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm, alive0,
     per sample, depth and acc composited per block, a conditioned net's
     condpart through K6's cond window → the same dict."""
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg, sb, cap)
+                                                     t_end, seg, sb, cap,
+                                                     plain)
     hit = alive0.float().contiguous()
     fn = carrymarch.carry_march_plain if plain else carrymarch.carry_march
     rgb, depth, acc, w, _ = fn(net, dirpart, rays_o.contiguous(),
@@ -241,7 +242,8 @@ def marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals, dnorm,
     R, S = t_vals.shape
     SB = sb or cfg.kernels.block_samples
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg, SB, cap)
+                                                     t_end, seg, SB, cap,
+                                                     plain)
     NB = t_pad.shape[1] // SB
     rpt = net.tile_rows // SB
     if R % rpt:
@@ -349,10 +351,13 @@ def _pack_march(model, cfg: Config):
 
 
 def pack_render_params(params: dict, cfg: Config, occ=None) -> dict:
-    """Pack the nets the render marches, once per image: the fine net, and
+    """Pack what the render marches, once per image: the fine net, and
     the proposal net (for K1, or for the generic proposal march's
-    pipeline) or, without one, the coarse net."""
+    pipeline) or, without one, the coarse net; with macro boxes, the
+    occupied ones (`occupied_boxes`, "boxes")."""
     packed = {}
+    if occ is not None and cfg.occupancy.macro > 1:
+        packed["boxes"] = occupied_boxes(occ)
     if cfg.sampling.n_fine > 0:
         packed["fine"] = _pack_march(params["fine"], cfg)
     if use_proposal(cfg, params):
@@ -364,19 +369,26 @@ def pack_render_params(params: dict, cfg: Config, occ=None) -> dict:
     return packed
 
 
-def culling(cfg: Config, rays_o, rays_d, occ: OccupancyState = None):
+def culling(cfg: Config, rays_o, rays_d, occ: OccupancyState = None,
+            boxes=None, plain: bool = False):
     """Occupancy culling of a chunk → (near, far, alive0 (R,) bool, seg,
     t_end): per-ray union intervals of the macro boxes (or the global box),
-    their per-box segments, and the finite integration bound."""
+    the `BoxSegments` handle the marches' block flags recompute the per-box
+    segments from (None without macro boxes), and the finite integration
+    bound. boxes: `occupied_boxes(occ)` (read here when None); plain: K8's
+    plain version on any device."""
     rcfg = cfg.render
     if occ is None:
         alive0 = torch.ones((rays_o.shape[0],), dtype=torch.bool,
                             device=rays_o.device)
         return rcfg.near, rcfg.far, alive0, None, None
     if cfg.occupancy.macro > 1:
-        near, far, hit, s_lo, s_hi, s_hit = ray_multi_aabb(
-            rays_o, rays_d, occ, rcfg.near, rcfg.far)
-        return near, far, hit, (s_lo, s_hi, s_hit), rcfg.far
+        seg = box_segments(rays_o, rays_d, *(occupied_boxes(occ)
+                                             if boxes is None else boxes),
+                           rcfg.near, rcfg.far)
+        fn = boxcull.box_cull_plain if plain else boxcull.box_cull
+        near, far, hit = fn(seg)
+        return near, far, hit, seg, rcfg.far
     near, far, hit = ray_aabb_intersect(rays_o, rays_d, occ.box_min,
                                         occ.box_max, rcfg.near, rcfg.far)
     return near, far, hit, None, rcfg.far
@@ -462,13 +474,15 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
         return delta_caps(gap_idx, near, far, t_vals) if warp else None
 
     with span("fnt.rays.culling"):
-        near, far, alive0, seg, t_end = culling(cfg, rays_o, rays_d, occ)
+        near, far, alive0, seg, t_end = culling(
+            cfg, rays_o, rays_d, occ, packed.get("boxes"), plain)
         dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         warp = (cfg.occupancy.sample_warp and seg is not None
                 and not cfg.sampling.lindisp)
         if warp:
-            bins_occ, gap_idx = occupancy_bins(seg, near, far,
-                                               cfg.occupancy.warp_bins)
+            bins_occ, gap_idx = occupancy_bins(
+                boxcull.segments_plain(seg)[3:], near, far,
+                cfg.occupancy.warp_bins)
         t_c = strat(n_c)
     alive_f = alive0
     with span("fnt.rays.coarse"):

@@ -20,7 +20,7 @@ from fashion_nerf.core.occupancy import build_from_config as j_occ_build
 from fashion_nerf.models.nerf_mlp import make_field
 from fashion_nerf.models.proposal import attach_proposal as j_attach
 from fashion_nerf.render import blockwise as jbw
-from fashion_nerf_torch.core.occupancy import OccupancyState
+from fashion_nerf_torch.core.occupancy import OccupancyState, block_overlap
 from fashion_nerf_torch.metrics import psnr
 from fashion_nerf_torch.models.nerf_mlp import load_flax_params
 from fashion_nerf_torch.models.proposal import attach_proposal
@@ -200,7 +200,8 @@ def test_ported_branches_run(scene, ovr):
 @pytest.mark.parametrize("t_end", [None, 6.0])
 def test_march_helpers_match_reference(t_end):
     """_pass_dists (∞ or t_end on the last interval, zero-width pads),
-    _block_hit_flags (a block ends at the max over the block, so pad
+    _block_hit_flags' composition on materialised segments
+    (`block_overlap`: a block ends at the max over the block, so pad
     sentinels never end one) and _pdf_bins (edge and mid bins), on 80
     samples padded to 96 at SB=32: f32 rtol 1e-6, flags exact."""
     rng = np.random.default_rng(7)
@@ -217,8 +218,8 @@ def test_march_helpers_match_reference(t_end):
     hit = rng.uniform(size=(R, K)) < 0.5
     bh_j = jbw._block_hit_flags(tp_j, SB, tuple(map(jnp.asarray,
                                                     (lo, hi, hit))), R, 3)
-    bh_t = tbw._block_hit_flags(tp_t, SB, tuple(map(torch.tensor,
-                                                    (lo, hi, hit))), R, 3)
+    bh_t = block_overlap(tp_t, SB, tuple(map(torch.tensor, (lo, hi, hit))),
+                         R, 3)
     np.testing.assert_array_equal(bh_t.numpy(), np.asarray(bh_j))
     assert 0 < bh_t.sum() < bh_t.numel()
     w = rng.uniform(size=(R, S)).astype(np.float32)

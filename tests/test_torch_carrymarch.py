@@ -23,6 +23,7 @@ from fashion_nerf.core.occupancy import ray_aabb_intersect
 from fashion_nerf.core.sampling import stratified_sample
 from fashion_nerf.kernels.posenc_mlp_pallas import make_block_evaluator
 from fashion_nerf.render.blockwise import _marched_pass_carry
+from fashion_nerf_torch.core.occupancy import box_segments
 from fashion_nerf_torch.kernels import carrymarch, slimmarch
 from fashion_nerf_torch.kernels.posenc_mlp import hoist_dirs, pack_params
 from fashion_nerf_torch.models.nerf_mlp import load_flax_params
@@ -74,6 +75,13 @@ def _inputs():
     return ro, rd.astype(np.float32), t, seg, np.asarray(hit)
 
 
+def _box(ro, rd):
+    """The port's handle of the same ±0.9 box: the marches recompute the
+    reference's segments from it."""
+    return box_segments(ro, rd, torch.full((1, 3), -0.9),
+                        torch.full((1, 3), 0.9), 2.0, 6.0)
+
+
 def _reference(tree, cfg, ro, rd, t, seg=None, alive0=None):
     pack, hdirs, _hc, _eb, _rpt = make_block_evaluator(cfg)
     packed = pack(tree)
@@ -91,7 +99,7 @@ def _port(model, cfg, ro, rd, t, seg=None, alive0=None, slim=False):
     ro_t, rd_t, t_t = map(torch.tensor, (ro, rd, t))
     alive = (torch.ones(R, dtype=torch.bool) if alive0 is None
              else torch.tensor(alive0))
-    seg_t = None if seg is None else tuple(map(torch.tensor, seg))
+    seg_t = None if seg is None else _box(ro_t, rd_t)
     dnorm = torch.linalg.norm(rd_t, dim=-1, keepdim=True)
     with torch.no_grad():
         if slim:
@@ -107,7 +115,7 @@ def _port(model, cfg, ro, rd, t, seg=None, alive0=None, slim=False):
                                          seg=seg_t)
     # N is two whole blocks, so the weights are the march's unpadded ones
     SB = cfg.kernels.block_samples
-    bhit = tbw._block_hit_flags(t_t, SB, seg_t, R, N // SB)
+    bhit = tbw._block_hit_flags(t_t, SB, seg_t)
     return {**out, **tbw.march_liveness(out["weights"], alive.float(), bhit,
                                         cfg)}
 

@@ -282,7 +282,9 @@ def march_case(flagship):
     out_c = jbw._marched_pass_carry(packed, dirpart, condpart, *args,
                                     seg=seg)
     return dict(cfg=cfg, ro=ro, rd=rd, t=t, dnorm=dnorm, hit=np.asarray(hit),
-                seg=tuple(torch.tensor(np.asarray(s)) for s in seg),
+                seg=tocc.box_segments(torch.tensor(ro), torch.tensor(rd),
+                                      torch.full((1, 3), -0.9),
+                                      torch.full((1, 3), 0.9), 2.0, 6.0),
                 packed=packed,
                 condpart=np.asarray(condpart, np.float32),
                 ref={"slim": {k: np.asarray(v) for k, v in out_s.items()},
@@ -344,7 +346,7 @@ def test_conditioned_march_plain_halved_tile(flagship, march_case, kind):
     dead_t = _dead_pairs(out["weights"].numpy(), 32)
     np.testing.assert_array_equal(dead_t, _dead_pairs(ref["weights"], 32))
     assert dead_t.any() and not dead_t.all()
-    bhit = tbw._block_hit_flags(t, 32, mc["seg"], 256, 3)
+    bhit = tbw._block_hit_flags(t, 32, mc["seg"])
     live = tbw.march_liveness(out["weights"], hit.float(), bhit, mc["cfg"],
                               tile_rows=net.tile_rows)
     assert float(live["alive_frac"]) == pytest.approx(

@@ -1702,6 +1702,8 @@ LAST_CARD_CASES = {
     "K5": lambda d, mp: test_volrend_kernel(d, 192, True),
     "K6": lambda d, mp: test_carry_march_kernel(d, 1e-3),
     "P1": lambda d, mp: test_tc_probe_kernel(d, "chain", 256, 9, True),
+    "K8": lambda d, mp: test_box_cull_kernel_cases(d, "generic", 16, 5000,
+                                                   12, 8),
 }
 
 
@@ -1743,3 +1745,272 @@ def test_frame_is_the_gathered_frame_on_the_card(dev):
         assert torch.equal(got[k], want[k]), k
     live = got["chunk_live"]
     assert live.any() and not live.all()
+
+
+# --- K8: occupancy culling against the macro boxes --------------------------
+
+def _analytic_occ(macro, dev):
+    """Two σ blobs on a 32³ lattice, reduced to macro³ boxes (512 or 4096,
+    K8 staging 512 at a time), on the card."""
+    from fashion_nerf_torch.core.occupancy import build_occupancy
+
+    def field(p, dirs):
+        a = ((p - torch.tensor([0.5, 0.2, -0.3])) ** 2).sum(-1).sqrt() < 0.45
+        b = ((p - torch.tensor([-0.9, -0.6, 0.8])) ** 2).sum(-1).sqrt() < 0.3
+        return None, torch.where(a | b, 5.0, -1.0)
+    occ = build_occupancy(field, -2.0, 2.0, resolution=32,
+                          sigma_threshold=0.1, margin_cells=1, macro=macro,
+                          chunk=4096)
+    return type(occ)(*[x.to(dev) for x in occ])
+
+
+def _cull_rays(case, occ, R, rng, dev):
+    """Rays from radius 4 at the scene (half of them axis-parallel under
+    "axis"), from inside occupied boxes ("inside"), or away from it
+    ("miss"), unit directions."""
+    o = rng.normal(size=(R, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = -o + rng.normal(0, 0.6, (R, 3))
+    if case == "axis":
+        d[: R // 2, 0] = 0.0
+        d[R // 4: R // 2, 2] = -0.0
+    elif case == "inside":
+        c = (0.5 * (occ.boxes_min + occ.boxes_max))[occ.boxes_occ].cpu()
+        o = c.numpy()[rng.integers(0, len(c), R)]
+        d = rng.normal(size=(R, 3))
+    elif case == "miss":
+        d = o + rng.normal(0, 0.1, (R, 3))
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32, device=dev),
+            torch.tensor(d, dtype=torch.float32, device=dev))
+
+
+def _k8_against_plain(o, d, occ, near, far, blocks):
+    """K8's box_cull, then block_hit at each (NB, SB, S) of `blocks` on S
+    stratified samples between the ray's near and far zero-padded to NB·SB,
+    on the occupied boxes (`occupied_boxes`), each torch.equal to its plain
+    version and to the composition over all K boxes with their flags, one
+    launch each, and no tensor allocated beyond the outputs.
+    → (hit, [flags])."""
+    from fashion_nerf_torch.core.occupancy import (block_overlap,
+                                                   box_segments,
+                                                   occupied_boxes,
+                                                   ray_multi_aabb)
+    from fashion_nerf_torch.core.sampling import stratified_sample
+    from fashion_nerf_torch.kernels import boxcull
+    from fashion_nerf_torch.render.blockwise import _pass_dists
+    R, dev = o.shape[0], o.device
+    seg = box_segments(o, d, *occupied_boxes(occ), near, far)
+    full = ray_multi_aabb(o, d, occ, near, far)
+
+    def extra_bytes(fn):
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, torch.cuda.max_memory_allocated(dev) - before
+
+    n0 = dict(K.LAUNCHES)
+    got, extra = extra_bytes(lambda: boxcull.box_cull(seg))
+    assert extra <= 9 * R + 4096, extra             # near, far, hit
+    for a, b, c in zip(got, boxcull.box_cull_plain(seg), full):
+        assert a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, c)
+    flags = []
+    for NB, SB, S in blocks:
+        t = stratified_sample(got[0], got[1], R, S)
+        t_pad, _ = _pass_dists(t, torch.ones((R, 1), device=dev), far, SB)
+        assert t_pad.shape == (R, NB * SB)
+        f, extra = extra_bytes(lambda: boxcull.block_hit(t_pad, SB, seg))
+        assert extra <= 4 * R * NB + 4096, extra
+        assert torch.equal(f, boxcull.block_hit_plain(t_pad, SB, seg))
+        assert torch.equal(f, block_overlap(t_pad, SB, full[3:], R, NB))
+        flags.append(f)
+    assert K.LAUNCHES["box_cull"] - n0["box_cull"] == 1
+    assert K.LAUNCHES["block_hit"] - n0["block_hit"] == len(blocks)
+    return got[2], flags
+
+
+@pytest.mark.parametrize("case,macro,R,NB,SB", [
+    ("axis", 8, 1000, 3, 32), ("inside", 8, 4097, 1, 64),
+    ("miss", 8, 256, 3, 32), ("empty", 8, 300, 1, 64),
+    ("generic", 16, 5000, 12, 8), ("generic", 16, 777, 5, 1)])
+def test_box_cull_kernel_cases(dev, case, macro, R, NB, SB):
+    """K8 against its plain versions on the analytic boxes: axis-parallel
+    rays (reciprocals at ±1e10), rays from inside a box (near 0), rays
+    that miss every box, no box occupied (one box of zero volume), 4096
+    boxes (more than one stage of shared memory), ragged R, NB 1 to 12
+    (three register groups) and SB 1; the samples' last block zero-padded
+    where SB ≥ 4."""
+    rng = np.random.default_rng(R)
+    occ = _analytic_occ(macro, dev)
+    if case == "empty":
+        occ = occ._replace(boxes_occ=torch.zeros_like(occ.boxes_occ))
+    o, d = _cull_rays(case, occ, R, rng, dev)
+    near = 0.0 if case == "inside" else 2.0
+    hit, flags = _k8_against_plain(o, d, occ, near, 6.0,
+                                   [(NB, SB, NB * SB - SB // 4)])
+    n_hit = int(hit.sum())
+    if case in ("miss", "empty"):
+        assert n_hit == 0 and not flags[0].any()
+    elif case == "inside":
+        assert n_hit == R
+    else:
+        assert 0 < n_hit < R and 0 < flags[0].sum() < flags[0].numel()
+
+
+def test_box_cull_rejects_bad_inputs(dev):
+    """K8's wrappers raise on what the kernel does not take, and launch
+    nothing."""
+    from fashion_nerf_torch.core.occupancy import box_segments, occupied_boxes
+    from fashion_nerf_torch.kernels import boxcull
+    occ = _analytic_occ(8, dev)
+    o, d = _cull_rays("generic", occ, 64, np.random.default_rng(0), dev)
+    seg = box_segments(o, d, *occupied_boxes(occ), 2.0, 6.0)
+    t = torch.linspace(2.0, 6.0, 96, device=dev).expand(64, 96).contiguous()
+    n0 = dict(K.LAUNCHES)
+    with pytest.raises(TypeError):
+        boxcull.box_cull(seg._replace(rays_o=o.double()))
+    with pytest.raises(ValueError):
+        boxcull.box_cull(seg._replace(rays_o=o.t().contiguous().t()))
+    with pytest.raises(ValueError):
+        boxcull.box_cull(seg._replace(rays_o=o.cpu()))
+    with pytest.raises(ValueError):
+        boxcull.box_cull(seg._replace(lo=seg.lo[:0], hi=seg.hi[:0]))
+    with pytest.raises(ValueError):
+        boxcull.box_cull(seg._replace(hi=seg.hi[:1]))
+    with pytest.raises(ValueError):
+        boxcull.block_hit(t[:, :90].contiguous(), 32, seg)
+    with pytest.raises(ValueError):
+        boxcull.block_hit(t[:, ::2], 16, seg)
+    assert dict(K.LAUNCHES) == n0
+
+
+# the orbit cell (perfbench/traffic/orbit40_800.json): 800×800 frames on a
+# circle at φ −30°, radius 4, 65,536-ray chunks
+ORBIT_FRAME, ORBIT_FOV_X, ORBIT_CHUNK = 800, 0.6911112070083618, 65536
+
+
+def _orbit_c2w(theta_deg, phi_deg=-30.0, radius=4.0):
+    """(3, 4) camera-to-world at `radius` looking at the origin in the
+    flagship scene's z-up frame: from (0, 0, radius) turned by φ about x,
+    then by θ about z (the benchmark's orbit)."""
+    th, ph = math.radians(theta_deg), math.radians(phi_deg)
+    trans = np.eye(4)
+    trans[2, 3] = radius
+    rot_phi = np.array([[1, 0, 0, 0], [0, math.cos(ph), -math.sin(ph), 0],
+                        [0, math.sin(ph), math.cos(ph), 0], [0, 0, 0, 1]])
+    rot_theta = np.array([[math.cos(th), -math.sin(th), 0, 0],
+                          [math.sin(th), math.cos(th), 0, 0],
+                          [0, 0, 1, 0], [0, 0, 0, 1]])
+    return (rot_theta @ rot_phi @ trans).astype(np.float32)[:3]
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """The committed flagship (weights, proposal, 64³ occupancy swept
+    through K3, 512 macro boxes) on cuda:0, at the orbit cell's chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from fashion_nerf_torch.bench import bench_setup
+    from fashion_nerf_torch.config import load_config
+    cfg = load_config("blender_lego", [f"render.chunk={ORBIT_CHUNK}"])
+    s = bench_setup(cfg, torch.device("cuda", 0))
+    assert s["occ"] is not None and "proposal" in s["params"]
+    assert s["occ"].boxes_occ.numel() == 512
+    return cfg, s
+
+
+@pytest.mark.parametrize("theta", [0.0, 153.0])
+def test_box_cull_kernel_at_the_orbit_chunk(dev, flagship, theta):
+    """K8 at the orbit cell's shapes: the 65,536-ray chunk of an 800×800
+    orbit frame (tile order) with the most rays in the global box, against
+    the committed flagship's 512 macro boxes. box_cull's near, far and hit
+    and block_hit at NB 1 (the proposal's 64 samples) and NB 3 (96 fine
+    samples in blocks of 32) are torch.equal to the plain versions, with
+    no tensor allocated beyond their outputs (the plain versions write
+    (65,536, n) ones, n the occupied boxes)."""
+    from fashion_nerf_torch.core.cameras import generate_rays
+    from fashion_nerf_torch.core.occupancy import ray_aabb_intersect
+    from fashion_nerf_torch.render.blockwise import _to_tiles
+    cfg, s = flagship
+    occ, rc = s["occ"], cfg.render
+    H = W = ORBIT_FRAME
+    focal = 0.5 * W / math.tan(0.5 * ORBIT_FOV_X)
+    o, d = generate_rays(H, W, focal, _orbit_c2w(theta), device=dev)
+    o, d = (_to_tiles(x.reshape(-1, 3), H, W) for x in (o, d))
+    n_box = [int(ray_aabb_intersect(o[c:c + ORBIT_CHUNK],
+                                    d[c:c + ORBIT_CHUNK], occ.box_min,
+                                    occ.box_max, rc.near, rc.far)[2].sum())
+             for c in range(0, H * W - ORBIT_CHUNK + 1, ORBIT_CHUNK)]
+    c = ORBIT_CHUNK * int(np.argmax(n_box))
+    o, d = o[c:c + ORBIT_CHUNK].contiguous(), d[c:c + ORBIT_CHUNK]
+    hit, flags = _k8_against_plain(o, d, occ, rc.near, rc.far,
+                                   [(1, 64, 64), (3, 32, 96)])
+    assert 0 < int(hit.sum()) < ORBIT_CHUNK
+    assert all(0 < f.sum() < f.numel() for f in flags)
+
+
+def test_orbit_frame_is_the_frame_with_plain_culling(dev, flagship,
+                                                     monkeypatch):
+    """An 800×800 orbit frame of the flagship in 65,536-ray chunks, culled
+    by K8 against the occupied boxes, is bit for bit the frame with K8's
+    plain versions in its place, and the frame culled by the composition
+    over all 512 boxes with their flags (`ray_multi_aabb_inv`,
+    `block_overlap`: what the render ran before K8); K8 launches box_cull
+    once and block_hit twice (the proposal's and the fine march's flags) a
+    live chunk, and the chunk's culling hands the marches a segment handle,
+    not (R, 512) segments."""
+    from fashion_nerf_torch.core.occupancy import (BoxSegments,
+                                                   block_overlap,
+                                                   ray_multi_aabb_inv)
+    from fashion_nerf_torch.kernels import boxcull
+    from fashion_nerf_torch.render import blockwise
+    cfg, s = flagship
+    focal = 0.5 * ORBIT_FRAME / math.tan(0.5 * ORBIT_FOV_X)
+    c2w = _orbit_c2w(153.0)
+    segs = []
+    culling = blockwise.culling
+
+    def recording(*a, **kw):
+        out = culling(*a, **kw)
+        segs.append(out[3])
+        return out
+
+    def frame():
+        segs.clear()
+        K.reset_launches()
+        with torch.no_grad():
+            out = blockwise.render_image_blockwise(
+                s["params"], cfg, ORBIT_FRAME, ORBIT_FRAME, focal, c2w,
+                occ=s["occ"], device=dev)
+        torch.cuda.synchronize(dev)
+        return out, len(segs), dict(K.LAUNCHES)
+
+    monkeypatch.setattr(blockwise, "culling", recording)
+    got, n_live, n = frame()
+    assert 0 < n_live <= -(-ORBIT_FRAME ** 2 // ORBIT_CHUNK)
+    assert all(isinstance(x, BoxSegments) for x in segs)
+    assert n["box_cull"] == n_live and n["block_hit"] == 2 * n_live, n
+    monkeypatch.setattr(boxcull, "box_cull", boxcull.box_cull_plain)
+    monkeypatch.setattr(boxcull, "block_hit", boxcull.block_hit_plain)
+    want, n_live_p, n_p = frame()
+    assert n_live_p == n_live and n_p["box_cull"] == n_p["block_hit"] == 0
+    assert n_p["sigma_march"] == n["sigma_march"] > 0
+    occ = s["occ"]
+
+    def all_boxes(seg):
+        return ray_multi_aabb_inv(seg.rays_o, seg.inv_d, occ.boxes_min,
+                                  occ.boxes_max, seg.near, seg.far,
+                                  occ.boxes_occ)
+
+    monkeypatch.setattr(boxcull, "box_cull", lambda seg: all_boxes(seg)[:3])
+    monkeypatch.setattr(boxcull, "block_hit", lambda t, SB, seg: block_overlap(
+        t, SB, all_boxes(seg)[3:], t.shape[0], t.shape[1] // SB))
+    before, n_live_b, _ = frame()
+    assert n_live_b == n_live
+    for other in (want, before):
+        assert got.keys() == other.keys()
+        for k in other:
+            assert torch.equal(got[k], other[k]), k

@@ -16,8 +16,9 @@ import fashion_nerf_torch
 from fashion_nerf_torch import bench
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch import probe, quality
-from fashion_nerf_torch.kernels import (carrymarch, posenc_mlp, render,
-                                        sigmamarch, slimmarch)
+from fashion_nerf_torch.core.occupancy import box_segments
+from fashion_nerf_torch.kernels import (boxcull, carrymarch, posenc_mlp,
+                                        render, sigmamarch, slimmarch)
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, load_flax_params
 
 torch.set_num_threads(2)
@@ -168,6 +169,17 @@ def test_wrappers_take_plain_on_cpu():
     for x, y in zip(render.volrend(*vr), render.volrend_plain(*vr)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
+    ro = torch.full((R, 3), 3.0)
+    seg = box_segments(ro, -ro + 0.3 * _randn(rng, R, 3),
+                       torch.tensor([[-1.0, -1, -1], [0, 0, 0]]),
+                       torch.tensor([[0.0, 0, 0], [1, 1, 1]]), 2.0, 6.0)
+    for x, y in zip(boxcull.box_cull(seg), boxcull.box_cull_plain(seg)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    t = vr[2].contiguous()
+    torch.testing.assert_close(boxcull.block_hit(t, 8, seg),
+                               boxcull.block_hit_plain(t, 8, seg),
+                               rtol=0, atol=0)
+
     R, NB, SB = 64, 2, 32
     cnet = posenc_mlp.pack_params(fine, hoist_x=False)
     ro, rd = torch.zeros(R, 3), _randn(rng, R, 3)
@@ -191,7 +203,8 @@ def test_wrappers_take_plain_on_cpu():
                                "field_bwd_cond", "field_alive",
                                "slim_march_novd", "sigma_march_k2",
                                "sigma_march_sb", "slim_march_sb",
-                               "carry_march_sb", "wide_field"}
+                               "carry_march_sb", "wide_field",
+                               "box_cull", "block_hit"}
     assert not any(K.LAUNCHES.values())
 
 

@@ -29,6 +29,7 @@ from fashion_nerf.models.nerf_mlp import init_field
 from fashion_nerf.models.proposal import proposal_model_config
 from fashion_nerf.render.blockwise import (_marched_pass_slim,
                                            _sigma_march_pass)
+from fashion_nerf_torch.core.occupancy import box_segments
 from fashion_nerf_torch.kernels import sigmamarch, slimmarch
 from fashion_nerf_torch.kernels.posenc_mlp import (hoist_dirs,
                                                    make_fused_field)
@@ -199,7 +200,8 @@ def _k2_both(tree):
                                6.0, seg=seg)
     model = load_flax_params(jax.device_get(tree), compute_dtype="bfloat16")
     net = slimmarch.split_hoist(model)
-    seg_t = tuple(_t(s) for s in seg)
+    seg_t = box_segments(_t(ro), _t(rd), torch.full((1, 3), -0.9),
+                         torch.full((1, 3), 0.9), 2.0, 6.0)
     with torch.no_grad():
         out_t = marched_pass_slim(
             net, hoist_dirs(net, _t(rd)),

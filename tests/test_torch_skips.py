@@ -39,6 +39,7 @@ from fashion_nerf.kernels.sigmamarch_pallas import pack_sigma as j_pack_sig
 from fashion_nerf.models.nerf_mlp import init_field as j_init
 from fashion_nerf.models.proposal import proposal_model_config
 from fashion_nerf.render import blockwise as jbw
+from fashion_nerf_torch.core.occupancy import box_segments
 from fashion_nerf_torch.kernels import posenc_mlp, sigmamarch, slimmarch
 from fashion_nerf_torch.models.nerf_mlp import load_flax_params
 from fashion_nerf_torch.render import blockwise as tbw
@@ -241,7 +242,8 @@ def test_marches_two_skips_cond_match_reference(march):
                seg=tuple(map(jnp.asarray, seg)))
     model = load_flax_params(tree, compute_dtype="bfloat16", cond_dim=CC)
     ro_t, rd_t = _t(ro), _t(rd)
-    seg_t = tuple(torch.from_numpy(np.array(s)) for s in seg)
+    seg_t = box_segments(_t(ro), _t(rd), torch.full((1, 3), -0.9),
+                         torch.full((1, 3), 0.9), 2.0, 6.0)
     with torch.no_grad():
         if march == "slim":
             net = slimmarch.split_hoist(model)
