@@ -218,6 +218,7 @@ two trees in one call to compare their phases on one card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -393,6 +394,13 @@ SOURCES = {
                   "none (the reference culls in XLA glue: "
                   "src/fashion_nerf/render/blockwise.py::_block_hit_flags)"),
 }
+
+
+def routed(plain: bool):
+    """The route of a run: every wrapper's plain version on the card
+    (`kernels.plain_versions`) when plain, else the kernels."""
+    from fashion_nerf_torch import kernels as K
+    return K.plain_versions() if plain else contextlib.nullcontext()
 
 
 def say(phase: str, msg: str) -> None:
@@ -659,10 +667,10 @@ def phase_kernels(cfg, device):
 
     # reference occupancy through the plain field, for realistic chunk
     # inputs (and to check the K3 sweep of phase 4 against)
-    field_plain = posenc_mlp.make_fused_field(cfg, plain=True)
-    with torch.no_grad():
+    field = posenc_mlp.make_fused_field()
+    with torch.no_grad(), routed(True):
         occ_ref = build_from_config(
-            cfg, lambda p, v: field_plain(fine, p, v), device=device)
+            cfg, lambda p, v: field(fine, p, v), device=device)
     results.update(kernel_k8(cfg, occ_ref, device))
     ch = march_chunk(cfg, params, fine, occ_ref, device)
     c, o, d, R, p_sb = ch.c, ch.o, ch.d, ch.R, ch.p_sb
@@ -2051,10 +2059,9 @@ def phase_frame(cfg, device, params, occ, gpu, smi):
     focal, c2w = bench_pose(W)
 
     def render(plain=False):
-        with torch.no_grad():
+        with torch.no_grad(), routed(plain):
             return render_image_blockwise(params, cfg, H, W, focal, c2w,
-                                          occ=occ, plain=plain,
-                                          device=device)
+                                          occ=occ, device=device)
 
     render()
     torch.cuda.synchronize()
@@ -2114,10 +2121,9 @@ def phase_frame_generic(device, k2_rgb, gpu, smi):
     params, occ, _ = setup(cfg, device)
 
     def render(plain=False):
-        with torch.no_grad():
+        with torch.no_grad(), routed(plain):
             return render_image_blockwise(params, cfg, H, W, focal, c2w,
-                                          occ=occ, plain=plain,
-                                          device=device)["rgb"]
+                                          occ=occ, device=device)["rgb"]
 
     render()
     torch.cuda.synchronize()
@@ -2194,10 +2200,9 @@ def frame_variant(device, overrides, phase):
     params, occ, _ = setup(cfg, device)
 
     def render(plain=False):
-        with torch.no_grad():
+        with torch.no_grad(), routed(plain):
             return render_image_blockwise(params, cfg, H, W, focal, c2w,
-                                          occ=occ, plain=plain,
-                                          device=device)["rgb"]
+                                          occ=occ, device=device)["rgb"]
 
     fracs, undo = record_alive_fracs()
     try:
@@ -2458,7 +2463,7 @@ def branch_setup(cfg, device):
     params, trained = bench_params(cfg, device)
     if not trained:
         raise AssertionError("the committed weights do not fit " + cfg.name)
-    field = make_fused_field(cfg)
+    field = make_fused_field()
     occ = build_from_config(cfg, lambda p, v: field(params["fine"], p, v),
                             device=device)
     params = attach_proposal(cfg, params, allow_distill=False, device=device)
@@ -2498,10 +2503,10 @@ def distill_check(cfg, params, occ, field, device):
     sigma = field(student, pts, dirs)[1][:, 0]
     mse = float(((prop_mod.log_density(sigma, act) - y) ** 2).mean())
     grads = []
-    for f in (field, make_fused_field(cfg, plain=True)):
+    for plain in (False, True):
         student.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            prop_mod.distill_loss(student, pts, y, act, f).backward()
+        with torch.enable_grad(), routed(plain):
+            prop_mod.distill_loss(student, pts, y, act, field).backward()
         grads.append([p.grad.detach().clone() for p in student.parameters()])
     student.zero_grad(set_to_none=True)
     rel = max(rel_rms(a, b) for a, b in zip(*grads))
@@ -2563,10 +2568,9 @@ def phase_branches(device, gate, gate_cache, gpu, smi):
         params, occ, distill_s = branch_setup(cfg, device)
 
         def render(plain=False):
-            with torch.no_grad():
+            with torch.no_grad(), routed(plain):
                 return render_image_blockwise(params, cfg, H, W, focal, c2w,
-                                              occ=occ, plain=plain,
-                                              device=device)["rgb"]
+                                              occ=occ, device=device)["rgb"]
 
         render()
         torch.cuda.synchronize()
@@ -2737,10 +2741,10 @@ def phase_step(device, ds, gpu, smi):
             return fine_t[-1]
 
         state, _ = committed_state(cfg, device)
-        step = TrainStep(cfg, ds, streamed=True, plain=plain)
+        step = TrainStep(cfg, ds, streamed=True)
         renderer.sample_pdf = sampler
         try:
-            with torch.enable_grad():
+            with torch.enable_grad(), routed(plain):
                 loss, _ = step.loss(state, batch, sparsity_pts=pts)
                 loss.backward()
         finally:
@@ -2767,8 +2771,8 @@ def phase_step(device, ds, gpu, smi):
     secs = {}
     for plain in (False, True):
         state, _ = committed_state(cfg, device)
-        step = TrainStep(cfg, ds, streamed=True, plain=plain)
-        with torch.enable_grad():
+        step = TrainStep(cfg, ds, streamed=True)
+        with torch.enable_grad(), routed(plain):
             step(state, batch, sparsity_pts=pts)          # warm-up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2798,7 +2802,8 @@ def phase_eval(device, ds):
     out, times = {}, {}
     for plain in (False, True):
         t0 = time.perf_counter()
-        out[plain] = evaluate(cfg, state, ds, plain=plain)
+        with routed(plain):
+            out[plain] = evaluate(cfg, state, ds)
         torch.cuda.synchronize()
         times[plain] = time.perf_counter() - t0
     (img_k, p_k), (img_p, p_p) = out[False], out[True]
@@ -3217,9 +3222,9 @@ def phase_llff(device, gpu, smi):
     o, dd, v = (x[order][sl].contiguous() for x in (o, dd, v))
 
     def chunk(plain):
-        with torch.no_grad():
-            return render_rays_blockwise(nets, cfg, o, dd, v,
-                                         plain=plain)["fine"]["rgb"]
+        with torch.no_grad(), routed(plain):
+            return render_rays_blockwise(nets, cfg, o, dd,
+                                         v)["fine"]["rgb"]
 
     rgb_c = chunk(False)
     torch.cuda.synchronize()
@@ -3263,9 +3268,9 @@ def phase_llff(device, gpu, smi):
     ff = float(scene["focal"]) * Wf / scene["W"]
 
     def fern(plain):
-        with torch.no_grad():
+        with torch.no_grad(), routed(plain):
             return render_image_blockwise(state.nets(), cfg, Hf, Wf, ff,
-                                          scene["val_pose"], plain=plain,
+                                          scene["val_pose"],
                                           device=device)["rgb"]
 
     rgb_f = fern(False)
@@ -3428,7 +3433,7 @@ def phase_tryon(device, gpu, smi):
     cond = _eval_cond(cfg, nets, garment)
 
     # setup: the cond-aware sweep through K3, the conditioned teacher
-    field = make_fused_field(cfg)
+    field = make_fused_field()
     K.reset_launches()
     t0 = time.perf_counter()
     occ = build_from_config(cfg, lambda p, v, c: field(state.fine, p, v, c),
@@ -3448,10 +3453,10 @@ def phase_tryon(device, gpu, smi):
                                           "kernels.carry_hoist=false"])
 
     def frame(c, cfg_, plain=False):
-        with torch.no_grad():
+        with torch.no_grad(), routed(plain):
             return blockwise.render_image_blockwise(
-                params, cfg_, H, W, focal, pose, occ=occ, plain=plain,
-                device=device, cond=c)
+                params, cfg_, H, W, focal, pose, occ=occ, device=device,
+                cond=c)
 
     frames, secs, launches = {}, {}, {}
     for label, cfg_ in (("K1 + K2", cfg), ("K1 + K6", generic)):
@@ -3546,8 +3551,9 @@ def phase_tryon(device, gpu, smi):
 
     def recording(*a, **kw):
         out_k = render_fn(*a, **kw)
-        seen.append((out_k["rgb"], render_fn(*a, **{**kw, "plain": True})[
-            "rgb"], kw["cond"]))
+        with routed(True):
+            out_p = render_fn(*a, **kw)
+        seen.append((out_k["rgb"], out_p["rgb"], kw["cond"]))
         return out_k
 
     blockwise.render_image_blockwise = recording
@@ -3690,8 +3696,9 @@ def phase_tryon_train(device, gpu, smi):
 
     def recording(*a, **kw):
         out_k = render_fn(*a, **kw)
-        seen.append((out_k["rgb"], render_fn(*a, **{**kw, "plain": True})[
-            "rgb"]))
+        with routed(True):
+            out_p = render_fn(*a, **kw)
+        seen.append((out_k["rgb"], out_p["rgb"]))
         return out_k
 
     readings, rcs = {}, [rc_i]
@@ -3758,12 +3765,11 @@ def phase_tryon_train(device, gpu, smi):
             return fine_t[-1]
 
         state = fixture()
-        step = TrainStep(cfg_d, ds, streamed=True, plain=plain,
-                         garment=garment)
+        step = TrainStep(cfg_d, ds, streamed=True, garment=garment)
         renderer.sample_pdf = sampler
         K.reset_launches()
         try:
-            with torch.enable_grad():
+            with torch.enable_grad(), routed(plain):
                 loss, _ = step.loss(state, batch, sparsity_pts=pts)
                 loss.backward()
         finally:
@@ -3798,9 +3804,8 @@ def phase_tryon_train(device, gpu, smi):
     step_secs = {}
     for plain in (False, True):
         state = fixture()
-        step = TrainStep(cfg_d, ds, streamed=True, plain=plain,
-                         garment=garment)
-        with torch.enable_grad():
+        step = TrainStep(cfg_d, ds, streamed=True, garment=garment)
+        with torch.enable_grad(), routed(plain):
             step(state, batch, sparsity_pts=pts)          # warm-up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4067,8 +4072,8 @@ def fine_samples(cfg, nets, o, d, device):
     σ (R,192), t (R,192)) of the fine field through K3."""
     from fashion_nerf_torch.core.sampling import sample_pdf, stratified_sample
     from fashion_nerf_torch.core.volrend import volume_render
-    from fashion_nerf_torch.train.loop import make_fields
-    field_c, field_f = make_fields(cfg)
+    from fashion_nerf_torch.kernels.posenc_mlp import field_for
+    field_c = field_f = field_for(cfg)
     s = cfg.sampling
     t_c = stratified_sample(cfg.render.near, cfg.render.far, o.shape[0],
                             s.n_coarse, device=device)
@@ -4112,8 +4117,8 @@ def dp_render(cfg, nets, scene, ds, device, mesh, row: dict) -> None:
     from fashion_nerf_torch.dist import mesh as dmesh
     from fashion_nerf_torch.metrics import psnr
     from fashion_nerf_torch.render.renderer import render_image
-    from fashion_nerf_torch.train.loop import make_fields
-    field_c, field_f = make_fields(cfg)
+    from fashion_nerf_torch.kernels.posenc_mlp import field_for
+    field_c = field_f = field_for(cfg)
     fc = (lambda pts, vd, *c: field_c(nets["coarse"], pts, vd, *c))
     ff = (lambda pts, vd, *c: field_f(nets["fine"], pts, vd, *c))
     focal = float(scene["focal"]) * DIST_FRAME / ds.W
@@ -4563,7 +4568,7 @@ def multicard_kernels(cfg, card) -> dict:
     dirs = torch.from_numpy(rng.normal(size=(1024, 3)).astype(
         np.float32)).to(card)
     dp = posenc_mlp.hoist_dirs(net, dirs).contiguous()
-    field = posenc_mlp.make_fused_field(cfg)
+    field = posenc_mlp.make_fused_field()
     occ = build_from_config(cfg, lambda p, v: field(fine, p, v), device=card)
     ch = march_chunk(cfg, params, fine, occ, card)
     hit, bhit, tf, df, log_eps = ch.args2[3:]

@@ -32,12 +32,13 @@ import numpy as np
 import torch
 
 from fashion_nerf_torch.assets import _flatten, load_flagship
-from fashion_nerf_torch.config import Config, load_config
+from fashion_nerf_torch.config import (Config, load_config, takes_blockwise,
+                                       takes_fused_render)
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.core.occupancy import build_from_config
 from fashion_nerf_torch.data.pipeline import RayDataset
 from fashion_nerf_torch.data.synthetic import make_synthetic_scene
-from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
+from fashion_nerf_torch.kernels.posenc_mlp import field_for
 from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, load_flax_params
 from fashion_nerf_torch.models.proposal import attach_proposal
 from fashion_nerf_torch.prng import GeneratorChain
@@ -46,7 +47,7 @@ from fashion_nerf_torch.render.blockwise import (_budgets,
                                                  render_image_blockwise)
 from fashion_nerf_torch.render.renderer import render_image
 from fashion_nerf_torch.train.loop import (TrainStep, _eval_cond,
-                                           make_fields, resolve_garment)
+                                           resolve_garment)
 from fashion_nerf_torch.train.state import create_train_state
 
 
@@ -57,13 +58,6 @@ def bench_pose(W: int):
     c2w = np.eye(4, dtype=np.float32)[:3]
     c2w[2, 3] = 4.0
     return float(focal), c2w
-
-
-def blockwise_eligible(cfg: Config) -> bool:
-    """Whether renders of cfg take the blockwise march."""
-    k = cfg.kernels
-    return bool(k.use_pallas and k.blockwise and k.fused_mlp
-                and cfg.sampling.n_fine > 0)
 
 
 def _shapes(nets: dict) -> dict:
@@ -106,12 +100,11 @@ def bench_setup(cfg: Config, device) -> dict:
     params, trained = bench_params(cfg, device)
     garment = resolve_garment(cfg, {}, 64, 64, device)
     cond = _eval_cond(cfg, params, garment)
-    blockwise = blockwise_eligible(cfg)
+    blockwise = takes_blockwise(cfg)
     occ = None
     if cfg.occupancy.enabled and trained:
         name = "fine" if "fine" in params else "coarse"
-        field = (make_fused_field(cfg) if blockwise
-                 else make_fields(cfg)[1])
+        field = field_for(cfg)
         occ = build_from_config(
             cfg, lambda p, v, *c: field(params[name], p, v, *c),
             device=device, cond=cond)
@@ -170,17 +163,16 @@ def run_bench(cfg: Config, device="cuda", H: int = 800, W: int = 800,
             return render_image_blockwise(params, cfg, H, W, focal, c2w,
                                           occ=occ, device=device, cond=cond)
     else:
-        field_c, field_f = make_fields(cfg)
+        field = field_for(cfg)
         fine = params.get("fine")
 
         def render():
             return render_image(
-                lambda p, v, *c: field_c(params["coarse"], p, v, *c),
+                lambda p, v, *c: field(params["coarse"], p, v, *c),
                 None if fine is None else
-                (lambda p, v, *c: field_f(fine, p, v, *c)),
+                (lambda p, v, *c: field(fine, p, v, *c)),
                 H, W, focal, c2w, cfg, occ=occ, device=device, cond=cond,
-                use_fused_render=cfg.kernels.use_pallas
-                and cfg.kernels.fused_render)
+                use_fused_render=takes_fused_render(cfg))
 
     with torch.no_grad():
         for _ in range(warmup):

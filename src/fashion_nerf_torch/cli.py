@@ -23,17 +23,17 @@
 
 `render` and `eval` sweep the occupancy grid of the fine field, attach the
 proposal net (the committed asset, or one distilled here) and render
-through the blockwise fast path when the config is eligible for it
-(`kernels.use_pallas`, `kernels.blockwise`, `kernels.fused_mlp` and a fine
-pass), otherwise through the dense renderer. A conditioned config (the
-try-on presets) renders with the scene's cond vector: the garment code of
-its conditioning stack ⊕, for `dynamic_tryon`, a per-frame latent; the
-sweep and the proposal take frame 0's cond, which every frame of a
-dynamic render shares (latent i % n_latents for frame i), as the
-reference does. `train` of a conditioned config trains the garment encoder
-and the latent table with the fields. Everything runs on the CUDA device
-and raises when there is none, unless `--device cpu` asks for the CPU,
-where every kernel takes its plain version. The resolved config is written to DIR/NAME/config.json.
+through the blockwise fast path when the config takes it
+(`config.takes_blockwise`), otherwise through the dense renderer. A
+conditioned config (the try-on presets) renders with the scene's cond
+vector: the garment code of its conditioning stack ⊕, for `dynamic_tryon`,
+a per-frame latent; the sweep and the proposal take frame 0's cond, which
+every frame of a dynamic render shares (latent i % n_latents for frame i),
+as the reference does. `train` of a conditioned config trains the garment
+encoder and the latent table with the fields. Everything runs on the CUDA
+device and raises when there is none, unless `--device cpu` asks for the
+CPU, where every kernel takes its plain version. The resolved config is
+written to DIR/NAME/config.json.
 """
 
 from __future__ import annotations
@@ -180,20 +180,14 @@ def _restored_state(cfg, device):
     return ckpt_lib.restore(os.path.join(cfg.out_dir, cfg.name, "ckpt"), tmpl)
 
 
-def _fast_path(cfg) -> bool:
-    """Whether renders take the blockwise march (render/blockwise.py)."""
-    k = cfg.kernels
-    return bool(k.use_pallas and k.blockwise and k.fused_mlp
-                and cfg.sampling.n_fine > 0)
-
-
 def _blockwise_render_fn(cfg, params, H, W, focal, occ, device):
     """The fast path for whole-image renders, (pose, cond vector or None)
     → output dict: the blockwise early-terminated march that the bench
     measures. None when the config is not eligible (kernels off or
     coarse-only): the dense renderer serves then."""
-    if not _fast_path(cfg):
-        if cfg.kernels.use_pallas and cfg.kernels.blockwise:
+    from fashion_nerf_torch.config import asks_blockwise, takes_blockwise
+    if not takes_blockwise(cfg):
+        if asks_blockwise(cfg):
             # the fast path was asked for and the config excludes it
             print("fashion-nerf-torch: blockwise fast path ineligible for "
                   "this config (coarse-only or fused_mlp off); using the "
@@ -209,7 +203,8 @@ def _with_proposal(cfg, params, occ, device, cond=None):
     distilled for these weights, with a conditioned teacher run at the
     scene's cond vector); unchanged unless proposal.enabled and the
     blockwise fast path is eligible."""
-    if not (_fast_path(cfg) and cfg.proposal.enabled):
+    from fashion_nerf_torch.config import takes_blockwise
+    if not (takes_blockwise(cfg) and cfg.proposal.enabled):
         return params
     from fashion_nerf_torch.models.proposal import attach_proposal
     return attach_proposal(cfg, params, occ=occ, cond=cond, device=device)
@@ -234,8 +229,9 @@ def _setup(cfg, device, dataset):
     `render_path`). frame_cond(i) is frame i's cond vector (None for an
     unconditioned config)."""
     from fashion_nerf_torch.render.renderer import render_image
+    from fashion_nerf_torch.kernels.posenc_mlp import field_for
     from fashion_nerf_torch.train.loop import (_eval_cond, load_dataset,
-                                               make_fields, resolve_garment)
+                                               resolve_garment)
     state = _restored_state(cfg, device)
     d = load_dataset(cfg, device) if dataset is None else dataset
     H, W, focal = int(d["H"]), int(d["W"]), float(d["focal"])
@@ -247,16 +243,16 @@ def _setup(cfg, device, dataset):
                           frame_id=i % max(cfg.model.n_latents, 1))
 
     cond = frame_cond(0)
-    field_c, field_f = make_fields(cfg)
+    field = field_for(cfg)
     use_fine = cfg.sampling.n_fine > 0 and state.fine is not None
-    occ = (_maybe_occ(cfg, field_f, state.fine, device, cond) if use_fine
-           else _maybe_occ(cfg, field_c, state.coarse, device, cond))
+    occ = _maybe_occ(cfg, field, state.fine if use_fine else state.coarse,
+                     device, cond)
     params = _with_proposal(cfg, nets, occ, device, cond)
     bw = _blockwise_render_fn(cfg, params, H, W, focal, occ, device)
     if bw is not None:
         return d, (lambda pose, c=cond: bw(pose, c)), None, frame_cond
-    fc = (lambda pts, vd, *c: field_c(state.coarse, pts, vd, *c))
-    ff = ((lambda pts, vd, *c: field_f(state.fine, pts, vd, *c)) if use_fine
+    fc = (lambda pts, vd, *c: field(state.coarse, pts, vd, *c))
+    ff = ((lambda pts, vd, *c: field(state.fine, pts, vd, *c)) if use_fine
           else None)
     dense = dict(field_coarse=fc, field_fine=ff, H=H, W=W, focal=focal,
                  cfg=cfg, occ=occ, device=device)

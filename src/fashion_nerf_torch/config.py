@@ -8,9 +8,13 @@ package. The port adds the `mipnerf360` preset and the model fields it
 needs (`ipe_deg`, `bottleneck_width`, `view_width`); `ipe_deg` = 0 leaves
 the five presets rendering as the reference's, and only mip-NeRF 360's nets
 read the two widths. Why each preset's values were chosen is written beside
-the reference's copy. Fields that select among the reference's TPU kernels
-(`use_pallas`, `fused_*`, `interpret`) are kept for equality; the port's
-route is fixed by the device (kernels/__init__.py).
+the reference's copy. The kernel fields `use_pallas`, `fused_mlp`,
+`fused_backward`, `fused_render` and `blockwise` choose among the
+reference's paths (the fused field or the module's own, the fused render or
+`volume_render`, the blockwise march or the dense renderer), each read by
+the predicates after `Config` alone; the device then chooses the kernel or
+its plain version (kernels/__init__.py). `interpret` and `mlp_dtype` are
+kept for equality and read by nothing.
 """
 
 from __future__ import annotations
@@ -176,6 +180,34 @@ class Config:
     tryon: TryonConfig = field(default_factory=TryonConfig)
     dist: DistConfig = field(default_factory=DistConfig)
     out_dir: str = "runs"
+
+
+def takes_fused_field(cfg: Config, training: bool = False) -> bool:
+    """Whether the NeRFMLPs run through the fused field (K3, and K4 as its
+    backward in training) rather than the module's own field: for
+    inference, or for training (`kernels.fused_backward` as well)."""
+    k = cfg.kernels
+    return bool(k.use_pallas and k.fused_mlp
+                and (not training or k.fused_backward))
+
+
+def asks_blockwise(cfg: Config) -> bool:
+    """Whether the config asks for the blockwise march."""
+    return bool(cfg.kernels.use_pallas and cfg.kernels.blockwise)
+
+
+def takes_blockwise(cfg: Config) -> bool:
+    """Whether whole-image renders take the blockwise march
+    (render/blockwise.py): asked for, through the fused field, with a fine
+    pass. Otherwise the dense renderer serves."""
+    return (asks_blockwise(cfg) and takes_fused_field(cfg)
+            and cfg.sampling.n_fine > 0)
+
+
+def takes_fused_render(cfg: Config) -> bool:
+    """Whether the dense renderer's unculled evaluation composites through
+    the fused render (K5) rather than `volume_render`."""
+    return bool(cfg.kernels.use_pallas and cfg.kernels.fused_render)
 
 
 # --- The five acceptance presets (BASELINE.json:7-11), and mip-NeRF 360 ------

@@ -41,7 +41,9 @@ raises ValueError.
 
 Path rule, the same in every wrapper: tensors on the CPU take the plain
 PyTorch version; tensors on a CUDA device take the kernel, or the call
-raises. Nothing falls back from one to the other. A kernel launches on its
+raises. Nothing falls back from one to the other. Inside `with
+plain_versions():` CUDA tensors take the plain version too: the reference
+runs on the card that the kernels are held against. A kernel launches on its
 operands' card (`on_cuda` gives it; operands on two cards raise), on that
 card's current stream (`launch_args`): several cards in one process, or one
 rank a card, each run their own. The sources are built on
@@ -59,6 +61,7 @@ launch at an SB outside SB_16_64 goes to its "_sb" entry instead
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -157,6 +160,9 @@ _SIGNATURES = {
 
 _lib = None
 build_info: dict = {}
+# set inside `plain_versions`; process-wide, not per thread, because
+# autograd runs the backward of CUDA tensors on a thread of its own
+_plain = False
 
 
 def march_sb_ok(SB: int, tile_rows: int = TILE_ROWS) -> bool:
@@ -276,10 +282,25 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block every wrapper takes its plain version on any
+    device (`on_cuda` gives None for CUDA tensors too), backwards run in
+    it included. Nests; the previous state comes back on exit, also when
+    the block raises."""
+    global _plain
+    outer, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = outer
+
+
 def on_cuda(*tensors) -> Optional[torch.device]:
     """The CUDA device every tensor is on, or None when every one is on
-    the CPU; raises on anything else: a CPU/CUDA mix, or tensors on two
-    cards. (None entries are skipped; anything with a `.device` will do.)"""
+    the CPU or inside `plain_versions`; raises on anything else: a
+    CPU/CUDA mix, or tensors on two cards. (None entries are skipped;
+    anything with a `.device` will do.)"""
     devs = {t.device for t in tensors if t is not None}
     kinds = {d.type for d in devs}
     if kinds == {"cpu"}:
@@ -288,7 +309,7 @@ def on_cuda(*tensors) -> Optional[torch.device]:
         if len(devs) > 1:
             raise ValueError(f"tensors on {sorted(map(str, devs))}: a kernel "
                              "launches on one card, its operands' own")
-        return next(iter(devs))
+        return None if _plain else next(iter(devs))
     raise ValueError(f"tensors on devices {sorted(kinds)}: the kernels take "
                      "all-CUDA inputs, the plain versions all-CPU inputs")
 

@@ -63,9 +63,10 @@ import torch
 import torch.nn.functional as F
 
 from fashion_nerf_torch import kernels as K
+from fashion_nerf_torch.config import takes_fused_field
 from fashion_nerf_torch.kernels import wgpack
 from fashion_nerf_torch.core.posenc import posenc
-from fashion_nerf_torch.models.nerf_mlp import NeRFMLP
+from fashion_nerf_torch.models.nerf_mlp import NeRFMLP, module_field
 from fashion_nerf_torch.trace import span
 
 _BF = torch.bfloat16
@@ -822,45 +823,40 @@ class FusedField(torch.autograd.Function):
     `field_core` custom VJP).
 
     apply(pts (n,3) f32, dirpart (n/spr, W/2) f32, condpart (n/spr,
-    n_cond·W) f32 or None, w32 (n_w,) f32, b (n_b,) f32, net, spr, plain)
+    n_cond·W) f32 or None, w32 (n_w,) f32, b (n_b,) f32, net, spr)
     → (rgb (n,3), σ (n,)). `net` is the PackedNet that w32 and b were
     packed into; its bf16 `w` is what the kernels read. dirpart, condpart
     and w32 are rounded to bf16 here, and their gradients are returned
     unrounded (straight through the casts, as the reference's VJP returns
-    f32 cotangents for its f32 params and hoists). plain=True takes the
-    plain versions on any device."""
+    f32 cotangents for its f32 params and hoists)."""
 
     @staticmethod
-    def forward(ctx, pts, dirpart, condpart, w32, b, net, spr, plain):
+    def forward(ctx, pts, dirpart, condpart, w32, b, net, spr):
         dp = dirpart.to(_BF).contiguous()
         cp = None if condpart is None else condpart.to(_BF).contiguous()
-        fn = field_rows_plain if plain else field_rows
-        rgb, sigma = fn(net, pts, dp, spr, cp)
+        rgb, sigma = field_rows(net, pts, dp, spr, cp)
         ctx.save_for_backward(pts, dp, cp)
-        ctx.net, ctx.spr, ctx.plain = net, spr, plain
+        ctx.net, ctx.spr = net, spr
         return rgb, sigma
 
     @staticmethod
     def backward(ctx, g_rgb, g_sigma):
         pts, dp, cp = ctx.saved_tensors
-        fn = field_rows_backward_plain if ctx.plain else field_rows_backward
-        d_pts, d_dir, d_w, d_b, *d_cp = fn(
+        d_pts, d_dir, d_w, d_b, *d_cp = field_rows_backward(
             ctx.net, pts, dp, g_rgb.float().contiguous(),
             g_sigma.float().contiguous(), ctx.spr, cp)
         return (d_pts, d_dir, d_cp[0] if d_cp else None, d_w, d_b, None,
-                None, None)
+                None)
 
 
-def make_fused_field(cfg, plain: bool = False):
+def make_fused_field():
     """Field fn with the reference convention:
     field(params, pts (R,S,3), viewdirs (R,3), cond (R,Cc)=None) →
     (rgb (R,S,3), σ (R,S)), where params is a NeRFMLP. Runs K3 on CUDA
-    tensors (the plain version on CPU tensors, or everywhere with
-    plain=True); a cond enters as its per-ray condpart cond @ cond_kernel.
-    With grad enabled it runs through FusedField, whose backward is K4 (or
-    its plain version), and gradients reach the NeRFMLP's parameters and
-    the cond."""
-    del cfg   # the architecture is read off the module
+    tensors (the plain version on CPU tensors); a cond enters as its
+    per-ray condpart cond @ cond_kernel. With grad enabled it runs through
+    FusedField, whose backward is K4 (or its plain version), and gradients
+    reach the NeRFMLP's parameters and the cond."""
 
     def field(params: NeRFMLP, pts, viewdirs, cond=None):
         net = pack_params(params, hoist_x=False)
@@ -875,12 +871,19 @@ def make_fused_field(cfg, plain: bool = False):
             cond_term(net, cond), (0, 0, 0, R_pad - R)).contiguous())
         if net.w32 is not None:
             rgb, sigma = FusedField.apply(flat, dterm.contiguous(), cterm,
-                                          net.w32, net.b, net, S, plain)
+                                          net.w32, net.b, net, S)
         else:
-            fn = field_rows_plain if plain else field_rows
-            rgb, sigma = fn(net, flat, dterm.to(_BF).contiguous(), S,
-                            None if cterm is None
-                            else cterm.to(_BF).contiguous())
+            rgb, sigma = field_rows(net, flat, dterm.to(_BF).contiguous(), S,
+                                    None if cterm is None
+                                    else cterm.to(_BF).contiguous())
         return (rgb[:R * S].reshape(R, S, 3), sigma[:R * S].reshape(R, S))
 
     return field
+
+
+def field_for(cfg, training: bool = False):
+    """The field fn (`make_fused_field`'s convention) cfg runs its NeRFMLPs
+    through, for inference or for training: the fused field where
+    `config.takes_fused_field`, else `module_field`."""
+    return (make_fused_field() if takes_fused_field(cfg, training)
+            else module_field)

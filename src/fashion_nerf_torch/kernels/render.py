@@ -78,12 +78,11 @@ class _FusedRender(torch.autograd.Function):
     `volume_render`, as the reference's custom VJP does."""
 
     @staticmethod
-    def forward(ctx, rgb, sigma, t_vals, rays_d, white_bkgd, softplus,
-                plain):
+    def forward(ctx, rgb, sigma, t_vals, rays_d, white_bkgd, softplus):
         dnorm = torch.linalg.norm(rays_d, dim=-1)
-        fn = volrend_plain if plain else volrend
-        out = fn(rgb.contiguous(), sigma.contiguous(), t_vals.contiguous(),
-                 dnorm.contiguous(), white_bkgd, softplus)
+        out = volrend(rgb.contiguous(), sigma.contiguous(),
+                      t_vals.contiguous(), dnorm.contiguous(), white_bkgd,
+                      softplus)
         ctx.save_for_backward(rgb, sigma, t_vals, rays_d)
         ctx.white_bkgd, ctx.softplus = white_bkgd, softplus
         return out
@@ -98,21 +97,21 @@ class _FusedRender(torch.autograd.Function):
             grads = torch.autograd.grad(
                 [out["rgb"], out["depth"], out["acc"], out["weights"]],
                 inputs, [g_rgb, g_depth, g_acc, g_w], allow_unused=True)
-        return (*grads, None, None, None)
+        return (*grads, None, None)
 
 
 def fused_render_rays(rgb, sigma, t_vals, rays_d, white_bkgd: bool = False,
                       raw_noise_std: float = 0.0, generator=None,
-                      sigma_activation: str = "relu", plain: bool = False):
+                      sigma_activation: str = "relu"):
     """Drop-in twin of `core.volrend.volume_render` through K5 (same
     returns). σ noise, when asked for, is drawn from `generator` before the
-    kernel. plain=True takes the plain version on any device."""
+    kernel."""
     if raw_noise_std > 0.0:
         sigma = sigma + randn(sigma.shape, generator,
                               sigma.device) * raw_noise_std
     rgb_map, depth, acc, weights = _FusedRender.apply(
         rgb, sigma, t_vals, rays_d, white_bkgd,
-        sigma_activation == "softplus", plain)
+        sigma_activation == "softplus")
     disp = 1.0 / torch.clamp(depth / torch.clamp(acc, min=1e-10), min=1e-10)
     return {"rgb": rgb_map, "depth": depth, "acc": acc, "weights": weights,
             "disp": disp}

@@ -75,11 +75,6 @@ def march_slices(net) -> list:
     return _slices(net.w, net, False)
 
 
-def field_slices(net) -> list:
-    """The slices K3 streams (those of `march_slices`, x rows included)."""
-    return march_slices(net)
-
-
 def field_slices_t(net) -> list:
     """The transposed slices K4's dgrad products stream after the
     forward's, each (kk, N) with kk ≤ SLICE_K rows of the layer's output."""

@@ -122,6 +122,12 @@ class NeRFMLP(nn.Module):
             for name, layer in self.named_dense()}}
 
 
+def module_field(net: NeRFMLP, pts, viewdirs, cond=None):
+    """The module's own plain-torch field in the field-fn convention of
+    `posenc_mlp.make_fused_field`: `net.field` under autograd."""
+    return net.field(pts, viewdirs, cond)
+
+
 def _tree_params(tree) -> dict:
     return tree["params"] if "params" in tree else tree
 

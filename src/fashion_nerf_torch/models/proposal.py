@@ -9,8 +9,9 @@ log(1 + σ) at random points, 7/8 of them inside the occupancy box and 1/8
 across the whole scan box so that σ outside stays pinned at the teacher's.
 `distill_proposal` runs the student as a plain module under autograd, as
 the reference does outside its kernels, unless it is handed another field;
-`attach_proposal` hands it the fused field (K3, with K4 as its backward)
-for the teacher and the student where the config trains through it. A
+`attach_proposal` runs the teacher through `posenc_mlp.field_for`'s field
+for inference and the student through its field for training (the fused
+field, K3 with K4 as its backward, where the config takes it). A
 conditioned fine field teaches with the scene's cond vector; the student
 stays unconditioned, and the asset's match, as the reference's, carries no
 cond fingerprint: an asset signed for these fine weights is attached
@@ -32,9 +33,11 @@ import torch
 from fashion_nerf_torch.assets import (ASSETS_DIR, _flatten, load_params,
                                        save_params)
 from fashion_nerf_torch.config import Config, ModelConfig
+from fashion_nerf_torch.kernels.posenc_mlp import field_for
 from fashion_nerf_torch.kernels.sigmamarch import _density
 from fashion_nerf_torch.models.nerf_mlp import (NeRFMLP, cond_width,
-                                                init_field, load_flax_params)
+                                                init_field, load_flax_params,
+                                                module_field)
 
 PROPOSAL_ASSET = os.path.join(ASSETS_DIR, "proposal_synthetic.npz")
 DISTILL_SEED = 7              # the seed `attach_proposal` distils from
@@ -62,10 +65,6 @@ def log_density(sigma_raw, sigma_activation: str = "relu"):
     return torch.log1p(_density(sigma_raw, sigma_activation == "softplus"))
 
 
-def _module_field(net: NeRFMLP, pts, viewdirs, cond=None):
-    return net.field(pts, viewdirs, cond)
-
-
 def distill_loss(student: NeRFMLP, pts, targets,
                  sigma_activation: str = "relu", field: Callable = None):
     """mean((log1p(act(σ_student(pts))) − targets)²) for pts (B, 1, 3) and
@@ -74,7 +73,7 @@ def distill_loss(student: NeRFMLP, pts, targets,
     through (default: the module's own plain field)."""
     dirs = torch.tensor([0.0, 0.0, -1.0], device=pts.device).expand(
         pts.shape[0], 3)
-    _, s_raw = (field or _module_field)(student, pts, dirs)
+    _, s_raw = (field or module_field)(student, pts, dirs)
     return torch.mean((log_density(s_raw[:, 0], sigma_activation)
                        - targets) ** 2)
 
@@ -194,7 +193,7 @@ def distill_health(cfg: Config, teacher: Callable, student: NeRFMLP,
     act = cfg.model.sigma_activation
     with torch.no_grad():
         y = log_density(teacher(pts, dirs)[1][:, 0], act)
-        sigma = _module_field(student, pts, dirs)[1][:, 0]
+        sigma = module_field(student, pts, dirs)[1][:, 0]
     share = float((sigma > 0).float().mean())
     mse = float(((log_density(sigma, act) - y) ** 2).mean())
     teacher_ms = float((y ** 2).mean())
@@ -223,18 +222,6 @@ def _asset_meta(cfg: Config, fine_params) -> dict:
             "net_depth": cfg.proposal.net_depth,
             "net_width": cfg.proposal.net_width,
             "posenc": cfg.proposal.posenc_xyz}
-
-
-def _distill_fields(cfg: Config):
-    """(teacher's, student's) unbound fields: the fused field where the
-    config renders, and trains, through it (K3 forward, K4 backward; their
-    plain versions on the CPU), else the modules' own plain fields."""
-    k = cfg.kernels
-    if not (k.use_pallas and k.fused_mlp):
-        return _module_field, _module_field
-    from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
-    fused = make_fused_field(cfg)
-    return fused, (fused if k.fused_backward else _module_field)
 
 
 def attach_proposal(cfg: Config, params: dict, occ=None, cond=None,
@@ -276,7 +263,7 @@ def attach_proposal(cfg: Config, params: dict, occ=None, cond=None,
                                 device=device, cond_dim=cond_width(cfg.model))
     if generator is None:
         generator = torch.Generator().manual_seed(DISTILL_SEED)
-    teacher_field, student_field = _distill_fields(cfg)
+    teacher_field = field_for(cfg)
     if cond is not None:
         cvec = torch.as_tensor(cond, dtype=torch.float32, device=device)
 
@@ -290,7 +277,7 @@ def attach_proposal(cfg: Config, params: dict, occ=None, cond=None,
         cfg, teacher, generator,
         box_min=None if occ is None else occ.box_min,
         box_max=None if occ is None else occ.box_max, device=device,
-        field=student_field)
+        field=field_for(cfg, training=True))
     return {**params, "proposal": prop}
 
 

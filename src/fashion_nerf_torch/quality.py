@@ -366,7 +366,7 @@ def run_gate(cfg_overrides=(), poses=None, device=None, H: int = 800,
     prod_cfg = load_config("blender_lego", list(cfg_overrides))
     params, occ, _ = bench.setup(prod_cfg, device)
     dense_cfg = load_config("blender_lego", list(DENSE))
-    field = make_fused_field(dense_cfg)
+    field = make_fused_field()
 
     def prod(c2w):
         with torch.no_grad():
@@ -465,7 +465,7 @@ def run_sweep(only=(), pose: int = 0, device=None, H: int = 800,
                proposal=False):
         cfg = sweep_config(n_coarse, n_fine, blockwise, extra, overrides)
         nets = dict(base)
-        field = make_fused_field(cfg)
+        field = make_fused_field()
         occ = None
         if occ_on:
             # one sweep per occupancy setting: the reference sweeps anew

@@ -40,10 +40,6 @@ a per-scene cond vector (garment code ⊕ latent); its per-ray condpart is
 hoisted once per march (`posenc_mlp.hoist_cond`) and enters K2 folded into
 its x-intercepts, K6 through its cond window. The proposal stays
 unconditioned.
-
-`plain=True` routes every march, and the culling, through its plain
-PyTorch version on any device: the reference frame that chip_smoke.py
-holds the kernels against.
 """
 
 from __future__ import annotations
@@ -66,10 +62,8 @@ from fashion_nerf_torch.core.sampling import (delta_caps, occupancy_bins,
                                               warp_stratified)
 from fashion_nerf_torch.kernels import (boxcull, carrymarch, sigmamarch,
                                         slimmarch)
-from fashion_nerf_torch.kernels.posenc_mlp import (field_rows,
-                                                   field_rows_plain,
-                                                   hoist_cond, hoist_dirs,
-                                                   pack_params)
+from fashion_nerf_torch.kernels.posenc_mlp import (field_rows, hoist_cond,
+                                                   hoist_dirs, pack_params)
 from fashion_nerf_torch.render import m360
 from fashion_nerf_torch.trace import span
 
@@ -95,17 +89,15 @@ def _pass_dists(t_vals, dnorm, t_end, SB, cap=None):
     return F.pad(t_vals, (0, pad)), F.pad(dists, (0, pad))
 
 
-def _block_hit_flags(t_pad, SB, seg: BoxSegments, plain: bool = False):
+def _block_hit_flags(t_pad, SB, seg: BoxSegments):
     """(R, NB) f32: 1 where the block's t-range [first sample, max over the
     block] overlaps an occupied macro box of the chunk's `BoxSegments`
-    (K8's `block_hit`; plain: its plain version); all ones without boxes
-    (seg None)."""
+    (K8's `block_hit`); all ones without boxes (seg None)."""
     if seg is None:
         R, S = t_pad.shape
         return torch.ones((R, S // SB), dtype=torch.float32,
                           device=t_pad.device)
-    fn = boxcull.block_hit_plain if plain else boxcull.block_hit
-    return fn(t_pad.contiguous(), SB, seg)
+    return boxcull.block_hit(t_pad.contiguous(), SB, seg)
 
 
 def _pdf_bins(t_c, weights, edge_bins: bool):
@@ -122,7 +114,7 @@ def _disp(depth, acc):
 
 
 def sigma_march_pass(net, hoists, t_vals, dnorm, alive0, cfg: Config, t_end,
-                     seg=None, sb=None, plain: bool = False, cap=None):
+                     seg=None, sb=None, cap=None):
     """σ-only single-block proposal march → dict rgb (background), depth
     (0), acc, weights (R, S), disp. cap: the widths' caps (`_pass_dists`)."""
     R, S = t_vals.shape
@@ -130,11 +122,10 @@ def sigma_march_pass(net, hoists, t_vals, dnorm, alive0, cfg: Config, t_end,
     t_pad, d_pad = _pass_dists(t_vals, dnorm, t_end, SB, cap)
     if t_pad.shape[1] != SB:
         raise ValueError(f"single-block march: {S} samples, SB={SB}")
-    alive = alive0.float() * _block_hit_flags(t_pad, SB, seg, plain)[:, 0]
-    fn = sigmamarch.sigma_march_plain if plain else sigmamarch.sigma_march
-    w, acc, _ = fn(net, hoists, alive.contiguous(), t_pad.contiguous(),
-                   d_pad.contiguous(),
-                   cfg.model.sigma_activation == "softplus")
+    alive = alive0.float() * _block_hit_flags(t_pad, SB, seg)[:, 0]
+    w, acc, _ = sigmamarch.sigma_march(
+        net, hoists, alive.contiguous(), t_pad.contiguous(),
+        d_pad.contiguous(), cfg.model.sigma_activation == "softplus")
     rgb = torch.zeros((R, 3), dtype=torch.float32, device=w.device)
     if cfg.render.white_bkgd:
         rgb = rgb + (1.0 - acc[:, None])
@@ -144,14 +135,14 @@ def sigma_march_pass(net, hoists, t_vals, dnorm, alive0, cfg: Config, t_end,
 
 
 def _march_inputs(cfg: Config, t_vals, dnorm, t_end, seg, sb=None,
-                  cap=None, plain: bool = False):
+                  cap=None):
     """→ (t_pad, d_pad, block_hit, log ε) of a multi-block march of sb
     samples a block (default kernels.block_samples); cap: the widths' caps
     (`_pass_dists`)."""
     SB = sb or cfg.kernels.block_samples
     eps = cfg.kernels.early_term_eps
     t_pad, d_pad = _pass_dists(t_vals, dnorm, t_end, SB, cap)
-    block_hit = _block_hit_flags(t_pad, SB, seg, plain)
+    block_hit = _block_hit_flags(t_pad, SB, seg)
     log_eps = math.log(eps) if eps > 0 else -1e30
     return (t_pad.contiguous(), d_pad.contiguous(), block_hit.contiguous(),
             log_eps)
@@ -188,46 +179,39 @@ def _march_out(cfg: Config, rgb, depth, acc, w, S):
 
 
 def marched_pass_slim(net, dirpart, hoists, t_vals, dnorm, alive0,
-                      cfg: Config, t_end, seg=None, plain: bool = False,
-                      sb=None, cap=None):
+                      cfg: Config, t_end, seg=None, sb=None, cap=None):
     """March over NB blocks of SB samples through K2 → dict rgb, depth,
     acc, weights (R, S), disp. A net without a view branch (the proposal
     net) takes no dirpart. cap: the widths' caps (`_pass_dists`)."""
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg, sb, cap,
-                                                     plain)
+                                                     t_end, seg, sb, cap)
     hit = alive0.float().contiguous()
-    fn = slimmarch.slim_march_plain if plain else slimmarch.slim_march
-    rgb, w, _ = fn(net, hoists, dirpart if net.has_vd else None, hit,
-                   block_hit, t_pad, d_pad, log_eps,
-                   cfg.model.sigma_activation == "softplus")
+    rgb, w, _ = slimmarch.slim_march(
+        net, hoists, dirpart if net.has_vd else None, hit, block_hit, t_pad,
+        d_pad, log_eps, cfg.model.sigma_activation == "softplus")
     return _march_out(cfg, rgb, (w * t_pad).sum(dim=1), w.sum(dim=1), w,
                       t_vals.shape[1])
 
 
 def marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm, alive0,
-                       cfg: Config, t_end, seg=None, plain: bool = False,
-                       condpart=None, sb=None, cap=None):
+                       cfg: Config, t_end, seg=None, condpart=None,
+                       sb=None, cap=None):
     """The same march through the generic carry kernel K6 (the reference's
     `_marched_pass_carry`, `kernels.carry_hoist=false`): positions built
     per sample, depth and acc composited per block, a conditioned net's
     condpart through K6's cond window → the same dict."""
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg, sb, cap,
-                                                     plain)
+                                                     t_end, seg, sb, cap)
     hit = alive0.float().contiguous()
-    fn = carrymarch.carry_march_plain if plain else carrymarch.carry_march
-    rgb, depth, acc, w, _ = fn(net, dirpart, rays_o.contiguous(),
-                               rays_d.contiguous(), hit, block_hit, t_pad,
-                               d_pad, log_eps,
-                               cfg.model.sigma_activation == "softplus",
-                               condpart=condpart)
+    rgb, depth, acc, w, _ = carrymarch.carry_march(
+        net, dirpart, rays_o.contiguous(), rays_d.contiguous(), hit,
+        block_hit, t_pad, d_pad, log_eps,
+        cfg.model.sigma_activation == "softplus", condpart=condpart)
     return _march_out(cfg, rgb, depth, acc, w, t_vals.shape[1])
 
 
 def marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals, dnorm,
-                 alive0, cfg: Config, t_end, seg=None, plain: bool = False,
-                 sb=None, cap=None):
+                 alive0, cfg: Config, t_end, seg=None, sb=None, cap=None):
     """The two-stage march (the reference's `_marched_pass`,
     `kernels.fused_carry=false`): per block of SB samples, the rays still
     worth marching (alive0 ∧ logT > log ε ∧ the block overlaps an occupied
@@ -242,14 +226,12 @@ def marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals, dnorm,
     R, S = t_vals.shape
     SB = sb or cfg.kernels.block_samples
     t_pad, d_pad, block_hit, log_eps = _march_inputs(cfg, t_vals, dnorm,
-                                                     t_end, seg, SB, cap,
-                                                     plain)
+                                                     t_end, seg, SB, cap)
     NB = t_pad.shape[1] // SB
     rpt = net.tile_rows // SB
     if R % rpt:
         raise ValueError(f"R={R} is not a multiple of {rpt}")
     softplus = cfg.model.sigma_activation == "softplus"
-    field = field_rows_plain if plain else field_rows
     dev = t_vals.device
     rgb = torch.zeros((R, 3), dtype=torch.float32, device=dev)
     depth = torch.zeros((R,), dtype=torch.float32, device=dev)
@@ -263,7 +245,8 @@ def marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals, dnorm,
         d_b = d_pad[:, b * SB:(b + 1) * SB]
         pts = (rays_o[:, None, :] + rays_d[:, None, :] * t_b[..., None]
                ).reshape(-1, 3)
-        rgb_b, sigma_b = field(net, pts, dirpart, SB, condpart, alive=alive)
+        rgb_b, sigma_b = field_rows(net, pts, dirpart, SB, condpart,
+                                    alive=alive)
         w_b, log_T = slimmarch.block_weights(sigma_b.view(R, SB), d_b, log_T,
                                              softplus)
         rgb = rgb + (w_b[..., None] * rgb_b.view(R, SB, 3)).sum(dim=1)
@@ -277,7 +260,7 @@ def marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals, dnorm,
 
 
 def _march(cfg: Config, net, rays_o, rays_d, viewdirs, t_vals, dnorm,
-           alive0, t_end, seg, plain: bool, cond=None, sb=None, cap=None):
+           alive0, t_end, seg, cond=None, sb=None, cap=None):
     """A full-field march through the pipeline the config picks: the
     two-stage march (K3) under `kernels.fused_carry=false`, else K2 or K6
     as `kernels.carry_hoist` picks; cond (R, Cc) per ray for a conditioned
@@ -287,17 +270,17 @@ def _march(cfg: Config, net, rays_o, rays_d, viewdirs, t_vals, dnorm,
     condpart = hoist_cond(net, cond)
     if not cfg.kernels.fused_carry:
         return marched_pass(net, dirpart, condpart, rays_o, rays_d, t_vals,
-                            dnorm, alive0, cfg, t_end, seg=seg, plain=plain,
-                            sb=sb, cap=cap)
+                            dnorm, alive0, cfg, t_end, seg=seg, sb=sb,
+                            cap=cap)
     if cfg.kernels.carry_hoist:
         return marched_pass_slim(net, dirpart,
                                  slimmarch.hoist_rays(net, rays_o, rays_d,
                                                       condpart),
                                  t_vals, dnorm, alive0, cfg, t_end, seg=seg,
-                                 plain=plain, sb=sb, cap=cap)
+                                 sb=sb, cap=cap)
     return marched_pass_carry(net, dirpart, rays_o, rays_d, t_vals, dnorm,
-                              alive0, cfg, t_end, seg=seg, plain=plain,
-                              condpart=condpart, sb=sb, cap=cap)
+                              alive0, cfg, t_end, seg=seg, condpart=condpart,
+                              sb=sb, cap=cap)
 
 
 def use_proposal(cfg: Config, params: dict) -> bool:
@@ -370,13 +353,12 @@ def pack_render_params(params: dict, cfg: Config, occ=None) -> dict:
 
 
 def culling(cfg: Config, rays_o, rays_d, occ: OccupancyState = None,
-            boxes=None, plain: bool = False):
+            boxes=None):
     """Occupancy culling of a chunk → (near, far, alive0 (R,) bool, seg,
     t_end): per-ray union intervals of the macro boxes (or the global box),
     the `BoxSegments` handle the marches' block flags recompute the per-box
     segments from (None without macro boxes), and the finite integration
-    bound. boxes: `occupied_boxes(occ)` (read here when None); plain: K8's
-    plain version on any device."""
+    bound. boxes: `occupied_boxes(occ)` (read here when None)."""
     rcfg = cfg.render
     if occ is None:
         alive0 = torch.ones((rays_o.shape[0],), dtype=torch.bool,
@@ -386,8 +368,7 @@ def culling(cfg: Config, rays_o, rays_d, occ: OccupancyState = None,
         seg = box_segments(rays_o, rays_d, *(occupied_boxes(occ)
                                              if boxes is None else boxes),
                            rcfg.near, rcfg.far)
-        fn = boxcull.box_cull_plain if plain else boxcull.box_cull
-        near, far, hit = fn(seg)
+        near, far, hit = boxcull.box_cull(seg)
         return near, far, hit, seg, rcfg.far
     near, far, hit = ray_aabb_intersect(rays_o, rays_d, occ.box_min,
                                         occ.box_max, rcfg.near, rcfg.far)
@@ -442,8 +423,7 @@ def fine_samples(cfg: Config, t_c, weights, n_fine: int,
 
 def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
                           viewdirs, occ: OccupancyState = None,
-                          packed: dict = None, plain: bool = False,
-                          cond=None):
+                          packed: dict = None, cond=None):
     """Coarse + fine render of (R,) rays, eval mode → {"coarse": dict,
     "fine": dict or None}. R must be a multiple of
     `rays_per_chunk_unit(cfg)`. params: {"fine", "proposal"} or, without
@@ -475,7 +455,7 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
 
     with span("fnt.rays.culling"):
         near, far, alive0, seg, t_end = culling(
-            cfg, rays_o, rays_d, occ, packed.get("boxes"), plain)
+            cfg, rays_o, rays_d, occ, packed.get("boxes"))
         dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         warp = (cfg.occupancy.sample_warp and seg is not None
                 and not cfg.sampling.lindisp)
@@ -491,18 +471,18 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
             if use_sigma_march(cfg, occ):
                 out_c = sigma_march_pass(
                     pnet, sigmamarch.hoist_rays(pnet, rays_o, rays_d), t_c,
-                    dnorm, alive0, cfg, t_end, seg=seg, sb=sb_c, plain=plain,
+                    dnorm, alive0, cfg, t_end, seg=seg, sb=sb_c,
                     cap=caps(t_c))
             else:
                 # the σ-only net has no view branch: its dirpart is zeros
                 out_c = _march(cfg, pnet, rays_o, rays_d, viewdirs, t_c,
-                               dnorm, alive0, t_end, seg, plain, sb=sb_c,
+                               dnorm, alive0, t_end, seg, sb=sb_c,
                                cap=caps(t_c))
             if cfg.proposal.cull_acc > 0.0:
                 alive_f = alive0 & (out_c["acc"] > cfg.proposal.cull_acc)
         else:
             out_c = _march(cfg, packed["coarse"], rays_o, rays_d, viewdirs,
-                           t_c, dnorm, alive0, t_end, seg, plain, cond,
+                           t_c, dnorm, alive0, t_end, seg, cond,
                            cap=caps(t_c))
     if not prop and n_fine <= 0:
         return {"coarse": out_c, "fine": None}
@@ -511,8 +491,7 @@ def render_rays_blockwise(params: dict, cfg: Config, rays_o, rays_d,
                              proposal=prop, strat=strat)
     with span("fnt.rays.fine"):
         out_f = _march(cfg, packed["fine"], rays_o, rays_d, viewdirs, t_all,
-                       dnorm, alive_f, t_end, seg, plain, cond,
-                       cap=caps(t_all))
+                       dnorm, alive_f, t_end, seg, cond, cap=caps(t_all))
     return {"coarse": out_c, "fine": out_f}
 
 
@@ -545,7 +524,7 @@ def _from_tiles(x, H: int, W: int):
 
 def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
                            focal: float, c2w, occ: OccupancyState = None,
-                           plain: bool = False, device=None, cond=None):
+                           device=None, cond=None):
     """Whole-image blockwise render → dict of (H, W[, 3]) rgb, depth, acc,
     disp, plus chunk_live (H, W) bool: whether the pixel's chunk was
     marched (False: the whole chunk missed the box and is background).
@@ -591,13 +570,13 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
 
             def one(sl):
                 return _chunk_m360(params, cfg, rays_o, rays_d, viewdirs, sl,
-                                   packed, plain, radius)
+                                   packed, radius)
         else:
             bg = 1.0 if cfg.render.white_bkgd else 0.0
 
             def one(sl):
                 return _chunk(params, cfg, rays_o, rays_d, viewdirs, sl, occ,
-                              packed, plain, cond, bg, device)
+                              packed, cond, bg, device)
         outs = []
         for c in range(n_chunks):
             with span("fnt.chunk"):
@@ -614,7 +593,7 @@ def render_image_blockwise(params: dict, cfg: Config, H: int, W: int,
 
 
 def _chunk(params: dict, cfg: Config, rays_o, rays_d, viewdirs, sl: slice,
-           occ, packed: dict, plain: bool, cond, bg: float, device) -> dict:
+           occ, packed: dict, cond, bg: float, device) -> dict:
     """One chunk of `render_image_blockwise`: the rays of `sl` rendered
     (`render_rays_blockwise`), or, when all of them miss the occupancy
     box, the background every miss ray converges to; chunk_live says
@@ -631,7 +610,7 @@ def _chunk(params: dict, cfg: Config, rays_o, rays_d, viewdirs, sl: slice,
         c = None if cond is None else cond.expand(chunk, cond.shape[-1])
         with span("fnt.chunk.march"):
             f = render_rays_blockwise(params, cfg, o, d, v, occ=occ,
-                                      packed=packed, plain=plain, cond=c)
+                                      packed=packed, cond=c)
         head = f["fine"] if f["fine"] is not None else f["coarse"]
         out = {k: head[k] for k in ("rgb", "depth", "acc", "disp")}
     else:
@@ -646,13 +625,12 @@ def _chunk(params: dict, cfg: Config, rays_o, rays_d, viewdirs, sl: slice,
 
 
 def _chunk_m360(params: dict, cfg: Config, rays_o, rays_d, viewdirs,
-                sl: slice, packed: dict, plain: bool, radius: float) -> dict:
+                sl: slice, packed: dict, radius: float) -> dict:
     """One chunk of a mip-NeRF 360 frame: every ray of `sl` rendered
     (`m360.render_rays_m360`), none culled."""
     with span("fnt.chunk.march"):
         head = m360.render_rays_m360(params, cfg, rays_o[sl], rays_d[sl],
-                                     viewdirs[sl], radius, packed=packed,
-                                     plain=plain)
+                                     viewdirs[sl], radius, packed=packed)
     out = {k: head[k] for k in ("rgb", "depth", "acc", "disp")}
     out["chunk_live"] = torch.ones_like(out["acc"], dtype=torch.bool)
     return out

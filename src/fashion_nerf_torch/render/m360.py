@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from fashion_nerf_torch.core.cones import cone_gaussians, s_to_t
 from fashion_nerf_torch.core.sampling import resample_intervals
 from fashion_nerf_torch.kernels.widefield import (dir_term, pack_wide,
-                                                  wide_rows, wide_rows_plain)
+                                                  wide_rows)
 from fashion_nerf_torch.models.mipnerf360 import DENSITY_BIAS, MipMLP
 from fashion_nerf_torch.trace import span
 
@@ -70,17 +70,15 @@ def _gaussians(rays_o, rays_d, radius, sdist, cfg):
 
 
 def render_rays_m360(params: dict, cfg, rays_o, rays_d, viewdirs,
-                     radius: float, packed: dict = None,
-                     plain: bool = False) -> dict:
+                     radius: float, packed: dict = None) -> dict:
     """One chunk of R rays (a multiple of 64) → dict rgb (R, 3) with the
     background, depth (the weights' mean interval midpoint), acc, disp.
     params: {"proposal", "fine"} MipMLPs; packed: their `pack_m360` (packed
-    here when None); plain=True takes K7's plain version on any device."""
+    here when None)."""
     if not cfg.sampling.lindisp:
         raise ValueError("mip-NeRF 360 spaces its samples in disparity: "
                          "sampling.lindisp must be true")
     packed = packed or pack_m360(params, cfg)
-    field = wide_rows_plain if plain else wide_rows
     R = rays_o.shape[0]
     n_p, n_f = cfg.proposal.eval_n, cfg.sampling.n_fine
     dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
@@ -89,7 +87,7 @@ def render_rays_m360(params: dict, cfg, rays_o, rays_d, viewdirs,
     for r in range(PROPOSAL_ROUNDS):
         with span("fnt.rays.prop"):
             tdist, mean, var = _gaussians(rays_o, rays_d, radius, sdist, cfg)
-            _, sigma = field(packed["proposal"], mean, var, None, n_p)
+            _, sigma = wide_rows(packed["proposal"], mean, var, None, n_p)
             w = interval_weights(sigma.view(R, n_p), tdist, dnorm)
         with span("fnt.rays.resample"):
             n = n_p if r + 1 < PROPOSAL_ROUNDS else n_f
@@ -97,8 +95,8 @@ def render_rays_m360(params: dict, cfg, rays_o, rays_d, viewdirs,
     with span("fnt.rays.nerf"):
         tdist, mean, var = _gaussians(rays_o, rays_d, radius, sdist, cfg)
         net = packed["fine"]
-        rgb_s, sigma = field(net, mean, var,
-                             dir_term(net, viewdirs).contiguous(), n_f)
+        rgb_s, sigma = wide_rows(net, mean, var,
+                                 dir_term(net, viewdirs).contiguous(), n_f)
         w = interval_weights(sigma.view(R, n_f), tdist, dnorm)
         rgb = torch.sum(w[..., None] * rgb_s.view(R, n_f, 3), dim=1)
         acc = w.sum(dim=1)

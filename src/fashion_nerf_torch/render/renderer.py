@@ -32,8 +32,7 @@ from fashion_nerf_torch.kernels.render import fused_render_rays
 
 def render_rays(field_coarse: Callable, field_fine: Optional[Callable],
                 rays_o, rays_d, cfg: Config, train: bool, generator=None,
-                use_fused_render: bool = False, occ=None,
-                plain: bool = False, cond=None):
+                use_fused_render: bool = False, occ=None, cond=None):
     """Render a batch of rays → {"coarse": {...}, "fine": {...} or None},
     each a volume-render dict.
 
@@ -42,8 +41,7 @@ def render_rays(field_coarse: Callable, field_fine: Optional[Callable],
     renders coarse only. train: stratified jitter and random PDF
     quantiles (sampling.perturb) and σ noise, drawn from `generator`;
     eval is deterministic. occ: an OccupancyState whose global box bounds
-    each ray's interval; misses composite to background. plain=True takes
-    K5's plain version where K5 would run."""
+    each ray's interval; misses composite to background."""
     R = rays_o.shape[0]
     scfg, rcfg = cfg.sampling, cfg.render
     perturb = train and scfg.perturb
@@ -62,7 +60,7 @@ def render_rays(field_coarse: Callable, field_fine: Optional[Callable],
     def vr(rgb, sigma, t):
         if use_fused_render and occ is None:
             return fused_render_rays(rgb, sigma, t, rays_d, rcfg.white_bkgd,
-                                     noise, generator, act, plain=plain)
+                                     noise, generator, act)
         out = volume_render(rgb, sigma, t, rays_d, rcfg.white_bkgd, act,
                             t_end=t_end, raw_noise_std=noise,
                             generator=generator)
@@ -102,8 +100,8 @@ def _rays_for_pose(H: int, W: int, focal, c2w, cfg: Config, device=None):
 
 def render_image(field_coarse: Callable, field_fine: Optional[Callable],
                  H: int, W: int, focal, c2w, cfg: Config,
-                 use_fused_render: bool = False, occ=None,
-                 plain: bool = False, device=None, cond=None, mesh=None):
+                 use_fused_render: bool = False, occ=None, device=None,
+                 cond=None, mesh=None):
     """Render an H×W image in chunks of cfg.render.chunk rays (the last one
     padded; pad directions are unit vectors) → dict rgb (H,W,3), depth,
     acc, disp (H,W). field_*: fields (pts (R,S,3), viewdirs (R,3)) →
@@ -138,7 +136,7 @@ def render_image(field_coarse: Callable, field_fine: Optional[Callable],
               else (lambda pts, _rd, *c, v=v: field_fine(pts, v, *c)))
         out = render_rays(fc, ff, ro[sl], rd[sl], cfg, train=False,
                           use_fused_render=use_fused_render, occ=occ,
-                          plain=plain, cond=cond_rays)
+                          cond=cond_rays)
         head = out["fine"] if out["fine"] is not None else out["coarse"]
         outs.append({k: head[k] for k in ("rgb", "depth", "acc", "disp")})
     rows = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
@@ -161,11 +159,11 @@ def _gather_rows(rows: dict, group, n_ranks: int) -> dict:
 
 def render_path(field_coarse: Callable, field_fine: Optional[Callable],
                 poses, H: int, W: int, focal, cfg: Config,
-                use_fused_render: bool = False, occ=None,
-                plain: bool = False, device=None, cond=None):
+                use_fused_render: bool = False, occ=None, device=None,
+                cond=None):
     """Render a camera path (test poses, a spiral, a rotation) with
     `render_image`, one pose after the other → rgb frames (N, H, W, 3)."""
     return torch.stack([
         render_image(field_coarse, field_fine, H, W, focal, c2w, cfg,
-                     use_fused_render=use_fused_render, occ=occ, plain=plain,
+                     use_fused_render=use_fused_render, occ=occ,
                      device=device, cond=cond)["rgb"] for c2w in poses])

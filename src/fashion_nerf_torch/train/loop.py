@@ -2,13 +2,13 @@
 
 A step gathers a ray batch from the device-resident rays, renders it
 through the coarse and fine fields, takes the coarse + fine MSE (plus the
-sparsity prior), backprops and applies Adam. With the fused field
-(`kernels.use_pallas` and `kernels.fused_mlp`, and `kernels.fused_backward`
-in training) the fields run K3 forward and K4 backward on CUDA tensors and
-their plain versions on CPU tensors; otherwise the plain-torch NeRFMLP
-field runs under autograd. The occupancy-accelerated step renders a
-reduced budget inside each ray's box interval; every `occ_dense_every`-th
-step stays dense. Evaluation renders the held-out view through K3 and K5.
+sparsity prior), backprops and applies Adam. The fields run as
+`posenc_mlp.field_for` picks (`config.takes_fused_field`): the fused field,
+K3 forward and K4 backward on CUDA tensors and their plain versions on CPU
+tensors, or the NeRFMLP's own plain-torch field under autograd. The
+occupancy-accelerated step renders a reduced budget inside each ray's box
+interval; every `occ_dense_every`-th step stays dense. Evaluation renders
+the held-out view through K3 and K5.
 
 Conditioned and latent fields (the try-on presets) train with a per-ray
 cond built inside the step (`make_cond`: the garment encoder's code of the
@@ -40,7 +40,7 @@ from typing import Callable, Optional
 
 import torch
 
-from fashion_nerf_torch.config import Config
+from fashion_nerf_torch.config import Config, takes_fused_render
 from fashion_nerf_torch import ckpt as ckpt_lib
 from fashion_nerf_torch.core.occupancy import build_from_config
 from fashion_nerf_torch.data.pipeline import (RayDataset, host_batch_iter,
@@ -48,7 +48,7 @@ from fashion_nerf_torch.data.pipeline import (RayDataset, host_batch_iter,
                                               sample_batch)
 from fashion_nerf_torch.dist import mesh as dmesh
 from fashion_nerf_torch.kernels import resolve_device
-from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
+from fashion_nerf_torch.kernels.posenc_mlp import field_for
 from fashion_nerf_torch.logging_ import MetricLogger
 from fashion_nerf_torch.metrics import mse_to_psnr, psnr
 from fashion_nerf_torch.prng import GeneratorChain, RowDraws
@@ -56,23 +56,6 @@ from fashion_nerf_torch.render.renderer import render_image, render_rays
 from fashion_nerf_torch.train.state import (TrainState, create_train_state,
                                             learning_rate)
 from fashion_nerf_torch.trace import span
-
-
-def _xla_field(net, pts, viewdirs, cond=None):
-    return net.field(pts, viewdirs, cond)
-
-
-def make_fields(cfg: Config, training: bool = False, plain: bool = False):
-    """(field_coarse, field_fine), each field(net, pts (R,S,3), viewdirs
-    (R,3), cond (R,Cc)=None) → (rgb, σ): the fused field when the config
-    selects it, else
-    the NeRFMLP's plain-torch field. plain=True makes the fused field take
-    its plain versions on any device."""
-    k = cfg.kernels
-    if k.use_pallas and k.fused_mlp and (not training or k.fused_backward):
-        field = make_fused_field(cfg, plain=plain)
-        return field, field
-    return _xla_field, _xla_field
 
 
 def _bind(field, net, viewdirs):
@@ -141,15 +124,14 @@ class TrainStep:
 
     def __init__(self, cfg: Config, dataset: RayDataset,
                  streamed: bool = False, occ_culled: bool = False,
-                 plain: bool = False, garment=None, mesh=None):
+                 garment=None, mesh=None):
         if occ_culled:
             cfg = dataclasses.replace(cfg, sampling=dataclasses.replace(
                 cfg.sampling, n_coarse=cfg.train.occ_coarse,
                 n_fine=(cfg.train.occ_fine if cfg.sampling.n_fine > 0
                         else 0)))
         self.cfg = cfg
-        self.field_c, self.field_f = make_fields(cfg, training=True,
-                                                 plain=plain)
+        self.field = field_for(cfg, training=True)
         self.use_fine = cfg.sampling.n_fine > 0
         self.n_total = dataset.n_rays
         self.crop_idx = (dataset.crop_idx if cfg.train.precrop_iters > 0
@@ -186,9 +168,8 @@ class TrainStep:
         cfg, g = self.cfg, state.generator
         vd = batch["viewdirs"]
         cond = make_cond(cfg, state.nets(), batch, self.garment)
-        fc = _bind(self.field_c, state.coarse, vd)
-        ff = (_bind(self.field_f, state.fine, vd) if self.use_fine
-              else None)
+        fc = _bind(self.field, state.coarse, vd)
+        ff = _bind(self.field, state.fine, vd) if self.use_fine else None
         out = render_rays(fc, ff, batch["rays_o"], batch["rays_d"], cfg,
                           train=True, generator=self.draws(state), occ=occ,
                           cond=cond)
@@ -205,8 +186,8 @@ class TrainStep:
                 # the prior is no sum over rays: the first dp block (whose
                 # first ray is the batch's, the conditioned prior's cond)
                 # counts it
-                loss_sp = sparsity_loss(cfg, state.nets(), self.field_c,
-                                        self.field_f, pts, cond)
+                loss_sp = sparsity_loss(cfg, state.nets(), self.field,
+                                        self.field, pts, cond)
             else:
                 loss_sp = torch.zeros((), device=pts.device)
             loss = loss + cfg.train.sparsity_weight * loss_sp
@@ -246,20 +227,19 @@ class TrainStep:
             return state, metrics
 
 
-def refresh_occupancy(cfg: Config, state: TrainState, plain: bool = False,
-                      cond_vec=None):
+def refresh_occupancy(cfg: Config, state: TrainState, cond_vec=None):
     """The training-time culling grid from the live nets: σ is the max of
     the coarse and the fine field, so both nets' culled ranges are sound.
     cond_vec: the per-scene cond vector (Cc,) of a conditioned run, whose
     density the grid is swept with."""
-    field_c, field_f = make_fields(cfg, plain=plain)
+    field = field_for(cfg)
     dev = next(state.coarse.parameters()).device
 
     def union(pts, dirs, *cond):
-        rgb, sigma = field_c(state.coarse, pts, dirs, *cond)
+        rgb, sigma = field(state.coarse, pts, dirs, *cond)
         if state.fine is not None and cfg.sampling.n_fine > 0:
             sigma = torch.maximum(sigma,
-                                  field_f(state.fine, pts, dirs, *cond)[1])
+                                  field(state.fine, pts, dirs, *cond)[1])
         return rgb, sigma
 
     with torch.no_grad(), span("fnt.occ_refresh"):
@@ -267,26 +247,25 @@ def refresh_occupancy(cfg: Config, state: TrainState, plain: bool = False,
 
 
 def evaluate(cfg: Config, state: TrainState, dataset: RayDataset,
-             plain: bool = False, garment=None, frame_id: int = 0,
-             mesh=None):
-    """Render the held-out view (fused field; K5 compositing when
-    kernels.fused_render) → (outputs, val PSNR). A conditioned or dynamic
-    run renders with the cond vector of `garment` and frame `frame_id`'s
-    latent (the held-out view has none of its own: frame 0 stands in).
+             garment=None, frame_id: int = 0, mesh=None):
+    """Render the held-out view (`field_for`'s field; K5 compositing
+    where `config.takes_fused_render`) → (outputs, val PSNR). A
+    conditioned or dynamic run renders with the cond vector of `garment`
+    and frame `frame_id`'s latent (the held-out view has none of its own:
+    frame 0 stands in).
     mesh: the view's chunks are dealt to the dp ranks (`render_image`)."""
-    field_c, field_f = make_fields(cfg, plain=plain)
-    fc = (lambda pts, vd, *c: field_c(state.coarse, pts, vd, *c))
+    field = field_for(cfg)
+    fc = (lambda pts, vd, *c: field(state.coarse, pts, vd, *c))
     ff = None
     if cfg.sampling.n_fine > 0 and state.fine is not None:
-        ff = (lambda pts, vd, *c: field_f(state.fine, pts, vd, *c))
+        ff = (lambda pts, vd, *c: field(state.fine, pts, vd, *c))
     dev = dataset.rays_o.device
     with torch.no_grad():
         cond = _eval_cond(cfg, state.nets(), garment, frame_id)
         out = render_image(fc, ff, dataset.H, dataset.W, dataset.focal,
                            dataset.val_pose, cfg,
-                           use_fused_render=(cfg.kernels.use_pallas
-                                             and cfg.kernels.fused_render),
-                           plain=plain, device=dev, cond=cond, mesh=mesh)
+                           use_fused_render=takes_fused_render(cfg),
+                           device=dev, cond=cond, mesh=mesh)
         val = torch.as_tensor(dataset.val_image, dtype=torch.float32,
                               device=dev)
         return out, float(psnr(out["rgb"], val))

@@ -39,8 +39,8 @@ def gathered_frame(params, cfg, H, W, focal, c2w, occ=None, device="cpu"):
     packed = bw.pack_render_params(params, cfg, occ)
     bg = 1.0 if cfg.render.white_bkgd else 0.0
     outs = [bw._chunk(params, cfg, rays_o, rays_d, viewdirs,
-                      slice(c * chunk, (c + 1) * chunk), occ, packed, False,
-                      None, bg, device)
+                      slice(c * chunk, (c + 1) * chunk), occ, packed, None,
+                      bg, device)
             for c in range(n_chunks)]
     frame = {}
     for key in outs[0]:

@@ -6,10 +6,13 @@ materialised segments, on the CPU (tests/test_torch_cuda.py holds the
 kernel to them on the card). And `culling`: a `BoxSegments` handle of the
 occupied boxes, with or without `occupancy.sample_warp`."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
+from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.config import load_config
 from fashion_nerf_torch.core import occupancy as tocc
 from fashion_nerf_torch.kernels import boxcull
@@ -86,7 +89,8 @@ def test_plain_twins_equal_the_composition(case, NB, SB, S):
     flags = tocc.block_overlap(t_pad, SB, want[3:], R, NB)
     assert torch.equal(boxcull.block_hit(t_pad, SB, seg), flags)
     for plain in (False, True):
-        assert torch.equal(tbw._block_hit_flags(t_pad, SB, seg, plain), flags)
+        with K.plain_versions() if plain else contextlib.nullcontext():
+            assert torch.equal(tbw._block_hit_flags(t_pad, SB, seg), flags)
     if case == "axis":
         assert bool((seg.inv_d[: 3 * R // 4].abs() > 9e9).any(dim=1).all())
     n_hit = int(hit.sum())

@@ -137,7 +137,7 @@ def scene():
     tree = loaded[0]
     cfg = load_config("blender_lego", BR)
     fine = load_flax_params(tree["fine"], compute_dtype="bfloat16")
-    field = make_fused_field(cfg)
+    field = make_fused_field()
     with torch.no_grad():
         occ_t = build_from_config(cfg, lambda p, v: field(fine, p, v))
     occ_j = JOcc(*[jnp.asarray(x.numpy()) for x in occ_t])

@@ -44,11 +44,11 @@ from fashion_nerf_torch import cli
 from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch import png
 from fashion_nerf_torch.config import config_to_dict, load_config
+from fashion_nerf_torch.kernels.posenc_mlp import field_for
 from fashion_nerf_torch.metrics import psnr
 from fashion_nerf_torch.models import proposal
 from fashion_nerf_torch.models.nerf_mlp import load_flax_params
 from fashion_nerf_torch.render import renderer
-from fashion_nerf_torch.train import loop
 from fashion_nerf_torch.train.state import TrainState, make_optimizer
 
 torch.set_num_threads(2)
@@ -110,6 +110,7 @@ def test_distill_loss_through_the_fused_field():
     versions here, bf16 operands) gives the plain bf16 module's loss within
     2e-2 relative, and its gradients reach every parameter."""
     from fashion_nerf_torch.kernels.posenc_mlp import make_fused_field
+    from fashion_nerf_torch.models.nerf_mlp import module_field
     cfg = load_config("blender_lego", PROP[:3])
     student = proposal.init_proposal(cfg, torch.Generator().manual_seed(1))
     rng = np.random.default_rng(2)
@@ -118,15 +119,14 @@ def test_distill_loss_through_the_fused_field():
     y = torch.from_numpy(rng.uniform(0.0, 1.0, 256).astype(np.float32))
     plain = proposal.distill_loss(student, pts, y)
     fused = proposal.distill_loss(student, pts, y,
-                                  field=make_fused_field(cfg))
+                                  field=make_fused_field())
     assert float(fused) == pytest.approx(float(plain), rel=2e-2)
     grads = torch.autograd.grad(fused, list(student.parameters()))
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     assert all(float(g.abs().max()) > 0 for g in grads[:-2])
-    teacher_f, student_f = proposal._distill_fields(cfg)
-    assert teacher_f is not proposal._module_field
+    assert field_for(cfg) is not module_field
     off = load_config("blender_lego", ["kernels.use_pallas=false"])
-    assert proposal._distill_fields(off) == (proposal._module_field,) * 2
+    assert field_for(off) is field_for(off, training=True) is module_field
 
 
 def test_distill_points_fill_box_and_world():
@@ -250,7 +250,7 @@ def dense_run(scene, tmp_path_factory):
 def test_render_path_matches_reference(scene, dense_run):
     cfg = dense_run["cfg"]
     state = _port_state(cfg, dense_run["params"])
-    field_c, field_f = loop.make_fields(cfg)
+    field_c = field_f = field_for(cfg)
     with torch.no_grad():
         frames = renderer.render_path(
             lambda p, v: field_c(state.coarse, p, v),

@@ -188,7 +188,7 @@ def _k3_cond(tree, cfg, cc, rows_per_ray=64, rays=32, seed=0):
     rgb_j, sig_j = j_mff(cfg)(tree, *map(jnp.asarray, (pts, dirs, cond)))
     model = load_flax_params(jax.device_get(tree), "bfloat16", cond_dim=cc)
     with torch.no_grad():
-        rgb_t, sig_t = make_fused_field(cfg)(model, _t(pts), _t(dirs),
+        rgb_t, sig_t = make_fused_field()(model, _t(pts), _t(dirs),
                                              _t(cond))
     return (np.asarray(rgb_j), np.asarray(sig_j), rgb_t.numpy(),
             sig_t.numpy())
@@ -435,7 +435,7 @@ def test_occupancy_grid_with_cond(flagship):
     cond = flagship["cond"]
     js = jocc.build_jit(cfg, jfield, flagship["trees"]["fine"],
                         cond=jnp.asarray(cond))
-    field = make_fused_field(cfg)
+    field = make_fused_field()
     with torch.no_grad():
         ts = tocc.build_from_config(
             cfg, lambda p, v, c: field(flagship["models"]["fine"], p, v, c),

@@ -91,3 +91,32 @@ def test_flatten_matches_reference():
     assert sorted(got) == sorted(want)
     assert all(np.array_equal(got[k], want[k]) for k in want)
     assert assets.load_flagship("/nonexistent.npz") is None
+
+
+def test_path_predicates_over_every_knob():
+    """The predicates that alone read the path-selection knobs, over every
+    setting of `kernels.use_pallas`, `fused_mlp`, `fused_backward`,
+    `fused_render` and `blockwise`, with and without a fine pass: the fused
+    field for inference needs use_pallas and fused_mlp, for training also
+    fused_backward; the blockwise march needs use_pallas and blockwise (what
+    asks for it), the fused field and a fine pass; K5 needs use_pallas and
+    fused_render."""
+    import itertools
+    knobs = ("use_pallas", "fused_mlp", "fused_backward", "fused_render",
+             "blockwise")
+    for values in itertools.product((False, True), repeat=len(knobs)):
+        for n_fine in (0, 16):
+            on = dict(zip(knobs, values))
+            cfg = config.load_config("blender_lego", [
+                f"kernels.{k}={str(v).lower()}" for k, v in on.items()]
+                + [f"sampling.n_fine={n_fine}"])
+            fused = on["use_pallas"] and on["fused_mlp"]
+            assert config.takes_fused_field(cfg) == fused
+            assert config.takes_fused_field(cfg, training=True) == (
+                fused and on["fused_backward"])
+            asks = on["use_pallas"] and on["blockwise"]
+            assert config.asks_blockwise(cfg) == asks
+            assert config.takes_blockwise(cfg) == (asks and fused
+                                                   and n_fine > 0)
+            assert config.takes_fused_render(cfg) == (
+                on["use_pallas"] and on["fused_render"])

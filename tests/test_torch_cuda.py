@@ -7,6 +7,7 @@ This file imports no JAX, so it also runs on a GPU host without JAX:
         tests/test_torch_cuda.py
 (`--noconftest` skips tests/conftest.py, which imports JAX.)"""
 
+import contextlib
 import math
 import os
 from types import SimpleNamespace
@@ -825,10 +826,10 @@ def test_fused_field_gradients_kernel_vs_plain(dev, which):
     grads = []
     for plain in (False, True):
         model.zero_grad()
-        rgb, sig = posenc_mlp.make_fused_field(None, plain=plain)(
-            model, pts, dirs)
-        (rgb.square().mean() + 0.01 * torch.relu(sig).square().mean()
-         ).backward()
+        with K.plain_versions() if plain else contextlib.nullcontext():
+            rgb, sig = posenc_mlp.make_fused_field()(model, pts, dirs)
+            (rgb.square().mean() + 0.01 * torch.relu(sig).square().mean()
+             ).backward()
         grads.append([p.grad.clone() for p in model.parameters()])
     for a, b in zip(*grads):
         assert _rel_rms(a, b) <= 1e-2
@@ -979,9 +980,10 @@ def test_train_step_kernel_vs_plain(dev, monkeypatch):
             cfg, [p for n in nets for p in n.parameters()]),
             torch.Generator(dev))
         n0 = dict(K.LAUNCHES)
-        loss, _ = TrainStep(cfg, ds, streamed=True, plain=plain).loss(
-            state, batch, sparsity_pts=pts)
-        loss.backward()
+        with K.plain_versions() if plain else contextlib.nullcontext():
+            loss, _ = TrainStep(cfg, ds, streamed=True).loss(
+                state, batch, sparsity_pts=pts)
+            loss.backward()
         fwd = K.LAUNCHES["field"] - n0["field"]
         bwd = K.LAUNCHES["field_bwd"] - n0["field_bwd"]
         assert (fwd, bwd) == ((0, 0) if plain else (4, 4))
@@ -1745,6 +1747,36 @@ def test_frame_is_the_gathered_frame_on_the_card(dev):
         assert torch.equal(got[k], want[k]), k
     live = got["chunk_live"]
     assert live.any() and not live.all()
+
+
+def test_frame_under_plain_versions_launches_nothing(dev):
+    """The same 64×64 flagship frame inside `K.plain_versions()`: every
+    wrapper takes its plain version on the card's tensors, so no kernel
+    launches, and the frame is within 40 dB (chip_smoke.py's bar) of the
+    kernels' frame."""
+    from fashion_nerf_torch.bench import bench_pose, bench_setup
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.metrics import psnr
+    from fashion_nerf_torch.render.blockwise import render_image_blockwise
+    cfg = load_config("blender_lego", ["render.chunk=512"])
+    s = bench_setup(cfg, dev)
+    focal, c2w = bench_pose(64)
+
+    def frame():
+        return render_image_blockwise(s["params"], cfg, 64, 64, focal, c2w,
+                                      occ=s["occ"], device=dev)
+
+    K.reset_launches()
+    with torch.no_grad():
+        kern = frame()
+        assert K.LAUNCHES["sigma_march"] > 0 and K.LAUNCHES["box_cull"] > 0
+        K.reset_launches()
+        with K.plain_versions():
+            plain = frame()
+    torch.cuda.synchronize(dev)
+    assert not any(K.LAUNCHES.values()), K.LAUNCHES
+    assert plain["rgb"].device == dev
+    assert float(psnr(plain["rgb"], kern["rgb"])) >= 40.0
 
 
 # --- K8: occupancy culling against the macro boxes --------------------------

@@ -31,6 +31,7 @@ from fashion_nerf.models.proposal import \
     proposal_model_config as ref_proposal_model_config
 from fashion_nerf_torch.assets import load_flagship
 from fashion_nerf_torch.config import load_config
+from fashion_nerf_torch.kernels.posenc_mlp import field_for
 from fashion_nerf_torch.models import proposal as P
 from fashion_nerf_torch.models.nerf_mlp import load_flax_params
 
@@ -50,7 +51,8 @@ def setup():
     rcfg = ref_load_config("blender_lego", list(ROW))
     trained, _ = load_flagship()
     fine = load_flax_params(trained["fine"], compute_dtype="bfloat16")
-    teacher_field, student_field = P._distill_fields(cfg)
+    teacher_field = field_for(cfg)
+    student_field = field_for(cfg, training=True)
     _, ref_teacher = ref_make_field(rcfg.model)
     _, ref_student = ref_make_field(ref_proposal_model_config(rcfg))
     return dict(cfg=cfg, rcfg=rcfg, fine=fine, ref_fine=trained["fine"],

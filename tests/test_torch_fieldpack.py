@@ -80,7 +80,7 @@ def test_field_and_transposed_slices_round_trip(which, k0):
     slice is rows of a layer's Wᵀ."""
     net = _field_net(which)
     assert net.x_rows and net.k0 == k0
-    fwd, tr = wgpack.field_slices(net), wgpack.field_slices_t(net)
+    fwd, tr = wgpack.march_slices(net), wgpack.field_slices_t(net)
     assert [tuple(k.shape) for k in fwd + tr] == _shapes(net, True)
     buf = wgpack.pack_slices(net, transposed=True)
     assert buf.dtype == torch.bfloat16

@@ -12,6 +12,8 @@ The plain versions follow their kernels' numerics (bf16 operands, f32
 accumulation, f32 phases and prefix), so they differ from the reference
 only in f32 summation order. Shared JAX outputs are module-scoped."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from fashion_nerf.models.nerf_mlp import init_field
 from fashion_nerf.models.proposal import proposal_model_config
 from fashion_nerf.render.blockwise import (_marched_pass_slim,
                                            _sigma_march_pass)
+from fashion_nerf_torch import kernels as K
 from fashion_nerf_torch.core.occupancy import box_segments
 from fashion_nerf_torch.kernels import sigmamarch, slimmarch
 from fashion_nerf_torch.kernels.posenc_mlp import (hoist_dirs,
@@ -85,7 +88,7 @@ def _k3_both(tree):
     rgb_j, sig_j = j_mff(cfg)(tree, jnp.asarray(pts), jnp.asarray(dirs), None)
     model = load_flax_params(jax.device_get(tree), compute_dtype="bfloat16")
     with torch.no_grad():
-        rgb_t, sig_t = make_fused_field(cfg)(model, _t(pts), _t(dirs))
+        rgb_t, sig_t = make_fused_field()(model, _t(pts), _t(dirs))
     return (np.asarray(rgb_j), np.asarray(sig_j), rgb_t.numpy(),
             sig_t.numpy())
 
@@ -241,3 +244,40 @@ def test_k2_plain_flagship_seg_termination(flagship):
     assert dead_t.any() and not dead_t.all()
     assert (out_t["acc"] > 1.0 - 1e-3).any()      # terminated rays
     assert not hit.all()
+
+
+# --------------------------------------------------------------------------
+# the route: the device rule and its override
+# --------------------------------------------------------------------------
+
+def test_plain_versions_override_the_device_rule():
+    """`on_cuda` gives the card outside `K.plain_versions()` and None inside
+    it, so every wrapper takes its plain version there; a CPU/CUDA mix and
+    two cards raise in both; the override nests, and the device rule is
+    back after the block, also after an exception. (Stand-ins with a
+    `.device`: no card is needed to pick the route.)"""
+    card = SimpleNamespace(device=torch.device("cuda", 0))
+    other = SimpleNamespace(device=torch.device("cuda", 1))
+    host = torch.zeros(1)
+
+    def mixes_raise():
+        for args in ((card, host), (host, card, None), (card, other)):
+            with pytest.raises(ValueError):
+                K.on_cuda(*args)
+
+    assert K.on_cuda(card, None) == torch.device("cuda", 0)
+    assert K.on_cuda(host, None) is None
+    mixes_raise()
+    with K.plain_versions():
+        assert K.on_cuda(card, None) is None
+        assert K.on_cuda(host) is None
+        mixes_raise()
+        with K.plain_versions():
+            assert K.on_cuda(card) is None
+        assert K.on_cuda(card) is None
+    assert K.on_cuda(card) == torch.device("cuda", 0)
+    with pytest.raises(KeyError):
+        with K.plain_versions():
+            raise KeyError("inside the block")
+    assert K.on_cuda(card) == torch.device("cuda", 0)
+    mixes_raise()

@@ -38,6 +38,7 @@ from fashion_nerf_torch import cli, png
 from fashion_nerf_torch.config import load_config
 from fashion_nerf_torch.data.pipeline import RayDataset
 from fashion_nerf_torch.data.synthetic import make_forward_scene
+from fashion_nerf_torch.kernels.posenc_mlp import field_for
 from fashion_nerf_torch.metrics import psnr
 from fashion_nerf_torch.models.nerf_mlp import load_flax_params
 from fashion_nerf_torch.render import renderer
@@ -104,7 +105,7 @@ def test_sigma_noise_in_training_only(scene):
     port = _port_state(cfg, jax.device_get(
         j_create(j_load_config("llff_fern", SMALL),
                  jax.random.PRNGKey(1)).params))
-    fc, ff = loop.make_fields(cfg)
+    fc = ff = field_for(cfg)
     v = b["viewdirs"]
 
     def run(c, train, seed):

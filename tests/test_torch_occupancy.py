@@ -129,7 +129,7 @@ def test_flagship_grid_res32():
     js = jocc.build_from_config(cfg, functools.partial(jfield,
                                                        params["fine"]))
     fine = load_flax_params(params["fine"], compute_dtype="bfloat16")
-    field = make_fused_field(cfg)
+    field = make_fused_field()
     with torch.no_grad():
         ts = tocc.build_from_config(cfg, lambda p, v: field(fine, p, v))
     agree = float((ts.grid.numpy() == np.asarray(js.grid)).mean())

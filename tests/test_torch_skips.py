@@ -173,7 +173,7 @@ def field_case(request):
     ins = [_t(pts).requires_grad_(True), _t(dirs).requires_grad_(True)]
     if cond:
         ins.append(_t(c).requires_grad_(True))
-    rgb_t, sig_t = posenc_mlp.make_fused_field(cfg)(model, *ins)
+    rgb_t, sig_t = posenc_mlp.make_fused_field()(model, *ins)
     (torch.mean(rgb_t ** 2) + 0.01 * torch.mean(torch.relu(sig_t) ** 2)
      ).backward()
     return (np.asarray(rgb_j), np.asarray(sig_j), g_j, rgb_t.detach(),

@@ -70,7 +70,7 @@ def test_fused_field_cond_gradients_match_reference(overrides, R, S, cc,
     model = load_flax_params(jax.device_get(params), "bfloat16", cond_dim=cc)
     x, d, c = (torch.from_numpy(a).requires_grad_(True)
                for a in (pts, dirs, cond))
-    rgb, sig = posenc_mlp.make_fused_field(cfg)(model, x, d, c)
+    rgb, sig = posenc_mlp.make_fused_field()(model, x, d, c)
     _loss(rgb, sig, torch.relu).backward()
 
     cx = 3 * (2 * cfg.model.posenc_xyz + 1)

@@ -43,7 +43,7 @@ def test_loss_through_fused_field_reaches_every_parameter():
     rng = np.random.default_rng(0)
     pts = torch.tensor(rng.uniform(-1, 1, (8, 16, 3)), dtype=torch.float32)
     dirs = torch.tensor(rng.normal(size=(8, 3)), dtype=torch.float32)
-    rgb, sigma = posenc_mlp.make_fused_field(cfg)(model, pts, dirs)
+    rgb, sigma = posenc_mlp.make_fused_field()(model, pts, dirs)
     (torch.mean((rgb - 0.5) ** 2) + torch.mean(torch.relu(sigma))).backward()
     for name, p in model.named_parameters():
         assert p.grad is not None, name
@@ -73,7 +73,7 @@ def test_fused_field_gradients_match_reference(overrides, R, S):
                              compute_dtype="bfloat16")
     x = torch.from_numpy(pts).requires_grad_(True)
     d = torch.from_numpy(dirs).requires_grad_(True)
-    rgb, sig = posenc_mlp.make_fused_field(cfg)(model, x, d)
+    rgb, sig = posenc_mlp.make_fused_field()(model, x, d)
     (torch.mean(rgb ** 2) + 0.01 * torch.mean(torch.relu(sig) ** 2)
      ).backward()
 

@@ -40,6 +40,7 @@ from fashion_nerf.render.renderer import render_rays as j_render_rays
 from fashion_nerf.train import loop as jloop
 from fashion_nerf.train.state import create_train_state as j_create
 from fashion_nerf_torch.data.pipeline import RayDataset
+from fashion_nerf_torch.models.nerf_mlp import module_field
 from fashion_nerf_torch.train import loop
 from fashion_nerf_torch.train.state import learning_rate, state_from_params
 
@@ -375,7 +376,7 @@ def test_plain_conditioned_field_step_matches_reference(ref, scene, preset):
     cfg = _cfg(preset, "train.sparsity_weight=1e-4",
                "kernels.use_pallas=false")
     state, tb, step = _port(cfg, scene, r, garment)
-    assert step.field_c is loop._xla_field
+    assert step.field is module_field
     loss, _ = step.loss(state, tb, sparsity_pts=r["pts"])
     loss.backward()
     loss = float(loss.detach())

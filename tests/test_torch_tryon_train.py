@@ -70,10 +70,10 @@ def runs(tmp_path_factory):
             seen["eval"].append(garment)
             return ev0(*a, garment=garment, **kw)
 
-        def rf(cfg, state, plain=False, cond_vec=None):
+        def rf(cfg, state, cond_vec=None):
             seen["refresh"].append((cond_vec, loop._eval_cond(
                 cfg, state.nets(), garment0)))
-            return rf0(cfg, state, plain=plain, cond_vec=cond_vec)
+            return rf0(cfg, state, cond_vec=cond_vec)
 
         d = str(tmp_path_factory.mktemp(preset))
         cfg = _cfg(preset, d)
@@ -160,19 +160,16 @@ def test_train_refreshes_occupancy_with_the_cond(runs, preset, monkeypatch):
     assert got is not None and torch.equal(got, want)
     cfg, state = r["cfg"], r["state"]
     calls = []
-    fc0, ff0 = loop.make_fields(cfg, plain=True)
+    field0 = loop.field_for(cfg)
 
-    def spy(field):
-        def f(net, pts, dirs, *cond):
-            calls.append(tuple(c.shape for c in cond))
-            return field(net, pts, dirs, *cond)
-        return f
+    def spy(net, pts, dirs, *cond):
+        calls.append(tuple(c.shape for c in cond))
+        return field0(net, pts, dirs, *cond)
 
-    monkeypatch.setattr(loop, "make_fields",
-                        lambda cfg, plain=False: (spy(fc0), spy(ff0)))
+    monkeypatch.setattr(loop, "field_for", lambda cfg: spy)
     with torch.no_grad():
         cond = loop._eval_cond(cfg, state.nets(), r["garment"])
-    occ = loop.refresh_occupancy(cfg, state, plain=True, cond_vec=cond)
+    occ = loop.refresh_occupancy(cfg, state, cond_vec=cond)
     assert calls and all(c == ((c[0][0], cond.shape[0]),) for c in calls)
     assert occ.grid.shape == (16, 16, 16)
 
@@ -186,7 +183,7 @@ def test_sparsity_prior_takes_the_first_rays_cond(runs, preset):
     frames gives the first ray's prior, not the second's."""
     r = runs[preset]
     cfg, state = r["cfg"], r["state"]
-    fc, ff = loop.make_fields(cfg, training=True)
+    fc = ff = loop.field_for(cfg, training=True)
     batch = {k: v[[0, 300, 5, 7]] for k, v in _rays(r["scene"]).items()}
     assert batch["frame_ids"][0] != batch["frame_ids"][1]
     pts = torch.rand((64, 1, 3), generator=torch.Generator().manual_seed(0))

@@ -186,12 +186,12 @@ def task_segmented(task, inputs, mesh):
 def task_render(task, inputs, mesh):
     """render_image of the parameters with the mesh and without it."""
     from fashion_nerf_torch.render.renderer import render_image
-    from fashion_nerf_torch.train.loop import make_fields
+    from fashion_nerf_torch.kernels.posenc_mlp import field_for
     from fashion_nerf_torch.train.state import state_from_params
     cfg = load_config(task["config"], task["overrides"])
     state = state_from_params(cfg, tree(inputs, "params"),
                               torch.Generator())
-    field_c, field_f = make_fields(cfg)
+    field_c = field_f = field_for(cfg)
     fc = (lambda pts, vd, *c: field_c(state.coarse, pts, vd, *c))
     ff = (lambda pts, vd, *c: field_f(state.fine, pts, vd, *c))
     pose = torch.from_numpy(inputs["render/pose"])
