@@ -46,7 +46,8 @@ serving and training. Phases, in order:
    (layers 3 and 5 take γ(x); its layout checked against the library's
    fnt_layout) through K3 (also with a 64-wide cond, n_cond 3), K4
    (786,432 rows; conditioned 393,216), K2 and K6 at the fine march's
-   chunk; K2 with a view branch on an 8×128 net; the σ march at the
+   chunk; K2 with a view branch on an 8×128 net, K4 on it (786,432 rows;
+   conditioned, n_cond 2, 393,216); the σ march at the
    sweep's 2×192 and 3×256 L = 8 proposals, which K2 without a view branch
    serves zero-padded to 256 (counted under "sigma_march_k2"); K8 (the
    occupancy culling against the 512 macro boxes) at the orbit cell's
@@ -1985,6 +1986,14 @@ def kernel_skips(cfg, pts, dirs, chunk, args1, device):
                               compute_dtype="bfloat16", device=device)
     kernel_march_rows(cfg, narrow, chunk, "K2 with a view branch at width "
                       "128 (8×128 L = 10, skip (4,))", k6=False)
+    kernel_k4_rows(posenc_mlp.pack_params(narrow, hoist_x=False), 4096, 192,
+                   rng, device, "8×128 L = 10, skip (4,)")
+    cnarrow = load_flax_params(skip_tree(rng, W=128, skips=(4,), cc=TRYON_CC),
+                               compute_dtype="bfloat16", device=device,
+                               cond_dim=TRYON_CC)
+    kernel_k4_rows(posenc_mlp.pack_params(cnarrow, hoist_x=False), 2048, 192,
+                   rng, device, f"8×128 L = 10, skip (4,), conditioned (Cc "
+                   f"{TRYON_CC}, n_cond 2)", cc=TRYON_CC)
     return kernel_sigma_widths(args1, *chunk[:2], device)[(192, 2)]
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the port's field kernels (K3, K4) and volume render (K5) on the card.
 
-    python scripts/torch_kernel_timing.py [--src DIR] [--only field|k5]
+    python scripts/torch_kernel_timing.py [--src DIR] [--only field|k4|k5]
 
 `field`: on the committed flagship fine net with 64 cond rows of N(0,
 0.01²) (chip_smoke.cond_tree, the `[tryon]` fixture's net) and on the same
@@ -10,6 +10,18 @@ unconditioned and with its cond window, and K4 at the try-on step's fine
 shape, 393,216 rows (2048 rays × 192), unconditioned and, where the package
 has it, with its conditioned plan: median of 5 calls of the wrapper (CUDA
 events).
+
+`k4`: K4 on fixed seeded inputs, so that two versions can be held bitwise
+equal and timed: the `fern.train.dense` step's two calls (llff_fern's 8×256
+net, L = 10, skip (4,), with a view branch: 16,384 rays × 64 coarse and
+× 192 fine rows), `chip_smoke.py` `[kernels]`'s shapes (the committed
+flagship fine net at 786,432 rows, conditioned with TRYON_CC cond rows at
+393,216; an 8×256 net with skips (2, 4) at both) and an 8×128 net with
+skip (4,) at both. Weights, positions, view and cond terms and cotangents
+come from numpy generators with fixed seeds. Each case prints the sha256 of
+K4's outputs (d_pts, d_dirpart, d_w, d_b and, conditioned, d_condpart, as
+bytes in that order), the median of 5 calls of the wrapper (CUDA events)
+and its rows kernel's device time (torch.profiler, one call).
 
 `k5`: for the two shapes an evaluation gives K5 (8192 rays × 64 and × 192
 samples), the kernel against its plain version, its own device time
@@ -26,6 +38,7 @@ one card: parent, change, change, parent.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import subprocess
 import sys
@@ -37,7 +50,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from chip_smoke import (HBM_BPS, TRYON_CC, cond_tree, cuda_ms,  # noqa: E402
-                        device_ms, maxerr, nbytes)
+                        device_ms, maxerr, nbytes, skip_tree)
 
 
 def time_field(dev, rng) -> None:
@@ -85,6 +98,69 @@ def time_field(dev, rng) -> None:
             torch.cuda.empty_cache()
 
 
+def k4_cases():
+    """→ [(label, tree, cond rows, rays, samples a ray)], trees as numpy."""
+    from fashion_nerf_torch.assets import load_flagship
+    trained, _ = load_flagship()
+    rng = np.random.default_rng(2301)
+    fern = skip_tree(rng, W=256, L=10, depth=8, skips=(4,))
+    two = skip_tree(rng, W=256, L=10, depth=8, skips=(2, 4))
+    two_c = skip_tree(rng, W=256, L=10, depth=8, skips=(2, 4), cc=TRYON_CC)
+    w128 = skip_tree(rng, W=128, L=10, depth=8, skips=(4,))
+    w128_c = skip_tree(rng, W=128, L=10, depth=8, skips=(4,), cc=TRYON_CC)
+    flag_c = cond_tree(trained["fine"], TRYON_CC, rng)
+    return [
+        ("fern.train.dense coarse, 8×256 skip (4,)", fern, 0, 16384, 64),
+        ("fern.train.dense fine, 8×256 skip (4,)", fern, 0, 16384, 192),
+        ("[kernels] flagship fine", trained["fine"], 0, 4096, 192),
+        ("[kernels] flagship fine, conditioned", flag_c, TRYON_CC, 2048, 192),
+        ("[kernels] 8×256 skips (2, 4)", two, 0, 4096, 192),
+        ("[kernels] 8×256 skips (2, 4), conditioned", two_c, TRYON_CC, 2048,
+         192),
+        ("8×128 skip (4,)", w128, 0, 4096, 192),
+        ("8×128 skip (4,), conditioned", w128_c, TRYON_CC, 2048, 192),
+    ]
+
+
+def time_k4(dev) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from fashion_nerf_torch.kernels import posenc_mlp
+    from fashion_nerf_torch.models.nerf_mlp import load_flax_params
+    for i, (label, tree, cc, R, S) in enumerate(k4_cases()):
+        rng = np.random.default_rng(7000 + i)
+        net = posenc_mlp.pack_params(load_flax_params(
+            tree, compute_dtype="bfloat16", device=dev,
+            **({"cond_dim": cc} if cc else {})), hoist_x=False)
+        n = R * S
+
+        def t(a):
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+        pts = t(rng.uniform(-1.2, 1.2, (n, 3)))
+        dp = posenc_mlp.hoist_dirs(net, t(rng.normal(size=(R, 3))))
+        cp = (posenc_mlp.hoist_cond(net, t(rng.normal(size=(R, cc))))
+              if cc else None)
+        args = (net, pts, dp.contiguous(), t(1e-4 * rng.normal(size=(n, 3))),
+                t(1e-4 * rng.normal(size=n)), S, cp)
+
+        def call():
+            return posenc_mlp.field_rows_backward(*args)
+        h = hashlib.sha256()
+        for x in call():
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        ms = cuda_ms(call)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        rows = sum(e.device_time_total for e in prof.key_averages()
+                   if "bwd_rows_kernel" in e.key) / 1e3
+        print(f"K4 {label}: {n} rows ({R} rays × {S}), sha256 "
+              f"{h.hexdigest()[:16]}; {ms:.4f} ms a call (median of 5), rows "
+              f"kernel {rows:.4f} ms", flush=True)
+        del net, pts, dp, cp, args
+        torch.cuda.empty_cache()
+
+
 def time_k5(dev, rng, K) -> None:
     from fashion_nerf_torch.kernels import render
     log = K.build_info.get("log", "").splitlines()
@@ -118,8 +194,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=None,
                     help="the src directory to take fashion_nerf_torch from")
-    ap.add_argument("--only", choices=("field", "k5"), default=None,
-                    help="time only the field kernels or only K5")
+    ap.add_argument("--only", choices=("field", "k4", "k5"), default=None,
+                    help="time only the field kernels, K4's hashed cases "
+                    "or K5")
     args = ap.parse_args()
     if args.src:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -138,6 +215,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     if args.only in (None, "field"):
         time_field(dev, rng)
+    if args.only in (None, "k4"):
+        time_k4(dev)
     if args.only in (None, "k5"):
         time_k5(dev, rng, K)
     return 0

@@ -11,7 +11,9 @@ marches) and of `csrc/field.cu` + `csrc/field_bwd.cu` with their shared
 work taken out (the sines of the posenc operand, the layer wgmmas, the
 weight ring's waits and copies, the epilogue's bias and x-term adds,
 every work item; for the field also K4's workspace stores, wgrad's
-wgmmas and the whole of wgrad), each by a text substitution that must
+wgmmas and the whole of wgrad; and two that undo K4's own settings: its
+stores under L2's default policy, its ring at 3 slots), each by a text
+substitution that must
 apply to the source as it stands, into `build/march_breakdown/` (one nvcc
 per variant, all started together). The marches are timed on an all-live
 8192-ray chunk of random inputs at the main path's shapes (K1: 2×128
@@ -133,6 +135,17 @@ FIELD["no posenc backward"] = [
 FIELD["no view column pass"] = [
     ("      for (int c = tw; c < kHalf; c += 128) {\n        const float* wr",
      "      for (int c = tw; c < 0; c += 128) {\n        const float* wr")]
+# K4's rows kernel as it was before its workspace stores were marked
+# evict_first and its ring took a fourth slot: the stores under L2's
+# default policy, and the ring of 3
+FIELD["stores without the L2 hint"] = [
+    ('      "{\\n.reg .b64 policy;\\n"\n'
+     '      "createpolicy.fractional.L2::evict_first.b64 policy, 1.0;\\n"\n'
+     '      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint "\n'
+     '      "[%0], [%1], %2, policy;\\n}\\n"',
+     '      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\\n"')]
+FIELD["ring of 3 slots"] = [("constexpr int kStagesK4 = 4;",
+                             "constexpr int kStagesK4 = 3;")]
 # K6: the field's loop (wg_field.cuh) inside carrymarch.cu
 CARRY = {
     "as built": [],

@@ -53,6 +53,21 @@
 // No float atomics anywhere: the same inputs give bitwise the same
 // gradients, so a resumed run retraces its trajectory.
 //
+// What the rows kernel's time goes to (8×256, 786,432 rows; PERF.md §5):
+// not the tensor cores, whose wgmmas account for ~1.1 of ~8.5 ms, but the
+// workspace stores, ~2.8 ms with L2's default policy though the wait for
+// them costs nothing: so the bulk stores mark their lines evict_first
+// (wg_field.cuh::bulk_store), which took ~2 ms off. The weight ring has 4
+// slots (the biases are read from device memory to make room for the
+// fourth). The two consumer warpgroups issue in lockstep: on a ping-pong
+// schedule (one warpgroup's epilogue under the other's wgmmas, turns handed
+// over by named barriers) the kernel ran 10-16% slower at W = 256 and no
+// faster at W = 128. A turn's slices stay in the ring until the other
+// warpgroup has issued them too, so the producer has fewer free slots, and
+// the wgmmas were a small part of the time to hide. What bounds it now
+// (~6.6 ms): the epilogues, then the stores' remaining ~1 ms, the
+// wgmmas' ~0.9 and the ring's ~0.7, each the time it saves when removed.
+//
 // The conditioned plan (the reference's `dcond` output): with a non-null
 // condpart (n / spr, cw) bf16, the per-ray cond @ cond_kernel, the rows
 // kernel is instantiated with K3's cond window (wgf::forward<W, true>), so
@@ -81,7 +96,7 @@ namespace fnt {
 
 constexpr int kMaxProds = 2 * kMaxDepth + 4;
 constexpr int kHead = 16;        // padded width of the head cotangents
-constexpr int kStagesK4 = 3;     // weight ring slices of the rows kernel
+constexpr int kStagesK4 = 4;     // weight ring slices of the rows kernel
 constexpr int kWgStages = 4;     // operand ring stages of wgrad
 
 // Column offsets of the workspace regions (each region is `rows` x width,
@@ -126,8 +141,11 @@ struct __align__(128) BwdSmem {
   float heads[W * 4];
   float row_sigma[wg::kItemRows];
   float row_rgb[wg::kItemRows][3];
-  // the net's biases follow (RowsArgs::n_b floats)
 };
+// The fourth slot of the ring fits at W = 256 because the biases (up to
+// 9.7 KB) are read from device memory, through L1, and not copied here.
+static_assert(sizeof(BwdSmem<256>) <= 227 * 1024,
+              "the rows kernel's shared memory");
 
 struct RowsArgs {
   const float* pts;      // (n, 3)
@@ -245,14 +263,12 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   constexpr int kHalf = W / 2, kWords = W / 64;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdSmem<W>& s = *reinterpret_cast<BwdSmem<W>*>(smem_raw);
-  float* bias = reinterpret_cast<float*>(smem_raw + sizeof(BwdSmem<W>));
   const Layout& lay = a.lay;
   const Regions& reg = a.reg;
   const int D = lay.depth, k0 = lay.k0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) wgf::ring_init(s.ring);
-  for (int i = threadIdx.x; i < a.n_b; i += blockDim.x) bias[i] = a.b[i];
   if (lay.has_vd) {
     for (int i = threadIdx.x; i < W; i += blockDim.x)
       s.heads[i] = bf(a.w[lay.w_sig + i]);
@@ -285,7 +301,7 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
   float* cs = reinterpret_cast<float*>(s.a0[g]);   // 4 × W column sums
   float* row_sigma = s.row_sigma + 64 * g;
   float(*row_rgb)[3] = s.row_rgb + 64 * g;
-  wgf::Rows t{H, s.a0[g], bias, s.heads, pts, nullptr, nullptr, row_sigma,
+  wgf::Rows t{H, s.a0[g], a.b, s.heads, pts, nullptr, nullptr, row_sigma,
               row_rgb, nullptr, tw, ww, lane, 1 + g, 16 * ww + (lane >> 2),
               2 * (lane & 3)};
   const int rA = t.rA, cA = t.cA, bar = t.bar;
@@ -520,10 +536,10 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
       // ---- last trunk layer: d_h = d_feat·W_featᵀ + bf16(g_σ)·w_σ, masked
       for (int k = 0; k < W; k += wg::kSliceK)
         wgf::consume<W>(acc, rp, s.ring, h_addr, W, k, wg::kSliceK, k == 0);
+      load_mask(D - 1);   // under the wgmmas in flight
       wgf::drain(acc, rp, s.ring);
       guard();
       wg::wg_sync(bar);
-      load_mask(D - 1);
       const float g_lo = draw[rA][3], g_hi = draw[rA + 8][3];
       auto last_vals = [&](int j, float (&v)[4]) {
         const int c = 8 * j + cA;
@@ -626,10 +642,10 @@ __global__ void __launch_bounds__(wgf::kThreads, 1)
       if (lay.w_h[i] >= 0) {
         for (int k = 0; k < W; k += wg::kSliceK)
           wgf::consume<W>(acc, rp, s.ring, h_addr, W, k, wg::kSliceK, k == 0);
+        load_mask(i - 1);   // under the wgmmas in flight
         wgf::drain(acc, rp, s.ring);
         guard();
         wg::wg_sync(bar);   // the warpgroup is done reading H
-        load_mask(i - 1);
         auto pre_vals = [&](int j, float (&v)[4]) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) v[q] = on(j, q) ? acc[4 * j + q] : 0.0f;
@@ -819,8 +835,7 @@ __global__ void dir_sum_kernel(const float* dpart, float* d_dir, long n_rays,
 template <int W, bool kCond>
 int launch_rows(RowsArgs& ra, int n_sm, int device, cudaStream_t st,
                 bool launch) {
-  const int smem = (int)sizeof(BwdSmem<W>) + ra.n_b * 4;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(BwdSmem<W>);
   if (!launch)
     return (int)set_smem((const void*)bwd_rows_kernel<W, kCond>, device,
                          smem);

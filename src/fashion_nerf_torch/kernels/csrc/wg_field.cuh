@@ -205,11 +205,17 @@ __device__ __forceinline__ void posenc_tile(bf16* A0, int k0, int L,
 
 // Asynchronous bulk copy of `bytes` from shared into device memory (a
 // multiple of 16, both 16-byte aligned), in the issuing thread's bulk group.
+// The lines it writes are the first the L2 evicts (evict_first): K4's
+// workspace is written once and read once by the next kernel, and with the
+// default policy its stream cost K4's rows kernel about a third of its
+// time (PERF.md §5).
 __device__ __forceinline__ void bulk_store(void* dst, const void* src,
                                            int bytes) {
   asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-          dst),
+      "{\n.reg .b64 policy;\n"
+      "createpolicy.fractional.L2::evict_first.b64 policy, 1.0;\n"
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0], [%1], %2, policy;\n}\n" ::"l"(dst),
       "r"(wg::smem_addr(src)), "r"(bytes)
       : "memory");
 }

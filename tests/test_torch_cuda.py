@@ -1406,6 +1406,40 @@ def test_field_bwd_kernel_two_skips(dev, which, n, spr, cond):
         assert _rel_rms(a, b) <= 1e-2, (i, _rel_rms(a, b))
 
 
+@pytest.mark.parametrize("W", [128, 256])
+@pytest.mark.parametrize("cond", [False, True])
+@pytest.mark.parametrize("skips", [(4,), (2, 4)])
+def test_field_bwd_rows_kernel_shapes(dev, monkeypatch, W, cond, skips):
+    """K4's four rows-kernel instantiations (W 128 and 256, with and
+    without the cond window) on its 4-slot ring, one skip layer or two:
+    3264 rows, 96 a ray, in passes of 1088 (8.5 work items each, so the
+    last item's second warpgroup has no rows while the first still takes
+    every slice of the ring). Every output 1e-2 relative RMS against its
+    plain version, bitwise the same over two runs."""
+    rng = np.random.default_rng(24)
+    C = 16 if cond else 0
+    net = posenc_mlp.pack_params(
+        skips_net(rng, W, skips=skips, C=C).to(dev), hoist_x=False)
+    assert net.width == W and net.n_cond == (len(skips) + 1 if cond else 0)
+    n, spr = 3264, 96
+    monkeypatch.setattr(K, "BWD_CHUNK_ROWS", 1088)
+    args = _bwd_inputs(rng, net, n, spr, dev)
+    cp = posenc_mlp.hoist_cond(net, torch.tensor(
+        rng.normal(size=(n // spr, C)), dtype=torch.float32, device=dev)) \
+        if cond else None
+    key = "field_bwd_cond" if cond else "field_bwd"
+    n0 = K.LAUNCHES[key]
+    out_k = posenc_mlp.field_rows_backward(net, *args, spr, cp)
+    out_k2 = posenc_mlp.field_rows_backward(net, *args, spr, cp)
+    out_p = posenc_mlp.field_rows_backward_plain(net, *args, spr, cp)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[key] == n0 + 2
+    assert len(out_k) == (5 if cond else 4)
+    for i, (a, a2, b) in enumerate(zip(out_k, out_k2, out_p)):
+        assert torch.equal(a, a2), i
+        assert _rel_rms(a, b) <= 1e-2, (i, _rel_rms(a, b))
+
+
 @pytest.mark.parametrize("cond", [False, True])
 def test_marches_two_skips(dev, cond):
     """K2 (three hoisted x-layers; the cond folded into their intercepts)
