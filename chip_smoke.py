@@ -387,6 +387,8 @@ SOURCES = {
                        "src/fashion_nerf/kernels/blockmarch_pallas.py:53"),
     "wide_field": ("src/fashion_nerf_torch/kernels/csrc/widefield.cu",
                    "none (the JAX package has no mip-NeRF 360)"),
+    "wide_field_bwd": ("src/fashion_nerf_torch/kernels/csrc/widefield.cu",
+                       "none (the JAX package has no mip-NeRF 360)"),
     # K8's two entries: a chunk's culling and a march's block flags
     "box_cull": ("src/fashion_nerf_torch/kernels/csrc/boxcull.cu",
                  "none (the reference culls in XLA glue: "
@@ -4996,6 +4998,205 @@ def phase_m360(device, gpu, smi) -> dict:
     return {"results": results, "launches": launches}
 
 
+# K7's backward against the truth: its plain version in f64 on the same
+# kept bf16 activations, rounding its cotangents to bf16 at the same
+# points. The kernel and the plain f32 version sum in other orders, so
+# each flips some cotangents to the neighbouring bf16, and the flips carry
+# down the layers; each parameter's gradient (relative Frobenius distance)
+# is held within K7_BWD_FACTOR of the plain f32 version's distance to the
+# same truth, or within K7_BWD_FLOOR of its norm, far below a bf16 step.
+# The kernel against the plain f32 version alone, at the limit of
+# tests/test_torch_m360_train.py (2e-3, which holds at 65,536 and 131,072
+# rows), read 2.08e-3 on the NeRF MLP's first bias at the cell's 524,288
+# rows: a sum over the rows that mostly cancels, in which both sides'
+# flips show. Against the truth (NVIDIA H100 80GB HBM3, 700 W): kernel
+# 2.05e-3, plain f32 1.13e-3 on that bias, the kernel 1.70-1.87 times the
+# plain version on the NeRF MLP's four farthest leaves and 1.38-1.59 on
+# the proposal's (the tensor cores' f32 sums flip more often than the
+# plain f32 GEMM's, as K3's do); inputs and seeds are fixed, so the
+# reading repeats
+K7_BWD_FACTOR, K7_BWD_FLOOR = 2.0, 2e-4
+# the rows of each piece of the f64 plain backward (whole rays)
+K7_BWD_CHUNK = 65_536
+
+
+def k7_bwd_truth(wf, packed, saved, g_rgb, g_sig, spr, rows, dtype):
+    """`wide_bwd_plain` in `dtype` on K7's kept activations of `rows` rows,
+    K7_BWD_CHUNK rows at a time, the weight gradients summed (so that f64
+    fits beside the kernel's buffers) → its dict in f32."""
+    def cast(x):
+        return None if x is None else x.to(dtype)
+    net = dataclasses.replace(
+        packed, w_h=[cast(w) for w in packed.w_h],
+        w_a=[cast(w) for w in packed.w_a],
+        bias=[cast(b) for b in packed.bias],
+        heads={k: cast(v) for k, v in packed.heads.items()},
+        wp=None, b=None, wpt=None)
+    W, D, c = packed.width, packed.depth, K7_BWD_CHUNK
+    hs = saved["hs"].view(D, -1)
+    total, dirs = None, []
+    for r0 in range(0, rows, c):
+        part = {"a0": saved["a0"][r0 * wf.IPE_COLS:(r0 + c) * wf.IPE_COLS],
+                "hs": hs[:, r0 * W:(r0 + c) * W]}
+        if packed.has_vd:
+            part.update(
+                bn=saved["bn"][r0 * wf.HEAD_BOTTLENECK:
+                               (r0 + c) * wf.HEAD_BOTTLENECK],
+                v=saved["v"][r0 * wf.HEAD_VIEW:(r0 + c) * wf.HEAD_VIEW],
+                rgb=saved["rgb"][r0:r0 + c])
+        kept = wf.plain_saved(packed, part, c)
+        kept = {k: ([cast(x) for x in v] if k == "hs" else cast(v))
+                for k, v in kept.items()}
+        g = wf.wide_bwd_plain(net, kept, cast(g_rgb[r0:r0 + c])
+                              if packed.has_vd else None,
+                              cast(g_sig[r0:r0 + c]), spr)
+        if packed.has_vd:
+            dirs.append(g.pop("dirpart"))
+        if total is None:
+            total = g
+            continue
+        for k, v in g.items():
+            total[k] = ([None if a is None else a + b
+                         for a, b in zip(total[k], v)]
+                        if isinstance(v, list) else total[k] + v)
+    out = {k: ([None if a is None else a.float() for a in v]
+               if isinstance(v, list) else v.float())
+           for k, v in total.items()}
+    if packed.has_vd:
+        out["dirpart"] = torch.cat(dirs).float()
+    return out
+
+
+def phase_m360_train(device, gpu, smi) -> dict:
+    """[m360-train]: K7's training forward and backward through
+    `wide_field_train` (autograd) at the training cell's rows, each net one
+    call as the step makes it: the launches counted over that call alone,
+    each parameter's gradient against `wide_bwd_plain` on the same kept
+    activations, and the backward's kernel, plain and torch.matmul times
+    beside its bound."""
+    from fashion_nerf_torch import kernels as K
+    from fashion_nerf_torch.config import load_config
+    from fashion_nerf_torch.kernels import widefield as wf
+    from fashion_nerf_torch.models.mipnerf360 import init_nets
+    sys.path.insert(0, ROOT)
+    from perfbench import m360_counts
+    with open(os.path.join(ROOT, "perfbench", "traffic",
+                           "m360_train16k.json")) as f:
+        traffic = json.load(f)
+    cfg = load_config("mipnerf360", [f"{k}={v}" for k, v in
+                                     traffic["overrides"].items()])
+    B = cfg.train.batch_rays
+    nets = {k: v.to(device) for k, v in init_nets(
+        cfg, torch.Generator().manual_seed(0)).items()}
+    view_term = 3 + 6 * cfg.model.posenc_dir
+    results, launches = {}, {}
+    for name, spr in (("fine", cfg.sampling.n_fine),
+                      ("proposal", cfg.proposal.eval_n)):
+        net, rows = nets[name], B * spr
+        params = dict(net.named_parameters())
+        g = torch.Generator(device=device).manual_seed(1)
+        mean = torch.rand((rows, 3), generator=g, device=device) * 4 - 2
+        var = torch.rand((rows, 3), generator=g, device=device) * 1e-3
+        vd = (torch.nn.functional.normalize(torch.randn(
+            (B, 3), generator=g, device=device), dim=-1)
+            if net.has_vd else None)
+        g_rgb = (torch.randn((rows, 3), generator=g, device=device)
+                 if net.has_vd else None)
+        g_sig = torch.randn((rows,), generator=g, device=device)
+        outs, cots = (([0, 1], [g_rgb, g_sig]) if net.has_vd
+                      else ([1], [g_sig]))
+        K.reset_launches()
+        with torch.enable_grad():
+            out = wf.wide_field_train(net, mean, var, vd, spr)
+            _, packed, saved, *_ = out[1].grad_fn.state
+            got = torch.autograd.grad([out[i] for i in outs],
+                                      list(params.values()), cots)
+        torch.cuda.synchronize()
+        launches[name] = {k: K.LAUNCHES[k] for k in ("wide_field",
+                                                     "wide_field_bwd")}
+        if launches[name] != {"wide_field": 1, "wide_field_bwd": 1}:
+            raise RuntimeError(f"K7 {name}: launches {launches[name]}, "
+                               f"one forward and one backward expected")
+        kept = wf.plain_saved(packed, saved, rows)
+        want = wf._param_grads(net, packed, wf.wide_bwd_plain(
+            packed, kept, g_rgb, g_sig, spr), vd)
+        truth = wf._param_grads(net, packed, k7_bwd_truth(
+            wf, packed, saved, g_rgb, g_sig, spr, rows, torch.float64), vd)
+        gaps = {k: (rel_rms(a, t), rel_rms(b, t), rel_rms(a, b))
+                for k, a, b, t in zip(params, got, want, truth)}
+        top = sorted(gaps.items(), key=lambda kv: -kv[1][0])[:4]
+        say("m360-train", f"K7 {name}'s backward against the f64 truth, "
+            f"the leaves farthest (kernel, plain f32, kernel to plain "
+            f"f32): " + ", ".join(f"{k} " + "/".join(f"{x:.2e}" for x in v)
+                                  for k, v in top))
+        over = {k: v for k, v in gaps.items()
+                if v[0] > max(K7_BWD_FACTOR * v[1], K7_BWD_FLOOR)}
+        if over:
+            raise RuntimeError(f"K7 {name}'s backward off the f64 truth "
+                               f"(kernel, plain f32, kernel to plain): "
+                               f"{over}")
+        worst = max(gaps, key=lambda k: gaps[k][0])
+        dp = wf.dir_term(packed, vd).contiguous() if net.has_vd else None
+        fms = cuda_ms(lambda: wf._run_forward_train(packed, mean, var, dp,
+                                                    spr), reps=5)
+        bms = cuda_ms(lambda: wf._run_backward(packed, saved, g_rgb, g_sig,
+                                               spr), reps=5)
+        pms = cuda_ms(lambda: wf.wide_bwd_plain(packed, kept, g_rgb, g_sig,
+                                                spr), reps=1)
+        del kept, want, truth, got, out
+        torch.cuda.empty_cache()
+        # the yardstick: the backward's dgrad and wgrad products (the
+        # trunk's, the skip's IPE columns', and with a view branch the
+        # bottleneck's and the view layer's) as torch.matmul calls on bf16
+        # operands of the same shapes
+        W, bf = packed.width, torch.bfloat16
+
+        def rnd(*shape):
+            return torch.randn(shape, device=device, dtype=bf)
+
+        h, dz, a0 = rnd(rows, W), rnd(rows, W), rnd(rows, 6 * packed.L)
+        w = rnd(W, W)
+        head = ((rnd(rows, wf.HEAD_BOTTLENECK), rnd(rows, wf.HEAD_VIEW),
+                 rnd(W, wf.HEAD_BOTTLENECK),
+                 rnd(wf.HEAD_BOTTLENECK, wf.HEAD_VIEW))
+                if net.has_vd else None)
+
+        def chain():
+            for i in range(packed.depth - 1, -1, -1):
+                if packed.w_h[i] is not None:
+                    h.t() @ dz
+                    dz @ w.t()
+                if packed.w_a[i] is not None:
+                    a0.t() @ dz
+            if head is not None:
+                dbn, dzv, w_bn, w_v = head
+                h.t() @ dbn
+                dbn @ w_bn.t()
+                dbn.t() @ dzv
+                dzv @ w_v.t()
+
+        lib = cuda_ms(chain, reps=3)
+        del h, dz, a0, w, head, saved, mean, var, vd, dp
+        torch.cuda.empty_cache()
+        tree = net.to_tree()
+        b = bound(rows * m360_counts.bwd_flops(tree, view_term),
+                  rows * m360_counts.bwd_bytes(tree))
+        b["library_ms"] = lib
+        results[name] = dict(max_rel_err=gaps[worst][0], ms=bms,
+                             forward_ms=fms, plain_ms=pms, **b)
+        say("m360-train", f"K7 {name} ({packed.depth}×{W}) under autograd "
+            f"on {rows} rows ({B} rays × {spr}): launches "
+            f"{launches[name]}; training forward {fms:.3f} ms; backward "
+            f"{bms:.3f} ms, {bound_line(b, bms)}, plain {pms:.1f} ms, "
+            f"library_ms {lib:.3f} (torch.matmul chain of the dgrad and "
+            f"wgrad products); against the f64 truth the worst leaf "
+            f"{worst}: kernel {gaps[worst][0]:.2e}, plain f32 "
+            f"{gaps[worst][1]:.2e} of its norm, kernel to plain f32 "
+            f"{gaps[worst][2]:.2e} (largest over the leaves "
+            f"{max(v[2] for v in gaps.values()):.2e}); {gpu} | {smi}")
+    return {"results": results, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -5020,6 +5221,12 @@ def main() -> int:
         phase_m360(device, gpu, smi)
         say("done", f"[m360] alone in {time.perf_counter() - t_start:.1f} s, "
             f"the build included; {gpu} | {smi}")
+        return 0
+    if sys.argv[1:] == ["--only", "m360-train"]:
+        phase_m360_train(device, gpu, smi)
+        say("done", f"[m360-train] alone in "
+            f"{time.perf_counter() - t_start:.1f} s, the build included; "
+            f"{gpu} | {smi}")
         return 0
     if sys.argv[1:] == ["--only", "multicard"]:
         scene, _ = phase_scene(cfg, device)
@@ -5062,6 +5269,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     m360 = phase_m360(device, gpu, smi)
     results["wide_field"] = m360["results"]["fine"]
+    torch.cuda.empty_cache()
+    m360_train = phase_m360_train(device, gpu, smi)
+    results["wide_field_bwd"] = m360_train["results"]["fine"]
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"build included; {gpu} | {smi}")
     # K1, K2 and K8 run on the render path, K6 on the carry_hoist=false render
@@ -5088,7 +5298,9 @@ def main() -> int:
                 **{k: sb_launches[k] for k in ("sigma_march_sb",
                                                "slim_march_sb",
                                                "carry_march_sb")},
-                "wide_field": m360["launches"]["wide_field"]}
+                "wide_field": m360["launches"]["wide_field"],
+                "wide_field_bwd": m360_train["launches"]["fine"][
+                    "wide_field_bwd"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -5102,8 +5314,8 @@ def main() -> int:
                                        "slim_march_novd",
                                        "sigma_march_k2", "sigma_march_sb",
                                        "slim_march_sb", "carry_march_sb",
-                                       "wide_field", "box_cull",
-                                       "block_hit")]}))
+                                       "wide_field", "wide_field_bwd",
+                                       "box_cull", "block_hit")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}))

@@ -228,6 +228,7 @@ def _setup(cfg, device, dataset):
     eligible, `render_image` (dense holds its arguments, for
     `render_path`). frame_cond(i) is frame i's cond vector (None for an
     unconditioned config)."""
+    from fashion_nerf_torch.config import is_mipnerf360
     from fashion_nerf_torch.render.renderer import render_image
     from fashion_nerf_torch.kernels.posenc_mlp import field_for
     from fashion_nerf_torch.train.loop import (_eval_cond, load_dataset,
@@ -236,6 +237,13 @@ def _setup(cfg, device, dataset):
     d = load_dataset(cfg, device) if dataset is None else dataset
     H, W, focal = int(d["H"]), int(d["W"]), float(d["focal"])
     nets = state.nets()
+    if is_mipnerf360(cfg):
+        # mip-NeRF 360's nets: no occupancy, no distillation, its own chunks
+        from fashion_nerf_torch.render.blockwise import (
+            render_image_blockwise)
+        return (d, (lambda pose, c=None: render_image_blockwise(
+            nets, cfg, H, W, focal, pose, device=device)), None,
+            lambda i: None)
     garment = resolve_garment(cfg, d, H, W, device)
 
     def frame_cond(i):

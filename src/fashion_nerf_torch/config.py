@@ -7,7 +7,9 @@ one equal to the reference's), so that the port imports nothing of the JAX
 package. The port adds the `mipnerf360` preset and the model fields it
 needs (`ipe_deg`, `bottleneck_width`, `view_width`); `ipe_deg` = 0 leaves
 the five presets rendering as the reference's, and only mip-NeRF 360's nets
-read the two widths. Why each preset's values were chosen is written beside
+read the two widths; the train fields after `occ_fine` (mip-NeRF 360's
+optimizer and losses) default to what the reference's presets train
+with. Why each preset's values were chosen is written beside
 the reference's copy. The kernel fields `use_pallas`, `fused_mlp`,
 `fused_backward`, `fused_render` and `blockwise` choose among the
 reference's paths (the fused field or the module's own, the fused render or
@@ -140,6 +142,16 @@ class TrainConfig:
     occ_dense_every: int = 8
     occ_coarse: int = 32          # reduced budget inside tight ranges
     occ_fine: int = 64
+    # mip-NeRF 360's optimizer and losses: Adam's ε, the warm-up and the
+    # clipping (train/state.py), the loss terms (train/m360.py); the
+    # defaults leave every other preset's training as it is
+    adam_eps: float = 1e-8
+    lr_delay_steps: int = 0       # warm-up steps of the learning rate
+    lr_delay_mult: float = 1.0    # the warm-up's starting multiplier
+    grad_max_norm: float = 0.0    # clip the global gradient norm (0 = off)
+    charbonnier_eps: float = 0.0  # ε of the data term √(d² + ε²)
+    interlevel_weight: float = 0.0
+    distortion_weight: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -202,6 +214,19 @@ def takes_blockwise(cfg: Config) -> bool:
     pass. Otherwise the dense renderer serves."""
     return (asks_blockwise(cfg) and takes_fused_field(cfg)
             and cfg.sampling.n_fine > 0)
+
+
+def is_mipnerf360(cfg) -> bool:
+    """Whether the config's nets are mip-NeRF 360's (`model.ipe_deg` > 0):
+    its state, step, eval and render. A config tree without the field (the
+    reference's, which tests hand the port) is not."""
+    return getattr(cfg.model, "ipe_deg", 0) > 0
+
+
+def train_setting(cfg, name: str):
+    """A `train` field of the port's (mip-NeRF 360's optimizer and losses),
+    its default in a config tree that lacks it (the reference's)."""
+    return getattr(cfg.train, name, getattr(TrainConfig, name))
 
 
 def takes_fused_render(cfg: Config) -> bool:
@@ -294,8 +319,12 @@ _register(Config(
 # NeRF MLP with a skip after layer 4, a 256-wide bottleneck and one 128-wide
 # view layer; a 4×256 σ-only proposal MLP evaluated twice on 64 intervals
 # each, then 32 for the NeRF MLP; samples spaced in disparity (g = 1/x)
-# from near 0.2 to far 1e6, IPE degree 12, view encoding degree 4. Render
-# only: the port does not train it.
+# from near 0.2 to far 1e6, IPE degree 12, view encoding degree 4. Training
+# as published (§4): 2^14 rays a step, the Charbonnier data term (ε 1e-3),
+# the interlevel loss (weight 1) and the distortion loss (weight 0.01),
+# Adam (0.9, 0.999, ε 1e-6) on a log-linear rate from 2e-3 to 2e-5 over
+# 250,000 steps after a 512-step warm-up (the public code's sine ramp from
+# 1e-8), gradients clipped to a global norm of 1e-3.
 _register(Config(
     name="mipnerf360",
     model=ModelConfig(net_depth=8, net_width=1024, skips=(4,), posenc_dir=4,
@@ -307,7 +336,11 @@ _register(Config(
     proposal=ProposalConfig(enabled=True, net_depth=4, net_width=256,
                             eval_n=64),
     kernels=KernelConfig(use_pallas=True),
-    train=TrainConfig(iters=250_000, batch_rays=16384),
+    train=TrainConfig(iters=250_000, batch_rays=16384, lr_init=2e-3,
+                      lr_final=2e-5, lr_decay_steps=250_000,
+                      lr_delay_steps=512, lr_delay_mult=1e-8, adam_eps=1e-6,
+                      grad_max_norm=1e-3, charbonnier_eps=1e-3,
+                      interlevel_weight=1.0, distortion_weight=0.01),
     data=DataConfig(dataset="llff", llff_factor=4),
 ))
 

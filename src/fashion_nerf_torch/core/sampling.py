@@ -75,16 +75,22 @@ def sample_pdf(bins, weights, n_samples: int, eps: float = 1e-5, *,
     return bin_below + frac * (bin_above - bin_below)
 
 
-def resample_intervals(edges, weights, n: int, eps: float = 1e-5):
-    """mip-NeRF 360's deterministic resampling of a step function in s: the
-    centres at the midpoint quantiles (k + 0.5)/n of the histogram (edges
-    (R, B+1), mass weights (R, B) with an `eps` floor, `sample_pdf`), the
-    new edges halfway between neighbouring centres, and the first and last
-    edge the reflections of their neighbouring midpoints about the end
-    centres, clamped to [0, 1] → (R, n+1) edges."""
+def resample_intervals(edges, weights, n: int, eps: float = 1e-5,
+                       jitter=None):
+    """mip-NeRF 360's resampling of a step function in s: the centres at
+    the quantiles (k + 0.5)/n of the histogram (edges (R, B+1), mass
+    weights (R, B) with an `eps` floor, `sample_pdf`), the new edges
+    halfway between neighbouring centres, and the first and last edge the
+    reflections of their neighbouring midpoints about the end centres,
+    clamped to [0, 1] → (R, n+1) edges. jitter (R, 1) in [0, 1): training's
+    quantiles (k + jitter)/n, one offset a ray, in place of the midpoints."""
     R = edges.shape[0]
-    u = (torch.arange(n, dtype=torch.float32, device=edges.device) + 0.5) / n
-    c = sample_pdf(edges, weights, n, eps, quantiles=u.expand(R, n))
+    k = torch.arange(n, dtype=torch.float32, device=edges.device)
+    if jitter is None:
+        u = ((k + 0.5) / n).expand(R, n)
+    else:
+        u = (k + jitter) / n
+    c = sample_pdf(edges, weights, n, eps, quantiles=u)
     mid = 0.5 * (c[:, 1:] + c[:, :-1])
     first = torch.clamp(2.0 * c[:, :1] - mid[:, :1], min=0.0)
     last = torch.clamp(2.0 * c[:, -1:] - mid[:, -1:], max=1.0)

@@ -16,7 +16,8 @@ Ten kernels, CUDA C++ for sm_90a under `csrc/`:
   counted as `probe_p1` (the field's chain) and `probe_p2` (the sweep);
 - K7 `widefield.cu`: mip-NeRF 360's nets at widths 256 and 1024 on the
   integrated encoding of cone Gaussians, layer by layer
-  (kernels/widefield.py), counted as `wide_field`;
+  (kernels/widefield.py), counted as `wide_field` (a render or training
+  forward call) and `wide_field_bwd` (a training backward call);
 - K8 `boxcull.cu`: occupancy culling against the macro boxes, the union
   interval a ray (`box_cull`) and the per-block flags of a march
   (`block_hit`), without the per-(ray, box) tensors (kernels/boxcull.py).
@@ -128,8 +129,9 @@ LAUNCHES = {"field": 0, "sigma_march": 0, "slim_march": 0, "field_bwd": 0,
             "sigma_march_k2": 0,
             # K1, K2 and K6 at an SB outside SB_16_64
             "sigma_march_sb": 0, "slim_march_sb": 0, "carry_march_sb": 0,
-            # K7, mip-NeRF 360's wide field (one a call of its entry)
-            "wide_field": 0,
+            # K7, mip-NeRF 360's wide field (one a call of its entry), and
+            # its training backward (one a call)
+            "wide_field": 0, "wide_field_bwd": 0,
             # K8's two entries: a chunk's culling, a march's block flags
             "box_cull": 0, "block_hit": 0}
 
@@ -150,6 +152,9 @@ _SIGNATURES = {
     "fnt_carry_march": [_P] * 17 + [_I] * 13 + [ctypes.c_float] + _ON_DEVICE,
     "fnt_tc_probe": [_P] * 3 + [_I] * 6 + _ON_DEVICE,
     "fnt_wide_field": [_P] * 11 + [_I] * 7 + _ON_DEVICE,
+    "fnt_wide_field_train": [_P] * 13 + [_I] * 7 + _ON_DEVICE,
+    "fnt_wide_field_backward": ([_P] * 15 + [ctypes.c_long] + [_P] * 3
+                                + [_I] * 6 + _ON_DEVICE),
     "fnt_box_cull": ([_P] * 7 + [_I] * 2 + [ctypes.c_float] * 2
                      + _ON_DEVICE),
     "fnt_block_hit": ([_P] * 6 + [_I] * 4 + [ctypes.c_float] * 2

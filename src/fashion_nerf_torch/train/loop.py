@@ -2,7 +2,9 @@
 
 A step gathers a ray batch from the device-resident rays, renders it
 through the coarse and fine fields, takes the coarse + fine MSE (plus the
-sparsity prior), backprops and applies Adam. The fields run as
+sparsity prior), backprops and applies Adam; mip-NeRF 360's nets train
+through `train/m360.py`'s step, which `train()` picks for
+`model.ipe_deg > 0`. The fields run as
 `posenc_mlp.field_for` picks (`config.takes_fused_field`): the fused field,
 K3 forward and K4 backward on CUDA tensors and their plain versions on CPU
 tensors, or the NeRFMLP's own plain-torch field under autograd. The
@@ -40,7 +42,8 @@ from typing import Callable, Optional
 
 import torch
 
-from fashion_nerf_torch.config import Config, takes_fused_render
+from fashion_nerf_torch.config import (Config, is_mipnerf360,
+                                       takes_fused_render)
 from fashion_nerf_torch import ckpt as ckpt_lib
 from fashion_nerf_torch.core.occupancy import build_from_config
 from fashion_nerf_torch.data.pipeline import (RayDataset, host_batch_iter,
@@ -53,6 +56,7 @@ from fashion_nerf_torch.logging_ import MetricLogger
 from fashion_nerf_torch.metrics import mse_to_psnr, psnr
 from fashion_nerf_torch.prng import GeneratorChain, RowDraws
 from fashion_nerf_torch.render.renderer import render_image, render_rays
+from fashion_nerf_torch.train.m360 import M360TrainStep
 from fashion_nerf_torch.train.state import (TrainState, create_train_state,
                                             learning_rate)
 from fashion_nerf_torch.trace import span
@@ -253,13 +257,24 @@ def evaluate(cfg: Config, state: TrainState, dataset: RayDataset,
     conditioned or dynamic run renders with the cond vector of `garment`
     and frame `frame_id`'s latent (the held-out view has none of its own:
     frame 0 stands in).
-    mesh: the view's chunks are dealt to the dp ranks (`render_image`)."""
+    mesh: the view's chunks are dealt to the dp ranks (`render_image`).
+    mip-NeRF 360's nets render through `render_image_blockwise`."""
+    dev = dataset.rays_o.device
+    if is_mipnerf360(cfg):
+        from fashion_nerf_torch.render.blockwise import (
+            render_image_blockwise)
+        with torch.no_grad():
+            out = render_image_blockwise(state.nets(), cfg, dataset.H,
+                                         dataset.W, dataset.focal,
+                                         dataset.val_pose, device=dev)
+            val = torch.as_tensor(dataset.val_image, dtype=torch.float32,
+                                  device=dev)
+            return out, float(psnr(out["rgb"], val))
     field = field_for(cfg)
     fc = (lambda pts, vd, *c: field(state.coarse, pts, vd, *c))
     ff = None
     if cfg.sampling.n_fine > 0 and state.fine is not None:
         ff = (lambda pts, vd, *c: field(state.fine, pts, vd, *c))
-    dev = dataset.rays_o.device
     with torch.no_grad():
         cond = _eval_cond(cfg, state.nets(), garment, frame_id)
         out = render_image(fc, ff, dataset.H, dataset.W, dataset.focal,
@@ -338,8 +353,10 @@ def train(cfg: Config, dataset_dict: Optional[dict] = None,
     garment = resolve_garment(cfg, dataset_dict, dataset.H, dataset.W,
                               device)
     streamed = cfg.data.stream
-    step_fn = TrainStep(cfg, dataset, streamed=streamed, garment=garment,
-                        mesh=mesh)
+    # mip-NeRF 360's nets train through a step of their own
+    step_cls = M360TrainStep if is_mipnerf360(cfg) else TrainStep
+    step_fn = step_cls(cfg, dataset, streamed=streamed, garment=garment,
+                       mesh=mesh)
     occ_train = cfg.train.occ_train
     step_fast = (TrainStep(cfg, dataset, streamed=streamed, occ_culled=True,
                            garment=garment, mesh=mesh)

@@ -6,19 +6,28 @@ one the latent table (both under Adam too), Adam and the step's generator
 (the one source of every draw a step makes). The learning rate follows
 optax's non-staircase `exponential_decay` read at the pre-update count, as
 the reference's `optax.adam(schedule)` does: step k uses
-lr_init·(lr_final/lr_init)^(k / lr_decay_steps).
+lr_init·(lr_final/lr_init)^(k / lr_decay_steps), times mip-NeRF 360's
+warm-up where `train.lr_delay_steps` > 0 (the public code's
+m + (1 − m)·sin(½π·clip(k / delay, 0, 1)), m = `lr_delay_mult`). Adam's ε
+is `train.adam_eps`. `clip_gradients` scales the gradients to a global
+norm of at most `train.grad_max_norm` (the public code's rule).
+
+mip-NeRF 360's state (`model.ipe_deg` > 0) holds its two MipMLPs,
+"proposal" and "fine" (models/mipnerf360.py), and no coarse net.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from fashion_nerf_torch.config import Config
+from fashion_nerf_torch.config import Config, is_mipnerf360, train_setting
 from fashion_nerf_torch.models.conditioned import GarmentEncoder
 from fashion_nerf_torch.models.latents import LatentTable
+from fashion_nerf_torch.models.mipnerf360 import MipMLP, init_nets
 from fashion_nerf_torch.models.nerf_mlp import (NeRFMLP, cond_width,
                                                 init_field, load_flax_params)
 
@@ -32,14 +41,17 @@ class TrainState:
     generator: torch.Generator
     encoder: Optional[GarmentEncoder] = None
     latents: Optional[LatentTable] = None
+    proposal: Optional[MipMLP] = None
 
     def nets(self) -> dict:
         """The modules by the reference's params keys: coarse, fine,
-        encoder, latents (those the config has)."""
+        encoder, latents, and mip-NeRF 360's proposal (those the config
+        has)."""
         return {k: v for k, v in (("coarse", self.coarse),
                                   ("fine", self.fine),
                                   ("encoder", self.encoder),
-                                  ("latents", self.latents))
+                                  ("latents", self.latents),
+                                  ("proposal", self.proposal))
                 if v is not None}
 
     def parameters(self):
@@ -48,12 +60,33 @@ class TrainState:
 
 def learning_rate(cfg: Config, step: int) -> float:
     t = cfg.train
-    return t.lr_init * (t.lr_final / t.lr_init) ** (step / t.lr_decay_steps)
+    lr = t.lr_init * (t.lr_final / t.lr_init) ** (step / t.lr_decay_steps)
+    delay = train_setting(cfg, "lr_delay_steps")
+    if delay > 0:
+        mult = train_setting(cfg, "lr_delay_mult")
+        ramp = math.sin(0.5 * math.pi * min(max(step / delay, 0.0), 1.0))
+        lr *= mult + (1.0 - mult) * ramp
+    return lr
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=learning_rate(cfg, 0),
-                            betas=(0.9, 0.999), eps=1e-8)
+                            betas=(0.9, 0.999),
+                            eps=train_setting(cfg, "adam_eps"))
+
+
+def clip_gradients(cfg: Config, params) -> None:
+    """Scale the gradients of `params` in place by min(1, max_norm / (ε +
+    ‖g‖)), ‖g‖ their global norm and ε float32's machine epsilon, where
+    `train.grad_max_norm` > 0."""
+    max_norm = train_setting(cfg, "grad_max_norm")
+    grads = [p.grad for p in params if p.grad is not None]
+    if max_norm <= 0 or not grads:
+        return
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    mult = torch.clamp(max_norm / (norm + torch.finfo(torch.float32).eps),
+                       max=1.0)
+    torch._foreach_mul_(grads, mult)
 
 
 def _state(cfg: Config, nets: dict, run_generator) -> TrainState:
@@ -63,14 +96,26 @@ def _state(cfg: Config, nets: dict, run_generator) -> TrainState:
                       generator=run_generator, **nets)
 
 
+def m360_state(cfg: Config, nets: dict, run_generator) -> TrainState:
+    """A fresh TrainState of mip-NeRF 360's {"proposal", "fine"}
+    MipMLPs (Adam over the proposal's parameters, then the NeRF MLP's)."""
+    return _state(cfg, {"coarse": None, "proposal": nets["proposal"],
+                        "fine": nets["fine"]}, run_generator)
+
+
 def create_train_state(cfg: Config, init_generator: torch.Generator,
                        run_generator: torch.Generator,
                        device=None) -> TrainState:
     """Fresh nets (coarse; fine when cfg samples a fine pass; the latent
     table and the garment encoder when cfg has them, in the reference's
     init order) drawn from init_generator as flax initialises them; the
-    step's draws come from run_generator, which must live on `device`."""
+    step's draws come from run_generator, which must live on `device`.
+    mip-NeRF 360 (`model.ipe_deg` > 0): its two MipMLPs
+    (`models.mipnerf360.init_nets`), never a NeRFMLP."""
     m = cfg.model
+    if is_mipnerf360(cfg):
+        return m360_state(cfg, init_nets(cfg, init_generator, device),
+                          run_generator)
     cc = cond_width(m)
     nets = {"coarse": init_field(m, init_generator, device, cc),
             "fine": (init_field(m, init_generator, device, cc)

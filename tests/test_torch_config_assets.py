@@ -18,11 +18,17 @@ OVERRIDES = (
 
 
 # the port's own presets and fields, which the reference never had: the
-# mip-NeRF 360 preset and the model fields it needs, at their defaults in
-# every shared preset
+# mip-NeRF 360 preset and the model and training fields it needs (its
+# optimizer and losses), at their defaults in every shared preset: Adam's
+# ε as the reference's optimizer has it, no warm-up, no clipping, no
+# Charbonnier ε, no interlevel or distortion loss
 PORT_PRESETS = {"mipnerf360"}
 PORT_FIELDS = {"model": {"ipe_deg": 0, "bottleneck_width": 256,
-                         "view_width": 128}}
+                         "view_width": 128},
+               "train": {"adam_eps": 1e-8, "lr_delay_steps": 0,
+                         "lr_delay_mult": 1.0, "grad_max_norm": 0.0,
+                         "charbonnier_eps": 0.0, "interlevel_weight": 0.0,
+                         "distortion_weight": 0.0}}
 
 
 def _on_reference_keys(got: dict, want: dict) -> dict:

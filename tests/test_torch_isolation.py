@@ -204,7 +204,7 @@ def test_wrappers_take_plain_on_cpu():
                                "slim_march_novd", "sigma_march_k2",
                                "sigma_march_sb", "slim_march_sb",
                                "carry_march_sb", "wide_field",
-                               "box_cull", "block_hit"}
+                               "wide_field_bwd", "box_cull", "block_hit"}
     assert not any(K.LAUNCHES.values())
 
 

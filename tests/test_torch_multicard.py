@@ -259,11 +259,11 @@ def test_signatures_match_the_sources(name):
 
 
 def test_every_entry_with_a_stream_is_bound():
-    """The ten launching entries are bound, and the one bound entry
+    """The twelve launching entries are bound, and the one bound entry
     that launches nothing is the host-side layout check."""
     launching = {n for n, (p, _) in _entries().items()
                  if p[-1] == "void* stream"}
-    assert len(launching) == 10
+    assert len(launching) == 12
     assert set(K._SIGNATURES) - launching == {"fnt_layout"}
 
 
@@ -301,7 +301,7 @@ def test_every_wrapper_launches_on_its_operands_card():
             assert re.search(r"\*K\.launch_args\([\w.]+\)\s*$", call), (
                 path.name, m.group(1))
             calls += 1
-    assert calls == 10
+    assert calls == 12
 
 
 def test_a_group_of_one_takes_the_step_without_a_mesh_bitwise():
